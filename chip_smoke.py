@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedALIGN round end to
-end through the hand-written fedagg kernel.
+end through the hand-written fedagg kernel, under every aggregator and wire
+codec.
 
     python3 chip_smoke.py
 
@@ -9,13 +10,19 @@ Phases, each of which fails the run (non-zero exit) if a check fails:
 1. the card's name and power limit (nvidia-smi); the CUDA kernels are
    built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
 2. kernel phase: ``fedagg`` (the CUDA kernel) against ``fedagg_plain`` on
-   the card, f32 and bf16, on the slice's shapes and the reference's edge
-   cases, then timed beside the plain version, a library yardstick
-   (``torch.mv``, timed here only) and the byte bound;
+   the card: mean + identity (f32, bf16) on the reference's edge cases,
+   then every reducer (mean, dp, trimmed_mean, median) x wire (identity
+   f32 and bf16, int8, topk, sketch) at the slice's shapes, C = 65, zero
+   inclusion and NaN rows; then each timed beside the plain version, a
+   library yardstick (timed here only) and the bound;
 3. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
-   few rounds on both backends, held against the same run on the CPU;
+   few rounds on both backends, held against the same run on the CPU; and
+   its shortened parity config under cosine_filter and slice (c)'s three
+   aggregator + codec pairs, each held against the CPU run;
 4. slice (b): the paper's CIFAR ``cnn`` at full width, C=60, E=5, for 3
-   rounds through ``run_federation``.
+   rounds through ``run_federation``;
+5. slice (c): the same config for 2 rounds each under median + int8 +
+   error feedback, trimmed_mean + sketch, and dp + topk + error feedback.
 
 It ends with a JSON line of the kernels (launch counts from the slice
 phases, errors and times from this run) and, last, the ok line. It needs
@@ -139,8 +146,8 @@ def kernel_cases():
 
 
 def kernel_phase(check: Check, device="cuda"):
-    """Hold the kernel against its plain version on every case, f32 and
-    bf16. Returns the worst f32 error on the main-path shape."""
+    """Hold the mean + identity kernel against its plain version on every
+    case, f32 and bf16. Returns the worst error per case."""
     import torch
     from repro_torch.kernels import fedagg as fk
     worst = {}
@@ -162,6 +169,187 @@ def kernel_phase(check: Check, device="cuda"):
     if device != "cpu":
         torch.cuda.synchronize()
     print("kernel phase:", json.dumps(worst), flush=True)
+    return worst
+
+
+# ------------------------------------------------- variants (K2, K3, K4)
+REDUCERS = ("mean", "dp", "trimmed_mean", "median")
+# the JSON line's kernels: (name, TPU function it replaces, which
+# (aggregator, codec) launches count for it, the variant timed for it). The
+# reducers count whatever wire feeds them; the decoders whatever they feed.
+KERNELS = [
+    ("fedagg_mean", "src/repro/kernels/fedagg.py:189",
+     lambda a, c: a == "mean", ("mean", "identity_f32")),
+    ("fedagg_dp", "src/repro/kernels/fedagg.py:200",
+     lambda a, c: a == "dp", ("dp", "identity_f32")),
+    ("fedagg_trimmed_mean", "src/repro/kernels/fedagg.py:216",
+     lambda a, c: a == "trimmed_mean", ("trimmed_mean", "identity_f32")),
+    ("fedagg_median", "src/repro/kernels/fedagg.py:230",
+     lambda a, c: a == "median", ("median", "identity_f32")),
+    ("fedagg_decode_int8", "src/repro/kernels/fedagg.py:151",
+     lambda a, c: c == "int8", ("mean", "int8")),
+    ("fedagg_decode_topk", "src/repro/kernels/fedagg.py:157",
+     lambda a, c: c == "topk", ("mean", "topk")),
+    ("fedagg_decode_sketch", "src/repro/kernels/fedagg.py:178",
+     lambda a, c: c == "sketch", ("mean", "sketch")),
+]
+WIRES = ("identity_f32", "identity_bf16", "int8", "topk", "sketch")
+TRIM_FRAC = 0.2
+
+
+def wire_fed():
+    """The codec rates of the slice's configs (the reference defaults)."""
+    from repro_torch.configs.base import FedConfig
+    return FedConfig(codec_topk_frac=0.01, codec_sketch_dim=2048)
+
+
+def variant_case(reducer, wire, C, M, device, *, gates="mixed", nan_row=None,
+                 nan_included=False, seed=0):
+    """(updates, weights, gates, kwargs) for one reducer x wire case: dense
+    rows from a seeded generator, encoded by the port's codec. ``nan_row``
+    puts NaNs in that row, gated out unless ``nan_included``."""
+    import torch
+    from repro_torch.core import aggregation as agg
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randn(C, M, generator=gen)
+    w = torch.rand(C, generator=gen) + 0.1
+    if gates == "all":
+        g = torch.ones(C)
+    elif gates == "none":
+        g = torch.zeros(C)
+    else:
+        g = (torch.rand(C, generator=gen) > 0.3).float()
+        g[0] = 1.0
+    row_scale = torch.rand(C, generator=gen)
+    noise = torch.randn(M, generator=gen)
+    if nan_row is not None:
+        u[nan_row, ::7] = float("nan")
+        g[nan_row] = 1.0 if nan_included else 0.0
+        if not nan_included:
+            row_scale[nan_row] = float("nan")    # as a NaN delta's clip scale
+    dev = torch.device(device)
+    if wire.startswith("identity"):
+        dtype = torch.float32 if wire == "identity_f32" else torch.bfloat16
+        updates = agg.flatten_stacked({"u": u.to(dev)}, dtype=dtype)
+        kw = {}
+    else:
+        updates, kw = agg.get_wire_codec(wire).encode(wire_fed(), u.to(dev))
+    kw = dict(kw, aggregator=reducer)
+    if reducer == "dp":
+        kw.update(row_scale=row_scale.to(dev), noise=noise.to(dev),
+                  noise_scale=0.3)
+    elif reducer == "trimmed_mean":
+        kw["trim_frac"] = TRIM_FRAC
+    return updates, w.to(dev), g.to(dev), kw
+
+
+def decoded_rows(updates, kw, M):
+    """The dense f32 [C, M] rows the kernel reduces (the plain decode)."""
+    from repro_torch.kernels.fedagg import decode_wire_plain
+    codec = kw.get("codec", "identity")
+    if codec == "identity":
+        return updates.float()
+    return decode_wire_plain(updates, codec=codec, out_m=M, **{
+        k: kw[k] for k in ("dequant_scale", "topk_idx", "sketch_h",
+                           "sketch_sign") if k in kw})
+
+
+def compare_variant(out, want, updates, w, g, kw):
+    """(ok, max_abs_err) of the kernel's output against the plain version's.
+
+    Where both are NaN they agree (a NaN in an included row of a sorted
+    reducer must land where the plain network puts it, so the NaN masks
+    must be equal). Elsewhere, f32 outputs: within 1e-5 of the largest
+    magnitude the sum can reach, max|rows| (times max row_scale for dp)
+    plus dp's noise term, since only the order of the f32 sums differs
+    (the median takes two values and is exact). bf16 outputs: one bf16 ulp
+    of the plain result plus that f32 bound (both round an f32 result)."""
+    import torch
+    red = kw["aggregator"]
+    o, p = out.float(), want.float()
+    nan_o, nan_p = torch.isnan(o), torch.isnan(p)
+    if not bool(torch.equal(nan_o, nan_p)):
+        return False, float("inf")
+    fin = ~nan_p
+    err = float(torch.max(torch.abs(o[fin] - p[fin]))) if bool(fin.any()) else 0.0
+    M = out.shape[0]
+    rows = decoded_rows(updates, kw, M)
+    inc = (g > 0) if red in ("trimmed_mean", "median") else (w * g > 0)
+    r = rows[inc]
+    r = r[torch.isfinite(r)]
+    mag = float(torch.max(torch.abs(r))) if r.numel() else 0.0
+    if red == "dp":
+        den = float(torch.sum(torch.where(inc, w * g, 0.0)))
+        rs = kw["row_scale"][inc]
+        mag = mag * (float(torch.max(rs)) if rs.numel() else 0.0)
+        if den > 0:
+            mag += float(torch.max(torch.abs(kw["noise"]))) * kw["noise_scale"] / den
+    bound = 1e-5 * max(mag, 1e-30)
+    if out.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(torch.abs(p[fin]),
+                                                            min=2.0 ** -126))) - 7)
+        return bool(torch.all(torch.abs(o[fin] - p[fin]) <= ulp + bound)), err
+    return err <= bound, err
+
+
+def variant_cases():
+    """(label, C, M, case kwargs): the slice's shapes (K1's plus the
+    cell-(b) width), C = 65 (P = 128 for the sorted reducers), zero
+    inclusion, a NaN in a gated-out row, and a NaN in an included row."""
+    return [("slice_a", 20, 610, {}),
+            ("slice_b", 60, 579402, {}),
+            ("slice_b_all", 60, 579402, dict(gates="all")),
+            ("c65", 65, 4099, {}),
+            ("zero_inclusion", 8, 1000, dict(gates="none")),
+            ("nan_gated_out", 8, 1000, dict(nan_row=2)),
+            ("nan_included", 9, 1000, dict(nan_row=3, nan_included=True))]
+
+
+def variant_phase(check: Check, device="cuda"):
+    """Every reducer x wire against its plain version on the card. Returns
+    the worst error per (reducer, wire) at the cell-(b) shape."""
+    import torch
+    from repro_torch.kernels import fedagg as fk
+    worst = {}
+    for red in REDUCERS:
+        for wire in WIRES:
+            for label, C, M, kw in variant_cases():
+                if label == "nan_included" and red not in ("trimmed_mean",
+                                                           "median"):
+                    continue      # a NaN in an included row poisons a sum
+                updates, w, g, ops = variant_case(red, wire, C, M, device, **kw)
+                before = fk.fedagg.launches
+                out = fk.fedagg(updates, w, g, **ops)
+                launched = fk.fedagg.launches - before
+                want = fk.fedagg_plain(updates, w, g, **ops)
+                ok, err = compare_variant(out, want, updates, w, g, ops)
+                name = f"{red}/{wire}/{label}"
+                check(launched == 1, f"fedagg {name}: {launched} launches")
+                check(ok, f"fedagg {name}: max_abs_err {err}")
+                if label == "zero_inclusion":
+                    check(bool(torch.all(out == 0)), f"fedagg {name}: zero "
+                          "inclusion must give exact zeros")
+                if label == "nan_gated_out":
+                    check(bool(torch.isfinite(out).all()),
+                          f"fedagg {name}: NaN leaked from a gated-out row")
+                if label == "nan_included" and wire.startswith("identity"):
+                    # the int8 wire sends a NaN as 0 (the reference's cast)
+                    check(bool(torch.isnan(out).any()),
+                          f"fedagg {name}: the included NaN vanished")
+                if label == "slice_b":
+                    worst[f"{red}/{wire}"] = err
+    # the trim count in f32: at trim_frac 0.29 and n = 100 clients
+    # int32(f32(0.29) * f32(100)) = 29 where the f64 product truncates to 28
+    updates, w, g, ops = variant_case("trimmed_mean", "identity_f32", 100,
+                                      4096, device, gates="all")
+    ops["trim_frac"] = 0.29
+    out = fk.fedagg(updates, w, g, **ops)
+    ok, err = compare_variant(out, fk.fedagg_plain(updates, w, g, **ops),
+                              updates, w, g, ops)
+    check(ok, f"fedagg trimmed_mean/trim 0.29 x 100: max_abs_err {err}")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    print("variant phase:", json.dumps(worst), flush=True)
     return worst
 
 
@@ -211,6 +399,78 @@ def timing_phase(device="cuda"):
                              label=label, ms=ms, plain_ms=plain,
                              library_ms=library, bound_ms=bound, bound_by=by))
             print("timing:", json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def sort_ops(C, M):
+    """min + max of every compare-exchange of the bitonic network down the
+    client axis (C padded to P = 2^L): P/2 * L(L+1)/2 exchanges a column."""
+    P = 1 << max(0, (C - 1).bit_length())
+    L = P.bit_length() - 1
+    return 2.0 * M * (P // 2) * L * (L + 1) // 2
+
+
+def variant_bound(red, wire, ops, C_inc, C, M):
+    """Least time for one call: the bytes it must move (the included rows'
+    wire payload, the hash planes, dp's noise and scales, the output, w
+    and g) over the memory rate vs its operations over the f32 rate (the
+    weighted sum's multiply-adds and the decode's multiply; for the sorted
+    reducers the min and max of every compare-exchange)."""
+    out_size = 2 if wire == "identity_bf16" else 4
+    if wire.startswith("identity"):
+        wire_bytes = C_inc * M * out_size
+    elif wire == "int8":
+        wire_bytes = C_inc * M + 4 * C_inc
+    elif wire == "topk":
+        wire_bytes = C_inc * ops["topk_idx"].shape[1] * 8
+    else:
+        wire_bytes = C_inc * 4 * int(wire_fed().codec_sketch_dim) + 8 * M
+    bytes_ = wire_bytes + M * out_size + 8 * C
+    if red == "dp":
+        bytes_ += 4 * M + 4 * C
+    if red in ("trimmed_mean", "median"):
+        flops = sort_ops(C, M)
+    elif wire == "topk":
+        flops = 2.0 * C_inc * ops["topk_idx"].shape[1]
+    else:
+        flops = (2.0 if wire.startswith("identity") else 3.0) * C_inc * M
+    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def variant_timing_phase(device="cuda", C=60, M=579402):
+    """Every reducer x wire but K1's mean + identity at the cell-(b) shape,
+    all gates 1: the kernel, the plain version, the bound, and a library
+    yardstick timed here only — torch.mv of the decoded, masked rows for
+    mean and dp, torch.sort of the decoded rows down the client axis for
+    the sorted reducers (the sort alone, without the order statistics)."""
+    import torch
+    from repro_torch.kernels import fedagg as fk
+    rows = []
+    for red in REDUCERS:
+        for wire in WIRES:
+            if (red, wire) == ("mean", "identity_f32"):
+                continue                          # K1, timed above
+            updates, w, g, ops = variant_case(red, wire, C, M, device,
+                                              gates="all")
+            dense = decoded_rows(updates, ops, M)
+            if red in ("trimmed_mean", "median"):
+                keyed = torch.where((g > 0)[:, None], dense, float("inf"))
+                library = time_ms(lambda: torch.sort(keyed, dim=0), iters=10)
+            else:
+                wg = w * g
+                if red == "dp":
+                    wg = torch.where(wg > 0, wg * ops["row_scale"], 0.0)
+                masked = torch.where((w * g > 0)[:, None], dense, 0.0)
+                library = time_ms(lambda: torch.mv(masked.t(), wg))
+            ms = time_ms(lambda: fk.fedagg(updates, w, g, **ops))
+            plain = time_ms(lambda: fk.fedagg_plain(updates, w, g, **ops),
+                            iters=10)
+            bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), C, M)
+            rows.append(dict(reducer=red, wire=wire, shape=f"{C}x{M}", ms=ms,
+                             plain_ms=plain, library_ms=library,
+                             bound_ms=bound, bound_by=by))
+            print("variant timing:", json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -318,7 +578,8 @@ def cifar_config(rounds):
 def slice_b(check: Check, device="cuda", rounds=3, fedn=None):
     """Config (b): the full-width cnn on the CIFAR stand-in (C=60, 1000
     samples per client, M=579,402), a 1-round warm-up run, then ``rounds``
-    timed rounds through run_federation."""
+    timed rounds through run_federation. Returns the stats and the
+    federation (slice (c) reuses it)."""
     import numpy as np
     import torch
     from repro_torch.data.shards import make_benchmark_federation
@@ -362,6 +623,162 @@ def slice_b(check: Check, device="cuda", rounds=3, fedn=None):
     if device != "cpu":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print("slice (b):", json.dumps(out), flush=True)
+    return out, fedn
+
+
+# the robust, private and compressed configs of slice (c) and of the
+# small-input parity runs
+SLICE_C = {
+    "c1": dict(aggregator="median", wire_codec="int8", error_feedback=True),
+    "c2": dict(aggregator="trimmed_mean", trim_frac=0.1, wire_codec="sketch",
+               error_feedback=False),
+    "c3": dict(aggregator="dp", dp_clip=1.0, dp_noise=0.1, wire_codec="topk",
+               error_feedback=True),
+}
+PARITY_AGG = {
+    "cosine_filter": dict(aggregator="cosine_filter", outlier_cos=0.2,
+                          sketch_dim=64),
+    "median_int8_ef": SLICE_C["c1"],
+    "trimmed_sketch": dict(SLICE_C["c2"], codec_sketch_dim=256),
+    "dp_topk_ef": dict(SLICE_C["c3"], codec_topk_frac=0.2),
+}
+
+
+def int8_quanta():
+    """Wrap the int8 codec's encode to record each round's largest row
+    scale (one quantum); returns the list and the undo function."""
+    from repro_torch.core import aggregation as agg
+    scales, encode = [], agg._Int8Codec.encode
+
+    def recording(fed, buf):
+        q, kw = encode(fed, buf)
+        scales.append(float(kw["dequant_scale"].max()))
+        return q, kw
+
+    agg._Int8Codec.encode = staticmethod(recording)
+    return scales, lambda: setattr(agg._Int8Codec, "encode", staticmethod(encode))
+
+
+def slice_a_aggregators(check: Check, device="cuda"):
+    """The shortened quickstart (C=8, E=2, 6 rounds) under cosine_filter
+    (identity wire) and under slice (c)'s three aggregator + codec pairs,
+    on both backends on the card, each held against the same run on the
+    CPU: gates exact, global loss within rtol 1e-5, params within 1e-4
+    max|p| — plus, where the int8 wire is on, one quantum of the run's
+    largest row scale (a last-bit difference can cross a rounding boundary;
+    error feedback keeps it from accumulating). One fedagg launch a round."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synth import make_synth_federation
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    loss_fn = make_loss_fn(SMALL_MODELS["synth_logreg"][1])
+    small = make_synth_federation(seed=0, n_priority=4, n_nonpriority=4,
+                                  samples_per_client=40, test_samples=200)
+    gen = torch.Generator().manual_seed(42)
+    p0 = {"b": 0.05 * torch.randn(10, generator=gen),
+          "w": 0.05 * torch.randn(60, 10, generator=gen)}
+    out = {}
+    for label, knobs in PARITY_AGG.items():
+        for backend in ("vmap_spatial", "scan_temporal"):
+            fed = parity_config().replace(backend=backend, **knobs)
+            scales, undo = int8_quanta()
+            try:
+                cpu = run_federation(loss_fn, p0, fed, small, eval_every=2,
+                                     device="cpu")
+            finally:
+                undo()
+            before = fk.fedagg.launches
+            dev = run_federation(loss_fn, p0, fed, small, eval_every=2,
+                                 device=device)
+            launches = fk.fedagg.launches - before
+            name = f"slice (a) {label} {backend}"
+            check(np.array_equal(np.array(dev.gates), np.array(cpu.gates)),
+                  f"{name}: gates differ from the CPU run")
+            loss_rel = float(np.max(np.abs(np.array(dev.global_loss)
+                                           / np.array(cpu.global_loss) - 1.0)))
+            check(loss_rel <= 1e-5, f"{name}: global loss off the CPU run by "
+                  f"rtol {loss_rel}")
+            extra = max(scales, default=0.0)
+            errs = {k: float((dev.params[k].cpu() - cpu.params[k]).abs().max())
+                    for k in cpu.params}
+            ok = all(errs[k] <= 1e-4 * float(cpu.params[k].abs().max()) + extra
+                     for k in cpu.params)
+            check(ok, f"{name}: params off the CPU run by {errs} (one "
+                  f"quantum {extra})")
+            check(dev.dp_epsilon == cpu.dp_epsilon,
+                  f"{name}: dp report differs from the CPU run")
+            if device != "cpu":
+                check(launches == 6, f"{name}: {launches} fedagg launches in "
+                      "6 rounds")
+            out[f"{label}/{backend}"] = dict(
+                launches=launches, included=dev.included,
+                global_loss_rtol_vs_cpu=loss_rel, params_abs_err_vs_cpu=errs)
+            print(f"{name}:", json.dumps(out[f"{label}/{backend}"]), flush=True)
+    return out
+
+
+def slice_c(check: Check, fedn, device="cuda", rounds=2):
+    """Config (c): the full-width cnn on the CIFAR stand-in (cell (b)'s
+    federation and model) under median + int8 + error feedback (c1),
+    trimmed_mean + sketch without it (c2: sketch with error feedback
+    diverges by design) and dp + topk + error feedback (c3); each a 1-round
+    warm-up run, then ``rounds`` timed rounds, one fedagg launch a round."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS["cnn"]
+    loss_fn = make_loss_fn(apply_fn)
+    p0 = init_fn(0, device)
+    out = {}
+    for label, knobs in SLICE_C.items():
+        run_federation(loss_fn, p0, cifar_config(1).replace(**knobs), fedn,
+                       device=device)
+        fed = cifar_config(rounds).replace(**knobs)
+        variant = (fed.aggregator, fed.wire_codec)
+        before, before_v = fk.fedagg.launches, fk.fedagg.variant_launches[variant]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = run_federation(loss_fn, p0, fed, fedn, eval_every=1, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = fk.fedagg.launches - before
+        launches_v = fk.fedagg.variant_launches[variant] - before_v
+        finite = (np.all(np.isfinite(h.global_loss))
+                  and np.all(np.isfinite(h.test_acc))
+                  and all(bool(torch.isfinite(v).all())
+                          for v in h.params.values()))
+        check(bool(finite), f"slice ({label}): non-finite loss, accuracy or "
+              "params")
+        check(np.array(h.gates).shape == (rounds, fedn.x.shape[0]),
+              f"slice ({label}): gates of the wrong shape")
+        if fed.aggregator == "dp":
+            check(h.dp_epsilon is not None and np.isfinite(h.dp_epsilon),
+                  f"slice ({label}): no finite dp epsilon")
+        if fed.error_feedback:
+            ef = h.state.ef_accum
+            check(isinstance(ef, dict) and all(bool(torch.isfinite(v).all())
+                                               for v in ef.values()),
+                  f"slice ({label}): error-feedback rows missing or "
+                  "non-finite")
+        if device != "cpu":
+            check(launches == rounds and launches_v == rounds,
+                  f"slice ({label}): {launches} fedagg launches ({launches_v} "
+                  f"of {variant}) in {rounds} rounds")
+        out[label] = dict(aggregator=fed.aggregator, wire_codec=fed.wire_codec,
+                          error_feedback=fed.error_feedback,
+                          seconds_per_round=secs / rounds, launches=launches,
+                          included_nonpriority=h.included,
+                          global_loss=h.global_loss, test_acc=h.test_acc,
+                          dp_epsilon=h.dp_epsilon)
+        if device != "cpu":
+            out[label]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"slice ({label}):", json.dumps(out[label]), flush=True)
     return out
 
 
@@ -393,34 +810,56 @@ def main() -> int:
         print(f"ptxas[{name}]:", log.strip().replace("\n", " | ")[:4000])
 
     errs = kernel_phase(check)
+    verrs = variant_phase(check)
     timings = timing_phase()
+    vtimings = variant_timing_phase()
 
-    fk.fedagg.launches = 0            # count only the main path from here
+    # count only the main path from here: slices (a), (b) and (c)
+    fk.fedagg.launches = 0
+    fk.fedagg.variant_launches.clear()
     a = slice_a(check)
-    b = slice_b(check)
+    a_agg = slice_a_aggregators(check)
+    b, fedn = slice_b(check)
+    c = slice_c(check, fedn)
     launches = fk.fedagg.launches
+    counts = dict(fk.fedagg.variant_launches)
+    print("main path launches per (aggregator, codec):",
+          json.dumps({f"{k[0]}/{k[1]}": v for k, v in sorted(counts.items())}))
 
-    main_row = next(r for r in timings
-                    if r["label"] == "slice_b" and r["dtype"] == "float32")
-    max_err = max(errs["slice_b/float32"], errs["slice_b_pitched/float32"])
-    line = {"kernels": [{
-        "name": "fedagg_mean", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fedagg.cu",
-        "replaces": "src/repro/kernels/fedagg.py:189",
-        "launches": launches, "max_abs_err": max_err, "max_err": max_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"], "dtype": main_row["dtype"]}]}
-    expected = 2 * 4 + 6 + 1 + 3   # (a): 4 rounds x 2 backends + 6; (b): 1 + 3
+    k1 = next(r for r in timings
+              if r["label"] == "slice_b" and r["dtype"] == "float32")
+    k1 = dict(k1, max_abs_err=max(errs["slice_b/float32"],
+                                  errs["slice_b_pitched/float32"]))
+    rows = {(r["reducer"], r["wire"]): r for r in vtimings}
+    kernels = []
+    for name, replaces, pick, pair in KERNELS:
+        row = k1 if pair == ("mean", "identity_f32") else dict(
+            rows[pair], max_abs_err=verrs["/".join(pair)])
+        n = sum(v for k, v in counts.items() if pick(*k))
+        check(n > 0, f"main path: kernel {name} was never launched")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fedagg.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": "60x579402", "variant": "/".join(pair)})
+    # (a): 4 rounds x 2 backends + 6; its aggregators: 4 configs x 2
+    # backends x 6; (b): 1 + 3; (c): 3 configs x (1 + 2)
+    expected = 2 * 4 + 6 + len(PARITY_AGG) * 2 * 6 + 1 + 3 + len(SLICE_C) * 3
     check(launches == expected, f"main path: {launches} fedagg launches, "
           f"expected {expected}")
+    line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
               file=sys.stderr)
         return 1
-    print("slices:", json.dumps({"a": a, "b": {
-        k: b[k] for k in ("seconds_per_round", "launches", "M")}}))
+    print("slices:", json.dumps({
+        "a": a, "a_aggregators": {k: v["launches"] for k, v in a_agg.items()},
+        "b": {k: b[k] for k in ("seconds_per_round", "launches", "M")},
+        "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
+              for k, v in c.items()}}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -71,7 +71,8 @@ class FedConfig:
                                       # yogi not yet
     server_lr: float = 1.0
     server_momentum: float = 0.9
-    aggregator: str = "mean"          # mean ported; the robust / dp ones not yet
+    aggregator: str = "mean"          # mean | trimmed_mean | median | dp |
+                                      # cosine_filter
     trim_frac: float = 0.1
     dp_clip: float = 1.0
     dp_noise: float = 0.0
@@ -82,7 +83,7 @@ class FedConfig:
     server_eps: float = 1e-3
     agg_dtype: str = "float32"        # dtype of the client deltas on the wire:
                                       # float32 | bfloat16
-    wire_codec: str = "identity"      # identity ported; int8 | topk | sketch not yet
+    wire_codec: str = "identity"      # identity | int8 | topk | sketch
     error_feedback: bool = True
     codec_topk_frac: float = 0.01
     codec_sketch_dim: int = 2048

@@ -9,9 +9,11 @@ runs, in order:
    cadence applied on top;
 3. E epochs of minibatch SGD (or FedProx) per client;
 4. one fused gated aggregation of the client deltas (one ``fedagg`` kernel
-   launch on the card);
+   launch on the card) under the configured aggregator (mean,
+   trimmed_mean, median, dp, cosine_filter) and wire codec (identity,
+   int8, topk, sketch, with error-feedback rows);
 5. the server optimizer step (sgd), skipped bit-exactly on a round with
-   zero inclusion mass.
+   zero inclusion mass (the aggregator's own mass).
 
 Two backends execute the client axis:
 
@@ -42,11 +44,13 @@ from torch.func import grad, vmap
 
 from repro_torch import prng
 from repro_torch.configs.base import register_validator, validate_config
-from repro_torch.core.aggregation import (aggregate_delta, apply_server_opt,
-                                          inclusion_mass, server_optimizer)
+from repro_torch.core.aggregation import (aggregate_delta, aggregator_key,
+                                          apply_server_opt, get_aggregator,
+                                          inclusion_mass, resolve_wire_codec,
+                                          server_optimizer)
 from repro_torch.core.alignment import epsilon_at, global_loss_from_locals
 from repro_torch.optim.schedules import make_schedule
-from repro_torch.utils import Registry, tree_axpy, tree_map
+from repro_torch.utils import Registry, tree_axpy, tree_leaves, tree_map
 
 BACKENDS = ("vmap_spatial", "scan_temporal", "scan_async")
 
@@ -62,10 +66,13 @@ class FederationState:
       overflow (always 0 here: cohorts are not ported).
     * ``util_ema`` — [C] f32 EMA of the alignment gap |F_k - F|.
     * ``incl_ema`` — [C] f32 EMA of the effective inclusion gates.
+    * ``ef_accum`` — the wire codec's per-client error-feedback rows
+      (params-shaped f32 leaves with a leading [C] axis), or ``()`` when the
+      codec is identity or ``error_feedback`` is off.
 
-    The reference's async buffer, drift sketch, latency, skip counter and
-    error-feedback leaves belong to features this slice does not port;
-    they stay ``()``, as they do in the reference when disabled.
+    The reference's async buffer, drift sketch, latency and skip counter
+    belong to features not ported yet; they stay ``()``, as they do in the
+    reference when disabled.
     """
     params: Any
     opt_state: Any
@@ -126,6 +133,18 @@ def check_selection_config(fed):
         raise ValueError(f"unknown FedConfig.algorithm {fed.algorithm!r}")
 
 
+def init_ef_accum(params, fed, num_clients):
+    """Zero per-client error-feedback rows for the wire codec
+    (params-shaped f32 leaves with a leading [C] axis), or ``()`` when the
+    codec is identity or ``fed.error_feedback`` is off."""
+    if resolve_wire_codec(fed.wire_codec) == "identity" or not fed.error_feedback:
+        return ()
+    C = int(num_clients)
+    return tree_map(lambda p: torch.zeros((C,) + tuple(p.shape),
+                                          dtype=torch.float32, device=p.device),
+                    params)
+
+
 def init_state(params, fed, num_clients: Optional[int] = None) -> FederationState:
     """Fresh FederationState for a federation of ``num_clients`` (defaults
     to ``fed.num_clients``), on the device of ``params``."""
@@ -137,7 +156,8 @@ def init_state(params, fed, num_clients: Optional[int] = None) -> FederationStat
         opt_state=server_optimizer(fed).init(params),
         backlog=torch.zeros(C, dtype=torch.int32, device=dev),
         util_ema=torch.zeros(C, dtype=torch.float32, device=dev),
-        incl_ema=torch.zeros(C, dtype=torch.float32, device=dev))
+        incl_ema=torch.zeros(C, dtype=torch.float32, device=dev),
+        ef_accum=init_ef_accum(params, fed, C))
 
 
 # ============================================================ selection seam
@@ -266,6 +286,26 @@ def participation_mask(fed, key, priority_mask, round_idx, client_ids=None):
     return part
 
 
+def delta_sketch(deltas, key, dim: int):
+    """[C, dim] CountSketches of client-stacked parameter deltas ([C, ...]
+    leaves): every coordinate lands in one random bucket with a random
+    sign, the hash and sign of leaf i drawn from ``split(fold_in(key, i))``
+    (the reference's streams), so every client is projected identically
+    and sketched cosines estimate the true delta cosines."""
+    leaves = tree_leaves(deltas)
+    dev = leaves[0].device
+    C = leaves[0].shape[0]
+    out = torch.zeros(C, dim, dtype=torch.float32, device=dev)
+    key = torch.as_tensor(key).to(dev)
+    for i, leaf in enumerate(leaves):
+        x = leaf.reshape(C, -1).float()
+        kh, ks = prng.split(prng.fold_in(key, i))
+        h = prng.randint(kh, (x.shape[1],), 0, dim)
+        s = prng.rademacher(ks, (x.shape[1],))
+        out.index_add_(1, h.long(), s * x)
+    return out
+
+
 # ============================================================ local training
 def minibatch_order(fed, keys, n: int) -> torch.Tensor:
     """The local solver's minibatch indices for a batch of client keys:
@@ -369,6 +409,11 @@ def make_round_fn(loss_fn: Callable, fed, *,
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     validate_config(fed)
+    # stochastic aggregators (dp) get a per-round key; the error-feedback
+    # rows exist only under a non-identity codec with error_feedback on
+    agg_needs_key = get_aggregator(fed.aggregator).needs_key
+    ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
+             and bool(fed.error_feedback))
     eval_clients, train_clients = _BACKENDS[backend]
     solver = local_solver(loss_fn, fed)
     sched = make_schedule(fed)
@@ -418,10 +463,18 @@ def make_round_fn(loss_fn: Callable, fed, *,
         client_params = train_clients(solver, global_params, data, order, lr,
                                       gates=gates)
 
-        # (4) one fused fedagg launch; (5) the server step, skipped on a
-        # zero-inclusion round so params stay bit-identical
-        agg_delta = server_delta(fed, global_params, client_params, weights,
-                                 gates)
+        # (4) one fused fedagg launch (the error-feedback rows advance with
+        # it); (5) the server step, skipped on a round where the
+        # aggregator's inclusion mass is zero, so params stay bit-identical
+        akey = aggregator_key(fed, round_idx) if agg_needs_key else None
+        ef_accum = state.ef_accum
+        if ef_on:
+            agg_delta, ef_accum = server_delta(
+                fed, global_params, client_params, weights, gates, key=akey,
+                ef_accum=state.ef_accum)
+        else:
+            agg_delta = server_delta(fed, global_params, client_params,
+                                     weights, gates, key=akey)
         applied, opt_state = apply_server_opt(fed, global_params,
                                               state.opt_state, agg_delta)
         has_mass = inclusion_mass(fed, weights, gates) > 0
@@ -432,7 +485,7 @@ def make_round_fn(loss_fn: Callable, fed, *,
         incl_ema = inclusion_update(fed, state.incl_ema, gates)
         new_state = state.replace(params=new_global, opt_state=opt_state,
                                   backlog=backlog, util_ema=util_ema,
-                                  incl_ema=incl_ema)
+                                  incl_ema=incl_ema, ef_accum=ef_accum)
 
         npri = 1.0 - priority_mask.float()
         included_mass = torch.sum(npri * weights * gates)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.core.aggregation import check_client_weights
+from repro_torch.core.aggregation import check_client_weights, dp_report
 from repro_torch.core.metrics import History
 from repro_torch.data.synth import Federation
 from repro_torch.fl.engine import init_state, make_round_fn
@@ -131,5 +131,8 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
     hist.params = state.params
     hist.state = state
     hist.rng = rng
-    hist.dp_epsilon, hist.dp_delta = None, None   # no dp aggregator ported
+    # DP budget spent (None unless aggregator='dp' with noise): one Gaussian
+    # mechanism per executed round since round 0, via the RDP accountant
+    dp = dp_report(fed, start)
+    hist.dp_epsilon, hist.dp_delta = dp if dp is not None else (None, None)
     return hist

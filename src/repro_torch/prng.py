@@ -10,10 +10,19 @@ on: a key is a pair of uint32 words, and every derived stream hashes a
 * ``permutation(key, n)``   = argsort of ``bits`` by a stable sort, repeated
   ``ceil(3 ln n / ln(2^32 - 1))`` times with fresh sub-keys, as
   ``jax.random.permutation`` does.
+* ``uniform``, ``bernoulli``, ``rademacher`` and ``randint`` build on
+  ``bits`` exactly as jax 0.9 does (mantissa fill, compare, two-word
+  modulus), so their outputs are bit-exact too.
+* ``normal`` is ``sqrt(2) * erf_inv(uniform(-1 + ulp, 1))`` with XLA's f32
+  ``erf_inv`` polynomial (M. Giles' approximation, the constants and the
+  Horner order of XLA's lowering). It is not bit-exact: ``log1p`` is the
+  host library's, not XLA's; the tests state the ulp bound.
 
 The FedALIGN round needs these to match the reference exactly: local SGD
 draws its minibatch order from ``permutation``, and the inclusion gates can
-only agree if every client saw the same minibatches.
+only agree if every client saw the same minibatches. The dp aggregator's
+noise comes from ``normal``, the sketch codec's and the cosine filter's
+hash and sign planes from ``randint`` and ``rademacher``.
 
 Representation: uint32 words are held in ``torch.int64`` tensors masked to
 32 bits (torch has no full uint32 arithmetic). A key is a ``[..., 2]``
@@ -108,3 +117,89 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(bits(subkey, (n,)), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x.contiguous()
+
+
+def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits fill the mantissa of a float in [1, 2), minus 1, scaled."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    fb = (bits(key, tuple(shape)) >> 9) | 0x3F800000
+    floats = fb.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # XLA fuses the scale and shift into one multiply-add; the f32 product
+    # is exact in f64, so one f64 step rounded to f32 is that fma
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (bool)."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+def rademacher(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.rademacher(key, shape, float32)``: +-1 from a fair
+    ``bernoulli``."""
+    return 2.0 * bernoulli(key, 0.5, shape).float() - 1.0
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for
+    ``minval < maxval`` within int32: two 32-bit words per value reduced
+    modulo the span (uint32 arithmetic, as jax does it)."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    minval, maxval = int(minval), int(maxval)
+    if not -2**31 <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"randint: need int32 bounds minval < maxval, got "
+                         f"[{minval}, {maxval})")
+    k = split(key, 2)
+    higher = bits(k[..., 0, :], tuple(shape))
+    lower = bits(k[..., 1, :], tuple(shape))
+    span = (maxval - minval) & _MASK
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = (((higher % span) * mult) & _MASK) + (lower % span)
+    off = (off & _MASK) % span
+    return (off + minval).to(torch.int32)
+
+
+# XLA's f32 erf_inv (M. Giles, "Approximating the erfinv function"): a
+# degree-8 polynomial in w = -log1p(-x^2), one set of constants for w < 5
+# and one (in sqrt(w)) beyond
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 inverse error function, XLA's polynomial in XLA's order."""
+    x = x.float()
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    # XLA evaluates the Horner steps as fused multiply-adds: the f32
+    # product is exact in f64, so one f64 step rounded to f32 is the fma
+    ww = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    lo = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, 9):
+        p = (torch.where(lt, lo[i], hi[i]).double() + p.double() * ww).float()
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+_SQRT2_F32 = 1.41421353816986083984375       # float32(sqrt(2))
+_NEXT_ABOVE_MINUS_ONE = -0.999999940395355224609375   # nextafter(-1, 0) in f32
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: sqrt(2) erf_inv(u), u
+    uniform on [nextafter(-1, 0), 1). Within the ulp bound the tests state
+    of jax's draw, not bit-exact (see the module note)."""
+    u = uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0)
+    return _SQRT2_F32 * erf_inv(u)

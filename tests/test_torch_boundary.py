@@ -78,10 +78,7 @@ OUT_OF_SLICE = [
     ("selection", "topk_align"), ("selection", "grad_sim"),
     ("selection", "welfare"), ("backend", "scan_async"),
     ("async_depth", 2), ("participation", 0.5), ("max_cohort", 2),
-    ("candidate_pool", 3), ("aggregator", "trimmed_mean"),
-    ("aggregator", "median"), ("aggregator", "dp"),
-    ("aggregator", "cosine_filter"), ("wire_codec", "int8"),
-    ("wire_codec", "topk"), ("wire_codec", "sketch"),
+    ("candidate_pool", 3),
     ("server_opt", "momentum"), ("server_opt", "adam"),
     ("server_opt", "yogi"), ("failure_model", "crash"),
     ("failure_model", "chaos"), ("latency_mode", "lognormal"),
@@ -115,12 +112,31 @@ def test_out_of_slice_driver_options_raise(kw):
                        **kw)
 
 
-@pytest.mark.parametrize("aggregator,codec", [("median", "identity"),
-                                              ("mean", "int8")])
-def test_out_of_slice_kernel_variants_raise(aggregator, codec):
+PORTED_KNOBS = [("aggregator", "trimmed_mean"), ("aggregator", "median"),
+                ("aggregator", "dp"), ("aggregator", "cosine_filter"),
+                ("wire_codec", "int8"), ("wire_codec", "topk"),
+                ("wire_codec", "sketch")]
+
+
+@pytest.mark.parametrize("knob,value", PORTED_KNOBS,
+                         ids=[f"{k}={v}" for k, v in PORTED_KNOBS])
+def test_ported_knob_validates_and_builds_a_round(knob, value):
+    fed = FedConfig(num_clients=4, num_priority=2, rounds=1, local_epochs=1,
+                    batch_size=8).replace(**{knob: value})
+    _, _, loss_fn = _tiny()
+    assert validate_config(fed) is fed
+    assert callable(engine.make_round_fn(loss_fn, fed))
+
+
+@pytest.mark.parametrize("aggregator,codec", [("no_such_agg", "identity"),
+                                              ("mean", "no_such_codec"),
+                                              ("cosine_filter", "identity")])
+def test_unknown_kernel_variants_raise(aggregator, codec):
+    """The kernel knows the four in-kernel reducers and four decoders;
+    cosine_filter is a gate rewrite upstream, never a kernel variant."""
     u = torch.zeros(2, 4)
     w = g = torch.ones(2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown"):
         ops.fedagg(u, w, g, aggregator=aggregator, codec=codec)
 
 
@@ -136,6 +152,9 @@ def test_unknown_names_raise_value_error(knob, value):
 
 def test_ported_registries_hold_only_the_slice():
     assert engine.STRATEGIES.names() == ["all", "fedalign", "priority_only"]
-    assert aggregation.AGGREGATORS.names() == ["mean"]
+    assert aggregation.AGGREGATORS.names() == [
+        "cosine_filter", "dp", "mean", "median", "trimmed_mean"]
+    assert aggregation.WIRE_CODECS.names() == [
+        "identity", "int8", "sketch", "topk"]
     assert aggregation.SERVER_OPTIMIZERS.names() == ["sgd"]
     assert aggregation.resolve_server_opt("none") == "sgd"

@@ -189,3 +189,174 @@ def test_cuda_aggregation_matches_cpu(cuda_device, fused):
     assert fk.fedagg.launches - before == (1 if fused else len(tree))
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------ robust / private / coded variants
+REDUCERS = ["mean", "dp", "trimmed_mean", "median"]
+WIRES = ["identity_f32", "identity_bf16", "int8", "topk", "sketch"]
+
+
+def _variant(reducer, wire, C, M, device, *, gates="mixed", nan_row=None,
+             nan_included=False, seed=0):
+    """(updates, weights, gates, kwargs) for one reducer x wire call: dense
+    rows from a numpy seed, encoded by the port's codec on ``device``."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import aggregation as agg
+    u, w, g = _case(C, M, seed=seed, gates=gates)
+    rng = np.random.default_rng(seed + 1)
+    rs = rng.random(C).astype(np.float32)
+    noise = rng.normal(size=M).astype(np.float32)
+    if nan_row is not None:
+        u[nan_row, ::7] = np.nan
+        g[nan_row] = 1.0 if nan_included else 0.0
+        if not nan_included:
+            rs[nan_row] = np.nan
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    if wire.startswith("identity"):
+        dtype = torch.float32 if wire == "identity_f32" else torch.bfloat16
+        updates, kw = agg.flatten_stacked({"u": t(u)}, dtype=dtype), {}
+    else:
+        fed = FedConfig(codec_topk_frac=0.05, codec_sketch_dim=256)
+        updates, kw = agg.get_wire_codec(wire).encode(fed, t(u))
+    kw = dict(kw, aggregator=reducer)
+    if reducer == "dp":
+        kw.update(row_scale=t(rs), noise=t(noise), noise_scale=0.3)
+    elif reducer == "trimmed_mean":
+        kw["trim_frac"] = 0.2
+    return updates, t(w), t(g), kw
+
+
+def _close_variant(got, want, updates, w, g, kw):
+    """NaN masks equal; elsewhere within 1e-5 of the largest term the
+    reduction sums (f32 sums in another order; the median is exact) and,
+    for a bf16 output, one bf16 ulp of the plain result on top."""
+    from repro_torch.kernels.fedagg import decode_wire_plain
+    o, p = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isnan(o), torch.isnan(p))
+    fin = ~torch.isnan(p)
+    codec = kw.get("codec", "identity")
+    dense = (updates.float() if codec == "identity" else decode_wire_plain(
+        updates, codec=codec, out_m=p.shape[0], **{
+            k: kw[k] for k in ("dequant_scale", "topk_idx", "sketch_h",
+                               "sketch_sign") if k in kw})).cpu()
+    red = kw["aggregator"]
+    inc = ((g > 0) if red in ("trimmed_mean", "median") else (w * g > 0)).cpu()
+    rows = dense[inc]
+    rows = rows[torch.isfinite(rows)]
+    mag = float(rows.abs().max()) if rows.numel() else 0.0
+    if red == "dp" and bool(inc.any()):
+        mag = mag * float(kw["row_scale"].cpu()[inc].max()) + float(
+            kw["noise"].abs().max()) * 0.3 / float((w * g).cpu()[inc].sum())
+    tol = 1e-5 * mag + torch.zeros_like(p[fin])
+    if got.dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            torch.clamp(p[fin].abs(), min=2.0 ** -126))) - 7)
+    assert bool(torch.all((o[fin] - p[fin]).abs() <= tol))
+
+
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("reducer", REDUCERS)
+def test_wrapper_takes_plain_version_on_cpu_for_every_variant(reducer, wire):
+    updates, w, g, kw = _variant(reducer, wire, 6, 300, "cpu")
+    before = fk.fedagg.launches
+    out = ops.fedagg(updates, w, g, **kw)
+    assert fk.fedagg.launches == before
+    want = fk.fedagg_plain(updates, w, g, **kw)
+    assert out.dtype == (torch.bfloat16 if wire == "identity_bf16"
+                         else torch.float32)
+    np.testing.assert_array_equal(out.float().numpy(), want.float().numpy())
+
+
+def test_wrapper_refuses_other_devices():
+    u = torch.zeros(2, 4, device="meta")
+    w = g = torch.ones(2, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        fk.fedagg(u, w, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,M", [(20, 610), (60, 579402), (65, 4099)])
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("reducer", REDUCERS)
+def test_cuda_variants_match_plain(cuda_device, reducer, wire, C, M):
+    updates, w, g, kw = _variant(reducer, wire, C, M, cuda_device, seed=C)
+    before = fk.fedagg.launches
+    got = fk.fedagg(updates, w, g, **kw)
+    torch.cuda.synchronize()
+    assert fk.fedagg.launches == before + 1
+    assert got.dtype == (torch.bfloat16 if wire == "identity_bf16"
+                         else torch.float32)
+    _close_variant(got, fk.fedagg_plain(updates, w, g, **kw), updates, w, g, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("reducer", REDUCERS)
+def test_cuda_variants_zero_inclusion_and_nan_rows(cuda_device, reducer, wire):
+    """Zero inclusion gives exact zeros; a NaN behind a zero gate (and its
+    NaN clip scale) never leaks; a NaN in an included row of a sorted
+    reducer lands where the plain network puts it."""
+    updates, w, g, kw = _variant(reducer, wire, 8, 1000, cuda_device,
+                                 gates="none")
+    assert bool(torch.all(fk.fedagg(updates, w, g, **kw) == 0))
+    updates, w, g, kw = _variant(reducer, wire, 8, 1000, cuda_device,
+                                 nan_row=2)
+    out = fk.fedagg(updates, w, g, **kw)
+    assert bool(torch.isfinite(out).all())
+    if reducer in ("trimmed_mean", "median"):
+        updates, w, g, kw = _variant(reducer, wire, 9, 1000, cuda_device,
+                                     nan_row=3, nan_included=True)
+        _close_variant(fk.fedagg(updates, w, g, **kw),
+                       fk.fedagg_plain(updates, w, g, **kw), updates, w, g, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "topk", "sketch"])
+@pytest.mark.parametrize("aggregator", ["median", "dp", "cosine_filter"])
+def test_cuda_coded_aggregation_matches_cpu(cuda_device, aggregator, codec):
+    """aggregate_clients with error feedback on the card: one launch, and
+    the CPU path's aggregate and accumulator rows (1e-5 of the largest
+    term; int8 may move a coordinate by one quantum where the card's
+    rounding of x / scale lands on the other side of a .5)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.aggregation import aggregate_clients, aggregator_key
+    fed = FedConfig(aggregator=aggregator, wire_codec=codec, dp_noise=0.2,
+                    sketch_dim=64, codec_topk_frac=0.05)
+    gen = torch.Generator().manual_seed(0)
+    tree = {"b": torch.randn(7, 10, generator=gen),
+            "w": torch.randn(7, 61, 10, generator=gen)}
+    ef = {k: 0.01 * torch.randn(v.shape, generator=gen) for k, v in tree.items()}
+    w = torch.rand(7, generator=gen) + 0.1
+    g = torch.tensor([1, 0, 1, 1, 0, 1, 1], dtype=torch.float32)
+    key = aggregator_key(fed, 1)
+    want, want_ef = aggregate_clients(tree, w, g, aggregator=aggregator,
+                                      fed=fed, key=key, wire_codec=codec,
+                                      ef_accum=ef)
+    dev = lambda t: {k: v.to(cuda_device) for k, v in t.items()}  # noqa: E731
+    before = fk.fedagg.launches
+    got, got_ef = aggregate_clients(dev(tree), w.to(cuda_device),
+                                    g.to(cuda_device), aggregator=aggregator,
+                                    fed=fed, key=key, wire_codec=codec,
+                                    ef_accum=dev(ef))
+    assert fk.fedagg.launches - before == 1
+    quantum = max(float(v.abs().max()) for v in tree.values()) / 127 * 2
+    atol = 1e-5 * 10 + (quantum if codec == "int8" else 0.0)
+    for k in tree:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=atol)
+        torch.testing.assert_close(got_ef[k].cpu(), want_ef[k], rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_trim_count_is_float32(cuda_device):
+    """The kernel trims t = int32(f32(0.29) * f32(100)) = 29 per side (the
+    f64 product would give 28), as the plain version does."""
+    rng = np.random.default_rng(0)
+    u = rng.permutation(np.arange(100, dtype=np.float32))[:, None] ** 2
+    u = torch.from_numpy(np.repeat(u, 5, axis=1)).to(cuda_device)
+    w = g = torch.ones(100, device=cuda_device)
+    got = fk.fedagg(u, w, g, aggregator="trimmed_mean", trim_frac=0.29)
+    want = fk.fedagg_plain(u, w, g, aggregator="trimmed_mean", trim_frac=0.29)
+    s = np.sort(np.arange(100, dtype=np.float64) ** 2)
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.cpu().numpy(), s[29:71].mean(), rtol=1e-6)

@@ -38,6 +38,18 @@ FED_KW = dict(seed=0, n_priority=4, n_nonpriority=4, samples_per_client=40,
               test_samples=200)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These rounds work on tensors of a few hundred elements, where torch's
+    intra-op thread pool costs more than it saves (4-5x here, more with
+    several test workers on the host's cores): one thread for the module,
+    the previous count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _init(model, seed=42):
     """The reference's init; the zero-init logreg gets small random weights
     so round 0 does not start from all-tied logits."""
@@ -60,7 +72,7 @@ def _runs(model, cfg, jfedn, tfedn, eval_every=2):
     return hj, ht
 
 
-def _assert_history_parity(hj, ht, n_test):
+def _assert_history_parity(hj, ht, n_test, params_extra_atol=0.0):
     np.testing.assert_array_equal(np.array(ht.gates), np.array(hj.gates))
     assert ht.included == hj.included
     assert ht.rounds == hj.rounds
@@ -70,8 +82,9 @@ def _assert_history_parity(hj, ht, n_test):
     pj = jax.tree.map(np.asarray, hj.params)
     pt = params_to_numpy(ht.params)
     for k in pj:
-        np.testing.assert_allclose(pt[k], pj[k], rtol=0,
-                                   atol=1e-4 * np.abs(pj[k]).max(), err_msg=k)
+        np.testing.assert_allclose(
+            pt[k], pj[k], rtol=0,
+            atol=1e-4 * np.abs(pj[k]).max() + params_extra_atol, err_msg=k)
 
 
 @pytest.mark.parametrize("backend", ["vmap_spatial", "scan_temporal"])
@@ -163,3 +176,4 @@ def test_round_fn_stats_match_reference(backend):
             np.testing.assert_allclose(getattr(tstate, name).numpy(),
                                        np.asarray(getattr(jstate, name)),
                                        rtol=1e-5, atol=1e-7, err_msg=name)
+
