@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedALIGN round end to
 end through the hand-written fedagg kernel, under every aggregator and wire
-codec.
+codec, and LM serving (prefill + decode of the dense GQA models) through the
+hand-written flash-attention, decode-attention and RMSNorm kernels.
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) if a check fails:
+Phases, in the order they run, each of which fails the run (non-zero exit)
+if a check fails:
 
 1. the card's name and power limit (nvidia-smi); the CUDA kernels are
    built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
@@ -15,14 +17,31 @@ Phases, each of which fails the run (non-zero exit) if a check fails:
    f32 and bf16, int8, topk, sketch) at the slice's shapes, C = 65, zero
    inclusion and NaN rows; then each timed beside the plain version, a
    library yardstick (timed here only) and the bound;
-3. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
+3. LM kernel phase: flash-attention forward (K5, with its LSE), decode
+   attention (K7) and RMSNorm (K9) against their plain versions on the
+   card over causal / windowed / ragged / grouped cases in f32 and bf16,
+   then each timed at the serving path's shapes beside the plain version,
+   its bound and a PyTorch yardstick (timed here only);
+4. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
    few rounds on both backends, held against the same run on the CPU; and
    its shortened parity config under cosine_filter and slice (c)'s three
    aggregator + codec pairs, each held against the CPU run;
-4. slice (b): the paper's CIFAR ``cnn`` at full width, C=60, E=5, for 3
+5. slice (b): the paper's CIFAR ``cnn`` at full width, C=60, E=5, for 3
    rounds through ``run_federation``;
-5. slice (c): the same config for 2 rounds each under median + int8 +
-   error feedback, trimmed_mean + sketch, and dp + topk + error feedback.
+6. slice (c): the same config for 2 rounds each under median + int8 +
+   error feedback, trimmed_mean + sketch, and dp + topk + error feedback;
+7. slice (d): the serving path at smoke size (qwen1.5-0.5b, qwen2.5-3b,
+   and qwen1.5-0.5b with a sliding window shorter than the prompt) on the
+   card against the same code on the CPU: logits of prefill and every
+   decode step, greedy tokens, and the scheduler's tokens vs generate's;
+8. slice (e): full width with random init: qwen1.5-0.5b through generate
+   (B 8, prompt 512, 32 new) and a BatchScheduler (16 requests), its f32
+   teacher-forced check (prefill + decode vs the train-mode forward), and
+   qwen2.5-3b through generate (B 4, prompt 1024, 16 new).
+
+The fedagg launches of slices (a)-(c) and the LM launches of slices (d)-(e)
+are each counted from zero just before their slices, and the LM counts must
+equal what the slices' forwards and decode steps imply.
 
 It ends with a JSON line of the kernels (launch counts from the slice
 phases, errors and times from this run) and, last, the ok line. It needs
@@ -782,6 +801,509 @@ def slice_c(check: Check, fedn, device="cuda", rounds=2):
     return out
 
 
+# ------------------------------------------------------- LM kernels (K5, K7, K9)
+H100_BF16_FLOPS = 989e12          # dense bf16 tensor-core rate
+LM_TOL = 2e-5                     # x max|v| (attention) or |out| (rmsnorm):
+                                  # f32 sums in another order; the reference's
+                                  # own f32 kernel tolerance (tests/test_kernels.py)
+
+# (label, B, Sq, Skv, H, KV, hd, causal, window): causal and not, windowed,
+# Sq < Skv, ragged lengths, G in {1, 4, 8}, hd in {32, 64, 96, 128}, and the
+# slice's prefill shapes (qwen1.5-0.5b at B 8 x 512, qwen2.5-3b at 4 x 1024)
+FLASH_CASES = [
+    ("mha_hd32", 2, 128, 128, 8, 8, 32, True, 0),
+    ("gqa4_ragged_hd64", 2, 100, 100, 8, 2, 64, True, 0),
+    ("gqa8_hd128", 1, 77, 77, 16, 2, 128, True, 0),
+    ("hd96", 2, 64, 64, 4, 4, 96, True, 0),
+    ("sq_lt_skv", 2, 37, 150, 8, 2, 64, True, 0),
+    ("noncausal_sq_lt_skv", 1, 50, 90, 4, 1, 32, False, 0),
+    ("window48", 2, 200, 200, 8, 2, 64, True, 48),
+    ("window16_noncausal", 1, 64, 64, 4, 4, 32, False, 16),
+    ("window8_sq_lt_skv", 2, 13, 45, 8, 8, 32, True, 8),
+    ("qwen1.5_prefill", 8, 512, 512, 16, 16, 64, True, 0),
+    ("qwen2.5_prefill", 4, 1024, 1024, 16, 2, 128, True, 0),
+]
+# (label, B, Skv, H, KV, hd, [kv_len, ...]): kv_len in {1, mid, Skv}, ragged
+# Skv; "strided" reads one layer of a stacked [P, B, Skv, KV, hd] cache
+DECODE_CASES = [
+    ("qwen1.5_decode", 8, 544, 16, 16, 64, (1, 271, 544)),
+    ("qwen2.5_decode", 4, 1040, 16, 2, 128, (1, 519, 1040)),
+    ("ragged_hd32_g4", 2, 77, 8, 2, 32, (1, 40, 77)),
+    ("g8_hd96", 3, 100, 8, 1, 96, (1, 33, 100)),
+    ("strided", 2, 300, 8, 2, 64, (1, 150, 300)),
+]
+# (label, rows, D): ragged rows, the four widths, a width without 16-byte rows
+RMSNORM_CASES = [
+    ("d256", 37, 256), ("d1024_decode", 8, 1024), ("d1024_prefill", 4096, 1024),
+    ("d2048", 4099, 2048), ("d3072", 7, 3072), ("d100_scalar", 5, 100),
+]
+
+
+def lm_inputs(shape, dtype, device, seed):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=gen).to(dtype).to(device)
+
+
+def attn_close(out, want, v, dtype):
+    """(ok, max_abs_err): f32 within LM_TOL * max|v|; a bf16 output within
+    one bf16 ulp of the plain result plus that (both round an f32 sum)."""
+    import torch
+    o, p = out.float(), want.float()
+    err = float(torch.max(torch.abs(o - p)))
+    tol = LM_TOL * float(torch.max(torch.abs(v.float())))
+    if not bool(torch.isfinite(o).all()):
+        return False, float("inf")
+    if dtype == torch.float32:
+        return err <= tol, err
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(torch.abs(p), min=2.0 ** -126))) - 7)
+    return bool(torch.all(torch.abs(o - p) <= ulp + tol)), err
+
+
+def lm_kernel_phase(check: Check, device="cuda"):
+    """K5, K7 and K9 against their plain versions on the card, every case
+    in f32 and bf16. Returns the worst error per kernel."""
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for i, (label, B, Sq, Skv, H, KV, hd, causal, window) in enumerate(FLASH_CASES):
+            q = lm_inputs((B, Sq, H, hd), dtype, device, 3 * i)
+            k = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 1)
+            v = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 2)
+            before = fk.flash_attention_fwd.launches
+            out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window)
+            check(fk.flash_attention_fwd.launches == before + 1,
+                  f"flash_attention {label}/{dn}: not one launch")
+            want, want_lse = fk.flash_attention_plain(q, k, v, causal=causal,
+                                                      window=window, block_kv=64)
+            ok, err = attn_close(out, want, v, dtype)
+            lse_err = float(torch.max(torch.abs(lse - want_lse)))
+            lse_tol = LM_TOL * max(1.0, float(torch.max(torch.abs(want_lse))))
+            check(ok, f"flash_attention {label}/{dn}: max_abs_err {err}")
+            check(lse_err <= lse_tol, f"flash_attention {label}/{dn}: lse err "
+                  f"{lse_err} > {lse_tol}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+        for i, (label, B, Skv, H, KV, hd, lens) in enumerate(DECODE_CASES):
+            q = lm_inputs((B, 1, H, hd), dtype, device, 100 + 3 * i)
+            if label == "strided":
+                kc = lm_inputs((3, B, Skv, KV, hd), dtype, device, 101 + 3 * i)[1]
+                vc = lm_inputs((3, B, Skv, KV, hd), dtype, device, 102 + 3 * i)[1]
+            else:
+                kc = lm_inputs((B, Skv, KV, hd), dtype, device, 101 + 3 * i)
+                vc = lm_inputs((B, Skv, KV, hd), dtype, device, 102 + 3 * i)
+            for kv_len in lens:
+                before = dk.decode_attention.launches
+                out = dk.decode_attention(q, kc, vc, kv_len=kv_len)
+                check(dk.decode_attention.launches == before + 1,
+                      f"decode_attention {label}: not one launch")
+                want = dk.decode_attention_plain(q, kc, vc, kv_len=kv_len)
+                ok, err = attn_close(out, want, vc[:, :kv_len], dtype)
+                check(ok, f"decode_attention {label}/kv_len {kv_len}/{dn}: "
+                      f"max_abs_err {err}")
+                worst["decode_attention"] = max(worst["decode_attention"], err)
+        for i, (label, R, D) in enumerate(RMSNORM_CASES):
+            x = lm_inputs((R, D), dtype, device, 200 + i)
+            scale = (1.0 + 0.1 * lm_inputs((D,), torch.float32, device, 300 + i))
+            before = rk.rmsnorm.launches
+            out = rk.rmsnorm(x, scale)
+            check(rk.rmsnorm.launches == before + 1, f"rmsnorm {label}: not one launch")
+            want = rk.rmsnorm_plain(x, scale)
+            # the sum of D squares in another f32 order moves the norm by at
+            # most D/2 * 2^-24 relative (worst case), rsqrt and the products a
+            # few ulp more; a bf16 output adds one bf16 ulp (both round once)
+            o, p = out.float(), want.float()
+            err = float(torch.max(torch.abs(o - p)))
+            bound = (D / 2 + 4) * 2.0 ** -24 * torch.abs(p)
+            if dtype == torch.bfloat16:
+                bound = bound + torch.exp2(torch.floor(torch.log2(
+                    torch.clamp(torch.abs(p), min=2.0 ** -126))) - 7)
+            check(bool(torch.all(torch.abs(o - p) <= bound + 1e-30)),
+                  f"rmsnorm {label}/{dn}: max_abs_err {err}")
+            worst["rmsnorm"] = max(worst["rmsnorm"], err)
+    torch.cuda.synchronize()
+    print("LM kernel phase:", json.dumps(worst), flush=True)
+    return worst
+
+
+def graph_ms(fn, calls=20, reps=5) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    replayed ``reps`` times between two events. Unlike time_ms, the host's
+    cost per call (Python, the ctypes launch) is not in it: a decode-size
+    kernel takes less device time than its launch takes on the host."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
+
+
+def lm_row(fn, plain, library, bytes_, flops, peak_flops):
+    """ms, plain_ms and library_ms as device time (graph_ms), the kernel's
+    eager time with its host cost (time_ms), and the bound."""
+    t_b, t_o = bytes_ / H100_BYTES_PER_S, flops / peak_flops
+    return dict(ms=graph_ms(fn), eager_ms=time_ms(fn),
+                plain_ms=graph_ms(plain, calls=3, reps=3),
+                library_ms=graph_ms(library), bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def lm_timing_phase(device="cuda"):
+    """Each LM kernel at the slice's shapes (bf16, qwen1.5-0.5b's prefill
+    and last decode step; K5 and K7 also at qwen2.5-3b's), beside its plain
+    version, its bound and one PyTorch call of the same function timed
+    here only (scaled_dot_product_attention; rms_norm). Device times from
+    CUDA-graph replay; the kernel's eager time beside them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+    bf16 = torch.bfloat16
+    rows = {}
+    for label, B, S, H, KV, hd in (("qwen1.5_prefill", 8, 512, 16, 16, 64),
+                                   ("qwen2.5_prefill", 4, 1024, 16, 2, 128)):
+        q = lm_inputs((B, S, H, hd), bf16, device, 1)
+        k = lm_inputs((B, S, KV, hd), bf16, device, 2)
+        v = lm_inputs((B, S, KV, hd), bf16, device, 3)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        pairs = B * H * S * (S + 1) // 2            # visible (query, key) pairs
+        bytes_ = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd) + 4 * B * H * S
+        rows[label] = lm_row(
+            lambda: fk.flash_attention_fwd(q, k, v),
+            lambda: fk.flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=KV != H),
+            bytes_, 4.0 * hd * pairs, H100_BF16_FLOPS)
+    for label, B, Skv, H, KV, hd in (("qwen1.5_decode", 8, 544, 16, 16, 64),
+                                     ("qwen2.5_decode", 4, 1040, 16, 2, 128)):
+        q = lm_inputs((B, 1, H, hd), bf16, device, 4)
+        kc = lm_inputs((B, Skv, KV, hd), bf16, device, 5)
+        vc = lm_inputs((B, Skv, KV, hd), bf16, device, 6)
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        bytes_ = 2 * (2 * B * H * hd + 2 * B * Skv * KV * hd)
+        rows[label] = lm_row(
+            lambda: dk.decode_attention(q, kc, vc, kv_len=Skv),
+            lambda: dk.decode_attention_plain(q, kc, vc, kv_len=Skv),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=KV != H),
+            bytes_, 4.0 * B * H * Skv * hd, H100_BF16_FLOPS)
+    for label, R, D in (("qwen1.5_prefill_norm", 4096, 1024),
+                        ("qwen1.5_decode_norm", 8, 1024)):
+        x = lm_inputs((R, D), bf16, device, 7)
+        scale = torch.ones(D, device=device)
+        sb = scale.to(bf16)
+        rows[label] = lm_row(
+            lambda: rk.rmsnorm(x, scale), lambda: rk.rmsnorm_plain(x, scale),
+            lambda: F.rms_norm(x, (D,), sb, eps=1e-6),
+            2 * 2 * R * D + 4 * D, 4.0 * R * D, H100_F32_FLOPS)
+    for label, row in rows.items():
+        print("LM timing:", label, json.dumps(row), flush=True)
+    return rows
+
+
+# ------------------------------------------------------------- LM slices (d, e)
+LM_KERNELS = ("flash_attention", "decode_attention", "rmsnorm")
+
+
+def lm_counts():
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+    return {"flash_attention": fk.flash_attention_fwd.launches,
+            "decode_attention": dk.decode_attention.launches,
+            "rmsnorm": rk.rmsnorm.launches}
+
+
+def reset_lm_counts():
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+    fk.flash_attention_fwd.launches = 0
+    dk.decode_attention.launches = 0
+    rk.rmsnorm.launches = 0
+
+
+class Expected(dict):
+    """The LM launches a run should make: per full-sequence forward (train
+    or prefill) L flash-attention and 2L + 1 RMSNorm launches, per decode
+    step L decode-attention and 2L + 1 RMSNorm launches."""
+
+    def __init__(self):
+        super().__init__({k: 0 for k in LM_KERNELS})
+
+    def add(self, cfg, forwards=0, steps=0):
+        L = cfg.num_layers
+        self["flash_attention"] += L * forwards
+        self["decode_attention"] += L * steps
+        self["rmsnorm"] += (2 * L + 1) * (forwards + steps)
+
+
+def logits_trace(model, params, prompt, max_new):
+    """generate's calls one by one (prefill, pad_caches, decode_step), the
+    logits of each kept on the host: [prefill, step 0, ...]."""
+    import torch
+    from repro_torch.launch.serve import pad_caches
+    B, S = prompt.shape
+    caches, logits = model.prefill(params, {"tokens": prompt})
+    caches = pad_caches(model, caches, B, S + max_new)
+    out = [logits.float().cpu()]
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    for i in range(max_new):
+        logits, caches = model.decode_step(params, caches, tok, S + i)
+        out.append(logits.float().cpu())
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    return out
+
+
+SERVE_ATOL, SERVE_RTOL = 5e-4, 5e-3   # tests/test_serve.py's bound
+# smoke-size logits of two f32 runs of the same model (card vs CPU): about
+# ten chained f32 products of K <= 512 terms, each off by ~sqrt(K) 2^-24
+# relative in another summation order (~1.3e-5 in all), on logits of
+# magnitude ~1
+PARITY_ATOL = 2e-5
+
+
+def decision_gap(trace):
+    """The smallest top-1 / top-2 gap over the logits generate turns into
+    tokens (all but the last step's)."""
+    import torch
+    gaps = []
+    for logits in trace[:-1]:
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        gaps.append(float(torch.min(top[..., 0] - top[..., 1])))
+    return min(gaps)
+
+
+def slice_d(check: Check, expected: Expected, device="cuda"):
+    """Smoke-size parity on the card against the same port code on the
+    CPU: qwen1.5-0.5b and qwen2.5-3b smoke configs (f32), and qwen1.5-0.5b
+    with sliding_window 8 and a 13-token prompt (prefill past the window,
+    the ring roll). Prefill and every decode step's logits within
+    PARITY_ATOL of the CPU run; greedy tokens equal, after asserting that
+    every token decision's top-1 / top-2 gap on the CPU exceeds twice that;
+    the scheduler's tokens (teacher-forced through decode steps) equal
+    generate's (prefill, then decode), guarded the same way."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model
+    from repro_torch.serving import BatchScheduler, Request
+    out = {}
+    runs = [("qwen1.5-0.5b", {}, 2, 12, 6), ("qwen2.5-3b", {}, 2, 12, 6),
+            ("qwen1.5-0.5b", dict(sliding_window=8), 1, 13, 4)]
+    for arch, knobs, B, S, new in runs:
+        cfg = get_smoke(arch).replace(**knobs)
+        model = get_model(cfg)
+        name = f"slice (d) {arch}" + (" window 8" if knobs else "")
+        p_cpu = model.init(prng.PRNGKey(0), device="cpu")
+        p_dev = model.init(prng.PRNGKey(0), device=device)
+        prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size)
+        cpu = logits_trace(model, p_cpu, prompt, new)
+        dev = logits_trace(model, p_dev, prompt.to(device), new)
+        expected.add(cfg, forwards=1, steps=new)
+        err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(dev, cpu))
+        check(err <= PARITY_ATOL, f"{name}: logits off the CPU run by {err}")
+        gap = decision_gap(cpu)
+        check(gap > 2 * PARITY_ATOL, f"{name}: top-2 gap {gap} too small to "
+              "compare tokens exactly")
+        t_cpu = generate(model, p_cpu, prompt, new, device="cpu")
+        t_dev = generate(model, p_dev, prompt, new, device=device)
+        expected.add(cfg, forwards=1, steps=new)
+        same = bool(torch.equal(t_dev.cpu(), t_cpu))
+        check(same, f"{name}: greedy tokens differ from the CPU run")
+        row = dict(max_logits_err=err, top2_gap=gap, tokens_equal=same)
+        if not knobs:
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                       for n in (5, 9, 9, 7)]
+            sched = BatchScheduler(model, p_dev, batch_slots=2, max_len=32,
+                                   device=device)
+            for i, p in enumerate(prompts):
+                sched.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+            done = {r.rid: r for r in sched.run()}
+            expected.add(cfg, steps=sched.ticks)
+            same, gap = True, float("inf")
+            for i, p in enumerate(prompts):
+                tp = torch.as_tensor(p)[None]
+                gap = min(gap, decision_gap(logits_trace(model, p_cpu, tp, 6)))
+                want = generate(model, p_dev, tp, 6, device=device)
+                expected.add(cfg, forwards=1, steps=6)
+                same &= bool(np.array_equal(np.asarray(done[i].out_tokens),
+                                            want[0, len(p):].cpu().numpy()))
+            check(gap > 2 * PARITY_ATOL, f"{name} scheduler: top-2 gap {gap} "
+                  "too small to compare tokens exactly")
+            check(same, f"{name}: scheduler tokens differ from generate's")
+            row.update(scheduler_ticks=sched.ticks, scheduler_equal=same,
+                       scheduler_top2_gap=gap)
+        out[name] = row
+        print(f"{name}:", json.dumps(row), flush=True)
+    return out
+
+
+def sync_time(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def serve_run(check: Check, expected: Expected, cfg, params, B, S, new, label,
+              device="cuda"):
+    """At full width: one warm-up generate, then prefill and the decode
+    steps timed one phase at a time (generate's own calls), then generate
+    end to end. Returns prefill s and tokens/s, decode ms/step and
+    tokens/s, generate s, and the peak GB."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.launch.serve import generate, pad_caches
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size).to(device)
+    generate(model, params, prompt[:, :64], 2, device=device)       # warm-up
+    expected.add(cfg, forwards=1, steps=2)
+    torch.cuda.reset_peak_memory_stats()
+    (caches, logits), t_pre = sync_time(lambda: model.prefill(params, {"tokens": prompt}))
+    caches = pad_caches(model, caches, B, S + new)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    def decode():
+        nonlocal caches, tok
+        for i in range(new):
+            lg, caches = model.decode_step(params, caches, tok, S + i)
+            tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+        return lg
+    last, t_dec = sync_time(decode)
+    expected.add(cfg, forwards=1, steps=new)
+    toks, t_gen = sync_time(lambda: generate(model, params, prompt, new, device=device))
+    expected.add(cfg, forwards=1, steps=new)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ok = (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(last).all())
+          and tuple(toks.shape) == (B, S + new)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
+    check(ok, f"slice (e) {label}: non-finite logits or tokens out of range")
+    row = dict(batch=B, prompt=S, new_tokens=new, prefill_s=t_pre,
+               prefill_tokens_per_s=B * S / t_pre, decode_ms_per_step=1e3 * t_dec / new,
+               decode_tokens_per_s=B * new / t_dec, generate_s=t_gen, peak_gb=peak)
+    print(f"slice (e) {label}:", json.dumps(row), flush=True)
+    return row
+
+
+def teacher_forced_check(check: Check, expected: Expected, cfg, params,
+                         device="cuda", B=2, S=64, S2=72):
+    """qwen1.5-0.5b at full width in f32 (params shared with the bf16
+    runs): prefill's last logits and each decode step's logits against
+    forward(mode="train") logits on the same tokens, within
+    tests/test_serve.py's atol 5e-4 + rtol 5e-3. Both sides are f32 on the
+    card and differ only in summation order (K5 over the whole sequence vs
+    K7 over the cache, and the product shapes); over 24 layers that is of
+    order 24 x 2^-24 x sqrt(d_ff) ~ 1e-4 relative, below the bound. This
+    holds K7 against the K5 path at full width."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as T
+    cfg = cfg.replace(compute_dtype="float32")
+    model = get_model(cfg)
+    toks = prng.randint(prng.PRNGKey(2), (B, S2), 0, cfg.vocab_size).to(device)
+    hidden, _, _ = T.forward(params, toks, cfg, mode="train")
+    expected.add(cfg, forwards=1)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    ref = hidden.float() @ w.float()
+    caches, logits = model.prefill(params, {"tokens": toks[:, :S]})
+    caches = pad_caches(model, caches, B, S2)
+    got = [(S - 1, logits)]
+    for t in range(S, S2):
+        logits, caches = model.decode_step(params, caches, toks[:, t:t + 1], t)
+        got.append((t, logits))
+    expected.add(cfg, forwards=1, steps=S2 - S)
+    errs = [float(torch.max(torch.abs(lg - ref[:, t]))) for t, lg in got]
+    ok = all(bool(torch.all(torch.abs(lg - ref[:, t])
+                            <= SERVE_ATOL + SERVE_RTOL * torch.abs(ref[:, t])))
+             for t, lg in got)
+    check(ok, f"slice (e) f32 teacher-forced: logits off by {max(errs)}")
+    row = dict(max_abs_err=max(errs), logits_max=float(ref.abs().max()),
+               steps=len(got))
+    print("slice (e) qwen1.5-0.5b f32 teacher-forced:", json.dumps(row), flush=True)
+    return row
+
+
+def slice_e(check: Check, expected: Expected, device="cuda"):
+    """Full width, random init from PRNGKey(0) drawn on the card:
+    qwen1.5-0.5b at its own dtypes (f32 params, bf16 compute) through
+    generate (B 8, prompt 512, 32 new) and a BatchScheduler (8 slots,
+    max_len 320, 16 requests of 16-256 prompt tokens, 32 new each), the
+    f32 teacher-forced check, then qwen2.5-3b through generate (B 4,
+    prompt 1024, 16 new)."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import BatchScheduler, Request
+    from repro_torch.utils import param_count
+    out = {}
+    cfg = get_config("qwen1.5-0.5b")
+    model = get_model(cfg)
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    out["qwen1.5-0.5b"] = dict(params=param_count(params), init_s=t_init)
+    out["qwen1.5-0.5b"]["generate"] = serve_run(check, expected, cfg, params,
+                                                8, 512, 32, "qwen1.5-0.5b", device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=int(n)).astype(np.int32),
+                    max_new_tokens=32)
+            for i, n in enumerate(rng.integers(16, 257, size=16))]
+    sched = BatchScheduler(model, params, batch_slots=8, max_len=320, device=device)
+    for r in reqs:
+        sched.submit(r)
+    done, secs = sync_time(sched.run)
+    expected.add(cfg, steps=sched.ticks)
+    n_out = sum(len(r.out_tokens) for r in done)
+    ok = (len(done) == 16 and all(len(r.out_tokens) == 32 for r in done)
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens))
+    check(ok, "slice (e) scheduler: requests unfinished or tokens out of range")
+    fed = sum(len(r.prompt) for r in reqs) + n_out
+    out["qwen1.5-0.5b"]["scheduler"] = dict(
+        requests=len(done), ticks=sched.ticks, seconds=secs,
+        ms_per_tick=1e3 * secs / sched.ticks, generated_tokens_per_s=n_out / secs,
+        fed_and_generated_tokens_per_s=fed / secs)
+    print("slice (e) qwen1.5-0.5b scheduler:",
+          json.dumps(out["qwen1.5-0.5b"]["scheduler"]), flush=True)
+    out["qwen1.5-0.5b"]["f32_teacher_forced"] = teacher_forced_check(
+        check, expected, cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2.5-3b")
+    model = get_model(cfg)
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    out["qwen2.5-3b"] = dict(params=param_count(params), init_s=t_init)
+    out["qwen2.5-3b"]["generate"] = serve_run(check, expected, cfg, params,
+                                              4, 1024, 16, "qwen2.5-3b", device)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -813,6 +1335,8 @@ def main() -> int:
     verrs = variant_phase(check)
     timings = timing_phase()
     vtimings = variant_timing_phase()
+    lm_errs = lm_kernel_phase(check)
+    lm_times = lm_timing_phase()
 
     # count only the main path from here: slices (a), (b) and (c)
     fk.fedagg.launches = 0
@@ -850,6 +1374,35 @@ def main() -> int:
     expected = 2 * 4 + 6 + len(PARITY_AGG) * 2 * 6 + 1 + 3 + len(SLICE_C) * 3
     check(launches == expected, f"main path: {launches} fedagg launches, "
           f"expected {expected}")
+
+    # the LM serving path: slices (d) and (e), counted on their own
+    reset_lm_counts()
+    lm_expected = Expected()
+    d = slice_d(check, lm_expected)
+    e = slice_e(check, lm_expected)
+    lm_launches = lm_counts()
+    print("LM main path launches:", json.dumps(lm_launches), "expected:",
+          json.dumps(lm_expected), flush=True)
+    for name, replaces, row in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:186",
+             "qwen1.5_prefill"),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:58",
+             "qwen1.5_decode"),
+            ("rmsnorm", "src/repro/kernels/rmsnorm.py:24",
+             "qwen1.5_prefill_norm")):
+        n = lm_launches[name]
+        check(n > 0, f"main path: kernel {name} was never launched")
+        check(n == lm_expected[name], f"main path: {n} {name} launches, "
+              f"expected {lm_expected[name]}")
+        t = lm_times[row]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": lm_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": row})
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -859,7 +1412,8 @@ def main() -> int:
         "a": a, "a_aggregators": {k: v["launches"] for k, v in a_agg.items()},
         "b": {k: b[k] for k in ("seconds_per_round", "launches", "M")},
         "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
-              for k, v in c.items()}}))
+              for k, v in c.items()},
+        "d": d, "e": e}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

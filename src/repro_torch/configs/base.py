@@ -1,15 +1,152 @@
-"""Federation configuration: a mirror of ``repro.configs.base.FedConfig``.
+"""Configuration dataclasses: mirrors of ``repro.configs.base.ModelConfig``
+and ``FedConfig``.
 
 Every field name and default equals the reference's, so one config means
 the same run in both packages (a test pins this). Knobs whose subsystem the
-port has not reached yet are kept for that parity; ``validate_config``
-refuses them with ``NotImplementedError`` naming the knob, never by
-silently running something else.
+port has not reached yet are kept for that parity; ``validate_config`` (for
+a federation) and ``models.transformer.check_model_config`` (for an LM)
+refuse them with ``NotImplementedError`` naming the knob, never by silently
+running something else.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """An LM architecture and its execution knobs. See the reference's
+    field comments for the full semantics; ``pdtype`` and ``cdtype`` are
+    torch dtypes here."""
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+
+    # --- attention options -------------------------------------------------
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0           # 0 = full attention
+    causal: bool = True
+
+    # --- MLA (not ported) ----------------------------------------------------
+    mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- MoE (not ported) ----------------------------------------------------
+    moe: bool = False
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    moe_every: int = 1
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # --- layer pattern ("attn" ported; "jamba", "xlstm" not) -----------------
+    pattern: str = "attn"
+    first_dense: int = 0
+
+    # --- SSM (mamba, not ported) -----------------------------------------------
+    ssm_state_dim: int = 16
+    ssm_conv_dim: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0              # 0 -> ceil(d_model/16)
+    ssm_chunk: int = 256
+
+    # --- xLSTM (not ported) ------------------------------------------------------
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+
+    # --- encoder/decoder (whisper, not ported) -------------------------------
+    encdec: bool = False
+    encoder_layers: int = 0
+    num_frames: int = 1500
+
+    # --- VLM (llava, not ported) -----------------------------------------------
+    vlm: bool = False
+    num_image_tokens: int = 0
+
+    # --- numerics --------------------------------------------------------------
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    tie_embeddings: bool = True
+
+    # --- execution knobs ---------------------------------------------------------
+    attn_block_q: int = 512           # unused by the port's kernels
+    attn_block_kv: int = 1024         # kv block of the plain flash attention
+    loss_chunk: int = 512
+    remat: bool = True                # no effect on serving
+    remat_policy: str = "full"
+    use_pallas: bool = False          # never read: the route follows the device
+    seq_shard_attn: bool = False      # not ported
+    attn_bf16: bool = False           # not ported
+    expert_parallel: bool = False
+    dp_axes: tuple = ("data",)
+
+    # --- citation / provenance ------------------------------------------------
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.ssm_dt_rank == 0:
+            object.__setattr__(self, "ssm_dt_rank", -(-self.d_model // 16))
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    @property
+    def period(self) -> int:
+        return {"attn": 1, "jamba": 8, "xlstm": 2}[self.pattern]
+
+    @property
+    def n_periods(self) -> int:
+        n = self.num_layers - self.first_dense
+        if n % self.period:
+            raise ValueError(f"{self.name}: {self.num_layers} layers minus "
+                             f"{self.first_dense} dense ones is not a "
+                             f"multiple of the period {self.period}")
+        return n // self.period
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    def layer_kinds(self) -> list[dict]:
+        """Blocks of one period, in order. kind: mixer + ffn type."""
+        if self.pattern == "attn":
+            return [{"mixer": "attn", "ffn": "moe" if self.moe else "dense"}]
+        if self.pattern == "jamba":
+            return [{"mixer": "attn" if i == 0 else "mamba",
+                     "ffn": "moe" if (self.moe and i % self.moe_every
+                                      == self.moe_offset) else "dense"}
+                    for i in range(8)]
+        if self.pattern == "xlstm":
+            return [{"mixer": "mlstm", "ffn": "none"},
+                    {"mixer": "slstm", "ffn": "none"}]
+        raise ValueError(self.pattern)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

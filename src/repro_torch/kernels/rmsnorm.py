@@ -1,0 +1,91 @@
+"""Row-wise RMSNorm on Hopper: ``x * rsqrt(mean(x^2) + eps) * scale``.
+
+* ``rmsnorm`` — the wrapper. On CUDA tensors it launches the hand-written
+  kernel ``csrc/rmsnorm.cu`` (built with nvcc for sm_90a, bound with
+  ctypes) or raises; it takes the plain version only because its input lies
+  on the CPU. ``rmsnorm.launches`` counts kernel launches.
+* ``rmsnorm_plain`` — the same function in plain PyTorch, the twin of the
+  reference's ``repro/models/layers.py:rmsnorm`` (and of
+  ``kernels/ops.py:_rmsnorm_jnp`` and ``kernels/ref.py:rmsnorm_ref``): f32
+  inside, the mean of squares over the last axis, one rounding to x's
+  dtype.
+
+The kernel replaces the TPU kernel ``repro/kernels/rmsnorm.py:
+rmsnorm_pallas``. The reference left that kernel unwired; the port's models
+call this one for every norm (``models/layers.py:rmsnorm``). What bounds it
+and what its design does about it is noted at the top of the source.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _bind():
+    lib = build.load("rmsnorm")
+    fn = lib.rmsnorm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
+        lib.rmsnorm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
+    """x: [..., D] float32 or bfloat16, contiguous; scale: [D] float32 or
+    bfloat16 on the same device. Returns x's shape and dtype."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"rmsnorm: unsupported device {dev}")
+    if x.dtype not in _DTYPE_CODE or scale.dtype not in _DTYPE_CODE:
+        raise TypeError(f"rmsnorm: x and scale must be float32 or bfloat16, "
+                        f"got {x.dtype} and {scale.dtype}")
+    D = x.shape[-1]
+    if scale.device != dev or tuple(scale.shape) != (D,) \
+            or not scale.is_contiguous():
+        raise ValueError(f"rmsnorm: scale must be a contiguous [{D}] vector "
+                         f"on {dev}, got {tuple(scale.shape)} on "
+                         f"{scale.device}")
+    if not x.is_contiguous():
+        raise ValueError("rmsnorm: x must be contiguous")
+    out = torch.empty_like(x)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return out
+    wide = 4 if x.dtype == torch.float32 else 8
+    aligned = (D % wide == 0 and not x.data_ptr() % 16
+               and not out.data_ptr() % 16
+               and not scale.data_ptr() % (wide * scale.element_size()))
+    lib = _bind()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(),
+                                 out.data_ptr(), rows, D, float(eps),
+                                 _DTYPE_CODE[x.dtype],
+                                 _DTYPE_CODE[scale.dtype],
+                                 wide if aligned else 1, stream)
+    if err != 0:
+        raise RuntimeError("rmsnorm kernel launch failed: "
+                           + lib.rmsnorm_error_string(err).decode())
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0

@@ -17,6 +17,9 @@ on: a key is a pair of uint32 words, and every derived stream hashes a
   ``erf_inv`` polynomial (M. Giles' approximation, the constants and the
   Horner order of XLA's lowering). It is not bit-exact: ``log1p`` is the
   host library's, not XLA's; the tests state the ulp bound.
+* ``truncated_normal`` is ``sqrt(2) * erf_inv(uniform(erf(lo/sqrt2),
+  erf(hi/sqrt2)))`` clipped inside the bounds, as jax draws it, with the
+  same erf_inv (so the same ulp bound).
 
 The FedALIGN round needs these to match the reference exactly: local SGD
 draws its minibatch order from ``permutation``, and the inclusion gates can
@@ -124,10 +127,14 @@ def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
     23 bits fill the mantissa of a float in [1, 2), minus 1, scaled."""
     if isinstance(shape, int):
         shape = (shape,)
-    fb = (bits(key, tuple(shape)) >> 9) | 0x3F800000
+    return _uniform_from_bits(bits(key, tuple(shape)), minval, maxval)
+
+
+def _uniform_from_bits(b: torch.Tensor, minval, maxval) -> torch.Tensor:
+    fb = (b >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
     # XLA fuses the scale and shift into one multiply-add; the f32 product
     # is exact in f64, so one f64 step rounded to f32 is that fma
     scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
@@ -203,3 +210,44 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     of jax's draw, not bit-exact (see the module note)."""
     u = uniform(key, shape, _NEXT_ABOVE_MINUS_ONE, 1.0)
     return _SQRT2_F32 * erf_inv(u)
+
+
+_TRUNC_CHUNK = 1 << 24        # draws per pass: bounds the int64 temporaries
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``
+    for one key ``[2]`` and host-scalar bounds: ``u`` uniform between
+    ``erf(lower / sqrt2)`` and ``erf(upper / sqrt2)``, ``sqrt2 * erf_inv(u)``,
+    clipped to the open interval (``nextafter`` of each bound inwards).
+
+    The bounds' erf is taken in f64 and rounded to f32 (XLA's f32 erf gives
+    the same value at the init's +-2; the tests pin it). The draw runs over
+    the flat index in chunks of ``_TRUNC_CHUNK``, so a 300M-entry embedding
+    table needs no more than a few hundred MB of scratch; the bits are the
+    same as one pass over the whole shape."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    shape = tuple(int(s) for s in shape)
+    if key.shape != (2,):
+        raise ValueError(f"truncated_normal takes one key [2], got "
+                         f"{tuple(key.shape)}")
+    f32 = torch.float32
+    lo32 = torch.tensor(lower, dtype=f32)
+    hi32 = torch.tensor(upper, dtype=f32)
+    sqrt2 = torch.tensor(_SQRT2_F32, dtype=f32)
+    a = float(torch.tensor(math.erf(float(lo32 / sqrt2)), dtype=f32))
+    b = float(torch.tensor(math.erf(float(hi32 / sqrt2)), dtype=f32))
+    clip_lo = float(torch.nextafter(lo32, torch.tensor(math.inf)))
+    clip_hi = float(torch.nextafter(hi32, torch.tensor(-math.inf)))
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=f32, device=key.device)
+    k0, k1 = key[0], key[1]
+    for start in range(0, n, _TRUNC_CHUNK):
+        stop = min(n, start + _TRUNC_CHUNK)
+        iota = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+        y0, y1 = threefry2x32(k0, k1, iota >> 32, iota & _MASK)
+        u = _uniform_from_bits(y0 ^ y1, a, b)
+        out[start:stop] = torch.clamp(_SQRT2_F32 * erf_inv(u), clip_lo, clip_hi)
+    return out.reshape(shape)

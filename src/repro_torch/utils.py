@@ -1,10 +1,12 @@
 """Small shared utilities: the Registry, tree math on nested dicts of
 tensors, named PRNG sub-keys, parameter counting and device resolution.
 
-Counterpart of ``repro/utils.py``. A "tree" here is a tensor or a (nested)
-dict of tensors; leaves are visited in sorted-key order, the order
-``jax.tree.leaves`` uses for dicts, so flattening a tree gives the same
-layout in both packages.
+Counterpart of ``repro/utils.py``. A "tree" here is a tensor or a nested
+dict, list or tuple of trees; dict leaves are visited in sorted-key order
+and list and tuple items in order, the order ``jax.tree.leaves`` uses, so
+flattening a tree gives the same layout in both packages. An empty list or
+tuple holds no leaves (the LM's ``pre_blocks: []``, a disabled feature's
+``()``).
 """
 from __future__ import annotations
 
@@ -77,28 +79,34 @@ def resolve_device(device="cuda") -> torch.device:
 
 # ---------------------------------------------------------------- tree math
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` leafwise over dicts with identical key sets."""
+    """Apply ``fn`` leafwise over trees of the same structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (tuple, list)) and not tree:
-        return []
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
 def tree_unflatten_like(like: Tree, leaves: list) -> Tree:
-    """Rebuild a tree shaped like ``like`` from leaves in sorted-key order."""
+    """Rebuild a tree shaped like ``like`` from leaves in
+    ``tree_leaves`` order."""
     it = iter(leaves)
 
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
         return next(it)
 
     out = build(like)

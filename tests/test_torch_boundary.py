@@ -12,16 +12,34 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs.base import FedConfig as JaxFedConfig  # noqa: E402
-from repro_torch.configs.base import FedConfig, validate_config  # noqa: E402
+from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
+from repro_torch import prng  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.configs.base import FedConfig, ModelConfig, validate_config  # noqa: E402
 from repro_torch.core import aggregation  # noqa: E402
 from repro_torch.data.synth import make_synth_federation  # noqa: E402
 from repro_torch.fl import engine  # noqa: E402
 from repro_torch.fl.simulator import run_federation  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.small import SMALL_MODELS, make_loss_fn  # noqa: E402
+from repro_torch.serving import BatchScheduler  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-size tensors, where torch's intra-op thread pool costs more
+    than it saves, badly so with several test workers on the host's cores:
+    one thread for the module, the previous count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _port_files():
@@ -158,3 +176,79 @@ def test_ported_registries_hold_only_the_slice():
         "identity", "int8", "sketch", "topk"]
     assert aggregation.SERVER_OPTIMIZERS.names() == ["sgd"]
     assert aggregation.resolve_server_opt("none") == "sgd"
+
+
+# ------------------------------------------------------------ the LM slice
+def test_import_walk_covers_the_lm_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"configs/qwen1_5_0_5b.py", "configs/qwen2_5_3b.py",
+            "configs/phi3_mini_3_8b.py", "kernels/flash_attention.py",
+            "kernels/decode_attention.py", "kernels/rmsnorm.py",
+            "models/layers.py", "models/attention.py", "models/transformer.py",
+            "models/registry.py", "launch/serve.py",
+            "serving/scheduler.py"} <= names
+
+
+def test_model_config_mirrors_reference_fields_and_defaults():
+    ref = [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)]
+    port = [(f.name, f.default) for f in dataclasses.fields(ModelConfig)]
+    assert port == ref
+
+
+def test_lm_entry_points_refuse_to_run_on_cpu_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    cfg = get_smoke("qwen1.5-0.5b")
+    model = get_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(prng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.make_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    params = {"embed": torch.zeros(cfg.vocab_size, cfg.d_model)}   # on the CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.generate(model, params, torch.zeros(1, 4, dtype=torch.int32), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchScheduler(model, params, batch_slots=1, max_len=8)
+
+
+def test_serve_main_runs_on_the_cpu_when_asked(capsys):
+    toks = serve.main(["--batch", "2", "--prompt-len", "5", "--gen", "3",
+                       "--device", "cpu"])
+    assert toks.shape == (2, 8)
+    assert "generated 2x3 tokens" in capsys.readouterr().out
+
+
+OUT_OF_SLICE_LM = [("mla", True), ("moe", True), ("pattern", "jamba"),
+                   ("pattern", "xlstm"), ("first_dense", 1), ("encdec", True),
+                   ("vlm", True), ("attn_bf16", True), ("seq_shard_attn", True)]
+
+
+@pytest.mark.parametrize("knob,value", OUT_OF_SLICE_LM,
+                         ids=[f"{k}={v}" for k, v in OUT_OF_SLICE_LM])
+def test_out_of_slice_lm_knob_raises(knob, value):
+    cfg = get_smoke("qwen1.5-0.5b").replace(**{knob: value})
+    with pytest.raises(NotImplementedError, match=knob):
+        get_model(cfg)
+    with pytest.raises(NotImplementedError, match=knob):
+        transformer.init(prng.PRNGKey(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=knob):
+        transformer.make_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "jamba-1.5-large-398b",
+                                  "minicpm3_4b", "whisper-medium", "xlstm-125m",
+                                  "deepseek-moe-16b", "granite-moe-3b-a800m"])
+def test_unported_arch_raises(arch):
+    with pytest.raises(NotImplementedError, match="A16"):
+        get_config(arch)
+    with pytest.raises(NotImplementedError, match="A16"):
+        get_smoke(arch)
+
+
+def test_loss_fn_waits_for_the_training_slice():
+    model = get_model(get_smoke("qwen2.5-3b"))
+    with pytest.raises(NotImplementedError, match="training"):
+        model.loss_fn({}, {})
