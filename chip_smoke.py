@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedALIGN round end to
 end through the hand-written fedagg kernel, under every aggregator and wire
-codec, and LM serving (prefill + decode of the dense GQA models) through the
-hand-written flash-attention, decode-attention and RMSNorm kernels.
+codec; LM serving (prefill + decode of the dense GQA models) through the
+hand-written flash-attention, decode-attention and RMSNorm kernels; and
+federated LM training (the spatial round over the dense GQA models) through
+the flash-attention forward and backward, RMSNorm and fedagg kernels.
 
     python3 chip_smoke.py
 
@@ -10,7 +12,8 @@ Phases, in the order they run, each of which fails the run (non-zero exit)
 if a check fails:
 
 1. the card's name and power limit (nvidia-smi); the CUDA kernels are
-   built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+   built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
+   nvcc per source, all started together;
 2. kernel phase: ``fedagg`` (the CUDA kernel) against ``fedagg_plain`` on
    the card: mean + identity (f32, bf16) on the reference's edge cases,
    then every reducer (mean, dp, trimmed_mean, median) x wire (identity
@@ -21,7 +24,11 @@ if a check fails:
    attention (K7) and RMSNorm (K9) against their plain versions on the
    card over causal / windowed / ragged / grouped cases in f32 and bf16,
    then each timed at the serving path's shapes beside the plain version,
-   its bound and a PyTorch yardstick (timed here only);
+   its bound and a PyTorch yardstick (timed here only); then the
+   flash-attention backward (K6) against its plain version over the same
+   cases, the FlashAttention and RMSNorm Functions' gradients on the card
+   against the CPU, and K6 timed at the training shapes beside the plain
+   version, its bound and scaled_dot_product_attention's backward;
 4. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
    few rounds on both backends, held against the same run on the CPU; and
    its shortened parity config under cosine_filter and slice (c)'s three
@@ -37,11 +44,22 @@ if a check fails:
 8. slice (e): full width with random init: qwen1.5-0.5b through generate
    (B 8, prompt 512, 32 new) and a BatchScheduler (16 requests), its f32
    teacher-forced check (prefill + decode vs the train-mode forward), and
-   qwen2.5-3b through generate (B 4, prompt 1024, 16 new).
+   qwen2.5-3b through generate (B 4, prompt 1024, 16 new);
+9. slice (f1): federated LM training at smoke size (qwen1.5-0.5b,
+   qwen2.5-3b, and qwen1.5-0.5b with a sliding window) through
+   ``launch.train.run`` on the card against the same code on the CPU:
+   gates, losses, params, and one loss_fn gradient leaf for leaf;
+10. slice (f2): full-width qwen1.5-0.5b federated training (8 clients,
+   8 x 512 tokens each, E = 2, remat, 1 + 2 rounds) and an f32 gradient
+   of the kernels against the plain versions on the card. Not run:
+   qwen2.5-3b federated training at full width: its f32 client copies are
+   12.4 GB each, and the stacked copies, their delta tree and the copying
+   [C, M_total] flatten exceed the card (the temporal round, ROADMAP A17).
 
-The fedagg launches of slices (a)-(c) and the LM launches of slices (d)-(e)
-are each counted from zero just before their slices, and the LM counts must
-equal what the slices' forwards and decode steps imply.
+The fedagg launches of slices (a)-(c), the LM launches of slices (d)-(e)
+and the training launches of slice (f) are each counted from zero just
+before their slices and must equal what the slices' rounds, forwards,
+gradients and decode steps imply.
 
 It ends with a JSON line of the kernels (launch counts from the slice
 phases, errors and times from this run) and, last, the ok line. It needs
@@ -53,6 +71,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -908,9 +927,9 @@ def lm_kernel_phase(check: Check, device="cuda"):
         for i, (label, R, D) in enumerate(RMSNORM_CASES):
             x = lm_inputs((R, D), dtype, device, 200 + i)
             scale = (1.0 + 0.1 * lm_inputs((D,), torch.float32, device, 300 + i))
-            before = rk.rmsnorm.launches
-            out = rk.rmsnorm(x, scale)
-            check(rk.rmsnorm.launches == before + 1, f"rmsnorm {label}: not one launch")
+            before = rk.rmsnorm_fwd.launches
+            out = rk.rmsnorm_fwd(x, scale)
+            check(rk.rmsnorm_fwd.launches == before + 1, f"rmsnorm {label}: not one launch")
             want = rk.rmsnorm_plain(x, scale)
             # the sum of D squares in another f32 order moves the norm by at
             # most D/2 * 2^-24 relative (worst case), rsqrt and the products a
@@ -1008,7 +1027,7 @@ def lm_timing_phase(device="cuda"):
         scale = torch.ones(D, device=device)
         sb = scale.to(bf16)
         rows[label] = lm_row(
-            lambda: rk.rmsnorm(x, scale), lambda: rk.rmsnorm_plain(x, scale),
+            lambda: rk.rmsnorm_fwd(x, scale), lambda: rk.rmsnorm_plain(x, scale),
             lambda: F.rms_norm(x, (D,), sb, eps=1e-6),
             2 * 2 * R * D + 4 * D, 4.0 * R * D, H100_F32_FLOPS)
     for label, row in rows.items():
@@ -1026,7 +1045,7 @@ def lm_counts():
     from repro_torch.kernels import rmsnorm as rk
     return {"flash_attention": fk.flash_attention_fwd.launches,
             "decode_attention": dk.decode_attention.launches,
-            "rmsnorm": rk.rmsnorm.launches}
+            "rmsnorm": rk.rmsnorm_fwd.launches}
 
 
 def reset_lm_counts():
@@ -1035,7 +1054,7 @@ def reset_lm_counts():
     from repro_torch.kernels import rmsnorm as rk
     fk.flash_attention_fwd.launches = 0
     dk.decode_attention.launches = 0
-    rk.rmsnorm.launches = 0
+    rk.rmsnorm_fwd.launches = 0
 
 
 class Expected(dict):
@@ -1304,6 +1323,372 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
     return out
 
 
+# ----------------------------------------------- K6 and the training slice (f)
+# (label, B, Sq, Skv, H, KV, hd, causal, window): FLASH_CASES plus the
+# training shapes (qwen1.5-0.5b's 8 x 512 and qwen2.5-3b's 4 x 1024 are in it)
+def bwd_close(got, want, dtype):
+    """(ok, max_abs_err) of one gradient: f32 within LM_TOL * max|want|; a
+    bf16 gradient within one bf16 ulp of the plain result plus that (both
+    round the same f32 sums, taken in another order)."""
+    import torch
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return False, float("inf")
+    diff = torch.abs(g - w)
+    tol = LM_TOL * float(torch.max(torch.abs(w)))
+    if dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            torch.clamp(torch.abs(w), min=2.0 ** -126))) - 7)
+    return bool(torch.all(diff <= tol)), float(torch.max(diff))
+
+
+def lm_bwd_phase(check: Check, device="cuda"):
+    """K6 against flash_attention_bwd_plain on the card over FLASH_CASES
+    (hd 32-128, G 1/4/8, windows, ragged S, Sq < Skv, the training shapes),
+    f32 and bf16, both fed the forward kernel's out and lse; then the
+    FlashAttention and RMSNorm Functions' gradients on the card against the
+    same Functions on the CPU. Returns the worst K6 error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for i, (label, B, Sq, Skv, H, KV, hd, causal, window) in enumerate(FLASH_CASES):
+            q = lm_inputs((B, Sq, H, hd), dtype, device, 3 * i)
+            k = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 1)
+            v = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 2)
+            do = lm_inputs((B, Sq, H, hd), dtype, device, 500 + i)
+            out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window)
+            before = fk.flash_attention_bwd.launches
+            got = fk.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                         window=window)
+            check(fk.flash_attention_bwd.launches == before + 1,
+                  f"flash_attention_bwd {label}/{dn}: not one launch")
+            want = fk.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal=causal, window=window)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                ok, err = bwd_close(g, w, dtype)
+                check(ok and g.dtype == dtype, f"flash_attention_bwd "
+                      f"{label}/{dn} {name}: max_abs_err {err}")
+                worst = max(worst, err)
+            del q, k, v, do, out, lse, got, want
+        # the two Functions: gradients on the card against the CPU; in bf16
+        # the attention's against the CPU's backward fed the card's forward
+        # output (K5 and the plain forward may round an element of the bf16
+        # output one ulp apart, and delta = rowsum(dO * O) reads it)
+        B, S, H, KV, hd, window = 2, 77, 8, 2, 64, 24
+        q, k, v, do = (lm_inputs(shape, dtype, "cpu", 600 + j) for j, shape in
+                       enumerate(((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                                  (B, S, H, hd))))
+        x, gx = lm_inputs((37, 256), dtype, "cpu", 610), lm_inputs((37, 256), dtype, "cpu", 611)
+        scale = torch.linspace(0.5, 1.5, 256)
+        grads = []
+        for dev in ("cpu", device):
+            leaves = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+            ga = torch.autograd.grad(ops.flash_attention(*leaves, window=window),
+                                     leaves, do.to(dev))
+            xs = [x.to(dev).requires_grad_(True), scale.to(dev).requires_grad_(True)]
+            gr = torch.autograd.grad(ops.rmsnorm(*xs), xs, gx.to(dev))
+            grads.append([t.float().cpu() for t in ga + gr])
+        if dtype == torch.bfloat16:
+            out, lse = fk.flash_attention_fwd(*(t.to(device) for t in (q, k, v)),
+                                              window=window)
+            grads[0][:3] = [t.float() for t in fk.flash_attention_bwd_plain(
+                q, k, v, out.cpu(), lse.cpu(), do, window=window)]
+        for name, g, w in zip(("dq", "dk", "dv", "dx", "dscale"), *grads[::-1]):
+            ok, err = bwd_close(g, w, dtype)
+            check(ok and float(torch.max(torch.abs(g))) > 0.0,
+                  f"Functions' {name}/{dn} on the card vs the CPU: max_abs_err {err}")
+    torch.cuda.synchronize()
+    print("LM backward phase:", json.dumps({"flash_attention_bwd": worst}), flush=True)
+    return worst
+
+
+def lm_bwd_timing(device="cuda"):
+    """K6 at the training shapes (bf16, causal; qwen1.5-0.5b's 8 x 512 with
+    16 heads at hd 64, qwen2.5-3b's 4 x 1024 with 16 / 2 heads at hd 128):
+    device time by CUDA-graph replay and eager time, the plain version's
+    device time, the bound, and scaled_dot_product_attention's backward
+    (``enable_gqa``, causal; eager, CUDA events: autograd is not captured)
+    as the library time, timed here only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    bf16 = torch.bfloat16
+    rows = {}
+    for label, B, S, H, KV, hd in (("qwen1.5_train", 8, 512, 16, 16, 64),
+                                   ("qwen2.5_train", 4, 1024, 16, 2, 128)):
+        q = lm_inputs((B, S, H, hd), bf16, device, 1)
+        k = lm_inputs((B, S, KV, hd), bf16, device, 2)
+        v = lm_inputs((B, S, KV, hd), bf16, device, 3)
+        do = lm_inputs((B, S, H, hd), bf16, device, 4)
+        out, lse = fk.flash_attention_fwd(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=KV != H)
+        dot = do.transpose(1, 2)
+        pairs = B * H * S * (S + 1) // 2            # visible (query, key) pairs
+        # q, out, dO, dq and k, v, dk, dv once each, lse and delta in f32
+        bytes_ = 2 * (4 * B * S * H * hd + 4 * B * S * KV * hd) + 2 * 4 * B * H * S
+        flops = 10.0 * hd * pairs
+        t_b, t_o = bytes_ / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+        kernel = lambda: fk.flash_attention_bwd(q, k, v, out, lse, do)  # noqa: E731
+        rows[label] = dict(
+            ms=graph_ms(kernel), eager_ms=time_ms(kernel),
+            plain_ms=graph_ms(lambda: fk.flash_attention_bwd_plain(q, k, v, out, lse, do),
+                              calls=3, reps=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), dot, retain_graph=True)),
+            bound_ms=1e3 * max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations",
+            bytes=bytes_, flops=flops)
+        print("LM timing:", label, json.dumps(rows[label]), flush=True)
+        del q, k, v, do, out, lse, qt, kt, vt, o_lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fedagg")
+
+
+def train_counts():
+    from repro_torch.kernels import fedagg as fa
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+    return {"flash_attention": fk.flash_attention_fwd.launches,
+            "flash_attention_bwd": fk.flash_attention_bwd.launches,
+            "rmsnorm": rk.rmsnorm_fwd.launches, "fedagg": fa.fedagg.launches}
+
+
+def reset_train_counts():
+    from repro_torch.kernels import fedagg as fa
+    reset_lm_counts()
+    from repro_torch.kernels import flash_attention as fk
+    fk.flash_attention_bwd.launches = 0
+    fa.fedagg.launches = 0
+    fa.fedagg.variant_launches.clear()
+
+
+class TrainExpected(dict):
+    """The launches the training path should make. One loss_fn gradient
+    with remat (every shipped config's): L forward launches of K5, L more
+    when the backward re-runs each period, L of K6, and 2L + 1 + 2L of K9
+    (the final norm is outside the periods). A round of C clients and E
+    local steps: the server loss and each client's loss at the received
+    model (no graph: L K5, 2L + 1 K9 each), C * E gradients, one fedagg."""
+
+    def __init__(self):
+        super().__init__({k: 0 for k in TRAIN_KERNELS})
+
+    def add_grad(self, cfg, n=1):
+        L = cfg.num_layers
+        self["flash_attention"] += 2 * L * n
+        self["flash_attention_bwd"] += L * n
+        self["rmsnorm"] += (4 * L + 1) * n
+
+    def add_rounds(self, cfg, C, E, rounds):
+        L = cfg.num_layers
+        self["flash_attention"] += L * (1 + C) * rounds
+        self["rmsnorm"] += (2 * L + 1) * (1 + C) * rounds
+        self["fedagg"] += rounds
+        self.add_grad(cfg, C * E * rounds)
+
+
+# slice (f1): (arch, model knobs, eps), the settings of
+# tests/test_torch_train_round.py: eps admits some non-priority client in
+# some round and drops one in another, every decision >= 0.05 from eps
+TRAIN_PARITY = [("qwen1.5-0.5b", {}, 0.15), ("qwen2.5-3b", {}, 0.15),
+                ("qwen1.5-0.5b", {"sliding_window": 16}, 0.2)]
+TRAIN_RUN = dict(rounds=3, clients=4, n_priority=2, per_client=2, seq=64,
+                 local_epochs=2, lr=0.05)
+GATE_MARGIN = 1e-3
+# f32 full-width gradient, kernels vs plain versions on the card: relative
+# L2 error per leaf (see slice_f2)
+GRAD_RTOL = 1e-4
+
+
+@contextmanager
+def smoke_knobs(**knobs):
+    """``launch.train`` builds its smoke config with these knobs replaced
+    (the windowed parity run); restored on exit."""
+    from repro_torch.launch import train
+    orig = train.get_smoke
+    train.get_smoke = lambda arch: orig(arch).replace(**knobs)
+    try:
+        yield
+    finally:
+        train.get_smoke = orig
+
+
+def loss_grads(model, params, batch):
+    """(loss, [grad per leaf]) of model.loss_fn, as a local step takes it."""
+    import torch
+    from repro_torch.utils import tree_leaves, tree_unflatten_like
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    loss = model.loss_fn(tree_unflatten_like(params, leaves), batch)[0]
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def token_batch(cfg, B, S, device, seed=0):
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S + 1))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "mask": torch.ones(B, S, device=device)}
+
+
+def slice_f1(check: Check, expected: TrainExpected, device="cuda"):
+    """Smoke-size federated training on the card against the same port code
+    on the CPU (f32, 4 clients of which 2 priority, 2 sequences of 64
+    tokens each, E = 2, 3 rounds): gates and included counts equal, after
+    checking every gate decision is more than GATE_MARGIN from eps; server
+    and client losses and the final params within PARITY_ATOL of the
+    largest magnitude (at least 1); and a gradient-completeness check: one
+    loss_fn gradient at the CPU run's final params, on the card and on the
+    CPU, leaf for leaf within PARITY_ATOL of the leaf's largest magnitude,
+    no leaf zero on the card where the CPU's is not."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_leaves, tree_map
+    out = {}
+    for arch, knobs, eps in TRAIN_PARITY:
+        name = f"slice (f1) {arch}" + (f" window {knobs['sliding_window']}" if knobs else "")
+        cfg = get_smoke(arch).replace(**knobs)
+        with smoke_knobs(**knobs):
+            p_cpu, h_cpu = train.run(arch=arch, epsilon=eps, device="cpu",
+                                     verbose=False, **TRAIN_RUN)
+            p_dev, h_dev = train.run(arch=arch, epsilon=eps, device=device,
+                                     verbose=False, **TRAIN_RUN)
+        expected.add_rounds(cfg, TRAIN_RUN["clients"], TRAIN_RUN["local_epochs"],
+                            TRAIN_RUN["rounds"])
+        npri = TRAIN_RUN["n_priority"]
+        margin = min(abs(abs(l - h["server_loss"]) - eps)
+                     for h in h_cpu for l in h["local_losses"][npri:])
+        check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
+        included = [h["included"] for h in h_cpu]
+        check(0 < sum(included) < (TRAIN_RUN["clients"] - npri) * len(h_cpu),
+              f"{name}: eps {eps} gates every client in or every one out")
+        same = all(a["gates"] == b["gates"] and a["included"] == b["included"]
+                   for a, b in zip(h_dev, h_cpu))
+        check(same, f"{name}: gates differ from the CPU run")
+        loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                       for a, b in zip(h_dev, h_cpu) for k in ("server_loss",))
+        local_err = max(float(np.max(np.abs(np.subtract(a["local_losses"], b["local_losses"]))))
+                        / max(1.0, float(np.max(np.abs(b["local_losses"]))))
+                        for a, b in zip(h_dev, h_cpu))
+        check(max(loss_err, local_err) <= PARITY_ATOL,
+              f"{name}: losses off the CPU run by {loss_err}, {local_err}")
+        param_err = max(float(torch.max(torch.abs(a.cpu() - b)))
+                        / max(1.0, float(torch.max(torch.abs(b))))
+                        for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)))
+        check(param_err <= PARITY_ATOL, f"{name}: params off the CPU run by {param_err}")
+        # gradient completeness: the same loss_fn gradient on both devices
+        model = get_model(cfg)
+        batch = token_batch(cfg, 2, 64, "cpu", seed=5)
+        l_cpu, g_cpu = loss_grads(model, p_cpu, batch)
+        l_dev, g_dev = loss_grads(model, tree_map(lambda t: t.to(device), p_cpu),
+                                  {k: t.to(device) for k, t in batch.items()})
+        expected.add_grad(cfg)
+        grad_err, complete = 0.0, len(g_dev) == len(g_cpu)
+        for a, b in zip(g_dev, g_cpu):
+            a = a.cpu()
+            scale = float(torch.max(torch.abs(b)))
+            complete &= a is not None and (scale == 0.0 or float(torch.max(torch.abs(a))) > 0.0)
+            grad_err = max(grad_err, float(torch.max(torch.abs(a - b))) / max(scale, 1e-30))
+        check(complete, f"{name}: a gradient leaf is missing or zero on the card")
+        check(grad_err <= PARITY_ATOL, f"{name}: loss_fn gradient off the CPU's by "
+              f"{grad_err} (relative to each leaf's largest)")
+        out[name] = dict(eps=eps, gate_margin=margin, included=included,
+                         gates_equal=same, max_loss_rel_err=max(loss_err, local_err),
+                         max_param_rel_err=param_err, grad_leaves=len(g_dev),
+                         max_grad_rel_err=grad_err,
+                         loss_grad_err=abs(float(l_dev) - float(l_cpu)))
+        print(f"{name}:", json.dumps(out[name]), flush=True)
+    return out
+
+
+def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
+    """Full width: qwen1.5-0.5b (random init on the card, f32 params, bf16
+    compute, remat on) in federated training through launch.train.run: 8
+    clients (4 priority), 8 sequences of 512 tokens each, E = 2, lr 0.05,
+    1 warm-up round and 2 timed rounds. Then the f32 full-width gradient
+    check: one client's loss_fn gradient (8 x 512, compute_dtype float32)
+    through the kernels against the same gradient through the plain
+    versions (flash_attention_plain and rmsnorm_plain, differentiated by
+    autograd) on the same card, each leaf's relative L2 error within
+    GRAD_RTOL: the two routes differ only in f32 summation order, over 24
+    layers (errors of order 1e-6 relative)."""
+    import math
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_count
+    C, P, E, rounds = 8, 4, 2, 3
+    cfg = get_config("qwen1.5-0.5b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = train_counts()
+    params, hist = train.run(arch="qwen1.5-0.5b", smoke=False, rounds=rounds,
+                             clients=C, n_priority=P, per_client=8, seq=512,
+                             local_epochs=E, lr=0.05, device=device)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected.add_rounds(cfg, C, E, rounds)
+    # this run's own launches: per round L (1 + C (1 + 2E)) of K5, L C E of
+    # K6, (2L + 1)(1 + C) + C E (4L + 1) of K9 and one fedagg
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, C, E, rounds)
+    check(launches == want, f"slice (f2): launches {launches}, expected {want}")
+    ok = all(math.isfinite(h["server_loss"]) and 0 <= h["included"] <= C - P
+             for h in hist) and len(hist) == rounds
+    check(ok, "slice (f2): non-finite server loss or included count out of range")
+    timed = [h["sec"] for h in hist[1:]]
+    row = dict(params=param_count(params), clients=C, priority=P, per_client=8,
+               seq=512, local_epochs=E, warmup_round_s=hist[0]["sec"],
+               round_s=timed, s_per_round=sum(timed) / len(timed), peak_gb=peak,
+               server_loss=[h["server_loss"] for h in hist],
+               included=[h["included"] for h in hist], launches=launches)
+    print("slice (f2) qwen1.5-0.5b federated training:", json.dumps(row), flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    model = get_model(cfg32)
+    params = model.init(prng.PRNGKey(0), device=device)
+    batch = token_batch(cfg32, 8, 512, device, seed=7)
+    l_k, g_k = loss_grads(model, params, batch)
+    expected.add_grad(cfg32)
+    saved = ops.flash_attention, ops.rmsnorm
+    ops.flash_attention = (lambda q, k, v, *, causal, window, scale=None, block_kv:
+                           fk.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                    scale=scale, block_kv=block_kv)[0])
+    ops.rmsnorm = lambda x, s, *, eps: rk.rmsnorm_plain(x, s, eps)
+    try:
+        l_p, g_p = loss_grads(model, params, batch)
+    finally:
+        ops.flash_attention, ops.rmsnorm = saved
+    rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+           for a, b in zip(g_k, g_p)]
+    check(max(rel) <= GRAD_RTOL and all(math.isfinite(r) for r in rel),
+          f"slice (f2) f32 gradient: kernel route off the plain route by {max(rel)}")
+    grad_row = dict(leaves=len(rel), max_rel_l2=max(rel), loss_kernel=float(l_k),
+                    loss_plain=float(l_p))
+    print("slice (f2) f32 gradient, kernels vs plain:", json.dumps(grad_row), flush=True)
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return dict(row, f32_gradient=grad_row)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1337,6 +1722,8 @@ def main() -> int:
     vtimings = variant_timing_phase()
     lm_errs = lm_kernel_phase(check)
     lm_times = lm_timing_phase()
+    bwd_err = lm_bwd_phase(check)
+    bwd_times = lm_bwd_timing()
 
     # count only the main path from here: slices (a), (b) and (c)
     fk.fedagg.launches = 0
@@ -1403,6 +1790,33 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": row})
+
+    # the training path: slices (f1) and (f2), counted on their own
+    reset_train_counts()
+    train_expected = TrainExpected()
+    f1 = slice_f1(check, train_expected)
+    f2 = slice_f2(check, train_expected)
+    train_launches = train_counts()
+    print("training path launches:", json.dumps(train_launches), "expected:",
+          json.dumps(train_expected), flush=True)
+    for name in TRAIN_KERNELS:
+        check(train_launches[name] == train_expected[name], f"training path: "
+              f"{train_launches[name]} {name} launches, expected "
+              f"{train_expected[name]}")
+    for entry in kernels:
+        key = "fedagg" if entry["source"].endswith("fedagg.cu") else entry["name"]
+        if key in train_launches and (key != "fedagg" or entry["name"] == KERNELS[0][0]):
+            entry["train_path_launches"] = train_launches[key]
+    n = train_launches["flash_attention_bwd"]
+    check(n > 0, "training path: kernel flash_attention_bwd was never launched")
+    t = bwd_times["qwen1.5_train"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:228", "launches": n,
+        "max_abs_err": bwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "shape": "qwen1.5_train"})
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -1413,7 +1827,7 @@ def main() -> int:
         "b": {k: b[k] for k in ("seconds_per_round", "launches", "M")},
         "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
               for k, v in c.items()},
-        "d": d, "e": e}))
+        "d": d, "e": e, "f1": f1, "f2": f2}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ Entry points take an explicit ``device`` argument that defaults to
 ``"cuda"``. Asking for the card on a machine without one raises; it never
 carries on on the CPU. Pass ``device="cpu"`` to run there, as the tests do.
 
-The one hand-written kernel on the FedALIGN round is the gated client mean
-(``kernels/csrc/fedagg.cu``), which replaces the ``fedagg`` Pallas kernel.
-Everything else is plain PyTorch: cuBLAS / cuDNN through autograd and
-``torch.func``.
+Each Pallas kernel of the reference that the port has reached is a
+hand-written CUDA kernel under ``kernels/csrc/`` (fedagg, the flash-attention
+forward and backward, decode attention, RMSNorm). Everything else is plain
+PyTorch: cuBLAS / cuDNN through autograd and ``torch.func``.
 """

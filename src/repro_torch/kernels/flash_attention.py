@@ -1,27 +1,41 @@
-"""Flash-attention forward with the per-row LSE on Hopper: causal or
-sliding-window grouped-query attention, queries at the last Sq positions.
+"""Flash attention on Hopper: the forward with the per-row LSE and its
+backward, causal or sliding-window grouped-query attention, queries at the
+last Sq positions.
 
-* ``flash_attention_fwd`` — the wrapper, ``(out, lse)``. On CUDA tensors it
-  launches the hand-written kernel ``csrc/flash_attention.cu`` (built with
-  nvcc for sm_90a, bound with ctypes) or raises; it takes the plain version
-  only because its inputs lie on the CPU. ``flash_attention_fwd.launches``
-  counts kernel launches.
-* ``flash_attention`` — ``flash_attention_fwd(...)[0]``, the op the
-  attention block calls (``kernels/ops.py``).
-* ``flash_attention_plain`` — the same function in plain PyTorch: the twin
-  of the reference's jnp lowering ``repro/kernels/ops.py:
-  _flash_attention_jnp`` (a scan of ``block_kv``-row blocks with -1e30
-  masking and an online softmax, the kv axis padded to a block multiple),
-  plus the LSE the reference's Pallas kernel emits.
+* ``flash_attention_fwd`` — the forward wrapper, ``(out, lse)``. On CUDA
+  tensors it launches the hand-written kernel ``csrc/flash_attention.cu``
+  (built with nvcc for sm_90a, bound with ctypes) or raises; it takes the
+  plain version only because its inputs lie on the CPU.
+  ``flash_attention_fwd.launches`` counts kernel launches.
+* ``flash_attention_bwd`` — the backward wrapper, ``(dq, dk, dv)`` from q,
+  k, v, out, lse and dO: ``csrc/flash_attention_bwd.cu`` on CUDA tensors
+  (or it raises), the plain version on CPU tensors.
+  ``flash_attention_bwd.launches`` counts its launches (one per call).
+* ``FlashAttention`` — the ``torch.autograd.Function`` joining them (the
+  counterpart of the reference's ``flash_attention_pallas`` custom_vjp):
+  its forward saves (q, k, v, out, lse), its backward is
+  ``flash_attention_bwd``. ``flash_attention`` applies it, on both
+  devices, and is the op the attention block calls (``kernels/ops.py``).
+* ``flash_attention_plain`` — the forward in plain PyTorch: the twin of the
+  reference's jnp lowering ``repro/kernels/ops.py:_flash_attention_jnp``
+  (a scan of ``block_kv``-row blocks with -1e30 masking and an online
+  softmax, the kv axis padded to a block multiple), plus the LSE the
+  reference's Pallas kernel emits.
+* ``flash_attention_bwd_plain`` — the backward in plain PyTorch, by the
+  Pallas kernels' formulas (not autograd of the forward): delta =
+  rowsum(dO * O), p = exp(s - lse) (masked entries exactly 0), ds =
+  p (dP - delta), dq = ds K scale, dk = ds^T (q scale), dv = p^T dO, dk and
+  dv summed over each kv head's G query heads in f32 and rounded once.
 
 Shapes: q [B, Sq, H, hd], k and v [B, Skv, KV, hd], Sq <= Skv, H a multiple
-of KV (query head h reads kv head h // G, G = H / KV); out like q; lse f32
-[B * KV, G, Sq] = m + log(max(l, 1e-30)), the layout of the reference's
-``flash_attention_fwd_pallas``.
+of KV (query head h reads kv head h // G, G = H / KV); out and dO like q;
+lse f32 [B * KV, G, Sq] = m + log(max(l, 1e-30)), the layout of the
+reference's ``flash_attention_fwd_pallas``.
 
-The kernel replaces the TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention_fwd_pallas`` (``_kernel_fwd_lse`` over ``_kernel``). What
-bounds it and what its design does about it is noted at the top of the
+The kernels replace the TPU kernels ``repro/kernels/flash_attention.py:
+flash_attention_fwd_pallas`` (``_kernel_fwd_lse`` over ``_kernel``) and
+``flash_attention_bwd_pallas`` (``_kernel_dq``, ``_kernel_dkv``). What
+bounds each and what its design does about it is noted at the top of its
 source.
 """
 from __future__ import annotations
@@ -128,6 +142,23 @@ def check_rows(name, x, dtype, device):
     return x.stride(0), x.stride(1)
 
 
+def _kernel_dims(name, q, k, v):
+    """``_check_shapes`` plus what both kernels take: a CUDA device, f32 or
+    bf16, hd in HEAD_DIMS, B * H <= 65535 (the grid's y extent)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    B, Sq, H, hd, Skv, KV = _check_shapes(q, k, v)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"{name}: B * H = {B * H} exceeds 65535")
+    return dev, (B, Sq, H, hd, Skv, KV)
+
+
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
                         block_kv=1024):
     """(out [B, Sq, H, hd] like q, lse [B * KV, G, Sq] f32). ``block_kv``
@@ -135,18 +166,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_kv=block_kv)
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
-    B, Sq, H, hd, Skv, KV = _check_shapes(q, k, v)
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention: q must be float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B * H = {B * H} exceeds 65535")
+    dev, (B, Sq, H, hd, Skv, KV) = _kernel_dims("flash_attention", q, k, v)
     if scale is None:
         scale = hd ** -0.5
     q_sb, q_ss = check_rows("flash_attention: q", q, q.dtype, dev)
@@ -174,8 +194,130 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
 flash_attention_fwd.launches = 0
 
 
+def _visible(Sq, Skv, causal, window, device):
+    """[Sq, Skv] bool: key j visible to query i (at position Skv - Sq + i)."""
+    q_pos = (Skv - Sq) + torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return mask
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal=True,
+                              window=0, scale=None):
+    """(dq, dk, dv) like (q, k, v), by the reference's backward formulas in
+    f32 over whole [Sq, Skv] score matrices."""
+    B, Sq, H, hd, Skv, KV = _check_shapes(q, k, v)
+    G = H // KV
+    if scale is None:
+        scale = hd ** -0.5
+    qf = (q.float() * scale).reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, KV, G, hd)
+    delta = torch.sum(dof * out.float().reshape(B, Sq, KV, G, hd), dim=-1)
+    delta = delta.permute(0, 2, 3, 1)                        # [B, KV, G, Sq]
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf)
+    mask = _visible(Sq, Skv, causal, window, q.device)
+    lse = lse.reshape(B, KV, G, Sq, 1)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bind_bwd():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = ([vp] * 10 + [ll] * 10 + [i] * 8
+                       + [ctypes.c_float, i, vp])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
+                        scale=None):
+    """(dq [B, Sq, H, hd] like q, dk and dv [B, Skv, KV, hd] like k) from
+    the forward's inputs, its out and lse, and dO (made contiguous here)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                         window=window, scale=scale)
+    dev, (B, Sq, H, hd, Skv, KV) = _kernel_dims("flash_attention_bwd", q, k, v)
+    if tuple(out.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dO "
+                         f"{tuple(do.shape)} must be shaped like q "
+                         f"{tuple(q.shape)}")
+    if (lse.dtype != torch.float32 or lse.device != dev
+            or tuple(lse.shape) != (B * KV, H // KV, Sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous f32 "
+                         f"[{B * KV}, {H // KV}, {Sq}] tensor on {dev}")
+    if scale is None:
+        scale = hd ** -0.5
+    do = do.contiguous()
+    q_sb, q_ss = check_rows("flash_attention_bwd: q", q, q.dtype, dev)
+    k_sb, k_ss = check_rows("flash_attention_bwd: k", k, q.dtype, dev)
+    v_sb, v_ss = check_rows("flash_attention_bwd: v", v, q.dtype, dev)
+    o_sb, o_ss = check_rows("flash_attention_bwd: out", out, q.dtype, dev)
+    d_sb, d_ss = check_rows("flash_attention_bwd: dO", do, q.dtype, dev)
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Skv, KV, hd), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, Skv, KV, hd), dtype=q.dtype, device=dev)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B * KV, H // KV, Sq), dtype=torch.float32, device=dev)
+    lib = _bind_bwd()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+            o_sb, o_ss, d_sb, d_ss, B, Sq, Skv, H, KV, hd, int(bool(causal)),
+            int(window or 0), float(scale), _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd kernel launch failed: "
+                           + lib.flash_attention_bwd_error_string(err).decode())
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: forward ``flash_attention_fwd``
+    (saving q, k, v, out and the LSE), backward ``flash_attention_bwd``.
+    The same Function runs on both devices: the kernels on the card, the
+    plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_kv):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       scale=scale, block_kv=block_kv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     block_kv=1024):
-    """Attention output only: [B, Sq, H, hd] like q."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               scale=scale, block_kv=block_kv)[0]
+    """Attention output only, [B, Sq, H, hd] like q; differentiable in q, k
+    and v through ``FlashAttention``."""
+    return FlashAttention.apply(q, k, v, causal, window, scale, block_kv)

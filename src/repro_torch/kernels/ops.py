@@ -7,17 +7,18 @@ op is its kernel module's wrapper.
 * ``fedagg`` — gated client aggregation, one launch for every aggregator
   (mean | trimmed_mean | median | dp) and wire codec (identity | int8 |
   topk | sketch); see ``kernels/fedagg.py`` for the operands of each.
-* ``flash_attention`` / ``flash_attention_fwd`` — causal / windowed GQA
-  attention over a full kv sequence (train and prefill), the latter with
-  the per-row LSE; ``kernels/flash_attention.py``.
+* ``flash_attention`` / ``flash_attention_fwd`` / ``flash_attention_bwd`` —
+  causal / windowed GQA attention over a full kv sequence (train and
+  prefill): the differentiable op, the forward with the per-row LSE, and
+  the backward (dq, dk, dv); ``kernels/flash_attention.py``.
 * ``decode_attention`` — one query token against a KV cache with
   ``kv_len`` valid rows; ``kernels/decode_attention.py``.
-* ``rmsnorm`` — row-wise RMSNorm; ``kernels/rmsnorm.py``.
+* ``rmsnorm`` — row-wise RMSNorm, differentiable; ``kernels/rmsnorm.py``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: F401
 from repro_torch.kernels.fedagg import fedagg  # noqa: F401
 from repro_torch.kernels.flash_attention import (  # noqa: F401
-    flash_attention, flash_attention_fwd)
+    flash_attention, flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401

@@ -1,9 +1,15 @@
 """Row-wise RMSNorm on Hopper: ``x * rsqrt(mean(x^2) + eps) * scale``.
 
-* ``rmsnorm`` — the wrapper. On CUDA tensors it launches the hand-written
-  kernel ``csrc/rmsnorm.cu`` (built with nvcc for sm_90a, bound with
-  ctypes) or raises; it takes the plain version only because its input lies
-  on the CPU. ``rmsnorm.launches`` counts kernel launches.
+* ``rmsnorm_fwd`` — the forward wrapper. On CUDA tensors it launches the
+  hand-written kernel ``csrc/rmsnorm.cu`` (built with nvcc for sm_90a,
+  bound with ctypes) or raises; it takes the plain version only because
+  its input lies on the CPU. ``rmsnorm_fwd.launches`` counts kernel
+  launches.
+* ``RMSNorm`` — the ``torch.autograd.Function`` around it, and
+  ``rmsnorm`` which applies it on both devices (the op the models call).
+  Its backward is torch code in f32, not a kernel: the reference has no
+  RMSNorm backward kernel (its models differentiate the plain jnp
+  ``layers.rmsnorm``).
 * ``rmsnorm_plain`` — the same function in plain PyTorch, the twin of the
   reference's ``repro/models/layers.py:rmsnorm`` (and of
   ``kernels/ops.py:_rmsnorm_jnp`` and ``kernels/ref.py:rmsnorm_ref``): f32
@@ -46,7 +52,7 @@ def _bind():
     return lib
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     """x: [..., D] float32 or bfloat16, contiguous; scale: [D] float32 or
     bfloat16 on the same device. Returns x's shape and dtype."""
     if x.device.type == "cpu":
@@ -84,8 +90,38 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     if err != 0:
         raise RuntimeError("rmsnorm kernel launch failed: "
                            + lib.rmsnorm_error_string(err).decode())
-    rmsnorm.launches += 1
+    rmsnorm_fwd.launches += 1
     return out
 
 
-rmsnorm.launches = 0
+rmsnorm_fwd.launches = 0
+
+
+class RMSNorm(torch.autograd.Function):
+    """Differentiable RMSNorm: forward ``rmsnorm_fwd`` (the kernel on the
+    card, the plain version on the CPU); backward in torch ops, f32:
+    with r = rsqrt(mean(x^2) + eps), x_hat = x r and gs = g scale,
+    dx = r (gs - x_hat mean(gs x_hat)) and dscale = sum over rows of
+    g x_hat, each rounded once to its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + ctx.eps)
+        x_hat = xf * r
+        gs = gf * scale.float()
+        dx = r * (gs - x_hat * torch.mean(gs * x_hat, dim=-1, keepdim=True))
+        dscale = torch.sum((gf * x_hat).reshape(-1, x.shape[-1]), dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
+    """``rmsnorm_fwd`` through ``RMSNorm``: differentiable in x and scale."""
+    return RMSNorm.apply(x, scale, eps)

@@ -47,11 +47,12 @@ def on_device(params, device):
     return have
 
 
+@torch.no_grad()
 def generate(model, params, prompt, max_new, *, greedy=True, rng=None,
              device="cuda"):
     """prompt: [B, S] integers -> tokens [B, S+max_new] (int32, on the
     device). Greedy argmax, one decode step per new token, the position a
-    host int: no step waits on the device."""
+    host int: no step waits on the device. Builds no autograd graph."""
     dev = on_device(params, device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     B, S = prompt.shape

@@ -2,10 +2,13 @@
 decode paths with their KV cache.
 
 Counterpart of ``repro/models/attention.py`` (GQA only; MLA is ROADMAP
-A16). Train and prefill go through ``kops.flash_attention`` (on the card,
-the flash-attention kernel), decode through ``kops.decode_attention`` (the
-decode-attention kernel). Layouts are the reference's: q [B, S, H, hd],
-k / v [B, S, KV, hd], cache k / v [B, W, KV, hd].
+A16). Train and prefill go through ``kops.flash_attention``, the
+``FlashAttention`` autograd Function (on the card the flash-attention
+forward kernel, and its backward kernel when a gradient flows; no graph
+is built when nothing requires grad), decode through
+``kops.decode_attention`` (the decode-attention kernel). Layouts are the
+reference's: q [B, S, H, hd], k / v [B, S, KV, hd], cache k / v
+[B, W, KV, hd].
 
 Under a sliding window the cache is a ring: absolute position p lives at
 slot p % W. Prefill keeps the last W positions rolled by S % W, decode

@@ -5,8 +5,7 @@ Counterpart of ``repro/models/layers.py``, with the same names, layouts
 ``cfg.cdtype``, params live in ``cfg.pdtype``, norms and RoPE run in f32.
 ``rmsnorm`` goes through ``kernels/ops.py``, so on the card it is the
 hand-written RMSNorm kernel; the matrix products are ``torch.matmul`` (the
-reference leaves them to XLA). ``chunked_softmax_xent`` waits for the
-training slice (ROADMAP).
+reference leaves them to XLA), the chunked loss's vocabulary product too.
 """
 from __future__ import annotations
 
@@ -74,3 +73,38 @@ def swiglu_apply(p, x, cdtype):
     g = x @ p["w_gate"].to(cdtype)
     u = x @ p["w_up"].to(cdtype)
     return (F.silu(g) * u) @ p["w_down"].to(cdtype)
+
+
+# ------------------------------------------------------------------ chunked loss
+def chunked_softmax_xent(hidden, w_embed, labels, mask, chunk: int):
+    """Cross-entropy without materializing [B, S, V] logits at once.
+
+    hidden: [B, S, d] (compute dtype); w_embed: [V, d]; labels / mask:
+    [B, S]. S is padded to a chunk multiple (padded rows carry mask 0); per
+    chunk the logits [B, chunk, V] are ``hc @ w.T`` in the compute dtype,
+    then f32: logsumexp minus the gold logit, times the mask. Returns
+    (sum_loss, sum_mask) as f32 scalars; a loop where the reference scans.
+    """
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    labels = torch.as_tensor(labels, device=hidden.device).long()
+    mask = torch.as_tensor(mask, device=hidden.device).float()
+    if S % chunk:
+        pad = chunk - S % chunk
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+        S += pad
+    wt = w_embed.T.to(hidden.dtype)
+    s_loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    s_cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, S, chunk):
+        hc = hidden[:, start:start + chunk]
+        yc = labels[:, start:start + chunk]
+        mc = mask[:, start:start + chunk]
+        logits = (hc @ wt).float()                                 # [B, c, V]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        s_loss = s_loss + torch.sum((logz - gold) * mc)
+        s_cnt = s_cnt + torch.sum(mc)
+    return s_loss, s_cnt

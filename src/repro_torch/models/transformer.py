@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense ``pattern="attn"`` family: init, forward and the
-serving entry points.
+"""Decoder-only LM, dense ``pattern="attn"`` family: init, forward, the
+training loss and the serving entry points.
 
 Counterpart of ``repro/models/transformer.py`` for the dense GQA models
 (qwen1.5-0.5b, qwen2.5-3b, phi3-mini-3.8b). The parameter tree is the
@@ -11,6 +11,7 @@ Python loop where the reference scans them.
 API (functional, as the reference's):
     init(key, cfg, device)                           -> params
     forward(params, tokens, cfg, mode=...)           -> (hidden, caches, aux)
+    loss_fn(params, batch, cfg)                      -> (loss, metrics)
     make_cache(cfg, batch_size, cache_len, device)   -> caches
     prefill(params, batch, cfg)                      -> (caches, last_logits)
     decode_step(params, caches, tokens, pos, cfg)    -> (logits, caches)
@@ -18,13 +19,19 @@ API (functional, as the reference's):
 The decode position ``pos`` is a host int: it picks the cache slot and the
 valid length without reading the device. A cache's ``len`` is a host int
 too (every layer's cache holds the same number of valid rows); decode
-writes each layer's new k / v row into ``caches`` in place.
+writes each layer's new k / v row into ``caches`` in place. ``prefill``
+and ``decode_step`` run under ``torch.no_grad``: serving builds no
+autograd graph even on params that require grad.
+
+Training: ``forward(mode="train")`` with grad enabled and ``cfg.remat``
+checkpoints each period (``torch.utils.checkpoint``, non-reentrant: the
+period's forward runs again in the backward), the reference's "full"
+policy; ``remat_policy="save_mixer"`` is not ported (ROADMAP A16d).
 
 Out of this slice, and refused with ``NotImplementedError`` by
 ``check_model_config``: MLA, MoE, the jamba / xlstm patterns,
 ``first_dense`` > 0, encoder-decoder, VLM, ``attn_bf16`` and
-``seq_shard_attn`` (ROADMAP A16). ``loss_fn`` waits for the training
-slice.
+``seq_shard_attn`` (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -32,11 +39,13 @@ import operator
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.models import layers as L
 from repro_torch.models.attention import gqa_attention_block, init_gqa
-from repro_torch.utils import fold_in_name, resolve_device, tree_map
+from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
+                               tree_map, tree_unflatten_like)
 
 _UNPORTED = (
     ("mla", lambda c: c.mla, "MLA attention"),
@@ -116,6 +125,14 @@ def _period(tree, i):
     return tree_map(lambda t: t[i] if isinstance(t, torch.Tensor) else t, tree)
 
 
+def _periods(tree, n):
+    """The n per-period trees of stacked [n, ...] leaves, each leaf unbound
+    once: in a backward, unbind joins the n gradients in one stack, where
+    n separate selects would each add a zero-filled full-size gradient."""
+    unbound = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten_like(tree, [u[i] for u in unbound]) for i in range(n)]
+
+
 def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
             pos=None):
     """Returns (hidden [B,S,d], new_caches, aux). ``pos`` (decode): the
@@ -130,11 +147,21 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
         positions = torch.arange(S, device=dev)
 
     periods = params["periods"]
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
+            "A16d); the port checkpoints whole periods ('full')")
     layer_caches = []
-    for i in range(cfg.n_periods):
+    for i, p_i in enumerate(_periods(periods["l0"], cfg.n_periods)):
+        if remat:
+            x = checkpoint(lambda xc, p=p_i: _apply_block(
+                p, xc, cfg, positions=positions, mode=mode, cache=None,
+                pos=None)[0], x, use_reentrant=False)
+            continue
         c_in = _period(caches["periods"]["l0"], i) if caches is not None else None
-        x, c = _apply_block(_period(periods["l0"], i), x, cfg,
-                            positions=positions, mode=mode, cache=c_in, pos=pos)
+        x, c = _apply_block(p_i, x, cfg, positions=positions, mode=mode,
+                            cache=c_in, pos=pos)
         layer_caches.append(c)
 
     x = L.rmsnorm(params["final_norm"], x)
@@ -158,10 +185,19 @@ def _unembed_last(params, hidden, cfg):
     return hidden[:, -1].float() @ w.float()
 
 
+# ----------------------------------------------------------------------- train
 def loss_fn(params, batch, cfg):
-    raise NotImplementedError(
-        "loss_fn and chunked_softmax_xent come with the LM training slice "
-        "(ROADMAP); this slice serves")
+    """batch: tokens / labels / mask [B, S]. Returns (scalar loss,
+    metrics): the masked mean next-token cross-entropy plus the auxiliary
+    loss (0 for the dense family), differentiable in params."""
+    hidden, _, aux = forward(params, batch["tokens"], cfg, mode="train")
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    s_loss, s_cnt = L.chunked_softmax_xent(hidden, w, batch["labels"],
+                                           batch["mask"], cfg.loss_chunk)
+    task_loss = s_loss / torch.clamp(s_cnt, min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=task_loss.device)
+    loss = task_loss + aux
+    return loss, {"task_loss": task_loss, "aux_loss": aux, "tokens": s_cnt}
 
 
 # --------------------------------------------------------------------- serving
@@ -179,11 +215,13 @@ def make_cache(cfg, batch_size, cache_len, device="cuda"):
         "len": 0}}}
 
 
+@torch.no_grad()
 def prefill(params, batch, cfg):
     hidden, caches, _ = forward(params, batch["tokens"], cfg, mode="prefill")
     return caches, _unembed_last(params, hidden, cfg)
 
 
+@torch.no_grad()
 def decode_step(params, caches, tokens, pos, cfg):
     """tokens: [B,1]; pos: the absolute position, a host int.
     -> (logits [B,V], caches)."""

@@ -55,6 +55,7 @@ class BatchScheduler:
     def idle(self) -> bool:
         return not self.queue
 
+    @torch.no_grad()
     def run(self, max_ticks: int = 100_000) -> list[Request]:
         while self.queue and self.ticks < max_ticks:
             self._run_wave(max_ticks)

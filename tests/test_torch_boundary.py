@@ -248,7 +248,25 @@ def test_unported_arch_raises(arch):
         get_smoke(arch)
 
 
-def test_loss_fn_waits_for_the_training_slice():
-    model = get_model(get_smoke("qwen2.5-3b"))
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss_fn({}, {})
+# ------------------------------------------------------- the training slice
+def test_train_entry_points_refuse_to_run_on_cpu_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.fl import sharded
+    from repro_torch.launch import train
+    model = get_model(get_smoke("qwen1.5-0.5b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run(rounds=1, clients=2, n_priority=1, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--rounds", "1", "--clients", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.make_round_step(model, FedConfig(num_clients=2), 2, fsdp=False)
+
+
+def test_import_walk_covers_the_training_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"data/tokens.py", "configs/cli.py", "fl/sharded.py",
+            "launch/train.py", "launch/train_profile.py",
+            "kernels/flash_attention.py", "kernels/rmsnorm.py",
+            "models/layers.py", "models/transformer.py"} <= names

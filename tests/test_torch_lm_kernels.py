@@ -10,6 +10,11 @@ the kernels against their plain versions.
   ``decode_attention_pallas`` in interpret mode;
 * RMSNorm (K9): ``rmsnorm_plain`` against ``models/layers.py:rmsnorm``,
   ``ref.rmsnorm_ref`` and ``rmsnorm_pallas`` in interpret mode;
+* on the card only: the flash-attention backward (K6) against
+  ``flash_attention_bwd_plain``, and the gradients of the ``FlashAttention``
+  and ``RMSNorm`` Functions on the card against the same Functions on the
+  CPU (the backward's CPU tests against the JAX package:
+  tests/test_torch_flash_bwd.py);
 
 over the case axes ``chip_smoke.py`` uses on the card (causal and not,
 windowed, Sq < Skv, ragged lengths, G in {1, 4, 8}, hd in {32, 64, 96,
@@ -244,7 +249,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     k, _ = _rand((1, 8, 2, 32), 16, "float32")
     x, _ = _rand((3, 64), 17, "float32")
     before = (fk.flash_attention_fwd.launches, dk.decode_attention.launches,
-              rk.rmsnorm.launches)
+              rk.rmsnorm_fwd.launches)
     out, lse = ops.flash_attention_fwd(q, k, k, window=3)
     want, want_lse = fk.flash_attention_plain(q, k, k, window=3)
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
@@ -254,7 +259,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(ops.rmsnorm(x, torch.ones(64)),
                        rk.rmsnorm_plain(x, torch.ones(64)))
     assert (fk.flash_attention_fwd.launches, dk.decode_attention.launches,
-            rk.rmsnorm.launches) == before
+            rk.rmsnorm_fwd.launches) == before
 
 
 @pytest.mark.parametrize("q_shape,k_shape", [((1, 9, 4, 32), (1, 8, 2, 32)),
@@ -321,9 +326,9 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, case, dtype):
     x, _ = _rand(shape, 13, dtype)
     x = x.to(cuda_device)
     scale = torch.linspace(0.5, 1.5, shape[-1], device=cuda_device)
-    before = rk.rmsnorm.launches
+    before = rk.rmsnorm_fwd.launches
     out = rk.rmsnorm(x, scale)
-    assert rk.rmsnorm.launches == before + 1
+    assert rk.rmsnorm_fwd.launches == before + 1
     want = rk.rmsnorm_plain(x, scale).float().cpu().numpy()
     torch.cuda.synchronize()
     bound = (shape[-1] / 2 + 4) * 2.0 ** -24 * np.abs(want)
@@ -351,3 +356,63 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         rk.rmsnorm(torch.zeros(8, 4, device=cuda_device).t(),
                    torch.ones(8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, case, dtype):
+    """K6 against its plain version on the same out and lse (the forward
+    kernel's), each gradient within F32_TOL of its largest magnitude (plus
+    one bf16 ulp in bf16)."""
+    _, B, Sq, Skv, H, KV, hd, causal, window = case
+    q, k, v, do = (_to(_rand(shape, seed, dtype)[0], cuda_device) for shape, seed in
+                   (((B, Sq, H, hd), 1), ((B, Skv, KV, hd), 2),
+                    ((B, Skv, KV, hd), 3), ((B, Sq, H, hd), 4)))
+    out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = fk.flash_attention_bwd.launches
+    got = fk.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    assert fk.flash_attention_bwd.launches == before + 1
+    want = fk.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        w = w.float().cpu()
+        _close(g.float().cpu(), w, float(w.abs().max()), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_function_gradients_on_the_card_match_the_cpu(cuda_device, dtype):
+    """FlashAttention (K5 + K6) and RMSNorm (K9 + its torch backward) on
+    the card against the same Functions on the CPU (the plain versions).
+    In bf16 the attention gradients are held against the CPU's backward fed
+    the card's forward output: delta = rowsum(dO * O) reads the bf16-rounded
+    output, and K5 and the plain forward may round an element of it one
+    ulp apart, which moves every ds of its row by that much."""
+    B, S, H, KV, hd, window = 2, 77, 8, 2, 64, 24
+    q, k, v, do = (_rand(shape, seed, dtype)[0] for shape, seed in
+                   (((B, S, H, hd), 21), ((B, S, KV, hd), 22),
+                    ((B, S, KV, hd), 23), ((B, S, H, hd), 24)))
+    x, _ = _rand((37, 256), 25, dtype)
+    gx, _ = _rand((37, 256), 26, dtype)
+    scale = torch.linspace(0.5, 1.5, 256)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, window=window)
+        ga = torch.autograd.grad(out, leaves, do.to(dev))
+        xs = [x.to(dev).requires_grad_(True), scale.to(dev).requires_grad_(True)]
+        gr = torch.autograd.grad(ops.rmsnorm(*xs), xs, gx.to(dev))
+        grads[str(dev)] = [t.float().cpu() for t in ga + gr]
+    if dtype == "bfloat16":
+        out, lse = fk.flash_attention_fwd(*(t.to(cuda_device) for t in (q, k, v)),
+                                          window=window)
+        grads["cpu"][:3] = [t.float() for t in fk.flash_attention_bwd_plain(
+            q, k, v, out.cpu(), lse.cpu(), do, window=window)]
+    torch.cuda.synchronize()
+    for g, w in zip(grads[str(cuda_device)], grads["cpu"]):
+        assert float(g.abs().max()) > 0.0
+        _close(g, w, float(w.abs().max()), dtype)
