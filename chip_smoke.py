@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedALIGN round end to
 end through the hand-written fedagg kernel, under every aggregator and wire
-codec; LM serving (prefill + decode of the dense GQA models) through the
-hand-written flash-attention, decode-attention and RMSNorm kernels; and
-federated LM training (the spatial round over the dense GQA models) through
-the flash-attention forward and backward, RMSNorm and fedagg kernels.
+codec; LM serving (prefill + decode of the dense GQA models and of jamba)
+through the hand-written flash-attention, decode-attention, RMSNorm and
+selective-scan kernels; and federated LM training (the spatial round over
+the dense GQA models) through the flash-attention forward and backward,
+RMSNorm and fedagg kernels.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,11 @@ if a check fails:
    flash-attention backward (K6) against its plain version over the same
    cases, the FlashAttention and RMSNorm Functions' gradients on the card
    against the CPU, and K6 timed at the training shapes beside the plain
-   version, its bound and scaled_dot_product_attention's backward;
+   version, its bound and scaled_dot_product_attention's backward; then
+   the selective scan (K8) against its plain version (f32 and bf16 x, N in
+   {4, 8, 16}, ragged S and Di, Bt 1 and 3, output and final state), and
+   timed at jamba's full-width prefill beside the plain version and its
+   bound (no single PyTorch call computes a selective scan);
 4. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
    few rounds on both backends, held against the same run on the CPU; and
    its shortened parity config under cosine_filter and slice (c)'s three
@@ -45,19 +50,27 @@ if a check fails:
    (B 8, prompt 512, 32 new) and a BatchScheduler (16 requests), its f32
    teacher-forced check (prefill + decode vs the train-mode forward), and
    qwen2.5-3b through generate (B 4, prompt 1024, 16 new);
-9. slice (f1): federated LM training at smoke size (qwen1.5-0.5b,
+9. slice (g1): the smoke jamba (attention + 7 Mamba layers, 4 MoE FFNs)
+   on the card against the same code on the CPU: logits of prefill and
+   every decode step, the prefill caches (k, v, conv, h), greedy tokens,
+   and (at a capacity that drops no token) the scheduler's tokens vs
+   generate's; slice (g2): jamba-1.5-large-398b at its published widths
+   cut to one period (8 of 72 layers) and 4 of 16 experts, random init,
+   bf16: generate (B 2, prompt 1024, 16 new), a BatchScheduler (8
+   requests), and the f32 teacher-forced check;
+10. slice (f1): federated LM training at smoke size (qwen1.5-0.5b,
    qwen2.5-3b, and qwen1.5-0.5b with a sliding window) through
    ``launch.train.run`` on the card against the same code on the CPU:
    gates, losses, params, and one loss_fn gradient leaf for leaf;
-10. slice (f2): full-width qwen1.5-0.5b federated training (8 clients,
+11. slice (f2): full-width qwen1.5-0.5b federated training (8 clients,
    8 x 512 tokens each, E = 2, remat, 1 + 2 rounds) and an f32 gradient
    of the kernels against the plain versions on the card. Not run:
    qwen2.5-3b federated training at full width: its f32 client copies are
    12.4 GB each, and the stacked copies, their delta tree and the copying
    [C, M_total] flatten exceed the card (the temporal round, ROADMAP A17).
 
-The fedagg launches of slices (a)-(c), the LM launches of slices (d)-(e)
-and the training launches of slice (f) are each counted from zero just
+The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e)
+and (g) and the training launches of slice (f) are each counted from zero just
 before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply.
 
@@ -1036,39 +1049,48 @@ def lm_timing_phase(device="cuda"):
 
 
 # ------------------------------------------------------------- LM slices (d, e)
-LM_KERNELS = ("flash_attention", "decode_attention", "rmsnorm")
+LM_KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "ssm_scan")
 
 
 def lm_counts():
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssm_scan as sk
     return {"flash_attention": fk.flash_attention_fwd.launches,
             "decode_attention": dk.decode_attention.launches,
-            "rmsnorm": rk.rmsnorm_fwd.launches}
+            "rmsnorm": rk.rmsnorm_fwd.launches, "ssm_scan": sk.ssm_scan.launches}
 
 
 def reset_lm_counts():
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssm_scan as sk
     fk.flash_attention_fwd.launches = 0
     dk.decode_attention.launches = 0
     rk.rmsnorm_fwd.launches = 0
+    sk.ssm_scan.launches = 0
 
 
 class Expected(dict):
-    """The LM launches a run should make: per full-sequence forward (train
-    or prefill) L flash-attention and 2L + 1 RMSNorm launches, per decode
-    step L decode-attention and 2L + 1 RMSNorm launches."""
+    """The LM launches a run should make. With A attention and M Mamba
+    layers of L in all (the dense family: A = L, M = 0; jamba: A = 1 and
+    M = 7 a period): per full-sequence forward (train or prefill) A
+    flash-attention, M selective-scan and 2L + 1 RMSNorm launches; per
+    decode step A decode-attention and 2L + 1 RMSNorm launches (a Mamba
+    decode step is plain torch)."""
 
     def __init__(self):
         super().__init__({k: 0 for k in LM_KERNELS})
 
     def add(self, cfg, forwards=0, steps=0):
         L = cfg.num_layers
-        self["flash_attention"] += L * forwards
-        self["decode_attention"] += L * steps
+        mixers = [k["mixer"] for k in cfg.layer_kinds()] * cfg.n_periods
+        A, M = mixers.count("attn"), mixers.count("mamba")
+        self["flash_attention"] += A * forwards
+        self["ssm_scan"] += M * forwards
+        self["decode_attention"] += A * steps
         self["rmsnorm"] += (2 * L + 1) * (forwards + steps)
 
 
@@ -1108,6 +1130,40 @@ def decision_gap(trace):
     return min(gaps)
 
 
+def scheduler_vs_generate(check: Check, expected: Expected, model, p_cpu,
+                          p_dev, name, device="cuda", tol=PARITY_ATOL):
+    """A BatchScheduler on the card (2 slots, 4 prompts of 5-9 tokens, 6
+    new each) against generate on the card for each prompt alone, after
+    checking every decision of the CPU's generate is resolved (top-2 gap
+    over 2 tol)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 9, 9, 7)]
+    sched = BatchScheduler(model, p_dev, batch_slots=2, max_len=32, device=device)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    done = {r.rid: r for r in sched.run()}
+    expected.add(cfg, steps=sched.ticks)
+    same, gap = True, float("inf")
+    for i, p in enumerate(prompts):
+        tp = torch.as_tensor(p)[None]
+        gap = min(gap, decision_gap(logits_trace(model, p_cpu, tp, 6)))
+        want = generate(model, p_dev, tp, 6, device=device)
+        expected.add(cfg, forwards=1, steps=6)
+        same &= bool(np.array_equal(np.asarray(done[i].out_tokens),
+                                    want[0, len(p):].cpu().numpy()))
+    check(gap > 2 * tol, f"{name} scheduler: top-2 gap {gap} "
+          "too small to compare tokens exactly")
+    check(same, f"{name}: scheduler tokens differ from generate's")
+    return dict(scheduler_ticks=sched.ticks, scheduler_equal=same,
+                scheduler_top2_gap=gap)
+
+
 def slice_d(check: Check, expected: Expected, device="cuda"):
     """Smoke-size parity on the card against the same port code on the
     CPU: qwen1.5-0.5b and qwen2.5-3b smoke configs (f32), and qwen1.5-0.5b
@@ -1117,13 +1173,11 @@ def slice_d(check: Check, expected: Expected, device="cuda"):
     every token decision's top-1 / top-2 gap on the CPU exceeds twice that;
     the scheduler's tokens (teacher-forced through decode steps) equal
     generate's (prefill, then decode), guarded the same way."""
-    import numpy as np
     import torch
     from repro_torch import prng
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import generate
     from repro_torch.models import get_model
-    from repro_torch.serving import BatchScheduler, Request
     out = {}
     runs = [("qwen1.5-0.5b", {}, 2, 12, 6), ("qwen2.5-3b", {}, 2, 12, 6),
             ("qwen1.5-0.5b", dict(sliding_window=8), 1, 13, 4)]
@@ -1149,28 +1203,8 @@ def slice_d(check: Check, expected: Expected, device="cuda"):
         check(same, f"{name}: greedy tokens differ from the CPU run")
         row = dict(max_logits_err=err, top2_gap=gap, tokens_equal=same)
         if not knobs:
-            rng = np.random.default_rng(0)
-            prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-                       for n in (5, 9, 9, 7)]
-            sched = BatchScheduler(model, p_dev, batch_slots=2, max_len=32,
-                                   device=device)
-            for i, p in enumerate(prompts):
-                sched.submit(Request(rid=i, prompt=p, max_new_tokens=6))
-            done = {r.rid: r for r in sched.run()}
-            expected.add(cfg, steps=sched.ticks)
-            same, gap = True, float("inf")
-            for i, p in enumerate(prompts):
-                tp = torch.as_tensor(p)[None]
-                gap = min(gap, decision_gap(logits_trace(model, p_cpu, tp, 6)))
-                want = generate(model, p_dev, tp, 6, device=device)
-                expected.add(cfg, forwards=1, steps=6)
-                same &= bool(np.array_equal(np.asarray(done[i].out_tokens),
-                                            want[0, len(p):].cpu().numpy()))
-            check(gap > 2 * PARITY_ATOL, f"{name} scheduler: top-2 gap {gap} "
-                  "too small to compare tokens exactly")
-            check(same, f"{name}: scheduler tokens differ from generate's")
-            row.update(scheduler_ticks=sched.ticks, scheduler_equal=same,
-                       scheduler_top2_gap=gap)
+            row.update(scheduler_vs_generate(check, expected, model, p_cpu,
+                                             p_dev, name, device))
         out[name] = row
         print(f"{name}:", json.dumps(row), flush=True)
     return out
@@ -1218,24 +1252,26 @@ def serve_run(check: Check, expected: Expected, cfg, params, B, S, new, label,
     ok = (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(last).all())
           and tuple(toks.shape) == (B, S + new)
           and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
-    check(ok, f"slice (e) {label}: non-finite logits or tokens out of range")
+    check(ok, f"{label}: non-finite logits or tokens out of range")
     row = dict(batch=B, prompt=S, new_tokens=new, prefill_s=t_pre,
                prefill_tokens_per_s=B * S / t_pre, decode_ms_per_step=1e3 * t_dec / new,
                decode_tokens_per_s=B * new / t_dec, generate_s=t_gen, peak_gb=peak)
-    print(f"slice (e) {label}:", json.dumps(row), flush=True)
+    print(f"{label}:", json.dumps(row), flush=True)
     return row
 
 
 def teacher_forced_check(check: Check, expected: Expected, cfg, params,
-                         device="cuda", B=2, S=64, S2=72):
-    """qwen1.5-0.5b at full width in f32 (params shared with the bf16
-    runs): prefill's last logits and each decode step's logits against
+                         label, device="cuda", B=2, S=64, S2=72):
+    """A full-width model in f32 (params shared with the bf16 runs):
+    prefill's last logits and each decode step's logits against
     forward(mode="train") logits on the same tokens, within
     tests/test_serve.py's atol 5e-4 + rtol 5e-3. Both sides are f32 on the
     card and differ only in summation order (K5 over the whole sequence vs
-    K7 over the cache, and the product shapes); over 24 layers that is of
-    order 24 x 2^-24 x sqrt(d_ff) ~ 1e-4 relative, below the bound. This
-    holds K7 against the K5 path at full width."""
+    K7 over the cache, K8 vs the plain decode step, and the product
+    shapes); over 24 layers that is of order 24 x 2^-24 x sqrt(d_ff) ~
+    1e-4 relative, below the bound. This holds K7 against the K5 path, and
+    the prefill -> decode handoff (the conv tail and K8's final state), at
+    full width."""
     import torch
     from repro_torch import prng
     from repro_torch.launch.serve import pad_caches
@@ -1259,10 +1295,10 @@ def teacher_forced_check(check: Check, expected: Expected, cfg, params,
     ok = all(bool(torch.all(torch.abs(lg - ref[:, t])
                             <= SERVE_ATOL + SERVE_RTOL * torch.abs(ref[:, t])))
              for t, lg in got)
-    check(ok, f"slice (e) f32 teacher-forced: logits off by {max(errs)}")
+    check(ok, f"{label} f32 teacher-forced: logits off by {max(errs)}")
     row = dict(max_abs_err=max(errs), logits_max=float(ref.abs().max()),
                steps=len(got))
-    print("slice (e) qwen1.5-0.5b f32 teacher-forced:", json.dumps(row), flush=True)
+    print(f"{label} f32 teacher-forced:", json.dumps(row), flush=True)
     return row
 
 
@@ -1286,7 +1322,8 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
     params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
     out["qwen1.5-0.5b"] = dict(params=param_count(params), init_s=t_init)
     out["qwen1.5-0.5b"]["generate"] = serve_run(check, expected, cfg, params,
-                                                8, 512, 32, "qwen1.5-0.5b", device)
+                                                8, 512, 32, "slice (e) qwen1.5-0.5b",
+                                                device)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                size=int(n)).astype(np.int32),
@@ -1309,7 +1346,7 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
     print("slice (e) qwen1.5-0.5b scheduler:",
           json.dumps(out["qwen1.5-0.5b"]["scheduler"]), flush=True)
     out["qwen1.5-0.5b"]["f32_teacher_forced"] = teacher_forced_check(
-        check, expected, cfg, params, device)
+        check, expected, cfg, params, "slice (e) qwen1.5-0.5b", device)
     del params
     torch.cuda.empty_cache()
     cfg = get_config("qwen2.5-3b")
@@ -1317,7 +1354,234 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
     params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
     out["qwen2.5-3b"] = dict(params=param_count(params), init_s=t_init)
     out["qwen2.5-3b"]["generate"] = serve_run(check, expected, cfg, params,
-                                              4, 1024, 16, "qwen2.5-3b", device)
+                                              4, 1024, 16, "slice (e) qwen2.5-3b",
+                                              device)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- K8 and the jamba slice (g)
+# f32: 1e-5 x max(1, max|y|) (or |h|). Kernel and plain version run the
+# same f32 recurrence; the kernel contracts products into FMAs and its
+# expf and torch.exp may differ by an ulp, once a step, and the state
+# decays (dt A < 0), so those errors do not grow with S. bf16 y: one bf16
+# ulp more (both round the same f32 value once).
+SSM_TOL = 1e-5
+# (Bt, S, Di, N): N in {4, 8, 16}, S a multiple of no tile, Bt 1 and 3, Di
+# not a multiple of 128, one step; the slice's prefill shapes (the smoke
+# jamba's Di 256; full width: 2 x 1024 x 16384) are checked in the timing
+SSM_CASES = [(1, 100, 200, 4), (3, 77, 130, 8), (1, 300, 1000, 16),
+             (3, 257, 384, 16), (2, 1, 64, 16), (1, 65, 256, 16)]
+# the SFU's exponentials: 16 a clock per SM, 132 SMs, at the 1.98 GHz clock
+# that gives the data sheet's 67 TFLOP/s f32 (132 x 128 lanes x 2 x clock)
+H100_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def ssm_inputs(Bt, S, Di, N, dtype, device, seed):
+    """x in ``dtype``; dt = 0.1 softplus(normal), A = -exp(0.5 normal), as
+    the reference's kernel test draws them; B, C, D normal."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(seed)
+    f = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    x = (0.5 * f(Bt, S, Di)).to(dtype)
+    dt = 0.1 * F.softplus(f(Bt, S, Di))
+    A = -torch.exp(0.5 * f(Di, N))
+    return [t.to(device) for t in (x, dt, A, f(Bt, S, N), f(Bt, S, N), f(Di))]
+
+
+def ssm_close(got, want, dtype):
+    """(ok, max_abs_err) of a scan output or state against the plain one."""
+    import torch
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return False, float("inf")
+    err = torch.abs(g - w)
+    bound = SSM_TOL * max(1.0, float(torch.max(torch.abs(w))))
+    if dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(
+            torch.clamp(torch.abs(w), min=2.0 ** -126))) - 7)
+    return bool(torch.all(err <= bound)), float(torch.max(err))
+
+
+def ssm_kernel_phase(check: Check, device="cuda"):
+    """K8 against ssm_scan_plain on the card, f32 and bf16 x, output and
+    final state; an N past the kernel's 16 raises. Returns the worst
+    error."""
+    import torch
+    from repro_torch.kernels import ssm_scan as sk
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for i, (Bt, S, Di, N) in enumerate(SSM_CASES):
+            args = ssm_inputs(Bt, S, Di, N, dtype, device, 400 + i)
+            before = sk.ssm_scan.launches
+            y, h = sk.ssm_scan(*args, return_state=True)
+            check(sk.ssm_scan.launches == before + 1,
+                  f"ssm_scan {Bt}x{S}x{Di}x{N}/{dn}: not one launch")
+            want, h_want = sk.ssm_scan_plain(*args, return_state=True)
+            ok, err = ssm_close(y, want, dtype)
+            h_ok, h_err = ssm_close(h, h_want, torch.float32)
+            check(ok, f"ssm_scan {Bt}x{S}x{Di}x{N}/{dn}: max_abs_err {err}")
+            check(h_ok, f"ssm_scan {Bt}x{S}x{Di}x{N}/{dn}: state err {h_err}")
+            worst = max(worst, err)
+    x, dt, A, B, C, D = ssm_inputs(1, 8, 64, 17, torch.float32, device, 499)
+    try:
+        sk.ssm_scan(x, dt, A, B, C, D)
+        check(False, "ssm_scan: N = 17 did not raise")
+    except ValueError:
+        pass
+    torch.cuda.synchronize()
+    print("K8 kernel phase:", json.dumps({"ssm_scan": worst}), flush=True)
+    return worst
+
+
+def ssm_timing_phase(check: Check, device="cuda"):
+    """K8 at jamba-1.5-large's prefill (Bt 2, S 1024, Di 16384, N 16, x
+    bf16, with the final state, as prefill calls it): device time by graph
+    replay beside the plain version's and the bound, and checked against
+    the plain version at that shape. No single PyTorch call computes a
+    selective scan: library_ms is null."""
+    import torch
+    from repro_torch.kernels import ssm_scan as sk
+    Bt, S, Di, N = 2, 1024, 16384, 16
+    args = ssm_inputs(Bt, S, Di, N, torch.bfloat16, device, 7)
+    y, h = sk.ssm_scan(*args, return_state=True)
+    want, h_want = sk.ssm_scan_plain(*args, return_state=True)
+    ok, err = ssm_close(y, want, torch.bfloat16)
+    h_ok, h_err = ssm_close(h, h_want, torch.float32)
+    check(ok and h_ok, f"ssm_scan jamba_prefill: max_abs_err {err}, state {h_err}")
+    del want, h_want
+    elems = Bt * S * Di * N
+    bytes_ = (2 + 4 + 2) * Bt * S * Di + 2 * 4 * Bt * S * N + 4 * Di * N + 4 * Di \
+        + 4 * Bt * Di * N
+    t_b, t_e = bytes_ / H100_BYTES_PER_S, elems / H100_EXP_PER_S
+    t_f = 6.0 * elems / H100_F32_FLOPS           # dt a, e h, dx b, acc: 6 flops
+    row = dict(ms=graph_ms(lambda: sk.ssm_scan(*args, return_state=True)),
+               eager_ms=time_ms(lambda: sk.ssm_scan(*args, return_state=True)),
+               plain_ms=graph_ms(lambda: sk.ssm_scan_plain(*args, return_state=True),
+                                 calls=2, reps=2),
+               library_ms=None, bound_ms=1e3 * max(t_b, t_e, t_f),
+               bound_by="bytes" if t_b >= max(t_e, t_f) else "operations",
+               bytes=bytes_, exps=elems, max_abs_err=err, state_err=h_err)
+    print("LM timing: jamba_prefill_scan", json.dumps(row), flush=True)
+    return row
+
+
+def slice_g1(check: Check, expected: Expected, device="cuda"):
+    """The smoke jamba (one period: attention + 7 Mamba layers, 4 MoE
+    FFNs, d 128, f32) on the card against the same code on the CPU:
+    prefill and every decode step's logits and the prefill caches (k, v,
+    conv, h) within PARITY_ATOL of the larger magnitude (at least 1);
+    greedy tokens equal, after checking every decision's top-2 gap on the
+    CPU exceeds twice that; and, at capacity_factor 16 (no token dropped:
+    at the config's 1.25 a decode tick's expert capacity couples the
+    slots, so a slot's tokens depend on its neighbours'), a
+    BatchScheduler's tokens equal generate's."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_leaves
+    name = "slice (g1) jamba-1.5-large-398b"
+    cfg = get_smoke("jamba-1.5-large-398b")
+    model = get_model(cfg)
+    p_cpu = model.init(prng.PRNGKey(0), device="cpu")
+    p_dev = model.init(prng.PRNGKey(0), device=device)
+    B, S, new = 2, 12, 6
+    prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size)
+    cpu = logits_trace(model, p_cpu, prompt, new)
+    dev = logits_trace(model, p_dev, prompt.to(device), new)
+    expected.add(cfg, forwards=1, steps=new)
+    tol = PARITY_ATOL * max(1.0, max(float(torch.max(torch.abs(c))) for c in cpu))
+    err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(dev, cpu))
+    check(err <= tol, f"{name}: logits off the CPU run by {err} > {tol}")
+    gap = decision_gap(cpu)
+    check(gap > 2 * tol, f"{name}: top-2 gap {gap} too small to compare tokens")
+    c_cpu, _ = model.prefill(p_cpu, {"tokens": prompt})
+    c_dev, _ = model.prefill(p_dev, {"tokens": prompt.to(device)})
+    expected.add(cfg, forwards=1)
+    cache_err, cache_ok = 0.0, True
+    for a, b in zip(tree_leaves(c_dev), tree_leaves(c_cpu)):
+        if isinstance(b, torch.Tensor):
+            e = float(torch.max(torch.abs(a.cpu() - b)))
+            cache_ok &= e <= PARITY_ATOL * max(1.0, float(torch.max(torch.abs(b))))
+            cache_err = max(cache_err, e)
+        else:
+            cache_ok &= a == b
+    check(cache_ok, f"{name}: prefill caches off the CPU's by {cache_err}")
+    t_cpu = generate(model, p_cpu, prompt, new, device="cpu")
+    t_dev = generate(model, p_dev, prompt, new, device=device)
+    expected.add(cfg, forwards=1, steps=new)
+    same = bool(torch.equal(t_dev.cpu(), t_cpu))
+    check(same, f"{name}: greedy tokens differ from the CPU run")
+    row = dict(max_logits_err=err, tol=tol, top2_gap=gap, max_cache_err=cache_err,
+               tokens_equal=same)
+    nodrop = get_model(cfg.replace(capacity_factor=16.0))
+    row.update(scheduler_vs_generate(check, expected, nodrop, p_cpu, p_dev,
+                                     name + " capacity 16", device, tol))
+    print(f"{name}:", json.dumps(row), flush=True)
+    return row
+
+
+def jamba_full_config():
+    """jamba-1.5-large-398b at its published widths, cut to one period (8
+    of 72 layers: attention + 7 Mamba, 4 dense and 4 MoE FFNs) and 4 of
+    its 16 experts (top-2 kept): 16.2 B params, 32.5 GB in bf16."""
+    from repro_torch.configs import get_config
+    return get_config("jamba-1.5-large-398b").replace(num_layers=8, num_experts=4)
+
+
+def slice_g2(check: Check, expected: Expected, device="cuda"):
+    """Full width (jamba_full_config), random init from PRNGKey(0) drawn
+    on the card, bf16 params and compute: generate (B 2, prompt 1024, 16
+    new), a BatchScheduler (4 slots, 8 requests of 16-128 prompt tokens,
+    16 new each), and the f32 teacher-forced check (compute_dtype f32, the
+    bf16 params shared) at capacity_factor = experts / top_k = 2, the
+    least at which no token can drop (each expert can take every token),
+    so that a token's output does not depend on how many share its batch."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.models import get_model
+    from repro_torch.serving import BatchScheduler, Request
+    from repro_torch.utils import param_bytes, param_count
+    label = "slice (g2) jamba-1.5-large-398b"
+    cfg = jamba_full_config()
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    out = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+               init_s=t_init, init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{label} init:", json.dumps(out), flush=True)
+    out["generate"] = serve_run(check, expected, cfg, params, 2, 1024, 16, label, device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=int(n)).astype(np.int32),
+                    max_new_tokens=16)
+            for i, n in enumerate(rng.integers(16, 129, size=8))]
+    sched = BatchScheduler(model, params, batch_slots=4, max_len=144, device=device)
+    for r in reqs:
+        sched.submit(r)
+    done, secs = sync_time(sched.run)
+    expected.add(cfg, steps=sched.ticks)
+    n_out = sum(len(r.out_tokens) for r in done)
+    ok = (len(done) == 8 and all(len(r.out_tokens) == 16 for r in done)
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens))
+    check(ok, f"{label} scheduler: requests unfinished or tokens out of range")
+    fed = sum(len(r.prompt) for r in reqs) + n_out
+    out["scheduler"] = dict(requests=len(done), ticks=sched.ticks, seconds=secs,
+                            ms_per_tick=1e3 * secs / sched.ticks,
+                            generated_tokens_per_s=n_out / secs,
+                            fed_and_generated_tokens_per_s=fed / secs)
+    print(f"{label} scheduler:", json.dumps(out["scheduler"]), flush=True)
+    nodrop = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+    out["f32_teacher_forced"] = teacher_forced_check(check, expected, nodrop,
+                                                     params, label, device)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params
     torch.cuda.empty_cache()
     return out
@@ -1722,6 +1986,10 @@ def main() -> int:
     vtimings = variant_timing_phase()
     lm_errs = lm_kernel_phase(check)
     lm_times = lm_timing_phase()
+    lm_errs["ssm_scan"] = ssm_kernel_phase(check)
+    ssm_time = ssm_timing_phase(check)
+    lm_times["jamba_prefill_scan"] = ssm_time
+    lm_errs["ssm_scan"] = max(lm_errs["ssm_scan"], ssm_time["max_abs_err"])
     bwd_err = lm_bwd_phase(check)
     bwd_times = lm_bwd_timing()
 
@@ -1762,11 +2030,13 @@ def main() -> int:
     check(launches == expected, f"main path: {launches} fedagg launches, "
           f"expected {expected}")
 
-    # the LM serving path: slices (d) and (e), counted on their own
+    # the LM serving path: slices (d), (e) and (g), counted on their own
     reset_lm_counts()
     lm_expected = Expected()
     d = slice_d(check, lm_expected)
     e = slice_e(check, lm_expected)
+    g1 = slice_g1(check, lm_expected)
+    g2 = slice_g2(check, lm_expected)
     lm_launches = lm_counts()
     print("LM main path launches:", json.dumps(lm_launches), "expected:",
           json.dumps(lm_expected), flush=True)
@@ -1776,7 +2046,9 @@ def main() -> int:
             ("decode_attention", "src/repro/kernels/decode_attention.py:58",
              "qwen1.5_decode"),
             ("rmsnorm", "src/repro/kernels/rmsnorm.py:24",
-             "qwen1.5_prefill_norm")):
+             "qwen1.5_prefill_norm"),
+            ("ssm_scan", "src/repro/kernels/ssm_scan.py:49",
+             "jamba_prefill_scan")):
         n = lm_launches[name]
         check(n > 0, f"main path: kernel {name} was never launched")
         check(n == lm_expected[name], f"main path: {n} {name} launches, "
@@ -1827,7 +2099,7 @@ def main() -> int:
         "b": {k: b[k] for k in ("seconds_per_round", "launches", "M")},
         "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
               for k, v in c.items()},
-        "d": d, "e": e, "f1": f1, "f2": f2}))
+        "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,9 @@ ALIASES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
 }
 
-# the dense GQA family; the rest of the zoo is ROADMAP A16
-PORTED = ("qwen1_5_0_5b", "qwen2_5_3b", "phi3_mini_3_8b")
+# the dense GQA family and jamba; the rest of the zoo is ROADMAP A16
+PORTED = ("qwen1_5_0_5b", "qwen2_5_3b", "phi3_mini_3_8b",
+          "jamba_1_5_large_398b")
 
 
 def _module(name: str):

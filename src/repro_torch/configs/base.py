@@ -45,7 +45,7 @@ class ModelConfig:
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
 
-    # --- MoE (not ported) ----------------------------------------------------
+    # --- MoE ------------------------------------------------------------------
     moe: bool = False
     num_experts: int = 0
     num_shared_experts: int = 0
@@ -56,11 +56,11 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
 
-    # --- layer pattern ("attn" ported; "jamba", "xlstm" not) -----------------
+    # --- layer pattern ("attn" and "jamba" ported; "xlstm" not) --------------
     pattern: str = "attn"
     first_dense: int = 0
 
-    # --- SSM (mamba, not ported) -----------------------------------------------
+    # --- SSM (the jamba pattern's Mamba mixer) ---------------------------------
     ssm_state_dim: int = 16
     ssm_conv_dim: int = 4
     ssm_expand: int = 2

@@ -29,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"fedagg": "fedagg.cu", "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "decode_attention": "decode_attention.cu", "rmsnorm": "rmsnorm.cu"}
+           "decode_attention": "decode_attention.cu", "rmsnorm": "rmsnorm.cu",
+           "ssm_scan": "ssm_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

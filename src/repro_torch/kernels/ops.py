@@ -14,6 +14,9 @@ op is its kernel module's wrapper.
 * ``decode_attention`` — one query token against a KV cache with
   ``kv_len`` valid rows; ``kernels/decode_attention.py``.
 * ``rmsnorm`` — row-wise RMSNorm, differentiable; ``kernels/rmsnorm.py``.
+* ``ssm_scan`` / ``ssm_step`` — the Mamba (S6) selective scan over a
+  sequence (train and prefill; optionally its final state) and one decode
+  step of it; ``kernels/ssm_scan.py``.
 """
 from __future__ import annotations
 
@@ -22,3 +25,4 @@ from repro_torch.kernels.fedagg import fedagg  # noqa: F401
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention, flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_step  # noqa: F401

@@ -1,17 +1,21 @@
 """Where LM serving's time goes in the PyTorch port, on one CUDA card.
 
     PYTHONPATH=src python3 -m repro_torch.launch.serve_profile \
-        [--arch qwen1.5-0.5b] [--batch 8] [--prompt 512] [--steps 8] [--out DIR]
+        [--arch qwen1.5-0.5b] [--batch 8] [--prompt 512] [--steps 8] \
+        [--num-layers L] [--num-experts E] [--out DIR]
 
-The full-width config at its own dtypes (f32 params, bf16 compute), random
-init. After a warm-up generate it
+The full-width config at its own dtypes, random init; ``--num-layers`` and
+``--num-experts`` cut depth and experts where the whole model does not fit
+one card (jamba-1.5-large-398b: ``--num-layers 8 --num-experts 4``, one
+period of its published widths). After a warm-up generate it
 
 1. times one prefill and ``--steps`` decode steps with the host clock,
    each ending in a device sync;
 2. traces one prefill and then ``--steps`` decode steps with
    ``torch.profiler``: device time by kernel, kernel launches per decode
    step, the shares of the port's kernels (flash attention, decode
-   attention, RMSNorm), and the device's idle share in each phase
+   attention, RMSNorm, the selective scan), and the device's idle share in
+   each phase
    (1 - summed kernel time / the unprofiled phase's wall time).
 
 Prints one JSON line and writes it to ``DIR/torch_serve_profile.json``
@@ -34,7 +38,8 @@ PORT_KERNELS = {"flash_fwd_kernel": "flash_attention",
                 "flash_bwd_dkv_kernel": "flash_attention_bwd",
                 "decode_partial_kernel": "decode_attention",
                 "decode_merge_kernel": "decode_attention",
-                "rmsnorm_kernel": "rmsnorm"}
+                "rmsnorm_kernel": "rmsnorm",
+                "ssm_scan_kernel": "ssm_scan"}
 
 
 def device_kernels(prof):
@@ -83,6 +88,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--num-layers", type=int, default=None)
+    ap.add_argument("--num-experts", type=int, default=None)
     ap.add_argument("--out", default=str(ROOT / "results"))
     args = ap.parse_args()
 
@@ -98,6 +105,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    cut = {k: v for k, v in (("num_layers", args.num_layers),
+                             ("num_experts", args.num_experts)) if v is not None}
+    cfg = cfg.replace(**cut)
     model = get_model(cfg)
     params = model.init(prng.PRNGKey(0), device=dev)
     B, S, n = args.batch, args.prompt, args.steps
@@ -139,6 +149,7 @@ def main() -> int:
 
     out = {
         "card": smi_line(), "torch": torch.__version__, "arch": cfg.name,
+        "cut": cut,
         "batch": B, "prompt": S, "decode_steps": n,
         "prefill": dict(wall_ms=1e3 * t_pre,
                         **summarize(device_kernels(prof_pre), t_pre, 1)),

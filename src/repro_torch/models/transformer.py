@@ -1,12 +1,16 @@
-"""Decoder-only LM, dense ``pattern="attn"`` family: init, forward, the
-training loss and the serving entry points.
+"""Decoder-only LM: the dense ``pattern="attn"`` family (optionally with
+MoE FFNs) and the hybrid ``pattern="jamba"``: init, forward, the training
+loss and the serving entry points.
 
 Counterpart of ``repro/models/transformer.py`` for the dense GQA models
-(qwen1.5-0.5b, qwen2.5-3b, phi3-mini-3.8b). The parameter tree is the
-reference's: ``embed``, ``final_norm``, ``lm_head`` when the embeddings are
-untied, ``pre_blocks`` (empty here) and ``periods``, whose leaves are
-stacked on a leading [n_periods] axis. ``forward`` walks the periods in a
-Python loop where the reference scans them.
+(qwen1.5-0.5b, qwen2.5-3b, phi3-mini-3.8b) and jamba-1.5-large-398b. The
+parameter tree is the reference's: ``embed``, ``final_norm``, ``lm_head``
+when the embeddings are untied, ``pre_blocks`` (empty here) and
+``periods``, which holds one subtree per layer of a period (``l0`` for the
+dense family; ``l0``..``l7`` for jamba: attention then 7 Mamba mixers, a
+MoE FFN on every other layer) with its leaves stacked on a leading
+[n_periods] axis. ``forward`` walks the periods in a Python loop where the
+reference scans them.
 
 API (functional, as the reference's):
     init(key, cfg, device)                           -> params
@@ -17,21 +21,23 @@ API (functional, as the reference's):
     decode_step(params, caches, tokens, pos, cfg)    -> (logits, caches)
 
 The decode position ``pos`` is a host int: it picks the cache slot and the
-valid length without reading the device. A cache's ``len`` is a host int
-too (every layer's cache holds the same number of valid rows); decode
-writes each layer's new k / v row into ``caches`` in place. ``prefill``
-and ``decode_step`` run under ``torch.no_grad``: serving builds no
-autograd graph even on params that require grad.
+valid length without reading the device. An attention cache's ``len`` is a
+host int too (every attention layer's cache holds the same number of valid
+rows). Decode writes in place into the ``caches`` it is given: each
+attention layer its new k / v row, each Mamba layer its conv tail and
+state. ``prefill`` and ``decode_step`` run under ``torch.no_grad``: serving
+builds no autograd graph even on params that require grad.
 
 Training: ``forward(mode="train")`` with grad enabled and ``cfg.remat``
 checkpoints each period (``torch.utils.checkpoint``, non-reentrant: the
 period's forward runs again in the backward), the reference's "full"
-policy; ``remat_policy="save_mixer"`` is not ported (ROADMAP A16d).
+policy; ``remat_policy="save_mixer"`` is not ported (ROADMAP A16d). The
+Mamba mixer's scan has no backward yet (ROADMAP A16f): a gradient through
+it raises.
 
-Out of this slice, and refused with ``NotImplementedError`` by
-``check_model_config``: MLA, MoE, the jamba / xlstm patterns,
-``first_dense`` > 0, encoder-decoder, VLM, ``attn_bf16`` and
-``seq_shard_attn`` (ROADMAP A16).
+Out of the port so far, and refused with ``NotImplementedError`` by
+``check_model_config``: MLA, the xlstm pattern, ``first_dense`` > 0,
+encoder-decoder, VLM, ``attn_bf16`` and ``seq_shard_attn`` (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -44,13 +50,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import prng
 from repro_torch.models import layers as L
 from repro_torch.models.attention import gqa_attention_block, init_gqa
+from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.models.ssm import init_mamba, mamba_block
 from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
 
 _UNPORTED = (
     ("mla", lambda c: c.mla, "MLA attention"),
-    ("moe", lambda c: c.moe, "mixture-of-experts FFNs"),
-    ("pattern", lambda c: c.pattern != "attn", "the jamba / xlstm layer patterns"),
+    ("pattern", lambda c: c.pattern not in ("attn", "jamba"), "the xlstm layer pattern"),
     ("first_dense", lambda c: c.first_dense > 0, "leading dense blocks"),
     ("encdec", lambda c: c.encdec, "the encoder-decoder model"),
     ("vlm", lambda c: c.vlm, "image inputs"),
@@ -60,7 +67,7 @@ _UNPORTED = (
 
 
 def check_model_config(cfg):
-    """Refuse every knob outside the dense GQA slice; returns ``cfg``."""
+    """Refuse every knob outside the ported slices; returns ``cfg``."""
     for knob, on, what in _UNPORTED:
         if on(cfg):
             raise NotImplementedError(
@@ -70,32 +77,64 @@ def check_model_config(cfg):
 
 
 # ------------------------------------------------------------------ block init
-def _init_block(key, cfg):
+def _init_block(key, cfg, kind):
     d = cfg.d_model
     dev = key.device
-    return {
-        "norm1": L.init_rmsnorm(d, cfg.pdtype, dev),
-        "attn": init_gqa(fold_in_name(key, "attn"), cfg),
-        "norm2": L.init_rmsnorm(d, cfg.pdtype, dev),
-        "mlp": L.init_swiglu(fold_in_name(key, "mlp"), d, cfg.d_ff, cfg.pdtype),
-    }
+    p = {"norm1": L.init_rmsnorm(d, cfg.pdtype, dev)}
+    if kind["mixer"] == "attn":
+        p["attn"] = init_gqa(fold_in_name(key, "attn"), cfg)
+    else:
+        p["mamba"] = init_mamba(fold_in_name(key, "mamba"), cfg)
+    p["norm2"] = L.init_rmsnorm(d, cfg.pdtype, dev)
+    if kind["ffn"] == "dense":
+        p["mlp"] = L.init_swiglu(fold_in_name(key, "mlp"), d, cfg.d_ff, cfg.pdtype)
+    else:
+        p["moe"] = init_moe(fold_in_name(key, "moe"), cfg)
+    return p
 
 
-def _apply_block(p, x, cfg, *, positions, mode, cache, pos):
+def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos):
+    """One layer. Returns (x, new_cache, aux): aux is the router's
+    ``router_aux_coef * lb_loss`` for a MoE FFN, else 0.0."""
     h = L.rmsnorm(p["norm1"], x)
-    h, new_cache = gqa_attention_block(p["attn"], h, cfg, positions=positions,
-                                       mode=mode, cache=cache, pos=pos)
+    if kind["mixer"] == "attn":
+        h, new_cache = gqa_attention_block(p["attn"], h, cfg, positions=positions,
+                                           mode=mode, cache=cache, pos=pos)
+    else:
+        h, new_cache = mamba_block(p["mamba"], h, cfg, mode=mode, cache=cache)
     x = x + h
-    x = x + L.swiglu_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.cdtype)
-    return x, new_cache
+    aux = 0.0
+    if kind["ffn"] == "dense":
+        x = x + L.swiglu_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.cdtype)
+    else:
+        y, moe_aux = moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg)
+        x = x + y
+        aux = cfg.router_aux_coef * moe_aux["lb_loss"]
+    return x, new_cache, aux
+
+
+def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos):
+    """The layers l0..l{n-1} of one period in order. Returns (x, the
+    per-layer caches, the period's summed aux)."""
+    new_caches, aux = {}, 0.0
+    for j, kind in enumerate(kinds):
+        name = f"l{j}"
+        c_in = caches[name] if caches is not None else None
+        x, c, a = _apply_block(p[name], x, cfg, kind, positions=positions,
+                               mode=mode, cache=c_in, pos=pos)
+        new_caches[name] = c
+        aux = aux + a
+    return x, new_caches, aux
 
 
 # ------------------------------------------------------------------- model init
 def init(key, cfg, device="cuda"):
     """The reference's init, leaf for leaf: ``fold_in_name`` per leaf, the
-    period keys from ``split``, looped where the reference vmaps. The draws
-    run on ``device``; each period is written into the stacked leaves as it
-    is drawn, so the peak is the model plus one period."""
+    period keys from ``split``, each layer ``l{j}`` of a period from
+    ``fold_in_name(period key, "l{j}")``, looped where the reference vmaps.
+    The draws run on ``device``; each period is written into the stacked
+    leaves as it is drawn, so the peak is the model plus one period (a
+    single period is stacked as a view, with no copy)."""
     check_model_config(cfg)
     dev = resolve_device(device)
     key = key.to(dev)
@@ -110,8 +149,13 @@ def init(key, cfg, device="cuda"):
     params["pre_blocks"] = []
     pkeys = prng.split(fold_in_name(key, "periods"), cfg.n_periods)
     stacked = None
+    kinds = cfg.layer_kinds()
     for i in range(cfg.n_periods):
-        period = {"l0": _init_block(fold_in_name(pkeys[i], "l0"), cfg)}
+        period = {f"l{j}": _init_block(fold_in_name(pkeys[i], f"l{j}"), cfg, kind)
+                  for j, kind in enumerate(kinds)}
+        if cfg.n_periods == 1:
+            stacked = tree_map(lambda x: x[None], period)
+            break
         if stacked is None:
             stacked = tree_map(lambda x: x.new_empty((cfg.n_periods,) + x.shape),
                                period)
@@ -136,8 +180,8 @@ def _periods(tree, n):
 def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
             pos=None):
     """Returns (hidden [B,S,d], new_caches, aux). ``pos`` (decode): the
-    position as a host int. aux is 0.0: the dense family has no auxiliary
-    loss."""
+    position as a host int. aux: the summed ``router_aux_coef * lb_loss``
+    of the MoE FFNs (an f32 scalar), 0.0 without one."""
     check_model_config(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
@@ -146,36 +190,39 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
     if positions is None:
         positions = torch.arange(S, device=dev)
 
-    periods = params["periods"]
+    kinds = cfg.layer_kinds()
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
             "A16d); the port checkpoints whole periods ('full')")
-    layer_caches = []
-    for i, p_i in enumerate(_periods(periods["l0"], cfg.n_periods)):
+    aux_total = 0.0
+    period_caches = []
+    for i, p_i in enumerate(_periods(params["periods"], cfg.n_periods)):
         if remat:
-            x = checkpoint(lambda xc, p=p_i: _apply_block(
-                p, xc, cfg, positions=positions, mode=mode, cache=None,
-                pos=None)[0], x, use_reentrant=False)
-            continue
-        c_in = _period(caches["periods"]["l0"], i) if caches is not None else None
-        x, c = _apply_block(p_i, x, cfg, positions=positions, mode=mode,
-                            cache=c_in, pos=pos)
-        layer_caches.append(c)
+            x, aux = checkpoint(lambda xc, p=p_i: _apply_period(
+                p, xc, cfg, kinds, positions=positions, mode=mode, caches=None,
+                pos=None)[::2], x, use_reentrant=False)
+        else:
+            c_in = _period(caches["periods"], i) if caches is not None else None
+            x, c, aux = _apply_period(p_i, x, cfg, kinds, positions=positions,
+                                      mode=mode, caches=c_in, pos=pos)
+            period_caches.append(c)
+        aux_total = aux_total + aux
 
     x = L.rmsnorm(params["final_norm"], x)
     new_caches = None
     if mode == "prefill":
-        new_caches = {"pre": [], "periods": {"l0": {
-            "k": torch.stack([c["k"] for c in layer_caches]),
-            "v": torch.stack([c["v"] for c in layer_caches]),
-            "len": layer_caches[0]["len"]}}}
+        new_caches = {"pre": [], "periods": tree_map(
+            lambda *cs: torch.stack(cs) if isinstance(cs[0], torch.Tensor) else cs[0],
+            *period_caches)}
     elif mode == "decode":
-        # each layer wrote its row into the stacked cache in place
-        new_caches = {"pre": [], "periods": {"l0": dict(
-            caches["periods"]["l0"], len=layer_caches[0]["len"])}}
-    return x, new_caches, 0.0
+        # each layer wrote its k / v row or its state into the stacked
+        # cache in place; only the attention layers' host-int len moves
+        new_caches = {"pre": [], "periods": {
+            name: dict(c, len=period_caches[0][name]["len"]) if "len" in c else c
+            for name, c in caches["periods"].items()}}
+    return x, new_caches, aux_total
 
 
 # --------------------------------------------------------------------- heads
@@ -189,7 +236,7 @@ def _unembed_last(params, hidden, cfg):
 def loss_fn(params, batch, cfg):
     """batch: tokens / labels / mask [B, S]. Returns (scalar loss,
     metrics): the masked mean next-token cross-entropy plus the auxiliary
-    loss (0 for the dense family), differentiable in params."""
+    loss (the MoE router's; 0 without MoE), differentiable in params."""
     hidden, _, aux = forward(params, batch["tokens"], cfg, mode="train")
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
     s_loss, s_cnt = L.chunked_softmax_xent(hidden, w, batch["labels"],
@@ -202,17 +249,27 @@ def loss_fn(params, batch, cfg):
 
 # --------------------------------------------------------------------- serving
 def make_cache(cfg, batch_size, cache_len, device="cuda"):
-    """Zero decode cache for every layer, stacked per period: k, v
-    [n_periods, B, W, KV, hd] in the compute dtype (W = the window, capped
-    at cache_len), len 0. ``device="meta"`` gives the shapes alone."""
+    """Zero decode cache for every layer, stacked per period. Attention:
+    k, v [n_periods, B, W, KV, hd] in the compute dtype (W = the window,
+    capped at cache_len), len 0. Mamba: conv [n_periods, B, K-1, di] in the
+    compute dtype, h [n_periods, B, di, N] f32 (length-free).
+    ``device="meta"`` gives the shapes alone."""
     check_model_config(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
+    P, B, cd = cfg.n_periods, batch_size, cfg.cdtype
     W = min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
-    shape = (cfg.n_periods, batch_size, W, cfg.num_kv_heads, cfg.head_dim)
-    return {"pre": [], "periods": {"l0": {
-        "k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-        "len": 0}}}
+
+    def one(kind):
+        if kind["mixer"] == "attn":
+            shape = (P, B, W, cfg.num_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=cd, device=dev),
+                    "v": torch.zeros(shape, dtype=cd, device=dev), "len": 0}
+        return {"conv": torch.zeros((P, B, cfg.ssm_conv_dim - 1, cfg.d_inner),
+                                    dtype=cd, device=dev),
+                "h": torch.zeros((P, B, cfg.d_inner, cfg.ssm_state_dim),
+                                 dtype=torch.float32, device=dev)}
+    return {"pre": [], "periods": {f"l{j}": one(kind)
+                                   for j, kind in enumerate(cfg.layer_kinds())}}
 
 
 @torch.no_grad()

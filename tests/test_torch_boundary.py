@@ -221,7 +221,7 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
     assert "generated 2x3 tokens" in capsys.readouterr().out
 
 
-OUT_OF_SLICE_LM = [("mla", True), ("moe", True), ("pattern", "jamba"),
+OUT_OF_SLICE_LM = [("mla", True),
                    ("pattern", "xlstm"), ("first_dense", 1), ("encdec", True),
                    ("vlm", True), ("attn_bf16", True), ("seq_shard_attn", True)]
 
@@ -238,7 +238,7 @@ def test_out_of_slice_lm_knob_raises(knob, value):
         transformer.make_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "jamba-1.5-large-398b",
+@pytest.mark.parametrize("arch", ["llava-next-34b",
                                   "minicpm3_4b", "whisper-medium", "xlstm-125m",
                                   "deepseek-moe-16b", "granite-moe-3b-a800m"])
 def test_unported_arch_raises(arch):
@@ -270,3 +270,16 @@ def test_import_walk_covers_the_training_modules():
             "launch/train.py", "launch/train_profile.py",
             "kernels/flash_attention.py", "kernels/rmsnorm.py",
             "models/layers.py", "models/transformer.py"} <= names
+
+
+# ---------------------------------------------------------- the jamba slice
+def test_import_walk_covers_the_jamba_modules():
+    """The jamba serving path's modules are among the files the import
+    check above walks (so none imports jax or the reference)."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"configs/jamba_1_5_large_398b.py", "kernels/ssm_scan.py",
+            "models/ssm.py", "models/moe.py", "models/transformer.py",
+            "launch/serve.py", "launch/serve_profile.py",
+            "serving/scheduler.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ssm_scan.cu").exists()
