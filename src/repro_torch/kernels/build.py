@@ -7,11 +7,12 @@ into ``build/kernels/lib<name>-<hash>.so`` at the repository root (listed in
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited kernel is rebuilt
-and a stale library is never loaded. ``build_all`` starts one nvcc per
-source, all at once, and waits for them; ``load`` builds what is missing
-and returns the loaded library. ptxas's register and shared-memory report
-is kept beside each library (``.log``) and returned by ``build_all``.
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel or header is rebuilt and a stale library is
+never loaded. ``build_all`` starts one nvcc per source, all at once, and
+waits for them; ``load`` builds what is missing and returns the loaded
+library. ptxas's register and shared-memory report is kept beside each
+library (``.log``) and returned by ``build_all``.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module on a machine without nvcc.
@@ -55,8 +56,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, every shared header
+    ``csrc/*.cuh`` (sorted by name) and the flags."""
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

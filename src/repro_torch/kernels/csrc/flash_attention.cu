@@ -1,6 +1,5 @@
 // Flash-attention forward with the per-row log-sum-exp, for NVIDIA Hopper
-// (sm_90a): causal or windowed grouped-query attention, online softmax,
-// f32 math.
+// (sm_90a): causal or windowed grouped-query attention, online softmax.
 //
 //   q [B, Sq, H, hd], k, v [B, Skv, KV, hd] (f32 or bf16, all one dtype);
 //   query head h reads kv head h / G (G = H / KV); query i sits at absolute
@@ -12,31 +11,50 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_fwd_pallas (_kernel_fwd_lse over _kernel), whose grid
 // walks kv blocks sequentially with m / l / acc in VMEM scratch. Here a
-// block owns 32 query rows of one (batch, head) and walks the kv tiles in a
-// loop, m / l / acc in registers.
+// block owns a stretch of query rows of one (batch, head) and walks the kv
+// tiles in a loop, m / l / acc in registers. Two routes, by dtype (not a
+// fallback: a launch that fails returns its error):
 //
-// Numerics as in the reference: q * scale is rounded in f32 before the
-// product; scores, softmax state and the output sum are f32; the output is
-// rounded once to q's dtype. The reference sets masked scores to -1e30 and
-// lets the next real score's correction exp(-1e30 - m) zero what a wholly
-// masked stretch added; here a masked score gets weight 0 outright and a
-// tile no row of the block can see is skipped. Every row sees at least
-// its own position, so both give the sum over the visible keys: the same
-// output up to f32 rounding order.
+// * bf16 inputs: the tensor-core kernel (namespace tc, below). Scores and
+//   the output sum on bf16 wgmma with f32 accumulation; a product of two
+//   bf16 values is exact in f32, so S = q k^T is the reference's f32 score
+//   up to summation order (scale is applied to the f32 scores after the
+//   product, where the reference rounds q * scale first). P is f32: it is
+//   split into hi = bf16(P) and lo = bf16(P - hi) and P V is issued twice
+//   (hi, then lo) into the f32 accumulator, which keeps the reference's
+//   parity bound (a single bf16 P leaves it: tests/
+//   test_torch_flash_tc_numerics.py). Softmax in f32 with expf, as the
+//   reference's exp; out rounded once. Bound: bytes at qwen1.5-0.5b's
+//   prefill (~127 flops a byte against the card's ~295 bf16 flops a byte),
+//   operations at qwen2.5-3b's (~450: G 8, S 1024); the split adds a third
+//   product unit to the usual two. Design: a block of
+//   two consumer warpgroups (64 query rows each, 128 a block) and one
+//   producer warp. The producer's lane 0 loads the block's q tile once and
+//   the k / v tiles (128 keys at hd 32, else 64) into a 2-stage ring by
+//   TMA (128- or 64-byte swizzled, what wgmma reads without bank
+//   conflicts; rows past Skv or Sq zero filled), completing on mbarriers;
+//   each warpgroup waits for a stage, runs S = q k^T (wgmma SS, k K-major),
+//   the online softmax on the accumulator fragments (row max and sum over
+//   the 4 threads of a row with xor-shuffles), O += P_hi V + P_lo V (wgmma
+//   RS, P from registers, V read MN-major), and releases the stage. Only
+//   tiles that cross the causal diagonal, the window's edge or Skv are
+//   masked; a tile no row of a warpgroup sees is skipped by it; blocks run
+//   heaviest (last query rows) first.
+// * f32 inputs: the CUDA-core kernel below (flash_fwd_kernel), f32 math as
+//   the reference: q * scale rounded in f32 before the product; scores,
+//   softmax state and the output sum f32. Bound: operations (f32 outside
+//   the tensor cores); per block of 128 threads, 4 threads a query row
+//   (32 rows a block), each holding an interleaved quarter of q and acc in
+//   registers (float4 chunks at columns 16 i + 4 p); a 32-key tile of k
+//   and v in padded shared memory (16 floats a row, so the eight rows a
+//   warp touches fall in distinct banks); per key the row's 4 threads add
+//   their partial dots with two xor-shuffles; then acc += p_j * v_j.
 //
-// Bound: operations (2 * 2 * hd flops per visible (query, key) pair; a
-// causal prefill at S = 512, hd = 64 does ~34 flops per byte of q, k, v
-// and out, above the card's ~20 f32 flops per byte). This first version
-// runs on the CUDA cores in f32, not on the tensor cores (wgmma is later
-// work). Design, per block of 128 threads: 4 threads per query row, each
-// holding an interleaved quarter of q (scaled) and of acc in registers
-// (float4 chunks at columns 16 i + 4 p); a 32-key tile of k and v is
-// converted to f32 in shared memory (rows padded by 16 floats so the eight
-// rows a warp touches fall in distinct banks); per key the 4 threads of a
-// row add their partial dots with two xor-shuffles, so every thread of the
-// row holds the score; the tile's max, the correction and the weights are
-// computed per row in registers; then acc += p_j * v_j from shared memory.
-// Tiles wholly outside every row's causal / window range are not loaded.
+// Both routes: the reference sets masked scores to -1e30 and lets the next
+// real score's correction exp(-1e30 - m) zero what a wholly masked stretch
+// added; here a masked score gets weight 0 outright and a tile no row can
+// see is skipped. Every row sees at least its own position, so both give
+// the sum over the visible keys: the same output up to f32 rounding order.
 //
 // C interface (bound with ctypes): flash_attention_launch() returns the
 // launch's cudaError_t; flash_attention_error_string() names it.
@@ -45,6 +63,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -63,25 +83,10 @@ __device__ __forceinline__ void load_f32x8(const float* p, float* d) {
   d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
 }
 
-__device__ __forceinline__ void load_f32x8(const __nv_bfloat16* p, float* d) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    d[2 * i] = f.x;
-    d[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Args {
   const void* q;
@@ -233,6 +238,248 @@ flash_fwd_kernel(Args a) {
   }
 }
 
+// ------------------------------------------------------- bf16: tensor cores
+namespace tc {
+
+using namespace hopper_tc;
+
+constexpr int kConsumers = 2;                       // warpgroups of 64 query rows
+constexpr int kWgRows = 64;
+constexpr int kBlockRows = kConsumers * kWgRows;    // query rows a block
+constexpr int kThreads = 128 * kConsumers + 32;     // + the producer warp
+constexpr int kStages = 2;                          // k / v ring
+
+template <int HD>
+struct Fwd {
+  static constexpr int kBc = HD <= 32 ? 128 : 64;   // keys a tile (168 registers a thread)
+  static constexpr int kQBytes = kBlockRows * HD * 2;
+  static constexpr int kTileBytes = kBc * HD * 2;   // one k or v tile
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kSmem = kBarOffset + 64 + 1024;  // + barriers, alignment
+};
+
+struct Args {
+  void* out;
+  float* lse;
+  int B, Sq, Skv, H, KV, causal, window;
+  float scale;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, Args a) {
+  using F = Fwd<HD>;
+  constexpr int kBc = F::kBc;
+  uint8_t* smem = smem_1024();
+  uint8_t* q_s = smem;
+  uint8_t* kv_s = smem + F::kQBytes;                // stage s: k, then v
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + F::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int bh = static_cast<int>(blockIdx.x);
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int row0 = (static_cast<int>(gridDim.y - 1 - blockIdx.y)) * kBlockRows;  // heaviest first
+  const int q_offset = a.Skv - a.Sq;
+
+  // the block's rows cover positions [first, last]; skip tiles none sees
+  const int first = q_offset + row0;
+  const int last = q_offset + min(a.Sq - 1, row0 + kBlockRows - 1);
+  int lo = 0, hi = a.Skv;
+  if (a.causal) hi = min(hi, last + 1);
+  if (a.window > 0) lo = max(0, first - a.window + 1);
+  lo = (lo / kBc) * kBc;
+  const int ntiles = (hi - lo + kBc - 1) / kBc;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = static_cast<int>(threadIdx.x) / 128;
+  if (wg == kConsumers) {                           // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(q_full, F::kQBytes);
+      tma_load_tile<HD>(q_s, &mq, q_full, kBlockRows, h, row0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * F::kTileBytes);
+        uint8_t* ks = kv_s + s * 2 * F::kTileBytes;
+        tma_load_tile<HD>(ks, &mk, &full[s], kBc, kvh, lo + it * kBc, b);
+        tma_load_tile<HD>(ks + F::kTileBytes, &mv, &full[s], kBc, kvh, lo + it * kBc, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows [wrow0, wrow0 + 64) of the block; this
+  // thread holds rows r and r + 8 of them, columns 8 j + 2 c + {0, 1}
+  const int t = static_cast<int>(threadIdx.x) % 128;
+  const int lane = t % 32;
+  const int c = lane % 4;
+  const int r = 16 * (t / 32) + lane / 4;
+  const int wrow0 = row0 + wg * kWgRows;
+  const bool wg_active = wrow0 < a.Sq;
+  const int wfirst = q_offset + wrow0;
+  const int wlast = q_offset + min(a.Sq - 1, wrow0 + kWgRows - 1);
+  const int qpos[2] = {wfirst + r, wfirst + r + 8};
+  const float neg_inf = __int_as_float(0xff800000);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f};
+  const uint32_t q_addr = smem_u32(q_s);
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kStages;
+    const int t0 = lo + it * kBc;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const bool skip = !wg_active || (a.causal && t0 > wlast)
+                      || (a.window > 0 && t0 + kBc - 1 <= wfirst - a.window);
+    if (!skip) {
+      const uint32_t k_addr = smem_u32(kv_s + s * 2 * F::kTileBytes);
+      const uint32_t v_addr = k_addr + F::kTileBytes;
+      float sc[kBc / 2];
+#pragma unroll
+      for (int i = 0; i < kBc / 2; ++i) sc[i] = 0.0f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wgmma_ss<kBc, 0>(sc, desc_k_major<HD>(q_addr, kBlockRows, wg * kWgRows, kk),
+                         desc_k_major<HD>(k_addr, kBc, 0, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // f32 scores, masked where the tile crosses the diagonal, the
+      // window's edge or Skv
+      const bool partial = t0 + kBc > a.Skv || (a.causal && t0 + kBc - 1 > wfirst)
+                           || (a.window > 0 && t0 <= wlast - a.window);
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * a.scale;
+          if (partial) {
+            const int key = t0 + 8 * j + 2 * c + (e & 1);
+            const int qp = qpos[e >> 1];
+            const bool ok = key < a.Skv && (!a.causal || key <= qp)
+                            && (a.window <= 0 || key > qp - a.window);
+            x = ok ? x : neg_inf;
+          }
+          sc[4 * j + e] = x;
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float tmax = neg_inf;
+#pragma unroll
+        for (int j = 0; j < kBc / 8; ++j) {
+          tmax = fmaxf(tmax, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+        }
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(m[hh], tmax);
+        corr[hh] = expf(m[hh] - m_new);
+        m[hh] = m_new;
+        float psum = 0.0f;                          // this thread's part of the row
+#pragma unroll
+        for (int j = 0; j < kBc / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = expf(sc[4 * j + 2 * hh + e] - m_new);  // 0 where masked
+            sc[4 * j + 2 * hh + e] = p;
+            psum += p;
+          }
+        }
+        l[hh] = l[hh] * corr[hh] + psum;
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+      }
+
+      // O += P_hi V + P_lo V
+      uint32_t ph[kBc / 16][4], pl[kBc / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) split_a(sc, kk, ph[kk], pl[kk]);
+      fence_regs(o);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) {
+        const uint64_t dv = desc_mn_major<HD>(v_addr, kBc, kk);
+        wgmma_rs<HD, 1>(o, ph[kk], dv, 1);
+        wgmma_rs<HD, 1>(o, pl[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  if (!wg_active) return;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = wrow0 + r + 8 * hh;
+    if (row >= a.Sq) continue;
+    const float inv = 1.0f / fmaxf(lt, 1e-30f);
+    __nv_bfloat16* op = out + ((static_cast<long long>(b) * a.Sq + row) * a.H + h) * HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    }
+    // [B * KV, G, Sq] with h = kvh * G + g is [B, H, Sq]
+    if (c == 0) {
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + row] = m[hh] + logf(fmaxf(lt, 1e-30f));
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, long long q_sb, long long q_ss,
+                   long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                   const Args& a, cudaStream_t s) {
+  using F = Fwd<HD>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_rows_map<HD>(&mq, q, a.B, a.Sq, a.H, q_sb, q_ss, kBlockRows);
+  if (err == cudaSuccess) err = make_rows_map<HD>(&mk, k, a.B, a.Skv, a.KV, k_sb, k_ss, F::kBc);
+  if (err == cudaSuccess) err = make_rows_map<HD>(&mv, v, a.B, a.Skv, a.KV, v_sb, v_ss, F::kBc);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.Sq + kBlockRows - 1) / kBlockRows);
+  flash_fwd_tc_kernel<HD><<<grid, kThreads, F::kSmem, s>>>(mq, mk, mv, a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
 cudaError_t launch_hd(const Args& a, int hd, cudaStream_t s) {
   const dim3 grid((a.Sq + kRows - 1) / kRows, a.B * a.H);
@@ -253,8 +500,9 @@ extern "C" {
 // Strides are in elements; the head and feature axes of q, k and v must be
 // contiguous ([.., H or KV, hd] rows of hd), every row 16-byte aligned.
 // out is a contiguous [B, Sq, H, hd] buffer of q's dtype, lse a contiguous
-// [B, H, Sq] f32 buffer. dtype: 0 float32, 1 bfloat16. hd in {32, 64, 96,
-// 128}; H a multiple of KV.
+// [B, H, Sq] f32 buffer. dtype: 0 float32 (the CUDA-core kernel), 1
+// bfloat16 (the tensor-core kernel). hd in {32, 64, 96, 128}; H a multiple
+// of KV.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            float* lse, long long q_sb, long long q_ss, long long k_sb,
                            long long k_ss, long long v_sb, long long v_ss, int B, int Sq,
@@ -265,11 +513,20 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
     return cudaErrorInvalidValue;
   }
   if (B * H > 65535 || Sq > Skv) return cudaErrorInvalidValue;
-  Args a{q, k, v, out, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-         B, Sq, Skv, H, KV, causal, window, scale};
-  if (dtype == 0) return launch_hd<float>(a, hd, s);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(a, hd, s);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    Args a{q, k, v, out, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+           B, Sq, Skv, H, KV, causal, window, scale};
+    return launch_hd<float>(a, hd, s);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const tc::Args a{out, lse, B, Sq, Skv, H, KV, causal, window, scale};
+  switch (hd) {
+    case 32: return tc::launch<32>(q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, a, s);
+    case 64: return tc::launch<64>(q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, a, s);
+    case 96: return tc::launch<96>(q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, a, s);
+    case 128: return tc::launch<128>(q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* flash_attention_error_string(int err) {

@@ -34,9 +34,12 @@ reference's ``flash_attention_fwd_pallas``.
 
 The kernels replace the TPU kernels ``repro/kernels/flash_attention.py:
 flash_attention_fwd_pallas`` (``_kernel_fwd_lse`` over ``_kernel``) and
-``flash_attention_bwd_pallas`` (``_kernel_dq``, ``_kernel_dkv``). What
-bounds each and what its design does about it is noted at the top of its
-source.
+``flash_attention_bwd_pallas`` (``_kernel_dq``, ``_kernel_dkv``). Each
+source has two routes, picked by the inputs' dtype: bf16 runs on the
+tensor cores (wgmma tiles loaded by TMA, with P and dS split into bf16 hi
++ lo so that the reference's f32 parity bound holds), f32 on the CUDA
+cores in f32. What bounds each route and what its design does about it is
+noted at the top of its source.
 """
 from __future__ import annotations
 

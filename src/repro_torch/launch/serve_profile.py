@@ -34,8 +34,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[3]
 
 PORT_KERNELS = {"flash_fwd_kernel": "flash_attention",
+                "flash_fwd_tc_kernel": "flash_attention",
                 "flash_bwd_dq_kernel": "flash_attention_bwd",
                 "flash_bwd_dkv_kernel": "flash_attention_bwd",
+                "flash_bwd_dq_tc_kernel": "flash_attention_bwd",
+                "flash_bwd_dkv_tc_kernel": "flash_attention_bwd",
                 "decode_partial_kernel": "decode_attention",
                 "decode_merge_kernel": "decode_attention",
                 "rmsnorm_kernel": "rmsnorm",

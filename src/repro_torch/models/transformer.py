@@ -115,15 +115,19 @@ def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos):
 
 def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos):
     """The layers l0..l{n-1} of one period in order. Returns (x, the
-    per-layer caches, the period's summed aux)."""
+    per-layer caches, the period's aux).
+
+    The period's aux is its last layer's (0.0 if that layer is dense), as
+    the reference's ``period_fn`` returns ``aux_acc + aux`` after its layer
+    loop (repro/models/transformer.py:142-151): of jamba's four MoE layers
+    a period only l7's counts."""
     new_caches, aux = {}, 0.0
     for j, kind in enumerate(kinds):
         name = f"l{j}"
         c_in = caches[name] if caches is not None else None
-        x, c, a = _apply_block(p[name], x, cfg, kind, positions=positions,
-                               mode=mode, cache=c_in, pos=pos)
+        x, c, aux = _apply_block(p[name], x, cfg, kind, positions=positions,
+                                 mode=mode, cache=c_in, pos=pos)
         new_caches[name] = c
-        aux = aux + a
     return x, new_caches, aux
 
 
@@ -180,8 +184,9 @@ def _periods(tree, n):
 def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
             pos=None):
     """Returns (hidden [B,S,d], new_caches, aux). ``pos`` (decode): the
-    position as a host int. aux: the summed ``router_aux_coef * lb_loss``
-    of the MoE FFNs (an f32 scalar), 0.0 without one."""
+    position as a host int. aux: the sum over periods of each period's
+    last layer's ``router_aux_coef * lb_loss`` (an f32 scalar; 0.0 where
+    that layer is dense), as the reference's ``forward``."""
     check_model_config(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)

@@ -156,12 +156,12 @@ def _jax_layer_auxes(jp, toks, jcfg):
     ("qwen1_5_0_5b", dict(moe=True, num_experts=4, top_k=2, moe_d_ff=128)),
 ], ids=["jamba", "qwen_moe"])
 def test_train_forward_and_aux(arch, knobs):
-    """The port's aux sums every MoE layer's router_aux_coef x lb_loss.
-    The reference's ``forward`` adds only the last layer's of each period
-    (``period_fn`` returns ``aux_acc + aux`` after its layer loop,
-    repro/models/transformer.py:151): for jamba, l7's alone of the four MoE
-    layers (ROADMAP Queue C); one layer a period (the dense pattern) gives
-    the same sum."""
+    """The port's aux is the reference's: ``forward`` adds each period's
+    last layer's router_aux_coef x lb_loss (``period_fn`` returns
+    ``aux_acc + aux`` after its layer loop, repro/models/transformer.py:
+    142-151), so for jamba l7's alone of the four MoE layers with a
+    positive aux; one layer a period (the dense pattern) counts them all.
+    The task loss, the aux and the loss are held to the reference's."""
     jm, jp, tm, tp = _setup(arch, **knobs)
     toks = np.random.default_rng(2).integers(0, tm.cfg.vocab_size, size=(2, 11))
     jh, _, jaux = JT.forward(jp, jnp.asarray(toks), jm.cfg, mode="train")
@@ -171,15 +171,15 @@ def test_train_forward_and_aux(arch, knobs):
     per_layer = _jax_layer_auxes(jp, jnp.asarray(toks), jm.cfg)
     period = len(tm.cfg.layer_kinds())
     _parity(jaux, sum(per_layer[period - 1::period]))     # the reference's sum
-    _parity(taux, sum(per_layer))
+    _parity(taux, jaux)
     assert sum(a > 0 for a in per_layer) == (4 if arch == ARCH else tm.cfg.num_layers)
     batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
              "mask": np.ones(toks.shape, np.float32)}
     jl, jmet = jm.loss_fn(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tl, tmet = tm.loss_fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
     _parity(tmet["task_loss"], jmet["task_loss"])
-    _parity(tmet["aux_loss"], sum(per_layer))
-    _parity(tl, float(jmet["task_loss"]) + sum(per_layer))
+    _parity(tmet["aux_loss"], jmet["aux_loss"])
+    _parity(tl, jl)
 
 
 def test_dense_moe_loss_gradient_matches_reference():
@@ -265,6 +265,40 @@ def test_prefill_then_decode_matches_teacher_forced_and_reference():
     for j in range(1, 8):
         for field in ("conv", "h"):
             _parity(caches["periods"][f"l{j}"][field], jcaches["periods"][f"l{j}"][field])
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 5])
+def test_short_prompts_prefill_then_decode(S):
+    """Prompts shorter than ssm_conv_dim - 1 tokens (ROADMAP Queue C2): the
+    port's prefill left-pads the conv cache (models/ssm.py) and decodes.
+    Each of 3 decode steps is held against the port's own train-mode
+    forward over the whole sequence; at S >= 3, where the reference's
+    prefill keeps a full conv cache, also against the reference's prefill
+    + decode (below that the reference's next decode raises)."""
+    jm, jp, tm, tp = _setup(**NO_DROP)
+    B, new = 2, 3
+    cfg = tm.cfg
+    assert cfg.ssm_conv_dim - 1 == 3
+    toks = np.random.default_rng(10 + S).integers(0, cfg.vocab_size, size=(B, S + new))
+    hidden, _, _ = TT.forward(tp, torch.from_numpy(toks), cfg, mode="train")
+    ref_logits = (hidden.float() @ tp["lm_head"].float()).numpy()
+    caches, logits = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :S])})
+    assert caches["periods"]["l1"]["conv"].shape == (1, B, 3, cfg.d_inner)
+    np.testing.assert_allclose(logits.numpy(), ref_logits[:, S - 1], **SERVE)
+    caches = pad_caches(tm, caches, B, S + new)
+    witness = S >= cfg.ssm_conv_dim - 1
+    if witness:
+        jcaches, jlogits = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks[:, :S])})
+        _parity(logits, jlogits)
+        jcaches = jax_pad_caches(jm, jcaches, B, S + new)
+        jstep = jax.jit(jm.decode_step)
+    for t in range(S, S + new):
+        logits, caches = tm.decode_step(tp, caches, torch.from_numpy(toks[:, t:t + 1]), t)
+        np.testing.assert_allclose(logits.numpy(), ref_logits[:, t], **SERVE)
+        if witness:
+            jlogits, jcaches = jstep(jp, jcaches, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+            _parity(logits, jlogits)
+    assert caches["periods"]["l0"]["len"] == S + new
 
 
 def _jax_trace(jm, jp, prompt, new):

@@ -416,3 +416,32 @@ def test_function_gradients_on_the_card_match_the_cpu(cuda_device, dtype):
     for g, w in zip(grads[str(cuda_device)], grads["cpu"]):
         assert float(g.abs().max()) > 0.0
         _close(g, w, float(w.abs().max()), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernels_take_strided_rows(cuda_device, dtype):
+    """K5 and K6 on q, k, v that are views into one fused [B, S, H + 2 KV,
+    hd] buffer (seq stride (H + 2 KV) hd, batch stride S times that): the
+    bf16 route's TMA maps and the f32 route's pointers take the strides
+    the wrapper passes. Held against the plain versions on the same views
+    (the backward fed the kernel's out and lse), as above."""
+    B, S, H, KV, hd = 2, 150, 8, 2, 64
+    fused, _ = _rand((B, S, H + 2 * KV, hd), 31, dtype)
+    fused = fused.to(cuda_device)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
+    assert not q.is_contiguous() and q.stride(1) == (H + 2 * KV) * hd
+    do, _ = _rand((B, S, H, hd), 32, dtype)
+    do = do.to(cuda_device)
+    out, lse = fk.flash_attention_fwd(q, k, v)
+    want, want_lse = fk.flash_attention_plain(q, k, v)
+    got = fk.flash_attention_bwd(q, k, v, out, lse, do)
+    wants = fk.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    _close(out.float().cpu(), want.float().cpu(), float(v.float().abs().max()), dtype)
+    w = want_lse.cpu().numpy()
+    np.testing.assert_array_less(np.abs(lse.cpu().numpy() - w),
+                                 F32_TOL * np.maximum(1.0, np.abs(w)))
+    for g, w in zip(got, wants):
+        w = w.float().cpu()
+        _close(g.float().cpu(), w, float(w.abs().max()), dtype)
