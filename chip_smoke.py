@@ -24,10 +24,13 @@ if a check fails:
 3. LM kernel phase: flash-attention forward (K5, with its LSE), decode
    attention (K7) and RMSNorm (K9) against their plain versions on the
    card over causal / windowed / ragged / grouped cases in f32 and bf16
-   (K5 and K6 take their tensor-core route in bf16, the CUDA cores in f32;
-   the cases include the tensor-core tiles' edges),
-   then each timed at the serving path's shapes beside the plain version,
-   its bound and a PyTorch yardstick (timed here only); then the
+   (K5, K6 and K7 take their tensor-core route in bf16, the CUDA cores in
+   f32; the cases include the tensor-core tiles' edges, and K7 also runs
+   replayed in a CUDA graph against its eager output), then each timed at
+   the serving path's shapes beside the plain version, its bound and a
+   PyTorch yardstick (timed here only); K7 and K9 at every shape the
+   serving paths give them (qwen1.5-0.5b, qwen2.5-3b, jamba-1.5-large),
+   warm and cold, beside an empty kernel of the same launch shape; then the
    flash-attention backward (K6) against its plain version over the same
    cases, the FlashAttention and RMSNorm Functions' gradients on the card
    against the CPU, and K6 timed at the training shapes beside the plain
@@ -495,8 +498,11 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
     """Every reducer x wire but K1's mean + identity at the cell-(b) shape,
     all gates 1: the kernel, the plain version, the bound, and a library
     yardstick timed here only — torch.mv of the decoded, masked rows for
-    mean and dp, torch.sort of the decoded rows down the client axis for
-    the sorted reducers (the sort alone, without the order statistics)."""
+    mean and dp; torch.sort of the decoded rows down the client axis for
+    trimmed_mean (the sort alone, without the order statistics); for the
+    median torch.quantile(rows, 0.5, dim=0, interpolation="midpoint"),
+    jnp.median's function in one call, with torch.sort beside it
+    (sort_ms)."""
     import torch
     from repro_torch.kernels import fedagg as fk
     rows = []
@@ -507,9 +513,14 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
             updates, w, g, ops = variant_case(red, wire, C, M, device,
                                               gates="all")
             dense = decoded_rows(updates, ops, M)
+            extra = {}
             if red in ("trimmed_mean", "median"):
                 keyed = torch.where((g > 0)[:, None], dense, float("inf"))
                 library = time_ms(lambda: torch.sort(keyed, dim=0), iters=10)
+                if red == "median":               # the function itself, one call
+                    extra["sort_ms"] = library
+                    library = time_ms(lambda: torch.quantile(
+                        dense, 0.5, dim=0, interpolation="midpoint"), iters=10)
             else:
                 wg = w * g
                 if red == "dp":
@@ -522,7 +533,7 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
             bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), C, M)
             rows.append(dict(reducer=red, wire=wire, shape=f"{C}x{M}", ms=ms,
                              plain_ms=plain, library_ms=library,
-                             bound_ms=bound, bound_by=by))
+                             bound_ms=bound, bound_by=by, **extra))
             print("variant timing:", json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -863,18 +874,25 @@ FLASH_CASES = [
     ("long_g8_hd128", 1, 2048, 2048, 32, 4, 128, True, 0),
 ]
 # (label, B, Skv, H, KV, hd, [kv_len, ...]): kv_len in {1, mid, Skv}, ragged
-# Skv; "strided" reads one layer of a stacked [P, B, Skv, KV, hd] cache
+# Skv, G in {1, 4, 8}, the slices' decode shapes (qwen1.5-0.5b, qwen2.5-3b,
+# jamba-1.5-large); "strided" reads one layer of a stacked
+# [P, B, Skv, KV, hd] cache
 DECODE_CASES = [
     ("qwen1.5_decode", 8, 544, 16, 16, 64, (1, 271, 544)),
     ("qwen2.5_decode", 4, 1040, 16, 2, 128, (1, 519, 1040)),
+    ("jamba_decode", 2, 1040, 64, 8, 128, (1, 519, 1040)),
     ("ragged_hd32_g4", 2, 77, 8, 2, 32, (1, 40, 77)),
     ("g8_hd96", 3, 100, 8, 1, 96, (1, 33, 100)),
     ("strided", 2, 300, 8, 2, 64, (1, 150, 300)),
 ]
-# (label, rows, D): ragged rows, the four widths, a width without 16-byte rows
+# (label, rows, D, scale dtype): ragged rows, the zoo's widths (jamba's
+# 8192 with its bf16 scale, at ragged prefill rows and a decode step's 2),
+# a width without 16-byte rows
 RMSNORM_CASES = [
-    ("d256", 37, 256), ("d1024_decode", 8, 1024), ("d1024_prefill", 4096, 1024),
-    ("d2048", 4099, 2048), ("d3072", 7, 3072), ("d100_scalar", 5, 100),
+    ("d256", 37, 256, "float32"), ("d1024_decode", 8, 1024, "float32"),
+    ("d1024_prefill", 4096, 1024, "float32"), ("d2048", 4099, 2048, "float32"),
+    ("d3072", 7, 3072, "float32"), ("d100_scalar", 5, 100, "float32"),
+    ("d8192", 77, 8192, "bfloat16"), ("d8192_decode", 2, 8192, "bfloat16"),
 ]
 
 
@@ -897,6 +915,24 @@ def attn_close(out, want, v, dtype):
         return err <= tol, err
     ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(torch.abs(p), min=2.0 ** -126))) - 7)
     return bool(torch.all(torch.abs(o - p) <= ulp + tol)), err
+
+
+GRAPH_DECODE = ("qwen2.5_decode", "jamba_decode", "ragged_hd32_g4")
+
+
+def graph_replays_match(fn, eager) -> bool:
+    """``fn`` captured in a CUDA graph and replayed twice gives ``eager``'s
+    output bit for bit both times (K7's splits merge inside one launch of
+    a thread-block cluster: nothing may carry over between calls)."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(first, eager)) and bool(torch.equal(out, eager))
 
 
 def lm_kernel_phase(check: Check, device="cuda"):
@@ -944,9 +980,15 @@ def lm_kernel_phase(check: Check, device="cuda"):
                 check(ok, f"decode_attention {label}/kv_len {kv_len}/{dn}: "
                       f"max_abs_err {err}")
                 worst["decode_attention"] = max(worst["decode_attention"], err)
-        for i, (label, R, D) in enumerate(RMSNORM_CASES):
+                if label in GRAPH_DECODE and kv_len != 1 and device != "cpu":
+                    same = graph_replays_match(
+                        lambda: dk.decode_attention(q, kc, vc, kv_len=kv_len), out)
+                    check(same, f"decode_attention {label}/kv_len {kv_len}/{dn}: "
+                          f"a replayed CUDA graph differs from the eager call")
+        for i, (label, R, D, sdt) in enumerate(RMSNORM_CASES):
             x = lm_inputs((R, D), dtype, device, 200 + i)
-            scale = (1.0 + 0.1 * lm_inputs((D,), torch.float32, device, 300 + i))
+            scale = (1.0 + 0.1 * lm_inputs((D,), torch.float32, device, 300 + i)
+                     ).to(getattr(torch, sdt))
             before = rk.rmsnorm_fwd.launches
             out = rk.rmsnorm_fwd(x, scale)
             check(rk.rmsnorm_fwd.launches == before + 1, f"rmsnorm {label}: not one launch")
@@ -993,25 +1035,91 @@ def graph_ms(fn, calls=20, reps=5, stream=None) -> float:
     return start.elapsed_time(end) / (calls * reps)
 
 
-def lm_row(fn, plain, library, bytes_, flops, peak_flops):
-    """ms, plain_ms and library_ms as device time (graph_ms), the kernel's
-    eager time with its host cost (time_ms), the bound, and the kernel's
-    rate in TFLOP/s (the function's flops over ms)."""
+COLD_BYTES = 100e6                # input bytes a cold timing rotates over: more
+                                  # than the H100's 50 MB L2, so each call reads
+                                  # device memory, as in a decode step, where the
+                                  # weights read between two layers evict the cache
+
+
+def graph_each_ms(fns, reps=3) -> float:
+    """Device time of one call when each of ``fns`` is captured once, in
+    order, in one CUDA graph, replayed ``reps`` times: with ``fns`` on
+    distinct input copies, the calls find their inputs cold."""
+    import torch
+    for fn in fns[:2]:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(fns) * reps)
+
+
+def lm_row(fn, plain, library, bytes_, flops, peak_flops, cold=None, floor=None):
+    """ms, plain_ms and library_ms as device time (graph_ms, warm: the same
+    inputs every call), the kernel's eager time with its host cost
+    (time_ms), the bound, and the kernel's rate in TFLOP/s (the function's
+    flops over ms). ``cold``: (inputs, kernel, library, copies), the
+    kernel and the library call timed over ``copies`` clones of ``inputs``
+    in turn (ms_cold, library_ms_cold; graph_each_ms). ``floor``: an empty
+    kernel of the kernel's launch shape (floor_ms)."""
+    import torch
     t_b, t_o = bytes_ / H100_BYTES_PER_S, flops / peak_flops
     ms = graph_ms(fn)
-    return dict(ms=ms, eager_ms=time_ms(fn),
-                plain_ms=graph_ms(plain, calls=3, reps=3),
-                library_ms=graph_ms(library), bound_ms=1e3 * max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                tflops=flops / (ms * 1e9))
+    row = dict(ms=ms, eager_ms=time_ms(fn),
+               plain_ms=graph_ms(plain, calls=3, reps=3),
+               library_ms=graph_ms(library), bound_ms=1e3 * max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               tflops=flops / (ms * 1e9))
+    if cold is not None:
+        inputs, kernel, lib_call, n = cold
+        copies = [tuple(t.clone() for t in inputs) for _ in range(n)]
+        row["ms_cold"] = graph_each_ms([lambda c=c: kernel(*c) for c in copies])
+        row["library_ms_cold"] = graph_each_ms([lambda c=c: lib_call(*c) for c in copies])
+        row["cold_copies"] = n
+        del copies
+        torch.cuda.empty_cache()
+    if floor is not None:
+        row["floor_ms"] = graph_ms(floor)
+    return row
+
+
+def cold_copies(nbytes) -> int:
+    return max(2, -(-int(COLD_BYTES) // int(nbytes)))
+
+
+# K7 and K9 at every shape the serving paths give them: (label, B, Skv, H,
+# KV, hd) and (label, rows, D, scale dtype)
+DECODE_TIMING = (("qwen1.5_decode", 8, 544, 16, 16, 64),
+                 ("qwen2.5_decode", 4, 1040, 16, 2, 128),
+                 ("jamba_decode", 2, 1040, 64, 8, 128))
+NORM_TIMING = (("qwen1.5_prefill_norm", 4096, 1024, "float32"),
+               ("qwen1.5_decode_norm", 8, 1024, "float32"),
+               ("qwen2.5_prefill_norm", 4096, 2048, "float32"),
+               ("qwen2.5_decode_norm", 4, 2048, "float32"),
+               ("jamba_prefill_norm", 2048, 8192, "bfloat16"),
+               ("jamba_decode_norm", 2, 8192, "bfloat16"))
 
 
 def lm_timing_phase(device="cuda"):
-    """Each LM kernel at the slice's shapes (bf16, qwen1.5-0.5b's prefill
-    and last decode step; K5 and K7 also at qwen2.5-3b's), beside its plain
-    version, its bound and one PyTorch call of the same function timed
-    here only (scaled_dot_product_attention; rms_norm). Device times from
-    CUDA-graph replay; the kernel's eager time beside them."""
+    """Each LM kernel at the slices' shapes (bf16): K5 at qwen1.5-0.5b's
+    and qwen2.5-3b's prefill, K7 at the last decode step of qwen1.5-0.5b,
+    qwen2.5-3b and jamba-1.5-large, K9 at the prefill and decode rows of
+    the three; beside its plain version, its bound and one PyTorch call of
+    the same function timed here only (scaled_dot_product_attention;
+    rms_norm). Device times from CUDA-graph replay; the kernel's eager time
+    beside them. K7 and K9 also cold (inputs rotated over COLD_BYTES), with
+    the library call cold too, and beside the launch floor (an empty kernel
+    of the same launch shape)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
@@ -1033,27 +1141,45 @@ def lm_timing_phase(device="cuda"):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                    enable_gqa=KV != H),
             bytes_, 4.0 * hd * pairs, H100_BF16_FLOPS)
-    for label, B, Skv, H, KV, hd in (("qwen1.5_decode", 8, 544, 16, 16, 64),
-                                     ("qwen2.5_decode", 4, 1040, 16, 2, 128)):
+    floor_k7 = getattr(dk, "decode_attention_floor", None)
+    for label, B, Skv, H, KV, hd in DECODE_TIMING:
         q = lm_inputs((B, 1, H, hd), bf16, device, 4)
         kc = lm_inputs((B, Skv, KV, hd), bf16, device, 5)
         vc = lm_inputs((B, Skv, KV, hd), bf16, device, 6)
-        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+
+        def kernel(q, kc, vc, Skv=Skv):
+            return dk.decode_attention(q, kc, vc, kv_len=Skv)
+
+        def library(q, kc, vc, gqa=KV != H):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                enable_gqa=gqa)
         bytes_ = 2 * (2 * B * H * hd + 2 * B * Skv * KV * hd)
         rows[label] = lm_row(
-            lambda: dk.decode_attention(q, kc, vc, kv_len=Skv),
+            lambda: kernel(q, kc, vc),
             lambda: dk.decode_attention_plain(q, kc, vc, kv_len=Skv),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=KV != H),
-            bytes_, 4.0 * B * H * Skv * hd, H100_BF16_FLOPS)
-    for label, R, D in (("qwen1.5_prefill_norm", 4096, 1024),
-                        ("qwen1.5_decode_norm", 8, 1024)):
+            lambda: library(q, kc, vc),
+            bytes_, 4.0 * B * H * Skv * hd, H100_BF16_FLOPS,
+            cold=((q, kc, vc), kernel, library, cold_copies(bytes_)),
+            floor=floor_k7 and (lambda: floor_k7(q, kc, vc, kv_len=Skv)))
+    floor_k9 = getattr(rk, "rmsnorm_floor", None)
+    for label, R, D, sdt in NORM_TIMING:
         x = lm_inputs((R, D), bf16, device, 7)
-        scale = torch.ones(D, device=device)
-        sb = scale.to(bf16)
+        scale = torch.ones(D, device=device, dtype=getattr(torch, sdt))
+        sb = scale.to(bf16)                         # rms_norm takes x's dtype
+
+        def kernel(x, scale, sb):
+            return rk.rmsnorm_fwd(x, scale)
+
+        def library(x, scale, sb, D=D):
+            return F.rms_norm(x, (D,), sb, eps=1e-6)
+        bytes_ = 2 * 2 * R * D + D * scale.element_size()
         rows[label] = lm_row(
-            lambda: rk.rmsnorm_fwd(x, scale), lambda: rk.rmsnorm_plain(x, scale),
-            lambda: F.rms_norm(x, (D,), sb, eps=1e-6),
-            2 * 2 * R * D + 4 * D, 4.0 * R * D, H100_F32_FLOPS)
+            lambda: kernel(x, scale, sb), lambda: rk.rmsnorm_plain(x, scale),
+            lambda: library(x, scale, sb), bytes_, 4.0 * R * D, H100_F32_FLOPS,
+            cold=((x, scale, sb), kernel, library,
+                  cold_copies(2 * R * D + D * scale.element_size())),
+            floor=floor_k9 and (lambda: floor_k9(x, scale)))
     for label, row in rows.items():
         print("LM timing:", label, json.dumps(row), flush=True)
     return rows
@@ -1061,6 +1187,8 @@ def lm_timing_phase(device="cuda"):
 
 # ------------------------------------------------------------- LM slices (d, e)
 LM_KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "ssm_scan")
+SHAPE_KEYS = ("ms", "ms_cold", "plain_ms", "library_ms", "library_ms_cold",
+              "floor_ms", "bound_ms", "bound_by")
 
 
 def lm_counts():
@@ -2111,6 +2239,12 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": row})
+        timed = {"decode_attention": [r[0] for r in DECODE_TIMING],
+                 "rmsnorm": [r[0] for r in NORM_TIMING]}.get(name)
+        if timed:
+            kernels[-1]["shapes"] = [dict(
+                {k: lm_times[lab].get(k) for k in SHAPE_KEYS}, shape=lab)
+                for lab in timed]
 
     # the training path: slices (f1) and (f2), counted on their own
     reset_train_counts()

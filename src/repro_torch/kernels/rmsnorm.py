@@ -4,7 +4,9 @@
   hand-written kernel ``csrc/rmsnorm.cu`` (built with nvcc for sm_90a,
   bound with ctypes) or raises; it takes the plain version only because
   its input lies on the CPU. ``rmsnorm_fwd.launches`` counts kernel
-  launches.
+  launches. ``norm_plan`` is the launch's shape (threads a row, vectors a
+  thread, blocks), which the CPU tests re-derive; ``rmsnorm_floor``
+  launches an empty kernel of that shape (a timing's launch floor).
 * ``RMSNorm`` — the ``torch.autograd.Function`` around it, and
   ``rmsnorm`` which applies it on both devices (the op the models call).
   Its backward is torch code in f32, not a kernel: the reference has no
@@ -30,6 +32,9 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK = 256                  # threads a block in warp mode; the most a row takes
+DECODE_ROWS = 64             # up to this many rows, a row takes a block
+SMS = 132                    # an H100 SXM's SMs
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -38,25 +43,48 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def norm_plan(rows: int, D: int, vw: int) -> tuple[int, int, int]:
+    """(tpr, nv, grid): threads a row, 16-byte vectors (or scalars, vw 1) a
+    thread holds, and blocks. Many rows of up to 128 vectors: a warp a row
+    (eight a block), the least nv in {1, 2, 4} that covers it, and blocks
+    for two rows a warp, so the next row's loads overlap this row's stores.
+    Else a block a row: many rows (wide ones) take at least two vectors a
+    thread, a decode step's few rows one where a block of <= 256 threads
+    covers it (the shortest latency chain); blocks for half the card's
+    threads, walking the rows."""
+    nvec = -(-D // vw)
+    per_warp = -(-nvec // 32)
+    if rows > DECODE_ROWS and per_warp <= 4:
+        nv = 1
+        while nv < per_warp:
+            nv *= 2
+        return 32, nv, min(-(-rows // (BLOCK // 32)), 2 * SMS)
+    nv = 1 if rows <= DECODE_ROWS else 2
+    while nv < 8 and -(-nvec // nv) > BLOCK:
+        nv *= 2
+    tpr = min(BLOCK, -(-(-(-nvec // nv)) // 32) * 32)
+    if tpr == 32:                       # one warp's worth: eight rows a block
+        return tpr, nv, min(-(-rows // (BLOCK // 32)), 2 * SMS)
+    return tpr, nv, min(rows, SMS * 1024 // tpr)
+
+
 def _bind():
     lib = build.load("rmsnorm")
     fn = lib.rmsnorm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        i = ctypes.c_int
+        for f in (fn, lib.rmsnorm_floor_launch):
+            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_longlong, i, ctypes.c_float, i, i, i, i, i,
+                          i, ctypes.c_void_p]
+            f.restype = ctypes.c_int
         lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
         lib.rmsnorm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
-    """x: [..., D] float32 or bfloat16, contiguous; scale: [D] float32 or
-    bfloat16 on the same device. Returns x's shape and dtype."""
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps)
+def _checked(x, scale):
+    """The wrapper's checks on card tensors; returns D."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {dev}")
@@ -71,30 +99,57 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
                          f"{scale.device}")
     if not x.is_contiguous():
         raise ValueError("rmsnorm: x must be contiguous")
-    out = torch.empty_like(x)
+    return D
+
+
+def _launch(fn, x, scale, out, eps):
+    """Launch ``fn`` (the kernel or its floor) over x's rows."""
+    D = x.shape[-1]
     rows = x.numel() // D if D else 0
     if rows == 0:
-        return out
+        return
     wide = 4 if x.dtype == torch.float32 else 8
     aligned = (D % wide == 0 and not x.data_ptr() % 16
                and not out.data_ptr() % 16
                and not scale.data_ptr() % (wide * scale.element_size()))
+    vw = wide if aligned else 1
+    tpr, nv, grid = norm_plan(rows, D, vw)
     lib = _bind()
+    dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(),
-                                 out.data_ptr(), rows, D, float(eps),
-                                 _DTYPE_CODE[x.dtype],
-                                 _DTYPE_CODE[scale.dtype],
-                                 wide if aligned else 1, stream)
+        err = getattr(lib, fn)(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                               rows, D, float(eps), _DTYPE_CODE[x.dtype],
+                               _DTYPE_CODE[scale.dtype], vw, tpr, nv, grid,
+                               stream)
     if err != 0:
         raise RuntimeError("rmsnorm kernel launch failed: "
                            + lib.rmsnorm_error_string(err).decode())
+
+
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
+    """x: [..., D] float32 or bfloat16, contiguous; scale: [D] float32 or
+    bfloat16 on the same device. Returns x's shape and dtype."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps)
+    D = _checked(x, scale)
+    out = torch.empty_like(x)
+    if (x.numel() // D if D else 0) == 0:
+        return out
+    _launch("rmsnorm_launch", x, scale, out, eps)
     rmsnorm_fwd.launches += 1
     return out
 
 
 rmsnorm_fwd.launches = 0
+
+
+def rmsnorm_floor(x: torch.Tensor, scale: torch.Tensor):
+    """Launch an empty kernel of the grid and block ``rmsnorm_fwd`` takes
+    for these inputs: the launch floor a timing compares with. Card tensors
+    only; counts nothing."""
+    _checked(x, scale)
+    _launch("rmsnorm_floor_launch", x, scale, x, 0.0)
 
 
 class RMSNorm(torch.autograd.Function):

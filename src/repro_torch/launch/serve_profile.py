@@ -39,8 +39,8 @@ PORT_KERNELS = {"flash_fwd_kernel": "flash_attention",
                 "flash_bwd_dkv_kernel": "flash_attention_bwd",
                 "flash_bwd_dq_tc_kernel": "flash_attention_bwd",
                 "flash_bwd_dkv_tc_kernel": "flash_attention_bwd",
-                "decode_partial_kernel": "decode_attention",
-                "decode_merge_kernel": "decode_attention",
+                "decode_attention_kernel": "decode_attention",
+                "decode_attention_tc_kernel": "decode_attention",
                 "rmsnorm_kernel": "rmsnorm",
                 "ssm_scan_kernel": "ssm_scan"}
 

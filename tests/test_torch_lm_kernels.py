@@ -14,7 +14,9 @@ the kernels against their plain versions.
   ``flash_attention_bwd_plain``, and the gradients of the ``FlashAttention``
   and ``RMSNorm`` Functions on the card against the same Functions on the
   CPU (the backward's CPU tests against the JAX package:
-  tests/test_torch_flash_bwd.py);
+  tests/test_torch_flash_bwd.py); decode attention also at
+  jamba-1.5-large's decode shape and replayed in a CUDA graph against the
+  eager call, RMSNorm also at width 8192 with a bf16 scale;
 
 over the case axes ``chip_smoke.py`` uses on the card (causal and not,
 windowed, Sq < Skv, ragged lengths, G in {1, 4, 8}, hd in {32, 64, 96,
@@ -66,6 +68,14 @@ RMSNORM_CASES = [("d256_ragged", (37, 256)), ("d1024", (2, 3, 1024)),
                  ("d2048", (5, 2048)), ("d3072", (3, 3072)),
                  ("d100", (4, 100))]
 DTYPES = ("float32", "bfloat16")
+# on the card only (too large for the Pallas kernels in interpret mode):
+# jamba-1.5-large's decode shape (G 8, hd 128, 16 splits), and its width
+# 8192 with a bf16 scale at ragged prefill rows and a decode step's 2 rows
+CARD_DECODE_CASES = DECODE_CASES + [("jamba_decode", 2, 1040, 64, 8, 128,
+                                     (1, 519, 1040))]
+CARD_RMSNORM_CASES = ([(label, shape, "float32") for label, shape in RMSNORM_CASES]
+                      + [("d8192", (77, 8192), "bfloat16"),
+                         ("d8192_decode", (2, 8192), "bfloat16")])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -205,13 +215,17 @@ def test_decode_attention_plain_ignores_rows_past_kv_len():
         dk.decode_attention_plain(q, kc, vc, kv_len=9).numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("BH,kv_len", [(128, 544), (64, 1040), (1, 1), (8, 33),
-                                       (300, 1000), (16, 31)])
-def test_split_plan_covers_the_rows_with_no_empty_split(BH, kv_len):
-    per, n = dk.split_plan(BH, kv_len)
-    assert per % dk.TILE == 0 and n >= 1
+@pytest.mark.parametrize("BKV,kv_len", [(128, 544), (64, 1040), (1, 1), (8, 33),
+                                        (300, 1000), (16, 31), (8, 1040),
+                                        (16, 1040)])
+def test_split_plan_covers_the_rows_with_no_empty_split(BKV, kv_len):
+    """Splits of the valid rows over B * KV (x head chunks) blocks: a power
+    of two, one cluster of at most MAX_SPLIT, a tile of rows or more each,
+    no more than reach TARGET_BLOCKS blocks, none empty."""
+    per, n = dk.split_plan(BKV, kv_len)
+    assert 1 <= n <= dk.MAX_SPLIT and not n & (n - 1)
     assert (n - 1) * per < kv_len <= n * per
-    assert n == 1 or BH * (n - 1) < dk.TARGET_BLOCKS + BH
+    assert n == 1 or (per >= dk.TILE and BKV * n // 2 < dk.TARGET_BLOCKS)
 
 
 # ---------------------------------------------------------------- K9 (CPU)
@@ -301,7 +315,8 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+@pytest.mark.parametrize("case", CARD_DECODE_CASES,
+                         ids=[c[0] for c in CARD_DECODE_CASES])
 def test_decode_attention_kernel_matches_plain(cuda_device, case, dtype):
     _, B, Skv, H, KV, hd, lens = case
     q, _ = _rand((B, 1, H, hd), 7, dtype)
@@ -320,12 +335,14 @@ def test_decode_attention_kernel_matches_plain(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", RMSNORM_CASES, ids=[c[0] for c in RMSNORM_CASES])
+@pytest.mark.parametrize("case", CARD_RMSNORM_CASES,
+                         ids=[c[0] for c in CARD_RMSNORM_CASES])
 def test_rmsnorm_kernel_matches_plain(cuda_device, case, dtype):
-    _, shape = case
+    _, shape, scale_dtype = case
     x, _ = _rand(shape, 13, dtype)
     x = x.to(cuda_device)
-    scale = torch.linspace(0.5, 1.5, shape[-1], device=cuda_device)
+    scale = torch.linspace(0.5, 1.5, shape[-1], device=cuda_device).to(
+        getattr(torch, scale_dtype))
     before = rk.rmsnorm_fwd.launches
     out = rk.rmsnorm(x, scale)
     assert rk.rmsnorm_fwd.launches == before + 1
@@ -336,6 +353,30 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, case, dtype):
         bound = bound + _bf16_ulp(want)
     np.testing.assert_array_less(np.abs(out.float().cpu().numpy() - want),
                                  bound + 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Skv,H,KV,hd,kv_len", [(4, 1040, 16, 2, 128, 519),
+                                                  (2, 77, 8, 2, 32, 77)])
+def test_decode_attention_graph_replays_match_eager(cuda_device, B, Skv, H, KV,
+                                                    hd, kv_len, dtype):
+    """The splits merge inside one launch (a thread-block cluster): a call
+    captured in a CUDA graph and replayed twice gives the eager output bit
+    for bit both times."""
+    q, _ = _rand((B, 1, H, hd), 7, dtype)
+    kc, _ = _rand((B, Skv, KV, hd), 8, dtype)
+    vc, _ = _rand((B, Skv, KV, hd), 9, dtype)
+    q, kc, vc = (_to(t, cuda_device) for t in (q, kc, vc))
+    eager = dk.decode_attention(q, kc, vc, kv_len=kv_len)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dk.decode_attention(q, kc, vc, kv_len=kv_len)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager) and torch.equal(out, eager)
 
 
 @pytest.mark.cuda
