@@ -14,13 +14,15 @@ if a check fails:
 
 1. the card's name and power limit (nvidia-smi); the CUDA kernels are
    built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
-   nvcc per source, all started together;
+   nvcc per source, all started together; ptxas's report must show no
+   stack and no spills in K3's register route, no spills in K8;
 2. kernel phase: ``fedagg`` (the CUDA kernel) against ``fedagg_plain`` on
    the card: mean + identity (f32, bf16) on the reference's edge cases,
    then every reducer (mean, dp, trimmed_mean, median) x wire (identity
    f32 and bf16, int8, topk, sketch) at the slice's shapes, C = 65, zero
    inclusion and NaN rows; then each timed beside the plain version, a
-   library yardstick (timed here only) and the bound;
+   library yardstick (timed here only) and the bound, the sorted reducers
+   (K3) also cold and at C = 65;
 3. LM kernel phase: flash-attention forward (K5, with its LSE), decode
    attention (K7) and RMSNorm (K9) against their plain versions on the
    card over causal / windowed / ragged / grouped cases in f32 and bf16
@@ -37,8 +39,9 @@ if a check fails:
    version, its bound and scaled_dot_product_attention's backward; then
    the selective scan (K8) against its plain version (f32 and bf16 x, N in
    {4, 8, 16}, ragged S and Di, Bt 1 and 3, output and final state), and
-   timed at jamba's full-width prefill beside the plain version and its
-   bound (no single PyTorch call computes a selective scan);
+   checked and timed at jamba's full-width prefill (Bt 2) and at one prompt
+   (Bt 1) beside the plain version and its bound (no single PyTorch call
+   computes a selective scan);
 4. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
    few rounds on both backends, held against the same run on the CPU; and
    its shortened parity config under cosine_filter and slice (c)'s three
@@ -86,6 +89,7 @@ no JAX and none of the ``repro`` package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,7 +101,47 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
+# f32 compare / min / max: 64 results a clock per SM on compute capability
+# 9.0 (the CUDA C++ programming guide's arithmetic throughput table), half
+# the FMA rate, at the 1.98 GHz clock of the 67 TFLOP/s above
+H100_MINMAX_PER_S = 64 * 132 * 1.98e9
 F32_TOL = 1e-5                    # x max|u|: only the summation order differs
+
+
+def ptxas_entries(log):
+    """{kernel symbol: (registers, stack bytes, spill store bytes, spill
+    load bytes)} from an nvcc -Xptxas -v report."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", chunk)
+        if regs and frame:
+            out[chunk.split("'", 1)[0]] = (int(regs.group(1)),
+                                           *(int(v) for v in frame.groups()))
+    return out
+
+
+def ptxas_check(check: Check, reports):
+    """K3's register route (sorted_reg_kernel) compiles to no stack and no
+    spills (no register array indexed at run time), K8 (ssm_scan_kernel) to
+    no spills; prints their registers."""
+    summary = {}
+    for name, kernel, stack_ok in (("fedagg", "sorted_reg_kernel", True),
+                                   ("ssm_scan", "ssm_scan_kernel", False)):
+        for sym, (regs, stack, st, ld) in ptxas_entries(reports.get(name, "")).items():
+            if kernel not in sym:
+                continue
+            summary[sym] = dict(registers=regs, stack=stack, spill_stores=st,
+                                spill_loads=ld)
+            check(st == 0 and ld == 0, f"ptxas: {sym} spills ({st} / {ld} bytes)")
+            if stack_ok:
+                check(stack == 0, f"ptxas: {sym} has a {stack}-byte stack frame")
+    check(any("sorted_reg_kernel" in k for k in summary)
+          and any("ssm_scan_kernel" in k for k in summary),
+          "ptxas: no report of sorted_reg_kernel / ssm_scan_kernel")
+    print("ptxas K3 / K8:", json.dumps(summary), flush=True)
+    return summary
 
 
 def smi_line() -> str:
@@ -460,7 +504,8 @@ def timing_phase(device="cuda"):
 
 def sort_ops(C, M):
     """min + max of every compare-exchange of the bitonic network down the
-    client axis (C padded to P = 2^L): P/2 * L(L+1)/2 exchanges a column."""
+    client axis (C padded to P = 2^L): P/2 * L(L+1)/2 exchanges a column.
+    They run at the min / max rate (H100_MINMAX_PER_S), not the FMA's."""
     P = 1 << max(0, (C - 1).bit_length())
     L = P.bit_length() - 1
     return 2.0 * M * (P // 2) * L * (L + 1) // 2
@@ -471,7 +516,8 @@ def variant_bound(red, wire, ops, C_inc, C, M):
     wire payload, the hash planes, dp's noise and scales, the output, w
     and g) over the memory rate vs its operations over the f32 rate (the
     weighted sum's multiply-adds and the decode's multiply; for the sorted
-    reducers the min and max of every compare-exchange)."""
+    reducers the min and max of every compare-exchange, over the min / max
+    rate)."""
     out_size = 2 if wire == "identity_bf16" else 4
     if wire.startswith("identity"):
         wire_bytes = C_inc * M * out_size
@@ -485,12 +531,12 @@ def variant_bound(red, wire, ops, C_inc, C, M):
     if red == "dp":
         bytes_ += 4 * M + 4 * C
     if red in ("trimmed_mean", "median"):
-        flops = sort_ops(C, M)
+        t_ops = sort_ops(C, M) / H100_MINMAX_PER_S
     elif wire == "topk":
-        flops = 2.0 * C_inc * ops["topk_idx"].shape[1]
+        t_ops = 2.0 * C_inc * ops["topk_idx"].shape[1] / H100_F32_FLOPS
     else:
-        flops = (2.0 if wire.startswith("identity") else 3.0) * C_inc * M
-    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        t_ops = (2.0 if wire.startswith("identity") else 3.0) * C_inc * M / H100_F32_FLOPS
+    t_bytes = bytes_ / H100_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -502,40 +548,63 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
     trimmed_mean (the sort alone, without the order statistics); for the
     median torch.quantile(rows, 0.5, dim=0, interpolation="midpoint"),
     jnp.median's function in one call, with torch.sort beside it
-    (sort_ms)."""
+    (sort_ms). The sorted reducers also cold (ms_cold: the kernel over
+    clones of its inputs rotated over COLD_BYTES, each call's payload out
+    of L2), and at C = 65 (label c65: P = 128, the shared-memory route)
+    with f32 rows."""
     import torch
     from repro_torch.kernels import fedagg as fk
     rows = []
-    for red in REDUCERS:
-        for wire in WIRES:
-            if (red, wire) == ("mean", "identity_f32"):
-                continue                          # K1, timed above
-            updates, w, g, ops = variant_case(red, wire, C, M, device,
-                                              gates="all")
-            dense = decoded_rows(updates, ops, M)
-            extra = {}
-            if red in ("trimmed_mean", "median"):
-                keyed = torch.where((g > 0)[:, None], dense, float("inf"))
-                library = time_ms(lambda: torch.sort(keyed, dim=0), iters=10)
-                if red == "median":               # the function itself, one call
-                    extra["sort_ms"] = library
-                    library = time_ms(lambda: torch.quantile(
-                        dense, 0.5, dim=0, interpolation="midpoint"), iters=10)
-            else:
-                wg = w * g
-                if red == "dp":
-                    wg = torch.where(wg > 0, wg * ops["row_scale"], 0.0)
-                masked = torch.where((w * g > 0)[:, None], dense, 0.0)
-                library = time_ms(lambda: torch.mv(masked.t(), wg))
-            ms = time_ms(lambda: fk.fedagg(updates, w, g, **ops))
-            plain = time_ms(lambda: fk.fedagg_plain(updates, w, g, **ops),
-                            iters=10)
-            bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), C, M)
-            rows.append(dict(reducer=red, wire=wire, shape=f"{C}x{M}", ms=ms,
-                             plain_ms=plain, library_ms=library,
-                             bound_ms=bound, bound_by=by, **extra))
-            print("variant timing:", json.dumps(rows[-1]), flush=True)
+    cases = [(red, wire, C, "slice_b") for red in REDUCERS for wire in WIRES
+             if (red, wire) != ("mean", "identity_f32")]   # K1, timed above
+    cases += [(red, "identity_f32", 65, "c65") for red in ("trimmed_mean", "median")]
+    for red, wire, rows_c, label in cases:
+        updates, w, g, ops = variant_case(red, wire, rows_c, M, device,
+                                          gates="all")
+        dense = decoded_rows(updates, ops, M)
+        extra = {}
+        if red in ("trimmed_mean", "median"):
+            keyed = torch.where((g > 0)[:, None], dense, float("inf"))
+            library = time_ms(lambda: torch.sort(keyed, dim=0), iters=10)
+            if red == "median":               # the function itself, one call
+                extra["sort_ms"] = library
+                library = time_ms(lambda: torch.quantile(
+                    dense, 0.5, dim=0, interpolation="midpoint"), iters=10)
+            extra.update(sorted_cold(fk, updates, w, g, ops))
+        else:
+            wg = w * g
+            if red == "dp":
+                wg = torch.where(wg > 0, wg * ops["row_scale"], 0.0)
+            masked = torch.where((w * g > 0)[:, None], dense, 0.0)
+            library = time_ms(lambda: torch.mv(masked.t(), wg))
+        ms = time_ms(lambda: fk.fedagg(updates, w, g, **ops))
+        plain = time_ms(lambda: fk.fedagg_plain(updates, w, g, **ops),
+                        iters=10)
+        bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), rows_c, M)
+        rows.append(dict(reducer=red, wire=wire, shape=f"{rows_c}x{M}",
+                         label=label, ms=ms, plain_ms=plain,
+                         library_ms=library, bound_ms=bound, bound_by=by,
+                         **extra))
+        print("variant timing:", json.dumps(rows[-1]), flush=True)
     return rows
+
+
+def sorted_cold(fk, updates, w, g, ops):
+    """ms_cold of one fedagg call: one CUDA graph of calls over clones of
+    every input tensor, rotated over COLD_BYTES."""
+    import torch
+    tensors = {k: v for k, v in ops.items() if torch.is_tensor(v)}
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (updates, w, g, *tensors.values()))
+    n = cold_copies(nbytes)
+    copies = [(updates.clone(), w.clone(), g.clone(),
+               dict(ops, **{k: v.clone() for k, v in tensors.items()}))
+              for _ in range(n)]
+    ms = graph_each_ms([lambda c=c: fk.fedagg(c[0], c[1], c[2], **c[3])
+                        for c in copies])
+    del copies
+    torch.cuda.empty_cache()
+    return dict(ms_cold=ms, cold_copies=n)
 
 
 # -------------------------------------------------------------------- slices
@@ -1576,36 +1645,46 @@ def ssm_kernel_phase(check: Check, device="cuda"):
     return worst
 
 
+# K8's timed shapes: (label, Bt, S, Di, N): jamba-1.5-large's prefill at
+# the g2 batch, and one prompt (a BatchScheduler admission)
+SSM_TIMING = (("jamba_prefill_scan", 2, 1024, 16384, 16),
+              ("jamba_prefill_scan_b1", 1, 1024, 16384, 16))
+
+
 def ssm_timing_phase(check: Check, device="cuda"):
-    """K8 at jamba-1.5-large's prefill (Bt 2, S 1024, Di 16384, N 16, x
-    bf16, with the final state, as prefill calls it): device time by graph
-    replay beside the plain version's and the bound, and checked against
-    the plain version at that shape. No single PyTorch call computes a
-    selective scan: library_ms is null."""
+    """K8 at SSM_TIMING's shapes (x bf16, with the final state, as prefill
+    calls it): device time by graph replay beside the plain version's and
+    the bound, and checked against the plain version at each shape. No
+    single PyTorch call computes a selective scan: library_ms is null.
+    Returns {label: row}."""
     import torch
     from repro_torch.kernels import ssm_scan as sk
-    Bt, S, Di, N = 2, 1024, 16384, 16
-    args = ssm_inputs(Bt, S, Di, N, torch.bfloat16, device, 7)
-    y, h = sk.ssm_scan(*args, return_state=True)
-    want, h_want = sk.ssm_scan_plain(*args, return_state=True)
-    ok, err = ssm_close(y, want, torch.bfloat16)
-    h_ok, h_err = ssm_close(h, h_want, torch.float32)
-    check(ok and h_ok, f"ssm_scan jamba_prefill: max_abs_err {err}, state {h_err}")
-    del want, h_want
-    elems = Bt * S * Di * N
-    bytes_ = (2 + 4 + 2) * Bt * S * Di + 2 * 4 * Bt * S * N + 4 * Di * N + 4 * Di \
-        + 4 * Bt * Di * N
-    t_b, t_e = bytes_ / H100_BYTES_PER_S, elems / H100_EXP_PER_S
-    t_f = 6.0 * elems / H100_F32_FLOPS           # dt a, e h, dx b, acc: 6 flops
-    row = dict(ms=graph_ms(lambda: sk.ssm_scan(*args, return_state=True)),
-               eager_ms=time_ms(lambda: sk.ssm_scan(*args, return_state=True)),
-               plain_ms=graph_ms(lambda: sk.ssm_scan_plain(*args, return_state=True),
-                                 calls=2, reps=2),
-               library_ms=None, bound_ms=1e3 * max(t_b, t_e, t_f),
-               bound_by="bytes" if t_b >= max(t_e, t_f) else "operations",
-               bytes=bytes_, exps=elems, max_abs_err=err, state_err=h_err)
-    print("LM timing: jamba_prefill_scan", json.dumps(row), flush=True)
-    return row
+    lanes = getattr(sk, "scan_lanes", None)
+    rows = {}
+    for label, Bt, S, Di, N in SSM_TIMING:
+        args = ssm_inputs(Bt, S, Di, N, torch.bfloat16, device, 7)
+        y, h = sk.ssm_scan(*args, return_state=True)
+        want, h_want = sk.ssm_scan_plain(*args, return_state=True)
+        ok, err = ssm_close(y, want, torch.bfloat16)
+        h_ok, h_err = ssm_close(h, h_want, torch.float32)
+        check(ok and h_ok, f"ssm_scan {label}: max_abs_err {err}, state {h_err}")
+        del want, h_want
+        elems = Bt * S * Di * N
+        bytes_ = (2 + 4 + 2) * Bt * S * Di + 2 * 4 * Bt * S * N + 4 * Di * N \
+            + 4 * Di + 4 * Bt * Di * N
+        t_b, t_e = bytes_ / H100_BYTES_PER_S, elems / H100_EXP_PER_S
+        t_f = 6.0 * elems / H100_F32_FLOPS       # dt a, e h, dx b, acc: 6 flops
+        rows[label] = dict(
+            ms=graph_ms(lambda: sk.ssm_scan(*args, return_state=True)),
+            eager_ms=time_ms(lambda: sk.ssm_scan(*args, return_state=True)),
+            plain_ms=graph_ms(lambda: sk.ssm_scan_plain(*args, return_state=True),
+                              calls=2, reps=2),
+            library_ms=None, bound_ms=1e3 * max(t_b, t_e, t_f),
+            bound_by="bytes" if t_b >= max(t_e, t_f) else "operations",
+            bytes=bytes_, exps=elems, max_abs_err=err, state_err=h_err,
+            lanes=lanes(Bt, Di) if lanes else 1)
+        print("LM timing:", label, json.dumps(rows[label]), flush=True)
+    return rows
 
 
 def slice_g1(check: Check, expected: Expected, device="cuda"):
@@ -2156,6 +2235,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         print(f"ptxas[{name}]:", log.strip().replace("\n", " | ")[:4000])
+    ptxas_check(check, reports)
 
     errs = kernel_phase(check)
     verrs = variant_phase(check)
@@ -2164,9 +2244,10 @@ def main() -> int:
     lm_errs = lm_kernel_phase(check)
     lm_times = lm_timing_phase()
     lm_errs["ssm_scan"] = ssm_kernel_phase(check)
-    ssm_time = ssm_timing_phase(check)
-    lm_times["jamba_prefill_scan"] = ssm_time
-    lm_errs["ssm_scan"] = max(lm_errs["ssm_scan"], ssm_time["max_abs_err"])
+    ssm_times = ssm_timing_phase(check)
+    lm_times.update(ssm_times)
+    lm_errs["ssm_scan"] = max([lm_errs["ssm_scan"]]
+                              + [r["max_abs_err"] for r in ssm_times.values()])
     bwd_err = lm_bwd_phase(check)
     bwd_times = lm_bwd_timing()
 
@@ -2186,7 +2267,8 @@ def main() -> int:
               if r["label"] == "slice_b" and r["dtype"] == "float32")
     k1 = dict(k1, max_abs_err=max(errs["slice_b/float32"],
                                   errs["slice_b_pitched/float32"]))
-    rows = {(r["reducer"], r["wire"]): r for r in vtimings}
+    rows = {(r["reducer"], r["wire"]): r for r in vtimings
+            if r["label"] == "slice_b"}
     kernels = []
     for name, replaces, pick, pair in KERNELS:
         row = k1 if pair == ("mean", "identity_f32") else dict(
@@ -2201,6 +2283,10 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": "60x579402", "variant": "/".join(pair)})
+        if "ms_cold" in row:                      # K3: cold, and C = 65
+            kernels[-1]["shapes"] = [dict(
+                {k: r.get(k) for k in SHAPE_KEYS}, shape=r["shape"])
+                for r in vtimings if (r["reducer"], r["wire"]) == pair]
     # (a): 4 rounds x 2 backends + 6; its aggregators: 4 configs x 2
     # backends x 6; (b): 1 + 3; (c): 3 configs x (1 + 2)
     expected = 2 * 4 + 6 + len(PARITY_AGG) * 2 * 6 + 1 + 3 + len(SLICE_C) * 3
@@ -2240,7 +2326,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": row})
         timed = {"decode_attention": [r[0] for r in DECODE_TIMING],
-                 "rmsnorm": [r[0] for r in NORM_TIMING]}.get(name)
+                 "rmsnorm": [r[0] for r in NORM_TIMING],
+                 "ssm_scan": [r[0] for r in SSM_TIMING]}.get(name)
         if timed:
             kernels[-1]["shapes"] = [dict(
                 {k: lm_times[lab].get(k) for k in SHAPE_KEYS}, shape=lab)

@@ -24,7 +24,7 @@
 // registers (or, for the sorted reducers and the sparse topk wire, in its
 // block's shared memory) what it reduces.
 //
-// Three kernels, each a template over the decoder:
+// Four kernels, each a template over the decoder:
 //
 // * stream_kernel (mean, dp; identity, int8, sketch). Bound: bytes. Each
 //   thread owns VW adjacent columns and walks down the included rows with
@@ -38,12 +38,33 @@
 //   column range in each included row and adds only those pairs into a
 //   shared-memory accumulator, row by row (indices within a row are
 //   distinct, so a row's adds never collide).
-// * sorted_kernel (trimmed_mean, median; every decoder). Bound: shared
-//   memory. One column per thread, a [P, cols] tile in shared memory laid
-//   out so a warp's accesses fall in 32 distinct banks; each thread walks
-//   the bitonic network over its own column with NaN-propagating min/max in
-//   the reference's (k, j) order, so a NaN lands where the jnp lowering
-//   puts it. P is C rounded up to a power of two, padded with +inf.
+// * sorted_reg_kernel (trimmed_mean, median; every decoder; P <= 64).
+//   Bound: the compare-exchanges. The bitonic network of P = 64 rows is
+//   672 exchanges a column, a min and a max each: 0.78 G min / max over
+//   60 x 579,402, 0.047 ms at the 64 results a clock per SM that the CUDA
+//   programming guide gives f32 compare / min / max on compute capability
+//   9.0, just above the 0.042 ms of bytes. The kernel is templated on P:
+//   each thread loads its column's P values into registers (its C rows
+//   coalesced across the warp, every load issued before the first
+//   exchange, +inf for gated-out and pad rows) and runs the reference's
+//   (k, j) schedule unrolled at compile time, so every index and direction
+//   is a constant and an exchange is one min.NaN and one max.NaN (PTX,
+//   sm_80+: a NaN in either operand gives NaN in both, as jnp.minimum /
+//   jnp.maximum). The order statistics are an unrolled predicated select
+//   (median: elements (n-1)>>1 and n>>1) or an unrolled predicated add over
+//   t <= i < n - t in ascending i. The topk wire still fills a [P, cols]
+//   tile in shared memory cooperatively (the rows' binary searches for the
+//   block's columns run at once, a thread a row); each thread then moves
+//   its column into registers. The first version (the shared-memory network below at
+//   every P) lost ~9x to this bound on 2 shared loads, 2 stores, ~5 index
+//   operations and a runtime direction a compare-exchange.
+// * sorted_kernel (the same, 64 < P <= 1024: C > 64), the first version's
+//   (its min / max now the same PTX pair). Bound: shared memory. One column per thread, a [P, cols]
+//   tile in shared memory laid out so a warp's accesses fall in 32 distinct
+//   banks; each thread walks the bitonic network over its own column with
+//   NaN-propagating min/max in the reference's (k, j) order, so a NaN lands
+//   where the jnp lowering puts it. P is C rounded up to a power of two,
+//   padded with +inf.
 //
 // C interface (bound with ctypes): fedagg_launch() takes a FedaggArgs and
 // the stream and returns the launch's cudaError_t; fedagg_error_string()
@@ -52,6 +73,7 @@
 #include <climits>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +85,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
 constexpr int kTopkCols = 2048;    // columns per block of topk_sum_kernel
 constexpr int kMaxSortRows = 1024;  // largest P of sorted_kernel
+constexpr int kMaxRegRows = 64;     // largest P of sorted_reg_kernel
+constexpr int kRegThreads = 128;    // sorted_reg_kernel: threads (= columns) a block
+constexpr int kRegBlocks = 5;       // ... and blocks a SM: a budget of 65536 / (5 x 128)
+                                    // registers holds P = 64 without spills (6 spills)
 constexpr int kMaxSmem = 227 * 1024;
 
 enum Reducer { kMean = 0, kDp = 1, kTrimmed = 2, kMedian = 3 };
@@ -119,12 +145,56 @@ __device__ __forceinline__ void store_vec(O* p, const float* v) {
   }
 }
 
-// NaN-propagating min / max, as jnp.minimum / jnp.maximum (fminf drops NaN)
+// NaN-propagating min / max, as jnp.minimum / jnp.maximum (fminf drops NaN):
+// one instruction each (min.NaN / max.NaN, sm_80+), a NaN in either operand
+// gives a NaN
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// The reference's bitonic network over P values held in registers, unrolled
+// at compile time: stage (K, J) exchanges each i with bit J clear with
+// l = i + J (T with a 0 bit inserted at J enumerates those i), ascending
+// where bit K of i is clear. Every index is a constant, so v stays in
+// registers.
+template <int P, int K, int J, int T>
+__device__ __forceinline__ void cmp_exchange(float (&v)[P]) {
+  constexpr int i = ((T & ~(J - 1)) << 1) | (T & (J - 1));
+  constexpr int l = i | J;
+  const float lo = min_nan(v[i], v[l]);
+  const float hi = max_nan(v[i], v[l]);
+  if constexpr ((i & K) == 0) {
+    v[i] = lo;
+    v[l] = hi;
+  } else {
+    v[i] = hi;
+    v[l] = lo;
+  }
+}
+
+template <int P, int K, int J, int... T>
+__device__ __forceinline__ void stage(float (&v)[P], std::integer_sequence<int, T...>) {
+  (cmp_exchange<P, K, J, T>(v), ...);
+}
+
+// stages (K, J), (K, J/2), ..., (K, 1), (2K, K), ... up to K = P
+template <int P, int K, int J>
+__device__ __forceinline__ void bitonic_from(float (&v)[P]) {
+  if constexpr (K <= P) {
+    stage<P, K, J>(v, std::make_integer_sequence<int, P / 2>{});
+    if constexpr (J > 1) {
+      bitonic_from<P, K, J / 2>(v);
+    } else {
+      bitonic_from<P, 2 * K, K>(v);
+    }
+  }
 }
 
 // ------------------------------------------------------------------ decoders
@@ -394,6 +464,91 @@ __global__ void __launch_bounds__(kThreads)
     out[m] = finish<kDP>(s_acc[m - c0], den, noise, noise_scale, m);
 }
 
+// ----------------------------------------------------- sorted kernel, P <= 64
+template <int P, class Dec, bool kMedian, typename O>
+__global__ void __launch_bounds__(kRegThreads, kRegBlocks)
+    sorted_reg_kernel(Dec dec, const float* __restrict__ g, float trim_frac,
+                      O* __restrict__ out, int C, long long M) {
+  extern __shared__ float tile[];  // topk: [P][kRegThreads]
+  __shared__ unsigned s_inc[2];
+  const int tid = threadIdx.x;
+  const long long c0 = static_cast<long long>(blockIdx.x) * kRegThreads;
+  const long long m = c0 + tid;
+  const bool live = m < M;
+  const float inf = __int_as_float(0x7f800000);
+
+  // the included rows (gate > 0; unweighted), one bit a row, the same for
+  // every column
+  if (tid < kMaxRegRows) {
+    const unsigned b = __ballot_sync(0xffffffffu, tid < C && g[tid] > 0.f);
+    if ((tid & 31) == 0) s_inc[tid >> 5] = b;
+  }
+  __syncthreads();
+  const unsigned long long inc =
+      s_inc[0] | (static_cast<unsigned long long>(s_inc[1]) << 32);
+  const int n = __popcll(inc);
+
+  float v[P];
+  if constexpr (IsSparse<Dec>::value) {
+    __shared__ long long s_lo[kMaxRegRows], s_hi[kMaxRegRows];
+    // thread r finds this block's columns in included row r (all rows'
+    // binary searches at once), then each warp places the pairs of its
+    // rows; indices within a row are distinct, so no two writes collide
+    const long long c1 = c0 + kRegThreads < M ? c0 + kRegThreads : M;
+    if (tid < C && (inc >> tid & 1)) {
+      const int* row = dec.idx + static_cast<long long>(tid) * dec.k;
+      s_lo[tid] = lower_bound(row, dec.k, c0);
+      s_hi[tid] = lower_bound(row, dec.k, c1);
+    }
+    float* col = tile + tid;
+#pragma unroll
+    for (int r = 0; r < P; ++r) col[r * kRegThreads] = (inc >> r & 1) ? 0.f : inf;
+    __syncthreads();
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int r = warp; r < C; r += kRegThreads / 32) {
+      if (!(inc >> r & 1)) continue;
+      const long long base = static_cast<long long>(r) * dec.k;
+      for (long long p = s_lo[r] + lane; p < s_hi[r]; p += 32)
+        tile[r * kRegThreads + (dec.idx[base + p] - c0)] = dec.vals[base + p];
+    }
+    __syncthreads();
+    if (!live) return;
+#pragma unroll
+    for (int r = 0; r < P; ++r) v[r] = col[r * kRegThreads];
+  } else {
+    if (!live) return;
+    const typename Dec::Col cs = dec.setup(m, M);
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      v[r] = inf;
+      if (inc >> r & 1) dec.load(cs, r, m, &v[r]);
+    }
+  }
+
+  bitonic_from<P, 2, 1>(v);
+
+  float res;
+  if constexpr (kMedian) {
+    const int lo = (n - 1) >> 1, hi = n >> 1;
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      a = i == lo ? v[i] : a;
+      b = i == hi ? v[i] : b;
+    }
+    res = n > 0 ? 0.5f * (a + b) : 0.f;
+  } else {
+    // t = int32(float32(trim_frac) * float32(n)), as the reference
+    const int t = static_cast<int>(__fmul_rn(trim_frac, static_cast<float>(n)));
+    const int cnt = n - 2 * t;
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) total = (i >= t && i < n - t) ? total + v[i] : total;
+    res = cnt > 0 ? total / static_cast<float>(cnt) : 0.f;
+  }
+  out[m] = from_f32<O>(res);
+}
+
 // -------------------------------------------------------------- sorted kernel
 template <class Dec, bool kMedian, typename O>
 __global__ void sorted_kernel(Dec dec, const float* __restrict__ g,
@@ -569,10 +724,31 @@ cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+template <int P, class Dec, bool kMedian, typename O>
+cudaError_t launch_sorted_reg(const FedaggArgs& a, Dec dec, cudaStream_t s) {
+  const long long blocks = (a.M + kRegThreads - 1) / kRegThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const size_t smem =
+      IsSparse<Dec>::value ? static_cast<size_t>(P) * kRegThreads * sizeof(float) : 0;
+  sorted_reg_kernel<P, Dec, kMedian, O>
+      <<<static_cast<unsigned>(blocks), kRegThreads, smem, s>>>(
+          dec, a.g, a.trim_frac, static_cast<O*>(a.out), a.C, a.M);
+  return cudaGetLastError();
+}
+
 template <class Dec, bool kMedian, typename O>
 cudaError_t launch_sorted(const FedaggArgs& a, Dec dec, cudaStream_t s) {
   int P = 1;
   while (P < a.C) P <<= 1;
+  switch (P) {
+    case 1: return launch_sorted_reg<1, Dec, kMedian, O>(a, dec, s);
+    case 2: return launch_sorted_reg<2, Dec, kMedian, O>(a, dec, s);
+    case 4: return launch_sorted_reg<4, Dec, kMedian, O>(a, dec, s);
+    case 8: return launch_sorted_reg<8, Dec, kMedian, O>(a, dec, s);
+    case 16: return launch_sorted_reg<16, Dec, kMedian, O>(a, dec, s);
+    case 32: return launch_sorted_reg<32, Dec, kMedian, O>(a, dec, s);
+    case 64: return launch_sorted_reg<64, Dec, kMedian, O>(a, dec, s);
+  }
   const int cols = a.sort_cols;
   const size_t smem = static_cast<size_t>(P) * cols * sizeof(float);
   if (P > kMaxSortRows || cols < 32 || cols > 1024 || cols % 32 != 0 ||

@@ -5,13 +5,14 @@
 //
 // per sequence b, from h_0 = 0, over every step t < S. x and y are f32 or
 // bf16 (y in x's dtype, one rounding); dt, A, B, C, D and the state are f32.
-// Optionally the final state h_S [Bt, Di, N] f32 is written, so a prefill
-// needs no second sequential pass to hand its state to decode.
+// Optionally the final state h_S [Bt, Di, N] f32 is written by the same
+// launch, so a prefill needs no second sequential pass to hand its state to
+// decode.
 //
 // Replaces the TPU kernel repro/kernels/ssm_scan.py:ssm_scan_pallas (its
 // _kernel walks one time chunk of a [block_d] channel tile, the state in
 // VMEM scratch carried across the sequential chunk axis of the grid). Here
-// nothing carries between blocks: one block owns 128 channels of one
+// nothing carries between blocks: a block owns a run of channels of one
 // sequence for the whole sequence, and its loop over time takes the place
 // of the TPU's sequential grid axis.
 //
@@ -19,21 +20,48 @@
 // bf16): the bytes are one read of x (67 MB), dt (134 MB), B, C, A, D and
 // one write of y (67 MB), ~271 MB, 0.081 ms at 3.35 TB/s; the work is
 // Bt S Di N = 537 M exponentials, 0.128 ms at the SFU rate (16 a clock per
-// SM, 132 SMs, 1.98 GHz). expf here is the accurate one (a range reduction
-// on the FMA pipe around one ex2.approx), plus 3 FMAs per (t, d, n), so the
-// kernel is bound by operations (instructions), not bytes.
+// SM, 132 SMs, 1.98 GHz). So the kernel is bound by operations: the SFU's
+// exponentials, and the instructions around them that the SMs must issue.
 //
-// Design: one thread owns channel d of sequence b and keeps A[d, :] and
-// h[d, :] (N <= 16, unrolled, so both stay in registers). The block stages
-// a tile of kTile steps of B_t and C_t (shared by all its channels) in
-// shared memory and reads them as broadcasts. The x and dt loads of kUnroll
-// steps are issued together before those steps are computed, coalesced
-// across the warp (neighbouring threads, neighbouring channels), so that
-// their device-memory latency overlaps instead of stalling each step. Any
-// S and Di: the ragged channel tail is masked, the ragged time tile cut.
+// What the first version lost (0.967 ms on an H100, ~20% of the issue
+// rate): each step of a thread's unrolled batch sat behind its own branch,
+// so the steps' chains could not overlap with ~8 warps a SM; each batch
+// waited for its own x and dt loads; and the accurate expf wrapped its one
+// MUFU ex2 in ~8 FMA-pipe instructions of range reduction, ~0.19 ms of FMA
+// issue on its own.
+//
+// Design:
+// * G lanes share a channel (G = 1 or 2; lane g holds states
+//   g * 16/G .. (g + 1) * 16/G - 1, padded with A = B = C = 0 past N, which
+//   leaves h at 0 and adds nothing to y). At G = 2 y's partial sums are
+//   combined by __shfl_xor_sync. G = 2 doubles the warps in flight but also
+//   each state's share of a step's fixed cost (the x and dt loads, the
+//   shuffle, the y store), so a launch takes G = 2 only where G = 1 leaves
+//   an SM without a block (ssm_scan_lanes): G = 1 at the jamba prefill (256
+//   blocks, 2 a SM), G = 2 for one prompt (Bt = 1). Four lanes a channel
+//   lost at both shapes on the H100.
+// * One MUFU and no range reduction an exponential: A' = A log2(e) is
+//   rounded to f32 once per thread, and exp(dt A) = ex2.approx.ftz(dt A').
+//   Against expf this adds two f32 roundings of the exponent (~|dt A| ulp of
+//   the result) to ex2's own 2 ulp, which CUDA's exp2f and expf both state
+//   as their bound; the decaying state does not let them grow with S.
+// * The products are rounded as written (__fmul_rn / __fmaf_rn), so the
+//   CPU test that emulates this order holds the kernel's arithmetic.
+// * The block stages kTile steps of B_t and C_t (shared by all its
+//   channels) in shared memory, zero-padded past N, and a lane reads its
+//   states' run of them as float4 broadcasts. The x and dt loads of the
+//   next kUnroll steps are issued before this batch is computed,
+//   coalesced across the warp (neighbouring lane groups, neighbouring
+//   channels: 32/G channels of dt a warp, 128 or 64 bytes).
+// * Any S and Di: a lane group past Di computes the last channel and
+//   writes the same y as its owner (so no store needs a branch, which would
+//   cut a batch's steps into separate blocks of code), the ragged time tile
+//   is cut. One launch a call, nothing kept between calls (CUDA-graph
+//   replay is safe).
 //
 // C interface (bound with ctypes): ssm_scan_launch() returns the launch's
-// cudaError_t; ssm_scan_error_string() names it.
+// cudaError_t; ssm_scan_lanes() the G a launch would take;
+// ssm_scan_error_string() names an error.
 
 #include <cstddef>
 
@@ -42,10 +70,17 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // channels per block
+constexpr int kThreads = 128;     // threads a block: 128 / G channels
 constexpr int kMaxN = 16;         // state size the registers hold
 constexpr int kTile = 64;         // steps of B, C staged per pass
-constexpr int kUnroll = 8;        // steps whose x, dt loads are in flight together
+constexpr int kUnroll = 8;        // steps a batch; the next batch's loads fly
+constexpr float kLog2e = 1.4426950408889634f;
+
+// blocks a SM each G is compiled for (a register budget of 65536 /
+// (kThreads x blocks)), at least what the shapes that take it need: 2 for
+// G = 1 at the jamba prefill (256 blocks), 2 for G = 2 at one prompt
+template <int G> struct MinBlocks { static constexpr int value = 2; };
+template <> struct MinBlocks<2> { static constexpr int value = 4; };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -56,95 +91,177 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
+// 2^z in one MUFU instruction (subnormal inputs and results flush to 0)
+__device__ __forceinline__ float ex2(float z) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(z));
+  return r;
+}
+
+// the raw x and the dt of steps t .. t + kUnroll (0 past S), one row pitch
+// Di apart
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ D,
-                T* __restrict__ y, float* __restrict__ h_out, int S, int Di, int N) {
-  __shared__ float sB[kTile * kMaxN];
-  __shared__ float sC[kTile * kMaxN];
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = d < Di;
-  const size_t row0 = static_cast<size_t>(blockIdx.y) * S;   // this sequence's first step
-
-  float a[kMaxN], h[kMaxN];
+__device__ __forceinline__ void load_batch(const T* xp, const float* dtp, int t,
+                                           int S, int Di, T* xs, float* ds) {
+  const T* xq = xp + static_cast<size_t>(t) * Di;
+  const float* dq = dtp + static_cast<size_t>(t) * Di;
+  if (t + kUnroll <= S) {
 #pragma unroll
-  for (int n = 0; n < kMaxN; ++n) {
-    a[n] = (active && n < N) ? A[static_cast<size_t>(d) * N + n] : 0.0f;
-    h[n] = 0.0f;
-  }
-  const float Dd = active ? D[d] : 0.0f;
-
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    const int nt = min(kTile, S - t0);
-    __syncthreads();                 // the previous tile's B, C are read
-    const float* Bsrc = Bm + (row0 + t0) * N;
-    const float* Csrc = Cm + (row0 + t0) * N;
-    for (int i = threadIdx.x; i < nt * N; i += kThreads) {
-      const int tt = i / N;
-      const int n = i - tt * N;
-      sB[tt * kMaxN + n] = Bsrc[i];
-      sC[tt * kMaxN + n] = Csrc[i];
+    for (int u = 0; u < kUnroll; ++u, xq += Di, dq += Di) {
+      xs[u] = *xq;
+      ds[u] = *dq;
     }
-    __syncthreads();
-    if (!active) continue;           // every thread still meets each barrier
-
-    for (int u0 = 0; u0 < nt; u0 += kUnroll) {
-      float xs[kUnroll], ds[kUnroll];
+  } else {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        xs[u] = 0.0f;
-        ds[u] = 0.0f;
-        if (u0 + u < nt) {
-          const size_t off = (row0 + t0 + u0 + u) * Di + d;
-          xs[u] = to_f(x[off]);
-          ds[u] = dt[off];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int tt = u0 + u;
-        if (tt < nt) {
-          const float dx = ds[u] * xs[u];
-          const float* bt = sB + tt * kMaxN;
-          const float* ct = sC + tt * kMaxN;
-          float acc = 0.0f;
-#pragma unroll
-          for (int n = 0; n < kMaxN; ++n) {
-            if (n < N) {
-              h[n] = expf(ds[u] * a[n]) * h[n] + dx * bt[n];
-              acc += h[n] * ct[n];
-            }
-          }
-          y[(row0 + t0 + tt) * Di + d] = from_f<T>(acc + Dd * xs[u]);
-        }
-      }
-    }
-  }
-
-  if (h_out != nullptr && active) {
-    float* hd = h_out + (static_cast<size_t>(blockIdx.y) * Di + d) * N;
-#pragma unroll
-    for (int n = 0; n < kMaxN; ++n) {
-      if (n < N) hd[n] = h[n];
+    for (int u = 0; u < kUnroll; ++u, xq += Di, dq += Di) {
+      xs[u] = t + u < S ? *xq : from_f<T>(0.0f);
+      ds[u] = t + u < S ? *dq : 0.0f;
     }
   }
 }
 
-template <typename T>
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads, MinBlocks<G>::value)
+ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ Bm,
+                const float* __restrict__ Cm, const float* __restrict__ D,
+                T* __restrict__ y, float* __restrict__ h_out, int S, int Di, int N) {
+  constexpr int kSpl = kMaxN / G;          // states a lane
+  constexpr int kChan = kThreads / G;      // channels a block
+  __shared__ __align__(16) float sB[kTile * kMaxN];
+  __shared__ __align__(16) float sC[kTile * kMaxN];
+  const int g = threadIdx.x % G;
+  const int d = blockIdx.x * kChan + threadIdx.x / G;
+  // a group past Di computes the last channel and stores its values, which
+  // equal that channel's own (every lane of a group stores the same y)
+  const int dc = d < Di ? d : Di - 1;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * S;   // this sequence's first step
+
+  float a[kSpl], h[kSpl];
+#pragma unroll
+  for (int s = 0; s < kSpl; ++s) {
+    const int n = g * kSpl + s;
+    a[s] = n < N ? __fmul_rn(A[static_cast<size_t>(dc) * N + n], kLog2e) : 0.0f;
+    h[s] = 0.0f;
+  }
+  const float Dd = D[dc];
+  const T* xp = x + row0 * Di + dc;
+  const float* dtp = dt + row0 * Di + dc;
+  T* yp = y + row0 * Di + dc;
+
+  // one step tt of the staged tile t0: every state, then y
+  int t0 = 0;
+  auto step = [&](int tt, T xraw, float dtv) {
+    const float xv = to_f(xraw);
+    const float dx = __fmul_rn(dtv, xv);
+    float b[kSpl], c[kSpl];
+#pragma unroll
+    for (int q = 0; q < kSpl / 4; ++q) {
+      const float4 bq = reinterpret_cast<const float4*>(sB + tt * kMaxN + g * kSpl)[q];
+      const float4 cq = reinterpret_cast<const float4*>(sC + tt * kMaxN + g * kSpl)[q];
+      b[4 * q] = bq.x; b[4 * q + 1] = bq.y; b[4 * q + 2] = bq.z; b[4 * q + 3] = bq.w;
+      c[4 * q] = cq.x; c[4 * q + 1] = cq.y; c[4 * q + 2] = cq.z; c[4 * q + 3] = cq.w;
+    }
+    float acc = 0.0f;                // the lane's part of y, in state order
+#pragma unroll
+    for (int s = 0; s < kSpl; ++s) {
+      const float e = ex2(__fmul_rn(dtv, a[s]));
+      h[s] = __fmaf_rn(e, h[s], __fmul_rn(dx, b[s]));
+      acc = s == 0 ? __fmul_rn(h[s], c[s]) : __fmaf_rn(h[s], c[s], acc);
+    }
+#pragma unroll
+    if (G == 2) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+    yp[static_cast<size_t>(t0 + tt) * Di] = from_f<T>(__fmaf_rn(Dd, xv, acc));
+  };
+
+  T xn[kUnroll];
+  float dn[kUnroll];
+  load_batch(xp, dtp, 0, S, Di, xn, dn);
+  for (; t0 < S; t0 += kTile) {
+    const int nt = min(kTile, S - t0);
+    __syncthreads();                 // the previous tile's B, C are read
+    for (int i = threadIdx.x; i < kTile * kMaxN; i += kThreads) {
+      const int tt = i / kMaxN;
+      const int n = i % kMaxN;
+      const bool in = tt < nt && n < N;
+      const size_t src = (row0 + t0 + tt) * N + n;
+      sB[i] = in ? Bm[src] : 0.0f;
+      sC[i] = in ? Cm[src] : 0.0f;
+    }
+    __syncthreads();
+
+    for (int u0 = 0; u0 < nt; u0 += kUnroll) {
+      T xs[kUnroll];
+      float ds[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        xs[u] = xn[u];
+        ds[u] = dn[u];
+      }
+      load_batch(xp, dtp, t0 + u0 + kUnroll, S, Di, xn, dn);
+      if (u0 + kUnroll <= nt) {      // a whole batch: one block of code, so
+#pragma unroll                       // the steps' instructions can interleave
+        for (int u = 0; u < kUnroll; ++u) step(u0 + u, xs[u], ds[u]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (u0 + u < nt) step(u0 + u, xs[u], ds[u]);
+        }
+      }
+    }
+  }
+
+  if (h_out != nullptr && d < Di) {
+    float* hd = h_out + (static_cast<size_t>(blockIdx.y) * Di + d) * N;
+#pragma unroll
+    for (int s = 0; s < kSpl; ++s) {
+      const int n = g * kSpl + s;
+      if (n < N) hd[n] = h[s];
+    }
+  }
+}
+
+template <int G>
+long long blocks_for(int Bt, int Di) {
+  constexpr int kChan = kThreads / G;
+  return static_cast<long long>((Di + kChan - 1) / kChan) * Bt;
+}
+
+// one lane a channel unless that leaves an SM without a block: a second
+// lane only adds instructions once the SMs are all busy
+int pick_lanes(int Bt, int Di) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return blocks_for<1>(Bt, Di) >= sms ? 1 : 2;
+}
+
+template <typename T, int G>
 cudaError_t launch(const void* x, const float* dt, const float* A, const float* B,
                    const float* C, const float* D, void* y, float* h_out, int Bt,
                    int S, int Di, int N, cudaStream_t s) {
-  const dim3 grid((Di + kThreads - 1) / kThreads, Bt);
-  ssm_scan_kernel<T><<<grid, kThreads, 0, s>>>(
+  constexpr int kChan = kThreads / G;
+  const dim3 grid((Di + kChan - 1) / kChan, Bt);
+  ssm_scan_kernel<T, G><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), dt, A, B, C, D, static_cast<T*>(y), h_out, S, Di, N);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_lanes(const void* x, const float* dt, const float* A, const float* B,
+                         const float* C, const float* D, void* y, float* h_out, int Bt,
+                         int S, int Di, int N, cudaStream_t s) {
+  if (pick_lanes(Bt, Di) == 1) return launch<T, 1>(x, dt, A, B, C, D, y, h_out, Bt, S, Di, N, s);
+  return launch<T, 2>(x, dt, A, B, C, D, y, h_out, Bt, S, Di, N, s);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The lanes a channel (1 or 2) that ssm_scan_launch takes for this shape.
+int ssm_scan_lanes(int Bt, int Di) { return pick_lanes(Bt, Di); }
 
 // x, y: [Bt, S, Di] row-major, dtype 0 float32 / 1 bfloat16; dt [Bt, S, Di],
 // A [Di, N], B and C [Bt, S, N], D [Di]: float32, contiguous. h_out: null,
@@ -163,9 +280,11 @@ int ssm_scan_launch(const void* x, const void* dt, const void* A, const void* B,
   const float* Cf = static_cast<const float*>(C);
   const float* Df = static_cast<const float*>(D);
   float* hf = static_cast<float*>(h_out);
-  if (dtype == 0) return launch<float>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
+  if (dtype == 0) {
+    return launch_lanes<float>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
+  }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
+    return launch_lanes<__nv_bfloat16>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -212,7 +212,8 @@ def _vector_width(widths, ld: int, *tensors) -> int:
 
 
 def _sort_cols(C: int) -> int:
-    """Threads (= columns) per block of the sorted kernel: a [P, cols] f32
+    """Threads (= columns) per block of the shared-memory sorted kernel
+    (C > 64; at P <= 64 the register route takes 128): a [P, cols] f32
     tile of at most 64 KB, and at least one warp (128 KB at P = 1024)."""
     return max(32, min(128, 16384 // _next_pow2(C)))
 
