@@ -394,9 +394,14 @@ def compare_variant(out, want, updates, w, g, kw):
 
 def variant_cases():
     """(label, C, M, case kwargs): the slice's shapes (K1's plus the
-    cell-(b) width), C = 65 (P = 128 for the sorted reducers), zero
-    inclusion, a NaN in a gated-out row, and a NaN in an included row."""
+    cell-(b) width), C = 1-4 (P = 1, 2, 4 for the sorted reducers), C = 65
+    (P = 128), zero inclusion, a NaN in a gated-out row, and a NaN in an
+    included row."""
     return [("slice_a", 20, 610, {}),
+            ("c1", 1, 1000, {}),
+            ("c2", 2, 1000, {}),
+            ("c3", 3, 1001, {}),
+            ("c4", 4, 1000, {}),
             ("slice_b", 60, 579402, {}),
             ("slice_b_all", 60, 579402, dict(gates="all")),
             ("c65", 65, 4099, {}),
@@ -1572,15 +1577,17 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
 # ------------------------------------------------- K8 and the jamba slice (g)
 # f32: 1e-5 x max(1, max|y|) (or |h|). Kernel and plain version run the
 # same f32 recurrence; the kernel contracts products into FMAs and its
-# expf and torch.exp may differ by an ulp, once a step, and the state
-# decays (dt A < 0), so those errors do not grow with S. bf16 y: one bf16
+# one-instruction ex2 (2 ulp, of an exponent rounded twice) and torch.exp
+# differ by a few ulp, once a step, and the state decays (dt A < 0), so those errors do not grow with S. bf16 y: one bf16
 # ulp more (both round the same f32 value once).
 SSM_TOL = 1e-5
 # (Bt, S, Di, N): N in {4, 8, 16}, S a multiple of no tile, Bt 1 and 3, Di
-# not a multiple of 128, one step; the slice's prefill shapes (the smoke
-# jamba's Di 256; full width: 2 x 1024 x 16384) are checked in the timing
+# not a multiple of 128, one step, and a grid of more blocks than SMs with
+# S, Di and N ragged; the slice's prefill shapes (the smoke jamba's Di 256;
+# full width: 2 x 1024 x 16384) are checked in the timing
 SSM_CASES = [(1, 100, 200, 4), (3, 77, 130, 8), (1, 300, 1000, 16),
-             (3, 257, 384, 16), (2, 1, 64, 16), (1, 65, 256, 16)]
+             (3, 257, 384, 16), (2, 1, 64, 16), (1, 65, 256, 16),
+             (2, 77, 16400, 8)]
 # the SFU's exponentials: 16 a clock per SM, 132 SMs, at the 1.98 GHz clock
 # that gives the data sheet's 67 TFLOP/s f32 (132 x 128 lanes x 2 x clock)
 H100_EXP_PER_S = 16 * 132 * 1.98e9
@@ -1646,7 +1653,8 @@ def ssm_kernel_phase(check: Check, device="cuda"):
 
 
 # K8's timed shapes: (label, Bt, S, Di, N): jamba-1.5-large's prefill at
-# the g2 batch, and one prompt (a BatchScheduler admission)
+# the g2 batch, and one prompt of 1024 tokens through launch/serve.py's
+# generate (serve_profile --batch 1)
 SSM_TIMING = (("jamba_prefill_scan", 2, 1024, 16384, 16),
               ("jamba_prefill_scan_b1", 1, 1024, 16384, 16))
 
@@ -1659,7 +1667,6 @@ def ssm_timing_phase(check: Check, device="cuda"):
     Returns {label: row}."""
     import torch
     from repro_torch.kernels import ssm_scan as sk
-    lanes = getattr(sk, "scan_lanes", None)
     rows = {}
     for label, Bt, S, Di, N in SSM_TIMING:
         args = ssm_inputs(Bt, S, Di, N, torch.bfloat16, device, 7)
@@ -1681,8 +1688,7 @@ def ssm_timing_phase(check: Check, device="cuda"):
                               calls=2, reps=2),
             library_ms=None, bound_ms=1e3 * max(t_b, t_e, t_f),
             bound_by="bytes" if t_b >= max(t_e, t_f) else "operations",
-            bytes=bytes_, exps=elems, max_abs_err=err, state_err=h_err,
-            lanes=lanes(Bt, Di) if lanes else 1)
+            bytes=bytes_, exps=elems, max_abs_err=err, state_err=h_err)
         print("LM timing:", label, json.dumps(rows[label]), flush=True)
     return rows
 

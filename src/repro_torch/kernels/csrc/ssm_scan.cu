@@ -31,15 +31,13 @@
 // issue on its own.
 //
 // Design:
-// * G lanes share a channel (G = 1 or 2; lane g holds states
-//   g * 16/G .. (g + 1) * 16/G - 1, padded with A = B = C = 0 past N, which
-//   leaves h at 0 and adds nothing to y). At G = 2 y's partial sums are
-//   combined by __shfl_xor_sync. G = 2 doubles the warps in flight but also
-//   each state's share of a step's fixed cost (the x and dt loads, the
-//   shuffle, the y store), so a launch takes G = 2 only where G = 1 leaves
-//   an SM without a block (ssm_scan_lanes): G = 1 at the jamba prefill (256
-//   blocks, 2 a SM), G = 2 for one prompt (Bt = 1). Four lanes a channel
-//   lost at both shapes on the H100.
+// * One thread a channel, holding its N <= 16 states in registers (padded
+//   with A = B = C = 0 past N, which leaves h at 0 and adds nothing to y);
+//   the block is held to 2 a SM of registers (176 used), so the jamba
+//   prefill's 256 blocks all run in one wave. The steps of a batch overlap
+//   instead (below). Two or four lanes a channel, with y's partial sums
+//   shuffled together, were tried on the H100 and lost at this shape: each
+//   lane repeats a step's fixed cost (the x and dt loads, the y store).
 // * One MUFU and no range reduction an exponential: A' = A log2(e) is
 //   rounded to f32 once per thread, and exp(dt A) = ex2.approx.ftz(dt A').
 //   Against expf this adds two f32 roundings of the exponent (~|dt A| ulp of
@@ -48,20 +46,18 @@
 // * The products are rounded as written (__fmul_rn / __fmaf_rn), so the
 //   CPU test that emulates this order holds the kernel's arithmetic.
 // * The block stages kTile steps of B_t and C_t (shared by all its
-//   channels) in shared memory, zero-padded past N, and a lane reads its
-//   states' run of them as float4 broadcasts. The x and dt loads of the
-//   next kUnroll steps are issued before this batch is computed,
-//   coalesced across the warp (neighbouring lane groups, neighbouring
-//   channels: 32/G channels of dt a warp, 128 or 64 bytes).
-// * Any S and Di: a lane group past Di computes the last channel and
-//   writes the same y as its owner (so no store needs a branch, which would
-//   cut a batch's steps into separate blocks of code), the ragged time tile
-//   is cut. One launch a call, nothing kept between calls (CUDA-graph
-//   replay is safe).
+//   channels) in shared memory, zero-padded past N, and a thread reads them
+//   as float4 broadcasts. The x and dt loads of the next kUnroll steps are
+//   issued before this batch is computed, coalesced across the warp
+//   (neighbouring threads, neighbouring channels: 128 bytes of dt a warp).
+// * Any S and Di: a thread past Di computes the last channel and writes
+//   the same y as its owner (so no store needs a branch, which would cut a
+//   batch's steps into separate blocks of code), the ragged time tile is
+//   cut. One launch a call, nothing kept between calls (CUDA-graph replay
+//   is safe).
 //
 // C interface (bound with ctypes): ssm_scan_launch() returns the launch's
-// cudaError_t; ssm_scan_lanes() the G a launch would take;
-// ssm_scan_error_string() names an error.
+// cudaError_t; ssm_scan_error_string() names an error.
 
 #include <cstddef>
 
@@ -70,17 +66,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // threads a block: 128 / G channels
+constexpr int kThreads = 128;     // threads (= channels) a block
+constexpr int kMinBlocks = 2;     // blocks a SM the registers are held to
 constexpr int kMaxN = 16;         // state size the registers hold
 constexpr int kTile = 64;         // steps of B, C staged per pass
 constexpr int kUnroll = 8;        // steps a batch; the next batch's loads fly
 constexpr float kLog2e = 1.4426950408889634f;
-
-// blocks a SM each G is compiled for (a register budget of 65536 /
-// (kThreads x blocks)), at least what the shapes that take it need: 2 for
-// G = 1 at the jamba prefill (256 blocks), 2 for G = 2 at one prompt
-template <int G> struct MinBlocks { static constexpr int value = 2; };
-template <> struct MinBlocks<2> { static constexpr int value = 4; };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -120,29 +111,25 @@ __device__ __forceinline__ void load_batch(const T* xp, const float* dtp, int t,
   }
 }
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads, MinBlocks<G>::value)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ D,
                 T* __restrict__ y, float* __restrict__ h_out, int S, int Di, int N) {
-  constexpr int kSpl = kMaxN / G;          // states a lane
-  constexpr int kChan = kThreads / G;      // channels a block
   __shared__ __align__(16) float sB[kTile * kMaxN];
   __shared__ __align__(16) float sC[kTile * kMaxN];
-  const int g = threadIdx.x % G;
-  const int d = blockIdx.x * kChan + threadIdx.x / G;
-  // a group past Di computes the last channel and stores its values, which
-  // equal that channel's own (every lane of a group stores the same y)
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  // a thread past Di computes the last channel and stores its values, which
+  // equal that channel's own
   const int dc = d < Di ? d : Di - 1;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * S;   // this sequence's first step
 
-  float a[kSpl], h[kSpl];
+  float a[kMaxN], h[kMaxN];
 #pragma unroll
-  for (int s = 0; s < kSpl; ++s) {
-    const int n = g * kSpl + s;
-    a[s] = n < N ? __fmul_rn(A[static_cast<size_t>(dc) * N + n], kLog2e) : 0.0f;
-    h[s] = 0.0f;
+  for (int n = 0; n < kMaxN; ++n) {
+    a[n] = n < N ? __fmul_rn(A[static_cast<size_t>(dc) * N + n], kLog2e) : 0.0f;
+    h[n] = 0.0f;
   }
   const float Dd = D[dc];
   const T* xp = x + row0 * Di + dc;
@@ -154,23 +141,21 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   auto step = [&](int tt, T xraw, float dtv) {
     const float xv = to_f(xraw);
     const float dx = __fmul_rn(dtv, xv);
-    float b[kSpl], c[kSpl];
+    float b[kMaxN], c[kMaxN];
 #pragma unroll
-    for (int q = 0; q < kSpl / 4; ++q) {
-      const float4 bq = reinterpret_cast<const float4*>(sB + tt * kMaxN + g * kSpl)[q];
-      const float4 cq = reinterpret_cast<const float4*>(sC + tt * kMaxN + g * kSpl)[q];
+    for (int q = 0; q < kMaxN / 4; ++q) {
+      const float4 bq = reinterpret_cast<const float4*>(sB + tt * kMaxN)[q];
+      const float4 cq = reinterpret_cast<const float4*>(sC + tt * kMaxN)[q];
       b[4 * q] = bq.x; b[4 * q + 1] = bq.y; b[4 * q + 2] = bq.z; b[4 * q + 3] = bq.w;
       c[4 * q] = cq.x; c[4 * q + 1] = cq.y; c[4 * q + 2] = cq.z; c[4 * q + 3] = cq.w;
     }
-    float acc = 0.0f;                // the lane's part of y, in state order
+    float acc = 0.0f;                // C . h, in state order
 #pragma unroll
-    for (int s = 0; s < kSpl; ++s) {
-      const float e = ex2(__fmul_rn(dtv, a[s]));
-      h[s] = __fmaf_rn(e, h[s], __fmul_rn(dx, b[s]));
-      acc = s == 0 ? __fmul_rn(h[s], c[s]) : __fmaf_rn(h[s], c[s], acc);
+    for (int n = 0; n < kMaxN; ++n) {
+      const float e = ex2(__fmul_rn(dtv, a[n]));
+      h[n] = __fmaf_rn(e, h[n], __fmul_rn(dx, b[n]));
+      acc = n == 0 ? __fmul_rn(h[n], c[n]) : __fmaf_rn(h[n], c[n], acc);
     }
-#pragma unroll
-    if (G == 2) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
     yp[static_cast<size_t>(t0 + tt) * Di] = from_f<T>(__fmaf_rn(Dd, xv, acc));
   };
 
@@ -214,54 +199,25 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (h_out != nullptr && d < Di) {
     float* hd = h_out + (static_cast<size_t>(blockIdx.y) * Di + d) * N;
 #pragma unroll
-    for (int s = 0; s < kSpl; ++s) {
-      const int n = g * kSpl + s;
-      if (n < N) hd[n] = h[s];
+    for (int n = 0; n < kMaxN; ++n) {
+      if (n < N) hd[n] = h[n];
     }
   }
 }
 
-template <int G>
-long long blocks_for(int Bt, int Di) {
-  constexpr int kChan = kThreads / G;
-  return static_cast<long long>((Di + kChan - 1) / kChan) * Bt;
-}
-
-// one lane a channel unless that leaves an SM without a block: a second
-// lane only adds instructions once the SMs are all busy
-int pick_lanes(int Bt, int Di) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 1;
-  return blocks_for<1>(Bt, Di) >= sms ? 1 : 2;
-}
-
-template <typename T, int G>
+template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A, const float* B,
                    const float* C, const float* D, void* y, float* h_out, int Bt,
                    int S, int Di, int N, cudaStream_t s) {
-  constexpr int kChan = kThreads / G;
-  const dim3 grid((Di + kChan - 1) / kChan, Bt);
-  ssm_scan_kernel<T, G><<<grid, kThreads, 0, s>>>(
+  const dim3 grid((Di + kThreads - 1) / kThreads, Bt);
+  ssm_scan_kernel<T><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), dt, A, B, C, D, static_cast<T*>(y), h_out, S, Di, N);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_lanes(const void* x, const float* dt, const float* A, const float* B,
-                         const float* C, const float* D, void* y, float* h_out, int Bt,
-                         int S, int Di, int N, cudaStream_t s) {
-  if (pick_lanes(Bt, Di) == 1) return launch<T, 1>(x, dt, A, B, C, D, y, h_out, Bt, S, Di, N, s);
-  return launch<T, 2>(x, dt, A, B, C, D, y, h_out, Bt, S, Di, N, s);
 }
 
 }  // namespace
 
 extern "C" {
-
-// The lanes a channel (1 or 2) that ssm_scan_launch takes for this shape.
-int ssm_scan_lanes(int Bt, int Di) { return pick_lanes(Bt, Di); }
 
 // x, y: [Bt, S, Di] row-major, dtype 0 float32 / 1 bfloat16; dt [Bt, S, Di],
 // A [Di, N], B and C [Bt, S, N], D [Di]: float32, contiguous. h_out: null,
@@ -281,10 +237,10 @@ int ssm_scan_launch(const void* x, const void* dt, const void* A, const void* B,
   const float* Df = static_cast<const float*>(D);
   float* hf = static_cast<float*>(h_out);
   if (dtype == 0) {
-    return launch_lanes<float>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
+    return launch<float>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
   }
   if (dtype == 1) {
-    return launch_lanes<__nv_bfloat16>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
+    return launch<__nv_bfloat16>(x, dtf, Af, Bf, Cf, Df, y, hf, Bt, S, Di, N, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -24,9 +24,7 @@ A [Di, N] f32 (negative), B and C [Bt, S, N] f32, D [Di] f32; y like x, the
 state [Bt, Di, N] f32. The kernel holds N <= 16 states a channel.
 
 The kernel replaces the TPU kernel ``repro/kernels/ssm_scan.py:
-ssm_scan_pallas``. ``scan_lanes`` says how many lanes share a channel at
-a launch shape (the kernel picks it; the arithmetic differs between them
-only in the order y's partial sums are added). What bounds it and what its design does about it is
+ssm_scan_pallas``. What bounds it and what its design does about it is
 noted at the top of the source.
 """
 from __future__ import annotations
@@ -71,8 +69,6 @@ def _bind():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.ssm_scan_lanes.argtypes = [ctypes.c_int] * 2
-        lib.ssm_scan_lanes.restype = ctypes.c_int
         lib.ssm_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -142,10 +138,3 @@ def ssm_scan(x, dt, A, B, C, D, *, chunk=256, return_state=False):
 
 
 ssm_scan.launches = 0
-
-
-def scan_lanes(Bt, Di):
-    """The lanes a channel (1 or 2) the kernel takes for Bt sequences of Di
-    channels on the current card: 2 only where one lane a channel leaves an
-    SM without a block (``ssm_scan_lanes`` in the source)."""
-    return _bind().ssm_scan_lanes(int(Bt), int(Di))

@@ -275,7 +275,8 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,M", [(20, 610), (60, 579402), (65, 4099)])
+@pytest.mark.parametrize("C,M", [(1, 1000), (2, 1000), (3, 1001), (4, 1000),
+                                 (20, 610), (60, 579402), (65, 4099)])
 @pytest.mark.parametrize("wire", WIRES)
 @pytest.mark.parametrize("reducer", REDUCERS)
 def test_cuda_variants_match_plain(cuda_device, reducer, wire, C, M):

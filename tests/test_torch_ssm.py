@@ -47,9 +47,10 @@ KERNEL_TOL = 1e-5
 # (Bt, S, Di, N, chunk): tests/test_kernels.py's, and a ragged S
 REF_CASES = [(1, 64, 16, 4, 16), (2, 128, 32, 8, 32), (2, 96, 8, 16, 32)]
 RAGGED = (2, 50, 12, 16, 16)
-# card: (Bt, S, Di, N): ragged S and Di, Bt 1 and 3, N in {4, 8, 16}
+# card: (Bt, S, Di, N): ragged S and Di, Bt 1 and 3, N in {4, 8, 16}, and
+# a grid of more blocks than the card's SMs
 KERNEL_CASES = [(1, 64, 128, 4), (3, 77, 200, 8), (1, 300, 130, 16),
-                (3, 129, 256, 16), (2, 1, 64, 16)]
+                (3, 129, 256, 16), (2, 1, 64, 16), (2, 77, 16400, 8)]
 
 
 @pytest.fixture(autouse=True, scope="module")
