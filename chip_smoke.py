@@ -122,25 +122,34 @@ def ptxas_entries(log):
     return out
 
 
+# (library, the substrings of the kernel's symbol, whether its frame must
+# have no stack): K3's register route, K8, and K4's int8 stream, sketch and
+# topk kernels
+PTXAS_KERNELS = (("fedagg", ("sorted_reg_kernel",), True),
+                 ("ssm_scan", ("ssm_scan_kernel",), False),
+                 ("fedagg", ("stream_kernel", "DecInt8"), False),
+                 ("fedagg", ("sketch_kernel",), False),
+                 ("fedagg", ("topk_sum_kernel",), False))
+
+
 def ptxas_check(check: Check, reports):
     """K3's register route (sorted_reg_kernel) compiles to no stack and no
-    spills (no register array indexed at run time), K8 (ssm_scan_kernel) to
-    no spills; prints their registers."""
+    spills (no register array indexed at run time); K8 and K4's kernels to
+    no spills. Prints their registers."""
     summary = {}
-    for name, kernel, stack_ok in (("fedagg", "sorted_reg_kernel", True),
-                                   ("ssm_scan", "ssm_scan_kernel", False)):
+    for name, parts, stack_ok in PTXAS_KERNELS:
+        found = False
         for sym, (regs, stack, st, ld) in ptxas_entries(reports.get(name, "")).items():
-            if kernel not in sym:
+            if not all(part in sym for part in parts):
                 continue
+            found = True
             summary[sym] = dict(registers=regs, stack=stack, spill_stores=st,
                                 spill_loads=ld)
             check(st == 0 and ld == 0, f"ptxas: {sym} spills ({st} / {ld} bytes)")
             if stack_ok:
                 check(stack == 0, f"ptxas: {sym} has a {stack}-byte stack frame")
-    check(any("sorted_reg_kernel" in k for k in summary)
-          and any("ssm_scan_kernel" in k for k in summary),
-          "ptxas: no report of sorted_reg_kernel / ssm_scan_kernel")
-    print("ptxas K3 / K8:", json.dumps(summary), flush=True)
+        check(found, f"ptxas: no report of {' / '.join(parts)}")
+    print("ptxas K3 / K4 / K8:", json.dumps(summary), flush=True)
     return summary
 
 
@@ -274,26 +283,32 @@ def kernel_phase(check: Check, device="cuda"):
 
 # ------------------------------------------------- variants (K2, K3, K4)
 REDUCERS = ("mean", "dp", "trimmed_mean", "median")
+WIRES = ("identity_f32", "identity_bf16", "int8", "topk", "sketch")
 # the JSON line's kernels: (name, TPU function it replaces, which
-# (aggregator, codec) launches count for it, the variant timed for it). The
-# reducers count whatever wire feeds them; the decoders whatever they feed.
+# (aggregator, codec) launches count for it, the variant timed for it, the
+# (reducer, wire) rows listed under its shapes; K1's are timing_phase's).
+# The reducers count whatever wire feeds them; the decoders whatever they
+# feed.
 KERNELS = [
     ("fedagg_mean", "src/repro/kernels/fedagg.py:189",
-     lambda a, c: a == "mean", ("mean", "identity_f32")),
+     lambda a, c: a == "mean", ("mean", "identity_f32"), ()),
     ("fedagg_dp", "src/repro/kernels/fedagg.py:200",
-     lambda a, c: a == "dp", ("dp", "identity_f32")),
+     lambda a, c: a == "dp", ("dp", "identity_f32"),
+     (("dp", "identity_f32"), ("dp", "identity_bf16"))),
     ("fedagg_trimmed_mean", "src/repro/kernels/fedagg.py:216",
-     lambda a, c: a == "trimmed_mean", ("trimmed_mean", "identity_f32")),
+     lambda a, c: a == "trimmed_mean", ("trimmed_mean", "identity_f32"),
+     tuple(("trimmed_mean", w) for w in WIRES)),
     ("fedagg_median", "src/repro/kernels/fedagg.py:230",
-     lambda a, c: a == "median", ("median", "identity_f32")),
+     lambda a, c: a == "median", ("median", "identity_f32"),
+     tuple(("median", w) for w in WIRES)),
     ("fedagg_decode_int8", "src/repro/kernels/fedagg.py:151",
-     lambda a, c: c == "int8", ("mean", "int8")),
+     lambda a, c: c == "int8", ("mean", "int8"), (("mean", "int8"), ("dp", "int8"))),
     ("fedagg_decode_topk", "src/repro/kernels/fedagg.py:157",
-     lambda a, c: c == "topk", ("mean", "topk")),
+     lambda a, c: c == "topk", ("mean", "topk"), (("mean", "topk"), ("dp", "topk"))),
     ("fedagg_decode_sketch", "src/repro/kernels/fedagg.py:178",
-     lambda a, c: c == "sketch", ("mean", "sketch")),
+     lambda a, c: c == "sketch", ("mean", "sketch"),
+     (("mean", "sketch"), ("dp", "sketch"))),
 ]
-WIRES = ("identity_f32", "identity_bf16", "int8", "topk", "sketch")
 TRIM_FRAC = 0.2
 
 
@@ -304,14 +319,18 @@ def wire_fed():
 
 
 def variant_case(reducer, wire, C, M, device, *, gates="mixed", nan_row=None,
-                 nan_included=False, seed=0):
+                 nan_included=False, seed=0, fed=None, block_row=None):
     """(updates, weights, gates, kwargs) for one reducer x wire case: dense
-    rows from a seeded generator, encoded by the port's codec. ``nan_row``
-    puts NaNs in that row, gated out unless ``nan_included``."""
+    rows from a seeded generator, encoded by the port's codec (at ``fed``'s
+    rates, default wire_fed()). ``nan_row`` puts NaNs in that row, gated
+    out unless ``nan_included``; ``block_row`` lifts that row's columns
+    2048-4095, so that its top-k pairs all fall in one topk block."""
     import torch
     from repro_torch.core import aggregation as agg
     gen = torch.Generator().manual_seed(seed)
     u = torch.randn(C, M, generator=gen)
+    if block_row is not None:
+        u[block_row, 2048:4096] += 100.0
     w = torch.rand(C, generator=gen) + 0.1
     if gates == "all":
         g = torch.ones(C)
@@ -333,7 +352,7 @@ def variant_case(reducer, wire, C, M, device, *, gates="mixed", nan_row=None,
         updates = agg.flatten_stacked({"u": u.to(dev)}, dtype=dtype)
         kw = {}
     else:
-        updates, kw = agg.get_wire_codec(wire).encode(wire_fed(), u.to(dev))
+        updates, kw = agg.get_wire_codec(wire).encode(fed or wire_fed(), u.to(dev))
     kw = dict(kw, aggregator=reducer)
     if reducer == "dp":
         kw.update(row_scale=row_scale.to(dev), noise=noise.to(dev),
@@ -410,39 +429,63 @@ def variant_cases():
             ("nan_included", 9, 1000, dict(nan_row=3, nan_included=True))]
 
 
+def decoder_cases():
+    """(label, wire, C, M, variant_case kwargs): K4's edge cases under mean
+    and dp, at an M that is not a multiple of a sketch cluster's columns
+    (8 x 256 x 4) nor of 4: the sketch at dim 1, 7, 2048 and the largest
+    dim its shared-memory route takes, and one past it (the gather route);
+    topk with one row's pairs all in one block, and with more pairs than
+    one stage holds (frac 0.5); int8 with a ragged, pitched row. Each with
+    a NaN row behind a zero gate but the stage case (all gates 1)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.kernels import fedagg as fk
+    M = 8 * 256 * 4 + 3
+    cases = [(f"sketch_dim{d}", "sketch", 6, M,
+              dict(nan_row=2, fed=FedConfig(codec_sketch_dim=d)))
+             for d in (1, 7, 2048, fk.MAX_SKETCH_DIM, fk.MAX_SKETCH_DIM + 1)]
+    return cases + [
+        ("topk_one_block", "topk", 6, M,
+         dict(nan_row=2, block_row=1, fed=FedConfig(codec_topk_frac=0.05))),
+        ("topk_stages", "topk", 8, M,
+         dict(gates="all", fed=FedConfig(codec_topk_frac=0.5))),
+        ("int8_ragged_pitched", "int8", 6, M, dict(nan_row=2))]
+
+
 def variant_phase(check: Check, device="cuda"):
-    """Every reducer x wire against its plain version on the card. Returns
-    the worst error per (reducer, wire) at the cell-(b) shape."""
+    """Every reducer x wire against its plain version on the card, then
+    K4's edge cases under mean and dp. Returns the worst error per
+    (reducer, wire) at the cell-(b) shape."""
     import torch
     from repro_torch.kernels import fedagg as fk
     worst = {}
-    for red in REDUCERS:
-        for wire in WIRES:
-            for label, C, M, kw in variant_cases():
-                if label == "nan_included" and red not in ("trimmed_mean",
-                                                           "median"):
-                    continue      # a NaN in an included row poisons a sum
-                updates, w, g, ops = variant_case(red, wire, C, M, device, **kw)
-                before = fk.fedagg.launches
-                out = fk.fedagg(updates, w, g, **ops)
-                launched = fk.fedagg.launches - before
-                want = fk.fedagg_plain(updates, w, g, **ops)
-                ok, err = compare_variant(out, want, updates, w, g, ops)
-                name = f"{red}/{wire}/{label}"
-                check(launched == 1, f"fedagg {name}: {launched} launches")
-                check(ok, f"fedagg {name}: max_abs_err {err}")
-                if label == "zero_inclusion":
-                    check(bool(torch.all(out == 0)), f"fedagg {name}: zero "
-                          "inclusion must give exact zeros")
-                if label == "nan_gated_out":
-                    check(bool(torch.isfinite(out).all()),
-                          f"fedagg {name}: NaN leaked from a gated-out row")
-                if label == "nan_included" and wire.startswith("identity"):
-                    # the int8 wire sends a NaN as 0 (the reference's cast)
-                    check(bool(torch.isnan(out).any()),
-                          f"fedagg {name}: the included NaN vanished")
-                if label == "slice_b":
-                    worst[f"{red}/{wire}"] = err
+    cases = [(red, wire, label, C, M, kw) for red in REDUCERS for wire in WIRES
+             for label, C, M, kw in variant_cases()
+             # a NaN in an included row poisons a sum
+             if label != "nan_included" or red in ("trimmed_mean", "median")]
+    cases += [(red, wire, label, C, M, kw) for label, wire, C, M, kw in decoder_cases()
+              for red in ("mean", "dp")]
+    for red, wire, label, C, M, kw in cases:
+        updates, w, g, ops = variant_case(red, wire, C, M, device, **kw)
+        before = fk.fedagg.launches
+        out = fk.fedagg(updates, w, g, **ops)
+        launched = fk.fedagg.launches - before
+        want = fk.fedagg_plain(updates, w, g, **ops)
+        ok, err = compare_variant(out, want, updates, w, g, ops)
+        name = f"{red}/{wire}/{label}"
+        check(launched == 1, f"fedagg {name}: {launched} launches")
+        check(ok, f"fedagg {name}: max_abs_err {err}")
+        if label == "zero_inclusion":
+            check(bool(torch.all(out == 0)), f"fedagg {name}: zero "
+                  "inclusion must give exact zeros")
+        if kw.get("nan_row") is not None and not kw.get("nan_included"):
+            check(bool(torch.isfinite(out).all()),
+                  f"fedagg {name}: NaN leaked from a gated-out row")
+        if label == "nan_included" and wire.startswith("identity"):
+            # the int8 wire sends a NaN as 0 (the reference's cast)
+            check(bool(torch.isnan(out).any()),
+                  f"fedagg {name}: the included NaN vanished")
+        if label == "slice_b":
+            worst[f"{red}/{wire}"] = err
     # the trim count in f32: at trim_frac 0.29 and n = 100 clients
     # int32(f32(0.29) * f32(100)) = 29 where the f64 product truncates to 28
     updates, w, g, ops = variant_case("trimmed_mean", "identity_f32", 100,
@@ -481,9 +524,34 @@ def fedagg_bound(C_inc, M, in_size, out_size, C):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fedagg_times(fk, updates, w, g, ops):
+    """One fedagg call's device time by CUDA-graph replay, warm (ms: the
+    same inputs every call) and cold (ms_cold: clones of every input
+    tensor rotated over COLD_BYTES, each call's inputs out of L2), and the
+    eager call's time with its host cost (eager_ms: Python, the checks,
+    the ctypes launch)."""
+    import torch
+    call = lambda: fk.fedagg(updates, w, g, **ops)   # noqa: E731
+    tensors = {k: v for k, v in ops.items() if torch.is_tensor(v)}
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (updates, w, g, *tensors.values()))
+    n = cold_copies(nbytes)
+    copies = [(updates.clone(), w.clone(), g.clone(),
+               dict(ops, **{k: v.clone() for k, v in tensors.items()}))
+              for _ in range(n)]
+    ms_cold = graph_each_ms([lambda c=c: fk.fedagg(c[0], c[1], c[2], **c[3])
+                             for c in copies])
+    del copies
+    torch.cuda.empty_cache()
+    return dict(ms=graph_ms(call), ms_cold=ms_cold, cold_copies=n,
+                eager_ms=time_ms(call))
+
+
 def timing_phase(device="cuda"):
-    """Kernel, plain version and torch.mv yardstick at the slice's shapes
-    (all gates 1, as in the bound). Returns rows for PERF.md and the line."""
+    """K1 (mean + identity) at the slice's shapes, all gates 1 as in the
+    bound: the kernel (fedagg_times), the plain version (eager) and the
+    torch.mv yardstick (graph replay, library_ms). Returns rows for PERF.md
+    and the line."""
     import torch
     from repro_torch.core.aggregation import flatten_stacked
     from repro_torch.kernels import fedagg as fk
@@ -495,13 +563,13 @@ def timing_phase(device="cuda"):
             up = flatten_stacked({"u": u}, dtype=dtype)
             wg = (w * g).to(dtype)
             masked = torch.where((g > 0)[:, None], u, torch.zeros_like(u))
-            ms = time_ms(lambda: fk.fedagg(up, w, g))
+            times = fedagg_times(fk, up, w, g, {})
             plain = time_ms(lambda: fk.fedagg_plain(u, w, g))
-            library = time_ms(lambda: torch.mv(masked.t(), wg))
+            library = graph_ms(lambda: torch.mv(masked.t(), wg))
             size = u.element_size()
             bound, by = fedagg_bound(int((g > 0).sum()), M, size, size, C)
             rows.append(dict(shape=f"{C}x{M}", dtype=str(dtype).split(".")[-1],
-                             label=label, ms=ms, plain_ms=plain,
+                             label=label, **times, plain_ms=plain,
                              library_ms=library, bound_ms=bound, bound_by=by))
             print("timing:", json.dumps(rows[-1]), flush=True)
     return rows
@@ -547,16 +615,16 @@ def variant_bound(red, wire, ops, C_inc, C, M):
 
 def variant_timing_phase(device="cuda", C=60, M=579402):
     """Every reducer x wire but K1's mean + identity at the cell-(b) shape,
-    all gates 1: the kernel, the plain version, the bound, and a library
-    yardstick timed here only — torch.mv of the decoded, masked rows for
-    mean and dp; torch.sort of the decoded rows down the client axis for
-    trimmed_mean (the sort alone, without the order statistics); for the
-    median torch.quantile(rows, 0.5, dim=0, interpolation="midpoint"),
-    jnp.median's function in one call, with torch.sort beside it
-    (sort_ms). The sorted reducers also cold (ms_cold: the kernel over
-    clones of its inputs rotated over COLD_BYTES, each call's payload out
-    of L2), and at C = 65 (label c65: P = 128, the shared-memory route)
-    with f32 rows."""
+    all gates 1: the kernel (fedagg_times: device time warm and cold by
+    graph replay, and the eager call's), the plain version (eager), the
+    bound, and a library yardstick timed here only — torch.mv of the
+    decoded, masked rows for mean and dp (graph replay); torch.sort of the
+    decoded rows down the client axis for trimmed_mean (the sort alone,
+    without the order statistics; eager); for the median
+    torch.quantile(rows, 0.5, dim=0, interpolation="midpoint"),
+    jnp.median's function in one call (eager), with torch.sort beside it
+    (sort_ms). The sorted reducers also at C = 65 (label c65: P = 128, the
+    shared-memory route) with f32 rows."""
     import torch
     from repro_torch.kernels import fedagg as fk
     rows = []
@@ -575,41 +643,22 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
                 extra["sort_ms"] = library
                 library = time_ms(lambda: torch.quantile(
                     dense, 0.5, dim=0, interpolation="midpoint"), iters=10)
-            extra.update(sorted_cold(fk, updates, w, g, ops))
         else:
             wg = w * g
             if red == "dp":
                 wg = torch.where(wg > 0, wg * ops["row_scale"], 0.0)
             masked = torch.where((w * g > 0)[:, None], dense, 0.0)
-            library = time_ms(lambda: torch.mv(masked.t(), wg))
-        ms = time_ms(lambda: fk.fedagg(updates, w, g, **ops))
+            library = graph_ms(lambda: torch.mv(masked.t(), wg))
+        times = fedagg_times(fk, updates, w, g, ops)
         plain = time_ms(lambda: fk.fedagg_plain(updates, w, g, **ops),
                         iters=10)
         bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), rows_c, M)
         rows.append(dict(reducer=red, wire=wire, shape=f"{rows_c}x{M}",
-                         label=label, ms=ms, plain_ms=plain,
+                         label=label, **times, plain_ms=plain,
                          library_ms=library, bound_ms=bound, bound_by=by,
                          **extra))
         print("variant timing:", json.dumps(rows[-1]), flush=True)
     return rows
-
-
-def sorted_cold(fk, updates, w, g, ops):
-    """ms_cold of one fedagg call: one CUDA graph of calls over clones of
-    every input tensor, rotated over COLD_BYTES."""
-    import torch
-    tensors = {k: v for k, v in ops.items() if torch.is_tensor(v)}
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (updates, w, g, *tensors.values()))
-    n = cold_copies(nbytes)
-    copies = [(updates.clone(), w.clone(), g.clone(),
-               dict(ops, **{k: v.clone() for k, v in tensors.items()}))
-              for _ in range(n)]
-    ms = graph_each_ms([lambda c=c: fk.fedagg(c[0], c[1], c[2], **c[3])
-                        for c in copies])
-    del copies
-    torch.cuda.empty_cache()
-    return dict(ms_cold=ms, cold_copies=n)
 
 
 # -------------------------------------------------------------------- slices
@@ -1261,8 +1310,8 @@ def lm_timing_phase(device="cuda"):
 
 # ------------------------------------------------------------- LM slices (d, e)
 LM_KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "ssm_scan")
-SHAPE_KEYS = ("ms", "ms_cold", "plain_ms", "library_ms", "library_ms_cold",
-              "floor_ms", "bound_ms", "bound_by")
+SHAPE_KEYS = ("ms", "ms_cold", "eager_ms", "plain_ms", "library_ms",
+              "library_ms_cold", "floor_ms", "bound_ms", "bound_by")
 
 
 def lm_counts():
@@ -2276,7 +2325,7 @@ def main() -> int:
     rows = {(r["reducer"], r["wire"]): r for r in vtimings
             if r["label"] == "slice_b"}
     kernels = []
-    for name, replaces, pick, pair in KERNELS:
+    for name, replaces, pick, pair, listed in KERNELS:
         row = k1 if pair == ("mean", "identity_f32") else dict(
             rows[pair], max_abs_err=verrs["/".join(pair)])
         n = sum(v for k, v in counts.items() if pick(*k))
@@ -2286,13 +2335,18 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/fedagg.cu",
             "replaces": replaces, "launches": n,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "ms_cold": row["ms_cold"], "eager_ms": row["eager_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": "60x579402", "variant": "/".join(pair)})
-        if "ms_cold" in row:                      # K3: cold, and C = 65
-            kernels[-1]["shapes"] = [dict(
-                {k: r.get(k) for k in SHAPE_KEYS}, shape=r["shape"])
-                for r in vtimings if (r["reducer"], r["wire"]) == pair]
+        # every timed shape and variant: K1 at each slice's shape and
+        # dtype, the others at each wire or reducer they serve (and C = 65)
+        kernels[-1]["shapes"] = [dict(
+            {k: r.get(k) for k in SHAPE_KEYS}, shape=r["shape"],
+            variant=f"mean/{r['dtype']}" if not listed else
+            f"{r['reducer']}/{r['wire']}")
+            for r in (timings if not listed else vtimings)
+            if not listed or (r["reducer"], r["wire"]) in listed]
     # (a): 4 rounds x 2 backends + 6; its aggregators: 4 configs x 2
     # backends x 6; (b): 1 + 3; (c): 3 configs x (1 + 2)
     expected = 2 * 4 + 6 + len(PARITY_AGG) * 2 * 6 + 1 + 3 + len(SLICE_C) * 3
@@ -2384,5 +2438,91 @@ def main() -> int:
     return 0
 
 
+# ------------------------------------------- fedagg alone, two checkouts
+def fedagg_outputs(path):
+    """Save the kernel's output of every mean / dp x wire variant at 60 x
+    579,402 (all gates 1, as timed, and mixed gates), its inputs made on
+    the host from a seed, so that they are the same bits in every run."""
+    import torch
+    from repro_torch.kernels import fedagg as fk
+    outs = {}
+    for red in ("mean", "dp"):
+        for wire in WIRES:
+            for gates in ("all", "mixed"):
+                updates, w, g, ops = variant_case(red, wire, 60, 579402, "cpu",
+                                                  gates=gates)
+                dev = lambda t: t.cuda() if torch.is_tensor(t) else t  # noqa: E731
+                out = fk.fedagg(dev(updates), dev(w), dev(g),
+                                **{k: dev(v) for k, v in ops.items()})
+                outs[f"{red}/{wire}/{gates}"] = out.cpu()
+    torch.save(outs, path)
+
+
+def compare_outputs(a_path, b_path) -> dict:
+    """For each variant of two fedagg_outputs files: whether they agree bit
+    for bit (NaN where NaN) and their largest difference."""
+    import torch
+    a, b = torch.load(a_path), torch.load(b_path)
+    res = {}
+    for key in sorted(a):
+        x, y = a[key], b[key]
+        bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+        nan = torch.isnan(x.float())
+        same = (bool(torch.equal(nan, torch.isnan(y.float())))
+                and bool(torch.equal(x[~nan].view(bits), y[~nan].view(bits))))
+        diff = (x.float() - y.float())[~nan].abs()
+        res[key] = dict(bit_identical=same,
+                        max_abs_diff=float(diff.max()) if diff.numel() else 0.0)
+    print("compare:", json.dumps(res), flush=True)
+    return res
+
+
+def fedagg_main(argv) -> int:
+    """The fedagg kernel alone, so that two checkouts' kernels can be timed
+    in turns in one call:
+
+        python3 chip_smoke.py --fedagg-timing ROWS.json [--src DIR] \
+            [--outputs OUT.pt]
+        python3 chip_smoke.py --compare A.pt B.pt
+
+    ``--fedagg-timing`` builds fedagg and writes timing_phase's and
+    variant_timing_phase's rows (with the card's name and power limit and
+    ptxas's report of K4's kernels); ``--src`` picks the ``src`` directory
+    whose ``repro_torch`` is timed (default: this checkout's), built into
+    that checkout's ``build/``; ``--outputs`` saves fedagg_outputs.
+    ``--compare`` prints compare_outputs of two saved runs."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--fedagg-timing", metavar="ROWS.json")
+    ap.add_argument("--src")
+    ap.add_argument("--outputs", metavar="OUT.pt")
+    ap.add_argument("--compare", nargs=2, metavar="OUT.pt")
+    args = ap.parse_args(argv)
+    if args.compare:
+        compare_outputs(*args.compare)
+        return 0
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    if not torch.cuda.is_available() or not args.fedagg_timing:
+        print("chip_smoke: --fedagg-timing needs a CUDA card and a path",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    reports = build.build_all(["fedagg"])
+    smi = smi_line()
+    print(smi, flush=True)
+    ptxas = {sym: v for sym, v in ptxas_entries(reports["fedagg"]).items()
+             if any(k in sym for k in ("stream_kernel", "sketch_kernel",
+                                       "topk_sum_kernel"))}
+    rows = timing_phase() + variant_timing_phase()
+    if args.outputs:
+        fedagg_outputs(args.outputs)
+    Path(args.fedagg_timing).write_text(json.dumps(dict(
+        smi=smi, device=torch.cuda.get_device_name(0),
+        src=args.src or str(ROOT / "src"), ptxas=ptxas, rows=rows)))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(fedagg_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

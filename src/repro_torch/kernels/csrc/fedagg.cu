@@ -24,20 +24,46 @@
 // registers (or, for the sorted reducers and the sparse topk wire, in its
 // block's shared memory) what it reduces.
 //
-// Four kernels, each a template over the decoder:
+// Five kernels:
 //
-// * stream_kernel (mean, dp; identity, int8, sketch). Bound: bytes. Each
-//   thread owns VW adjacent columns and walks down the included rows with
-//   one wide load per row (16 bytes: 4 f32, 8 bf16, 16 int8), kUnroll rows
-//   in flight, the sums in registers. The block compacts the included row
-//   indices into shared memory first (one ballot per warp). The sketch rows
-//   ([C, dim], ~0.5 MB) stay in L2; the thread's hash and sign values are
-//   loaded once.
+// * stream_kernel (mean, dp; identity, int8; sketch with dim > 57344).
+//   Bound: bytes. Each thread owns VW adjacent columns and walks down the
+//   included rows, the sums in registers: it fetches kUnroll rows (one
+//   wide load each) before it decodes and adds any of them, and the last
+//   group of a ragged row count is predicated, not serial. The block
+//   compacts the included row indices into shared memory first (one
+//   ballot per warp), with int8's per-row scales beside them. identity:
+//   16-byte loads, 4 rows in flight. int8: 4 columns a thread (566 blocks
+//   of 256 at 60 x 579,402; 16 columns a thread launched 142, about one
+//   block an SM, too few bytes in flight to cover the memory's latency),
+//   16 rows in flight, and each int8 turned into f32 as the float bits
+//   0x4B000080 + q minus 2^23 + 128 (exact, on the integer and FMA pipes,
+//   not the conversion unit).
+// * sketch_kernel (mean, dp; sketch with dim <= 57344). Bound: the bytes
+//   of h, sign and the output. The decode is linear and sign is +-1, so
+//   sum_k wg_k s[k, h[m]] sign[m] = sign[m] * t[h[m]] with
+//   t[b] = sum_k wg_k s[k, b]; both sums run in ascending k and rounding
+//   is odd-symmetric, so the two are the same bits (a zero is written as
+//   +0, as the decode-first sum gives). One thread-block cluster of 8
+//   blocks (16 clusters at most): each block sums its eighth of the
+//   buckets over the included rows into its shared memory, every block
+//   then copies the others' eighths through distributed shared memory,
+//   and streams its columns, out[m] = finish(sign[m] * t[h[m]]), with
+//   its first h and sign loads issued before the bucket sums. The first
+//   version gathered s[k, h[m]] from L2 for every row and column: 35 M
+//   scattered reads at 60 x 579,402.
 // * topk_sum_kernel (mean, dp; topk). Bound: bytes, a few MB a round. The
-//   encode sorts each row's pairs by index, so a block binary-searches its
-//   column range in each included row and adds only those pairs into a
-//   shared-memory accumulator, row by row (indices within a row are
-//   distinct, so a row's adds never collide).
+//   encode sorts each row's pairs by index. A block of 2048 columns finds
+//   each included row's window [lo, hi) of its columns by a G-ary search
+//   (G lanes a row probe G positions a step, lo and hi at once: 6 steps
+//   at k = 5,794 and 60 rows, where one binary search a thread took 2 x
+//   13), stages the windows' pairs into shared memory in one parallel
+//   pass (at most 2048 pairs and 64 rows a stage: a row's window never
+//   holds more than 2048, its indices being distinct), and marks for each
+//   thread (8 columns) the rows that reach its columns and where. Each
+//   thread then adds its pairs in ascending row order, in registers, with
+//   no barrier between rows. The first version walked the rows one at a
+//   time with a global load and a block barrier each.
 // * sorted_reg_kernel (trimmed_mean, median; every decoder; P <= 64).
 //   Bound: the compare-exchanges. The bitonic network of P = 64 rows is
 //   672 exchanges a column, a min and a max each: 0.78 G min / max over
@@ -75,15 +101,27 @@
 #include <type_traits>
 #include <utility>
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;
 constexpr int kTopkCols = 2048;    // columns per block of topk_sum_kernel
+constexpr int kTopkOwn = kTopkCols / kThreads;  // ... and per thread
+constexpr int kTopkStage = 2048;   // pairs a stage holds: >= kTopkCols, so a
+                                   // row's window (distinct indices) fits
+constexpr int kTopkStageRows = 64; // rows a stage holds: a bit each in a mask
+constexpr int kMaxProbe = 8;       // most lanes a row in topk's G-ary search
+constexpr int kSketchCluster = 8;  // blocks a sketch cluster (the portable most)
+constexpr int kSketchClusters = 16;  // most clusters: 128 blocks, one an SM
+constexpr int kSketchPre = 4;      // column vectors a thread loads ahead
+constexpr int kSketchUnroll = 16;  // sketch rows in flight in the bucket sums
+constexpr long long kMaxSketchDim = 57344;  // buckets in shared memory (224 KB)
 constexpr int kMaxSortRows = 1024;  // largest P of sorted_kernel
 constexpr int kMaxRegRows = 64;     // largest P of sorted_reg_kernel
 constexpr int kRegThreads = 128;    // sorted_reg_kernel: threads (= columns) a block
@@ -100,6 +138,12 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(uint16_t x) {
   return __uint_as_float(static_cast<unsigned>(x) << 16);
+}
+
+// int8 -> f32 without the conversion unit: the bits 0x4B000080 + q are the
+// float 2^23 + 128 + q, exact for |q| <= 128, and so is the subtraction
+__device__ __forceinline__ float i8_to_f32(int8_t x) {
+  return __int_as_float(0x4B000080 + static_cast<int>(x)) - 8388736.0f;
 }
 
 template <typename S>
@@ -199,14 +243,21 @@ __device__ __forceinline__ void bitonic_from(float (&v)[P]) {
 
 // ------------------------------------------------------------------ decoders
 // Each dense decoder gives f32 values of u[row, col .. col + VW) (load, after
-// a per-thread setup of its column state) and of one u[row, m] (load1).
+// a per-thread setup of its column state) and of one u[row, m] (load1): the
+// sorted reducers' interface. stream_kernel splits a load in two, so that
+// kUnroll rows' loads are in flight before any is decoded: fetch (the raw
+// load), decode (to f32, with the row's scale sc staged by stage_rows where
+// kRowScale), and fetch1 for one element.
 
 template <typename S, int VW>
 struct DecIdentity {
   static constexpr int kVW = VW;
+  static constexpr int kUnroll = 4;
+  static constexpr bool kRowScale = false;
   const S* u;
   long long ld;
   struct Col {};
+  using Raw = Pack<S, VW>;
   __device__ Col setup(long long, long long) const { return {}; }
   __device__ __forceinline__ void load(const Col&, int row, long long col,
                                        float* v) const {
@@ -217,16 +268,30 @@ struct DecIdentity {
   __device__ __forceinline__ float load1(int row, long long m) const {
     return to_f32(u[static_cast<long long>(row) * ld + m]);
   }
+  __device__ __forceinline__ Raw fetch(const Col&, int row, long long col) const {
+    return load_pack<S, VW>(u + static_cast<long long>(row) * ld + col);
+  }
+  __device__ __forceinline__ void decode(const Col&, const Raw& p, float,
+                                         float* v) const {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) v[i] = to_f32(p.v[i]);
+  }
+  __device__ __forceinline__ float fetch1(int row, float, long long m) const {
+    return load1(row, m);
+  }
 };
 
 // int8 rows times the row's f32 scale, dequantized in registers
 template <int VW>
 struct DecInt8 {
   static constexpr int kVW = VW;
+  static constexpr int kUnroll = 16;
+  static constexpr bool kRowScale = true;
   const int8_t* q;
   long long ld;
   const float* scale;
   struct Col {};
+  using Raw = Pack<int8_t, VW>;
   __device__ Col setup(long long, long long) const { return {}; }
   __device__ __forceinline__ void load(const Col&, int row, long long col,
                                        float* v) const {
@@ -239,12 +304,25 @@ struct DecInt8 {
   __device__ __forceinline__ float load1(int row, long long m) const {
     return to_f32(q[static_cast<long long>(row) * ld + m]) * scale[row];
   }
+  __device__ __forceinline__ Raw fetch(const Col&, int row, long long col) const {
+    return load_pack<int8_t, VW>(q + static_cast<long long>(row) * ld + col);
+  }
+  __device__ __forceinline__ void decode(const Col&, const Raw& p, float sc,
+                                         float* v) const {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) v[i] = i8_to_f32(p.v[i]) * sc;
+  }
+  __device__ __forceinline__ float fetch1(int row, float sc, long long m) const {
+    return i8_to_f32(q[static_cast<long long>(row) * ld + m]) * sc;
+  }
 };
 
 // CountSketch estimate: the bucket h[m] of the row, times sign[m]
 template <int VW>
 struct DecSketch {
   static constexpr int kVW = VW;
+  static constexpr int kUnroll = 4;
+  static constexpr bool kRowScale = false;
   const float* s;
   long long dim;
   const int* h;
@@ -252,6 +330,9 @@ struct DecSketch {
   struct Col {
     int h[VW];
     float sg[VW];
+  };
+  struct Raw {
+    float v[VW];
   };
   __device__ Col setup(long long col, long long M) const {
     Col c;
@@ -271,6 +352,21 @@ struct DecSketch {
   }
   __device__ __forceinline__ float load1(int row, long long m) const {
     return s[static_cast<long long>(row) * dim + h[m]] * sign[m];
+  }
+  __device__ __forceinline__ Raw fetch(const Col& c, int row, long long) const {
+    const float* r = s + static_cast<long long>(row) * dim;
+    Raw o;
+#pragma unroll
+    for (int i = 0; i < VW; ++i) o.v[i] = r[c.h[i]];
+    return o;
+  }
+  __device__ __forceinline__ void decode(const Col& c, const Raw& o, float,
+                                         float* v) const {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) v[i] = o.v[i] * c.sg[i];
+  }
+  __device__ __forceinline__ float fetch1(int row, float, long long m) const {
+    return load1(row, m);
   }
 };
 
@@ -299,14 +395,16 @@ __device__ __forceinline__ long long lower_bound(const int* row, long long n,
 
 // ------------------------------------------------------- included-row staging
 // Stage rows c0 .. c0 + kThreads: compact the included ones (in row order)
-// into s_row with their contraction weight in s_wg, add their gate weight to
-// den (in a fixed order, so every block divides by the same value). dp's
-// clip scale is read only for included rows: a NaN scale behind a zero gate
-// must not leak. Returns the number of rows staged.
+// into s_row with their contraction weight in s_wg (and, where sc is given,
+// their scale sc[k] in s_sc), add their gate weight to den (in a fixed
+// order, so every block divides by the same value). dp's clip scale is
+// read only for included rows: a NaN scale behind a zero gate must not
+// leak. Returns the number of rows staged.
 template <bool kDP>
 __device__ __forceinline__ int stage_rows(int c0, int C, const float* w,
                                           const float* g, const float* rs,
-                                          int* s_row, float* s_wg,
+                                          const float* sc, int* s_row,
+                                          float* s_wg, float* s_sc,
                                           int* s_warp_n, float* s_warp_den,
                                           float& den) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -334,6 +432,7 @@ __device__ __forceinline__ int stage_rows(int c0, int C, const float* w,
     const int pos = base + __popc(ballot & ((1u << lane) - 1u));
     s_row[pos] = k;
     s_wg[pos] = kDP ? wg * rs[k] : wg;
+    if (sc != nullptr) s_sc[pos] = sc[k];
   }
   __syncthreads();
   return n;
@@ -359,10 +458,14 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ noise, float noise_scale,
                   O* __restrict__ out, int C, long long M) {
   constexpr int VW = Dec::kVW;
+  constexpr int U = Dec::kUnroll;
   __shared__ int s_row[kThreads];
   __shared__ float s_wg[kThreads];
+  __shared__ float s_sc[Dec::kRowScale ? kThreads : 1];
   __shared__ int s_warp_n[kWarps];
   __shared__ float s_warp_den[kWarps];
+  const float* sc = nullptr;
+  if constexpr (Dec::kRowScale) sc = dec.scale;
 
   const long long col =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * VW;
@@ -376,33 +479,33 @@ __global__ void __launch_bounds__(kThreads)
   float den = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += kThreads) {
-    const int n = stage_rows<kDP>(c0, C, w, g, rs, s_row, s_wg, s_warp_n,
-                                  s_warp_den, den);
+    const int n = stage_rows<kDP>(c0, C, w, g, rs, sc, s_row, s_wg, s_sc,
+                                  s_warp_n, s_warp_den, den);
     if (full) {
-      int j = 0;
-      for (; j + kUnroll <= n; j += kUnroll) {
-        float v[kUnroll][VW];
+      // U rows' loads in flight before any is decoded; the last group of a
+      // ragged row count is predicated
+      for (int j = 0; j < n; j += U) {
+        typename Dec::Raw raw[U];
 #pragma unroll
-        for (int r = 0; r < kUnroll; ++r) dec.load(cs, s_row[j + r], col, v[r]);
+        for (int r = 0; r < U; ++r)
+          if (j + r < n) raw[r] = dec.fetch(cs, s_row[j + r], col);
 #pragma unroll
-        for (int r = 0; r < kUnroll; ++r) {
-          const float wr = s_wg[j + r];
+        for (int r = 0; r < U; ++r) {
+          if (j + r < n) {
+            float v[VW];
+            dec.decode(cs, raw[r], Dec::kRowScale ? s_sc[j + r] : 1.f, v);
+            const float wr = s_wg[j + r];
 #pragma unroll
-          for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, v[r][i], acc[i]);
+            for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, v[i], acc[i]);
+          }
         }
-      }
-      for (; j < n; ++j) {
-        float v[VW];
-        dec.load(cs, s_row[j], col, v);
-        const float wr = s_wg[j];
-#pragma unroll
-        for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, v[i], acc[i]);
       }
     } else if (live) {
       for (int j = 0; j < n; ++j) {  // scalar tail for a ragged M
         const float wr = s_wg[j];
+        const float s = Dec::kRowScale ? s_sc[j] : 1.f;
         for (int i = 0; i < VW && col + i < M; ++i)
-          acc[i] = fmaf(wr, dec.load1(s_row[j], col + i), acc[i]);
+          acc[i] = fmaf(wr, dec.fetch1(s_row[j], s, col + i), acc[i]);
       }
     }
     __syncthreads();  // the next chunk overwrites s_row / s_wg
@@ -420,46 +523,333 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------ sketch kernel
+// A thread's column vectors: the v-th of a batch at c + v stride. Columns
+// past M get bucket 0 and sign 0 and are not stored.
+template <int VW>
+struct SketchCols {
+  int h[kSketchPre][VW];
+  float sg[kSketchPre][VW];
+
+  __device__ __forceinline__ void load(const int* hp, const float* sign,
+                                       long long c, long long stride, long long M) {
+#pragma unroll
+    for (int v = 0; v < kSketchPre; ++v, c += stride) {
+      if (c + VW <= M) {
+        const Pack<int, VW> ph = load_pack<int, VW>(hp + c);
+        const Pack<float, VW> ps = load_pack<float, VW>(sign + c);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) {
+          h[v][i] = ph.v[i];
+          sg[v][i] = ps.v[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < VW; ++i) {
+          const bool in = c + i < M;
+          h[v][i] = in ? hp[c + i] : 0;
+          sg[v][i] = in ? sign[c + i] : 0.f;
+        }
+      }
+    }
+  }
+
+  // out[m] = finish(sign[m] t[h[m]]); + 0 turns a -0 product into +0, as
+  // the decode-first sum (which starts from +0) gives
+  template <bool kDP>
+  __device__ __forceinline__ void store(const float* t, float den, const float* noise,
+                                        float noise_scale, float* out, long long c,
+                                        long long stride, long long M) const {
+#pragma unroll
+    for (int v = 0; v < kSketchPre; ++v, c += stride) {
+      if (c >= M) continue;
+      float o[VW];
+#pragma unroll
+      for (int i = 0; i < VW; ++i)
+        o[i] = finish<kDP>(sg[v][i] * t[h[v][i]] + 0.f, den, noise, noise_scale,
+                           c + i < M ? c + i : c);
+      if (c + VW <= M) {
+        store_vec<float, VW>(out + c, o);
+      } else {
+        for (int i = 0; i < VW && c + i < M; ++i) out[c + i] = o[i];
+      }
+    }
+  }
+};
+
+// the two halves of a cluster barrier, so that a block can stream its
+// columns between them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");  // release
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");  // acquire
+}
+
+template <bool kDP, int VW>
+__global__ void __launch_bounds__(kThreads)
+    sketch_kernel(const float* __restrict__ s, long long dim,
+                  const int* __restrict__ h, const float* __restrict__ sign,
+                  const float* __restrict__ w, const float* __restrict__ g,
+                  const float* __restrict__ rs, const float* __restrict__ noise,
+                  float noise_scale, float* __restrict__ out, int C, long long M) {
+  extern __shared__ float t[];  // [dim] bucket sums
+  __shared__ int s_row[kThreads];
+  __shared__ float s_wg[kThreads];
+  __shared__ int s_warp_n[kWarps];
+  __shared__ float s_warp_den[kWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const long long per = (dim + kSketchCluster - 1) / kSketchCluster;
+  const long long b0 = rank * per;
+  const long long b1 = b0 + per < dim ? b0 + per : dim;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads * VW;
+  const long long col0 = (static_cast<long long>(blockIdx.x) * kThreads + tid) * VW;
+
+  SketchCols<VW> cols;  // the first batch is in flight during the bucket sums
+  cols.load(h, sign, col0, stride, M);
+
+  // 1. t[b] for this block's buckets, over the included rows in ascending
+  //    order (the decode-first sum's order)
+  for (long long b = b0 + tid; b < b1; b += kThreads) t[b] = 0.f;
+  float den = 0.f;
+  for (int c0 = 0; c0 < C; c0 += kThreads) {
+    const int n = stage_rows<kDP>(c0, C, w, g, rs, nullptr, s_row, s_wg, nullptr,
+                                  s_warp_n, s_warp_den, den);
+    for (long long b = b0 + tid; b < b1; b += kThreads) {
+      float acc = t[b];
+      for (int j = 0; j < n; j += kSketchUnroll) {
+        float v[kSketchUnroll];
+#pragma unroll
+        for (int r = 0; r < kSketchUnroll; ++r)
+          if (j + r < n) v[r] = s[static_cast<long long>(s_row[j + r]) * dim + b];
+#pragma unroll
+        for (int r = 0; r < kSketchUnroll; ++r)
+          if (j + r < n) acc = fmaf(s_wg[j + r], v[r], acc);
+      }
+      t[b] = acc;
+    }
+    __syncthreads();  // the next chunk overwrites s_row / s_wg
+  }
+
+  // 2. the other blocks' buckets, through distributed shared memory
+  cluster.sync();
+  for (long long i = tid; i < per; i += kThreads) {
+    float v[kSketchCluster];
+#pragma unroll
+    for (int r = 0; r < kSketchCluster; ++r) {
+      const long long b = r * per + i;
+      if (r != rank && b < dim) v[r] = cluster.map_shared_rank(t, r)[b];
+    }
+#pragma unroll
+    for (int r = 0; r < kSketchCluster; ++r) {
+      const long long b = r * per + i;
+      if (r != rank && b < dim) t[b] = v[r];
+    }
+  }
+  __syncthreads();
+  cluster_arrive();  // this block reads no other block's t from here on
+
+  // 3. the columns, kSketchPre vectors a batch
+  for (long long c = col0;; c += kSketchPre * stride) {
+    cols.template store<kDP>(t, den, noise, noise_scale, out, c, stride, M);
+    if (c + kSketchPre * stride >= M) break;
+    cols.load(h, sign, c + kSketchPre * stride, stride, M);
+  }
+  cluster_wait();  // no block leaves while another reads its t
+}
+
 // ------------------------------------------------------------ topk sum kernel
+// Shared memory of topk_sum_kernel (dynamic, ~56 KB)
+struct TopkSmem {
+  int idx[kTopkStage];                             // the stage's pairs, row by row
+  float val[kTopkStage];
+  unsigned short first[kTopkStageRows][kThreads];  // (row, owner): its first pair
+  unsigned long long mask[kThreads];               // owner: the rows that reach it
+  long long lo[kThreads];                          // row: its window's start
+  int off[kThreads + 1];                           // row: its window's offset in
+                                                   // the chunk's windows
+  unsigned char rowof[kTopkStage];                 // pair: its row in the stage
+};
+
+// a step of the G-ary search: the answer lies in [a, b] (L = b - a); the G
+// lanes probed q_i = a + (i + 1) L / (G + 1), and the first t of them lie
+// below the key
+__device__ __forceinline__ void narrow(long long& a, long long& b, long long L,
+                                       int t, int G) {
+  if (a >= b) return;
+  if (t == 0) {
+    b = a + L / (G + 1);
+    return;
+  }
+  const long long na = a + t * L / (G + 1) + 1;
+  if (t < G) b = a + (t + 1) * L / (G + 1);
+  a = na;
+}
+
+// each of the n staged rows' window [lo, hi) of the columns [c0, c1): lo in
+// s_lo, its offset in the concatenation of the windows in s_off (s_off[n]
+// the total). G lanes a row (as many as fit, at most kMaxProbe) search lo
+// and hi at once, G probes each a step.
+__device__ __forceinline__ void find_windows(const DecTopk& dec, int n, long long c0,
+                                             long long c1, const int* s_row,
+                                             long long* s_lo, int* s_off) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  int G = 1;
+  while (G < kMaxProbe && 2 * G * n <= kThreads) G <<= 1;
+  const int gl = tid & (G - 1);
+  const unsigned gmask = ((1u << G) - 1u) << (lane & ~(G - 1));
+  for (int j0 = 0; j0 < n; j0 += kThreads / G) {
+    const int j = j0 + tid / G;
+    const bool on = j < n;
+    const int* row = dec.idx + (on ? static_cast<long long>(s_row[j]) * dec.k : 0);
+    long long alo = 0, blo = on ? dec.k : 0, ahi = 0, bhi = blo;
+    while (__any_sync(0xffffffffu, alo < blo || ahi < bhi)) {
+      const long long llo = blo - alo, lhi = bhi - ahi;
+      const long long qlo = alo + (gl + 1) * llo / (G + 1);
+      const long long qhi = ahi + (gl + 1) * lhi / (G + 1);
+      const bool plo = alo < blo && row[qlo] < c0;
+      const bool phi = ahi < bhi && row[qhi] < c1;
+      const int tlo = __popc(__ballot_sync(0xffffffffu, plo) & gmask);
+      const int thi = __popc(__ballot_sync(0xffffffffu, phi) & gmask);
+      narrow(alo, blo, llo, tlo, G);
+      narrow(ahi, bhi, lhi, thi, G);
+    }
+    if (on && gl == 0) {
+      s_lo[j] = alo;
+      // at most c1 - c0 <= kTopkStage pairs, the indices being distinct; the
+      // clamp only keeps a row that breaks this inside the stage
+      const long long wdt = ahi - alo;
+      s_off[j + 1] = static_cast<int>(wdt < kTopkStage ? wdt : kTopkStage);
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {  // inclusive scan of the widths
+    int carry = 0;
+    for (int b = 0; b < n; b += 32) {
+      int v = b + lane < n ? s_off[b + lane + 1] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += y;
+      }
+      if (b + lane < n) s_off[b + lane + 1] = v + carry;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) s_off[0] = 0;
+  }
+  __syncthreads();
+}
+
 template <bool kDP>
 __global__ void __launch_bounds__(kThreads)
     topk_sum_kernel(DecTopk dec, const float* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ rs,
                     const float* __restrict__ noise, float noise_scale,
                     float* __restrict__ out, int C, long long M) {
-  __shared__ float s_acc[kTopkCols];
+  extern __shared__ __align__(16) unsigned char topk_smem[];
+  TopkSmem& sm = *reinterpret_cast<TopkSmem*>(topk_smem);
   __shared__ int s_row[kThreads];
   __shared__ float s_wg[kThreads];
-  __shared__ long long s_lo[kThreads];
-  __shared__ long long s_hi[kThreads];
   __shared__ int s_warp_n[kWarps];
   __shared__ float s_warp_den[kWarps];
+  constexpr int kPer = kTopkStage / kThreads;  // pairs a thread stages
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long c0 = static_cast<long long>(blockIdx.x) * kTopkCols;
   const long long c1 = c0 + kTopkCols < M ? c0 + kTopkCols : M;
-  for (int i = tid; i < kTopkCols; i += kThreads) s_acc[i] = 0.f;
+  const long long mine = c0 + static_cast<long long>(tid) * kTopkOwn;  // its columns
+  float acc[kTopkOwn];
+#pragma unroll
+  for (int i = 0; i < kTopkOwn; ++i) acc[i] = 0.f;
+  sm.mask[tid] = 0ull;
   float den = 0.f;
 
   for (int r0 = 0; r0 < C; r0 += kThreads) {
-    const int n = stage_rows<kDP>(r0, C, w, g, rs, s_row, s_wg, s_warp_n,
-                                  s_warp_den, den);
-    if (tid < n) {  // this block's column range in each included row
-      const int* row = dec.idx + static_cast<long long>(s_row[tid]) * dec.k;
-      s_lo[tid] = lower_bound(row, dec.k, c0);
-      s_hi[tid] = lower_bound(row, dec.k, c1);
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {  // row by row: a row's indices are distinct
-      const long long base = static_cast<long long>(s_row[j]) * dec.k;
-      const float wr = s_wg[j];
-      for (long long p = s_lo[j] + tid; p < s_hi[j]; p += kThreads) {
-        const int c = static_cast<int>(dec.idx[base + p] - c0);
-        s_acc[c] = fmaf(wr, dec.vals[base + p], s_acc[c]);
+    const int n = stage_rows<kDP>(r0, C, w, g, rs, nullptr, s_row, s_wg, nullptr,
+                                  s_warp_n, s_warp_den, den);
+    find_windows(dec, n, c0, c1, s_row, sm.lo, sm.off);
+    for (int jr = 0; jr < n;) {
+      // the stage: rows [jr, je), at most kTopkStageRows rows and kTopkStage
+      // pairs (one row alone always fits)
+      int je = jr + 1;
+      {
+        int hi = n < jr + kTopkStageRows ? n : jr + kTopkStageRows;
+        const int lim = sm.off[jr] + kTopkStage;
+        while (je < hi) {
+          const int mid = (je + hi + 1) >> 1;
+          if (sm.off[mid] <= lim) je = mid; else hi = mid - 1;
+        }
+      }
+      const int base = sm.off[jr], cnt = sm.off[je] - base;
+      for (int j = jr + warp; j < je; j += kWarps)
+        for (int i = sm.off[j] - base + lane; i < sm.off[j + 1] - base; i += 32)
+          sm.rowof[i] = static_cast<unsigned char>(j - jr);
+      __syncthreads();
+      int qi[kPer];  // every pair's loads issued before any is stored
+      float qv[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < cnt) {
+          const int j = jr + sm.rowof[q];
+          const long long p = static_cast<long long>(s_row[j]) * dec.k + sm.lo[j] +
+                              (q - (sm.off[j] - base));
+          qi[i] = dec.idx[p];
+          qv[i] = dec.vals[p];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < cnt) {
+          sm.idx[q] = qi[i];
+          sm.val[q] = qv[i];
+        }
       }
       __syncthreads();
+      // the first pair of each (row, owner thread): where it is, and the
+      // row's bit in the owner's mask
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < cnt) {
+          const int jj = sm.rowof[q];
+          const int o = static_cast<int>(qi[i] - c0) / kTopkOwn;
+          if (q == 0 || sm.rowof[q - 1] != jj ||
+              static_cast<int>(sm.idx[q - 1] - c0) / kTopkOwn != o) {
+            sm.first[jj][o] = static_cast<unsigned short>(q);
+            atomicOr(&sm.mask[o], 1ull << jj);
+          }
+        }
+      }
+      __syncthreads();
+      // this thread's pairs, in ascending row order; rows add into a column
+      // only through its owner, so no barrier stands between rows
+      unsigned long long m = sm.mask[tid];
+      sm.mask[tid] = 0ull;
+      while (m) {
+        const int jj = __ffsll(static_cast<long long>(m)) - 1;
+        m &= m - 1;
+        const float wr = s_wg[jr + jj];
+        const int end = sm.off[jr + jj + 1] - base;
+        for (int p = sm.first[jj][tid]; p < end; ++p) {
+          const long long c = sm.idx[p] - mine;
+          if (c >= kTopkOwn) break;
+          const float v = sm.val[p];
+#pragma unroll
+          for (int i = 0; i < kTopkOwn; ++i) acc[i] = c == i ? fmaf(wr, v, acc[i]) : acc[i];
+        }
+      }
+      __syncthreads();  // the next stage (or row chunk) overwrites the stage
+      jr = je;
     }
   }
+  float* s_acc = reinterpret_cast<float*>(sm.idx);  // the stage is free now
+#pragma unroll
+  for (int i = 0; i < kTopkOwn; ++i) s_acc[tid * kTopkOwn + i] = acc[i];
+  __syncthreads();
   for (long long m = c0 + tid; m < c1; m += kThreads)
     out[m] = finish<kDP>(s_acc[m - c0], den, noise, noise_scale, m);
 }
@@ -671,6 +1061,45 @@ cudaError_t launch_stream(const FedaggArgs& a, Dec dec, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// raise a kernel's dynamic shared memory limit, once per instantiation
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess) *done = true;
+  return e;
+}
+
+template <bool kDP, int VW>
+cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
+  static bool attr_set = false;
+  const cudaError_t e = allow_smem(sketch_kernel<kDP, VW>,
+                                   kMaxSketchDim * sizeof(float), &attr_set);
+  if (e != cudaSuccess) return e;
+  const long long per_cluster = static_cast<long long>(kSketchCluster) * kThreads * VW;
+  long long clusters = (a.M + per_cluster - 1) / per_cluster;
+  clusters = clusters < kSketchClusters ? clusters : kSketchClusters;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kSketchCluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(a.ld) * sizeof(float);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSketchCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, sketch_kernel<kDP, VW>, static_cast<const float*>(a.u), a.ld,
+      a.sketch_h, a.sketch_sign, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
+      static_cast<float*>(a.out), a.C, a.M);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <bool kDP>
 cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
   switch (a.codec) {
@@ -698,13 +1127,21 @@ cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
       const auto* q = static_cast<const int8_t*>(a.u);
       switch (a.vw) {
         case 16: return launch_stream<DecInt8<16>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
+        case 8: return launch_stream<DecInt8<8>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
         case 4: return launch_stream<DecInt8<4>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
         case 1: return launch_stream<DecInt8<1>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
       }
       break;
     }
     case kSketch: {
-      const auto* sk = static_cast<const float*>(a.u);
+      if (a.ld >= 1 && a.ld <= kMaxSketchDim) {  // the buckets fit shared memory
+        switch (a.vw) {
+          case 4: return launch_sketch<kDP, 4>(a, s);
+          case 1: return launch_sketch<kDP, 1>(a, s);
+        }
+        break;
+      }
+      const auto* sk = static_cast<const float*>(a.u);  // else gather from L2
       switch (a.vw) {
         case 4: return launch_stream<DecSketch<4>, kDP, float>(a, {sk, a.ld, a.sketch_h, a.sketch_sign}, s);
         case 1: return launch_stream<DecSketch<1>, kDP, float>(a, {sk, a.ld, a.sketch_h, a.sketch_sign}, s);
@@ -714,8 +1151,11 @@ cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
     case kTopk: {
       const long long blocks = (a.M + kTopkCols - 1) / kTopkCols;
       if (blocks > INT_MAX) return cudaErrorInvalidValue;
+      static bool attr_set = false;
+      const cudaError_t e = allow_smem(topk_sum_kernel<kDP>, sizeof(TopkSmem), &attr_set);
+      if (e != cudaSuccess) return e;
       const DecTopk dec{static_cast<const float*>(a.u), a.topk_idx, a.ld};
-      topk_sum_kernel<kDP><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      topk_sum_kernel<kDP><<<static_cast<unsigned>(blocks), kThreads, sizeof(TopkSmem), s>>>(
           dec, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
           static_cast<float*>(a.out), a.C, a.M);
       return cudaGetLastError();

@@ -49,6 +49,11 @@ _REDUCER_CODE = {name: i for i, name in enumerate(AGGREGATORS)}
 _CODEC_CODE = {name: i for i, name in enumerate(CODECS)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SORT_ROWS = 1024          # the sorted reducers hold C <= 1024 rows a column
+# mean / dp over the sketch wire: up to this many buckets (224 KB of f32) the
+# kernel sums the buckets first in shared memory (sketch_kernel); past it,
+# it gathers every row's bucket from L2 (stream_kernel)
+MAX_SKETCH_DIM = 57344
+INT8_WIDTHS = (4, 1)          # int8 columns a thread of the stream kernel
 
 
 def _next_pow2(n: int) -> int:
@@ -302,7 +307,7 @@ def fedagg(updates: torch.Tensor, weights: torch.Tensor, gates: torch.Tensor,
             args.ld = _check_rows("updates", updates, torch.int8, dev)
             _check_vec("dequant_scale", dequant_scale, C, dev)
             args.dequant_scale = dequant_scale.data_ptr()
-            args.vw = _vector_width((16, 4, 1), args.ld, updates, out)
+            args.vw = _vector_width(INT8_WIDTHS, args.ld, updates, out)
         elif codec == "topk":
             updates = updates.contiguous()
             args.ld = _check_rows("updates", updates, torch.float32, dev)

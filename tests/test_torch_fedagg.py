@@ -197,12 +197,17 @@ WIRES = ["identity_f32", "identity_bf16", "int8", "topk", "sketch"]
 
 
 def _variant(reducer, wire, C, M, device, *, gates="mixed", nan_row=None,
-             nan_included=False, seed=0):
+             nan_included=False, seed=0, fed=None, block_row=None):
     """(updates, weights, gates, kwargs) for one reducer x wire call: dense
-    rows from a numpy seed, encoded by the port's codec on ``device``."""
+    rows from a numpy seed, encoded by the port's codec on ``device`` (at
+    ``fed``'s rates; default topk frac 0.05, sketch dim 256).
+    ``block_row`` lifts that row's columns 2048-4095, so that its top-k
+    pairs all fall in one block of the topk kernel."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.core import aggregation as agg
     u, w, g = _case(C, M, seed=seed, gates=gates)
+    if block_row is not None:
+        u[block_row, 2048:4096] += 100.0
     rng = np.random.default_rng(seed + 1)
     rs = rng.random(C).astype(np.float32)
     noise = rng.normal(size=M).astype(np.float32)
@@ -216,7 +221,7 @@ def _variant(reducer, wire, C, M, device, *, gates="mixed", nan_row=None,
         dtype = torch.float32 if wire == "identity_f32" else torch.bfloat16
         updates, kw = agg.flatten_stacked({"u": t(u)}, dtype=dtype), {}
     else:
-        fed = FedConfig(codec_topk_frac=0.05, codec_sketch_dim=256)
+        fed = fed or FedConfig(codec_topk_frac=0.05, codec_sketch_dim=256)
         updates, kw = agg.get_wire_codec(wire).encode(fed, t(u))
     kw = dict(kw, aggregator=reducer)
     if reducer == "dp":
@@ -361,3 +366,71 @@ def test_cuda_trim_count_is_float32(cuda_device):
     s = np.sort(np.arange(100, dtype=np.float64) ** 2)
     torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-6, atol=0)
     np.testing.assert_allclose(got.cpu().numpy(), s[29:71].mean(), rtol=1e-6)
+
+
+# ------------------------------------------ K4's decoders under mean and dp
+EDGE_M = 8 * 256 * 4 + 3     # not a multiple of a sketch cluster's 8 x 256 x 4
+                             # columns, nor of the int8 stream's 4
+
+
+def _edge(device, reducer, wire, C, M, **kw):
+    """One case against the plain version, then the same shape with zero
+    inclusion (exact zeros) and with a NaN row behind a zero gate (finite,
+    and against the plain version); returns the first case's inputs."""
+    case = _variant(reducer, wire, C, M, device, **kw)
+    updates, w, g, ops = case
+    before = fk.fedagg.launches
+    got = fk.fedagg(updates, w, g, **ops)
+    torch.cuda.synchronize()
+    assert fk.fedagg.launches == before + 1
+    _close_variant(got, fk.fedagg_plain(updates, w, g, **ops), updates, w, g, ops)
+    kw = {k: v for k, v in kw.items() if k != "gates"}
+    updates, w, g, ops = _variant(reducer, wire, C, M, device, gates="none", **kw)
+    assert bool(torch.all(fk.fedagg(updates, w, g, **ops) == 0))
+    updates, w, g, ops = _variant(reducer, wire, C, M, device, nan_row=2, **kw)
+    got = fk.fedagg(updates, w, g, **ops)
+    assert bool(torch.isfinite(got).all())
+    _close_variant(got, fk.fedagg_plain(updates, w, g, **ops), updates, w, g, ops)
+    return case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 7, 2048, fk.MAX_SKETCH_DIM, fk.MAX_SKETCH_DIM + 1],
+                         ids=["1", "7", "2048", "max", "gather"])
+@pytest.mark.parametrize("reducer", ["mean", "dp"])
+def test_cuda_sketch_dims(cuda_device, reducer, dim):
+    """The bucket-first route at dim 1, 7, 2048 and the most buckets shared
+    memory holds, and the L2-gather route one past it."""
+    from repro_torch.configs.base import FedConfig
+    updates, *_ = _edge(cuda_device, reducer, "sketch", 6, EDGE_M,
+                        fed=FedConfig(codec_sketch_dim=dim))
+    assert updates.shape == (6, dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_block", "stages"])
+@pytest.mark.parametrize("reducer", ["mean", "dp"])
+def test_cuda_topk_windows(cuda_device, reducer, case):
+    """All of a row's pairs in one 2048-column block; and more pairs in a
+    block than one shared-memory stage holds (frac 0.5: ~1024 a row)."""
+    from repro_torch.configs.base import FedConfig
+    if case == "one_block":
+        updates, w, g, ops = _edge(cuda_device, reducer, "topk", 6, EDGE_M,
+                                   block_row=1, fed=FedConfig(codec_topk_frac=0.05))
+        idx = ops["topk_idx"][1].cpu()
+        assert int(idx.min()) >= 2048 and int(idx.max()) < 4096
+    else:
+        updates, w, g, ops = _edge(cuda_device, reducer, "topk", 8, EDGE_M,
+                                   gates="all", fed=FedConfig(codec_topk_frac=0.5))
+        in_block = ((ops["topk_idx"] >= 2048) & (ops["topk_idx"] < 4096)).sum()
+        assert int(in_block) > 2048
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1001, EDGE_M])
+@pytest.mark.parametrize("reducer", ["mean", "dp"])
+def test_cuda_int8_ragged_pitched(cuda_device, reducer, M):
+    """int8 rows with a pitch past M and a ragged last column group (the
+    stream kernel's scalar tail)."""
+    updates, *_ = _edge(cuda_device, reducer, "int8", 6, M)
+    assert updates.stride(0) > M and M % 4
