@@ -15,14 +15,18 @@ if a check fails:
 1. the card's name and power limit (nvidia-smi); the CUDA kernels are
    built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
    nvcc per source, all started together; ptxas's report must show no
-   stack and no spills in K3's register route, no spills in K8;
+   stack and no spills in K3's register route, no spills in K8 and in
+   K4's int8 stream, sketch and topk kernels;
 2. kernel phase: ``fedagg`` (the CUDA kernel) against ``fedagg_plain`` on
    the card: mean + identity (f32, bf16) on the reference's edge cases,
    then every reducer (mean, dp, trimmed_mean, median) x wire (identity
    f32 and bf16, int8, topk, sketch) at the slice's shapes, C = 65, zero
-   inclusion and NaN rows; then each timed beside the plain version, a
-   library yardstick (timed here only) and the bound, the sorted reducers
-   (K3) also cold and at C = 65;
+   inclusion and NaN rows, and K4's edge cases under mean and dp (sketch
+   dims up to and past the shared-memory route's, topk windows in one
+   block and past one stage, ragged pitched int8); then each timed by
+   CUDA-graph replay, warm and cold, beside the eager call, the plain
+   version, a library yardstick (timed here only) and the bound, the
+   sorted reducers (K3) also at C = 65;
 3. LM kernel phase: flash-attention forward (K5, with its LSE), decode
    attention (K7) and RMSNorm (K9) against their plain versions on the
    card over causal / windowed / ragged / grouped cases in f32 and bf16
@@ -44,8 +48,9 @@ if a check fails:
    computes a selective scan);
 4. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
    few rounds on both backends, held against the same run on the CPU; and
-   its shortened parity config under cosine_filter and slice (c)'s three
-   aggregator + codec pairs, each held against the CPU run;
+   its shortened parity config under cosine_filter, slice (c)'s three
+   aggregator + codec pairs and dp + sketch, each held against the CPU
+   run;
 5. slice (b): the paper's CIFAR ``cnn`` at full width, C=60, E=5, for 3
    rounds through ``run_federation``;
 6. slice (c): the same config for 2 rounds each under median + int8 +
@@ -84,7 +89,8 @@ gradients and decode steps imply.
 
 It ends with a JSON line of the kernels (launch counts from the slice
 phases, errors and times from this run) and, last, the ok line. It needs
-no JAX and none of the ``repro`` package.
+no JAX and none of the ``repro`` package. ``--fedagg-timing`` and
+``--compare`` run the fedagg kernel alone (``fedagg_main``).
 """
 from __future__ import annotations
 
@@ -828,6 +834,11 @@ PARITY_AGG = {
     "median_int8_ef": SLICE_C["c1"],
     "trimmed_sketch": dict(SLICE_C["c2"], codec_sketch_dim=256),
     "dp_topk_ef": dict(SLICE_C["c3"], codec_topk_frac=0.2),
+    # K4's sketch_kernel on the main path. mean + int8 is not here: the
+    # int8 wire's one-quantum flips (a last-bit difference in x / scale)
+    # move its global loss ~7e-5 off the CPU run, above the 1e-5 bound
+    "dp_sketch": dict(SLICE_C["c3"], wire_codec="sketch", codec_sketch_dim=256,
+                      error_feedback=False),
 }
 
 
@@ -848,8 +859,9 @@ def int8_quanta():
 
 def slice_a_aggregators(check: Check, device="cuda"):
     """The shortened quickstart (C=8, E=2, 6 rounds) under cosine_filter
-    (identity wire) and under slice (c)'s three aggregator + codec pairs,
-    on both backends on the card, each held against the same run on the
+    (identity wire), under slice (c)'s three aggregator + codec pairs and
+    under dp + sketch, on both backends on the card, each held against the
+    same run on the
     CPU: gates exact, global loss within rtol 1e-5, params within 1e-4
     max|p| — plus, where the int8 wire is on, one quantum of the run's
     largest row scale (a last-bit difference can cross a rounding boundary;

@@ -26,21 +26,23 @@
 //
 // Five kernels:
 //
-// * stream_kernel (mean, dp; identity, int8; sketch with dim > 57344).
-//   Bound: bytes. Each thread owns VW adjacent columns and walks down the
-//   included rows, the sums in registers: it fetches kUnroll rows (one
-//   wide load each) before it decodes and adds any of them, and the last
-//   group of a ragged row count is predicated, not serial. The block
-//   compacts the included row indices into shared memory first (one
-//   ballot per warp), with int8's per-row scales beside them. identity:
-//   16-byte loads, 4 rows in flight. int8: 4 columns a thread (566 blocks
-//   of 256 at 60 x 579,402; 16 columns a thread launched 142, about one
-//   block an SM, too few bytes in flight to cover the memory's latency),
-//   16 rows in flight, and each int8 turned into f32 as the float bits
-//   0x4B000080 + q minus 2^23 + 128 (exact, on the integer and FMA pipes,
-//   not the conversion unit).
-// * sketch_kernel (mean, dp; sketch with dim <= 57344). Bound: the bytes
-//   of h, sign and the output. The decode is linear and sign is +-1, so
+// * stream_kernel (mean, dp; identity, int8; the sketch where
+//   sketch_kernel does not take it). Bound: bytes. Each thread owns VW
+//   adjacent columns and walks down the included rows, the sums in
+//   registers, kUnroll rows' loads (one wide load each) in flight before
+//   it adds any of them. The block compacts
+//   the included row indices into shared memory first (one ballot per
+//   warp), with int8's per-row scales beside them. identity: 16-byte
+//   loads, 4 rows in flight. int8: 4 columns a thread, 8 rows in flight,
+//   the last group of a ragged row count predicated, at most 48 registers
+//   so that 5 blocks share an SM (the 566 blocks of 256 at 60 x 579,402 in
+//   one wave); each int8 turned into f32 as the float bits 0x4B000080 + q
+//   minus 2^23 + 128 (exact, on the integer and FMA pipes, not the
+//   conversion unit). The first version's 16 columns a thread launched
+//   142 blocks, about one an SM: too few bytes in flight.
+// * sketch_kernel (mean, dp; sketch with dim <= 57344, h, sign and the
+//   output on 16-byte boundaries). Bound: the bytes of h, sign and the
+//   output. The decode is linear and sign is +-1, so
 //   sum_k wg_k s[k, h[m]] sign[m] = sign[m] * t[h[m]] with
 //   t[b] = sum_k wg_k s[k, b]; both sums run in ascending k and rounding
 //   is odd-symmetric, so the two are the same bits (a zero is written as
@@ -49,9 +51,10 @@
 //   buckets over the included rows into its shared memory, every block
 //   then copies the others' eighths through distributed shared memory,
 //   and streams its columns, out[m] = finish(sign[m] * t[h[m]]), with
-//   its first h and sign loads issued before the bucket sums. The first
-//   version gathered s[k, h[m]] from L2 for every row and column: 35 M
-//   scattered reads at 60 x 579,402.
+//   its first 5 vectors of h and sign loaded before the bucket sums (32
+//   sketch rows' loads in flight there). The first version gathered
+//   s[k, h[m]] from L2 for every row and column: 35 M scattered reads at
+//   60 x 579,402.
 // * topk_sum_kernel (mean, dp; topk). Bound: bytes, a few MB a round. The
 //   encode sorts each row's pairs by index. A block of 2048 columns finds
 //   each included row's window [lo, hi) of its columns by a G-ary search
@@ -62,8 +65,10 @@
 //   holds more than 2048, its indices being distinct), and marks for each
 //   thread (8 columns) the rows that reach its columns and where. Each
 //   thread then adds its pairs in ascending row order, in registers, with
-//   no barrier between rows. The first version walked the rows one at a
-//   time with a global load and a block barrier each.
+//   no barrier between rows. The search runs in 32-bit integers: with
+//   64-bit divisions this kernel took a third longer. The first version
+//   walked the rows one at a time with a global load and a block barrier
+//   each.
 // * sorted_reg_kernel (trimmed_mean, median; every decoder; P <= 64).
 //   Bound: the compare-exchanges. The bitonic network of P = 64 rows is
 //   672 exchanges a column, a min and a max each: 0.78 G min / max over
@@ -119,8 +124,8 @@ constexpr int kTopkStageRows = 64; // rows a stage holds: a bit each in a mask
 constexpr int kMaxProbe = 8;       // most lanes a row in topk's G-ary search
 constexpr int kSketchCluster = 8;  // blocks a sketch cluster (the portable most)
 constexpr int kSketchClusters = 16;  // most clusters: 128 blocks, one an SM
-constexpr int kSketchPre = 4;      // column vectors a thread loads ahead
-constexpr int kSketchUnroll = 16;  // sketch rows in flight in the bucket sums
+constexpr int kSketchPre = 5;      // column vectors a thread loads ahead
+constexpr int kSketchUnroll = 32;  // sketch rows in flight in the bucket sums
 constexpr long long kMaxSketchDim = 57344;  // buckets in shared memory (224 KB)
 constexpr int kMaxSortRows = 1024;  // largest P of sorted_kernel
 constexpr int kMaxRegRows = 64;     // largest P of sorted_reg_kernel
@@ -243,21 +248,22 @@ __device__ __forceinline__ void bitonic_from(float (&v)[P]) {
 
 // ------------------------------------------------------------------ decoders
 // Each dense decoder gives f32 values of u[row, col .. col + VW) (load, after
-// a per-thread setup of its column state) and of one u[row, m] (load1): the
-// sorted reducers' interface. stream_kernel splits a load in two, so that
-// kUnroll rows' loads are in flight before any is decoded: fetch (the raw
-// load), decode (to f32, with the row's scale sc staged by stage_rows where
-// kRowScale), and fetch1 for one element.
+// a per-thread setup of its column state) and of one u[row, m] (load1).
+// stream_kernel keeps kUnroll rows' loads in flight. Where kRowScale (int8)
+// it splits a load in two, so that the raw bytes, not their f32 values,
+// wait in registers: fetch (the raw load), decode (to f32, times the row's
+// scale sc that stage_rows put in shared memory), and fetch1 for one
+// element.
 
 template <typename S, int VW>
 struct DecIdentity {
   static constexpr int kVW = VW;
   static constexpr int kUnroll = 4;
+  static constexpr bool kFiveBlocks = false;  // stream_kernel, not _5
   static constexpr bool kRowScale = false;
   const S* u;
   long long ld;
   struct Col {};
-  using Raw = Pack<S, VW>;
   __device__ Col setup(long long, long long) const { return {}; }
   __device__ __forceinline__ void load(const Col&, int row, long long col,
                                        float* v) const {
@@ -268,24 +274,14 @@ struct DecIdentity {
   __device__ __forceinline__ float load1(int row, long long m) const {
     return to_f32(u[static_cast<long long>(row) * ld + m]);
   }
-  __device__ __forceinline__ Raw fetch(const Col&, int row, long long col) const {
-    return load_pack<S, VW>(u + static_cast<long long>(row) * ld + col);
-  }
-  __device__ __forceinline__ void decode(const Col&, const Raw& p, float,
-                                         float* v) const {
-#pragma unroll
-    for (int i = 0; i < VW; ++i) v[i] = to_f32(p.v[i]);
-  }
-  __device__ __forceinline__ float fetch1(int row, float, long long m) const {
-    return load1(row, m);
-  }
 };
 
 // int8 rows times the row's f32 scale, dequantized in registers
 template <int VW>
 struct DecInt8 {
   static constexpr int kVW = VW;
-  static constexpr int kUnroll = 16;
+  static constexpr int kUnroll = 8;
+  static constexpr bool kFiveBlocks = true;   // stream_kernel_5
   static constexpr bool kRowScale = true;
   const int8_t* q;
   long long ld;
@@ -304,11 +300,10 @@ struct DecInt8 {
   __device__ __forceinline__ float load1(int row, long long m) const {
     return to_f32(q[static_cast<long long>(row) * ld + m]) * scale[row];
   }
-  __device__ __forceinline__ Raw fetch(const Col&, int row, long long col) const {
+  __device__ __forceinline__ Raw fetch(int row, long long col) const {
     return load_pack<int8_t, VW>(q + static_cast<long long>(row) * ld + col);
   }
-  __device__ __forceinline__ void decode(const Col&, const Raw& p, float sc,
-                                         float* v) const {
+  __device__ __forceinline__ void decode(const Raw& p, float sc, float* v) const {
 #pragma unroll
     for (int i = 0; i < VW; ++i) v[i] = i8_to_f32(p.v[i]) * sc;
   }
@@ -322,6 +317,7 @@ template <int VW>
 struct DecSketch {
   static constexpr int kVW = VW;
   static constexpr int kUnroll = 4;
+  static constexpr bool kFiveBlocks = false;  // stream_kernel, not _5
   static constexpr bool kRowScale = false;
   const float* s;
   long long dim;
@@ -330,9 +326,6 @@ struct DecSketch {
   struct Col {
     int h[VW];
     float sg[VW];
-  };
-  struct Raw {
-    float v[VW];
   };
   __device__ Col setup(long long col, long long M) const {
     Col c;
@@ -352,21 +345,6 @@ struct DecSketch {
   }
   __device__ __forceinline__ float load1(int row, long long m) const {
     return s[static_cast<long long>(row) * dim + h[m]] * sign[m];
-  }
-  __device__ __forceinline__ Raw fetch(const Col& c, int row, long long) const {
-    const float* r = s + static_cast<long long>(row) * dim;
-    Raw o;
-#pragma unroll
-    for (int i = 0; i < VW; ++i) o.v[i] = r[c.h[i]];
-    return o;
-  }
-  __device__ __forceinline__ void decode(const Col& c, const Raw& o, float,
-                                         float* v) const {
-#pragma unroll
-    for (int i = 0; i < VW; ++i) v[i] = o.v[i] * c.sg[i];
-  }
-  __device__ __forceinline__ float fetch1(int row, float, long long m) const {
-    return load1(row, m);
   }
 };
 
@@ -451,12 +429,52 @@ __device__ __forceinline__ float finish(float acc, float den, const float* noise
 }
 
 // -------------------------------------------------------------- stream kernel
+// rows j .. j + U of the staged rows into acc, every load issued before any
+// row is added; kTail predicates the rows past n
+template <class Dec, int U, bool kTail>
+__device__ __forceinline__ void add_rows(const Dec& dec, const typename Dec::Col& cs,
+                                         const int* s_row, const float* s_wg,
+                                         const float* s_sc, int j, int n,
+                                         long long col, float* acc) {
+  constexpr int VW = Dec::kVW;
+  if constexpr (Dec::kRowScale) {
+    typename Dec::Raw raw[U];
+#pragma unroll
+    for (int r = 0; r < U; ++r)
+      if (!kTail || j + r < n) raw[r] = dec.fetch(s_row[j + r], col);
+#pragma unroll
+    for (int r = 0; r < U; ++r) {
+      if (!kTail || j + r < n) {
+        float v[VW];
+        dec.decode(raw[r], s_sc[j + r], v);
+        const float wr = s_wg[j + r];
+#pragma unroll
+        for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, v[i], acc[i]);
+      }
+    }
+  } else {
+    float v[U][VW];
+#pragma unroll
+    for (int r = 0; r < U; ++r)
+      if (!kTail || j + r < n) dec.load(cs, s_row[j + r], col, v[r]);
+#pragma unroll
+    for (int r = 0; r < U; ++r) {
+      if (!kTail || j + r < n) {
+        const float wr = s_wg[j + r];
+#pragma unroll
+        for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, v[r][i], acc[i]);
+      }
+    }
+  }
+}
+
 template <class Dec, bool kDP, typename O>
-__global__ void __launch_bounds__(kThreads)
-    stream_kernel(Dec dec, const float* __restrict__ w,
-                  const float* __restrict__ g, const float* __restrict__ rs,
-                  const float* __restrict__ noise, float noise_scale,
-                  O* __restrict__ out, int C, long long M) {
+__device__ __forceinline__ void stream_body(Dec dec, const float* __restrict__ w,
+                                            const float* __restrict__ g,
+                                            const float* __restrict__ rs,
+                                            const float* __restrict__ noise,
+                                            float noise_scale, O* __restrict__ out,
+                                            int C, long long M) {
   constexpr int VW = Dec::kVW;
   constexpr int U = Dec::kUnroll;
   __shared__ int s_row[kThreads];
@@ -482,30 +500,25 @@ __global__ void __launch_bounds__(kThreads)
     const int n = stage_rows<kDP>(c0, C, w, g, rs, sc, s_row, s_wg, s_sc,
                                   s_warp_n, s_warp_den, den);
     if (full) {
-      // U rows' loads in flight before any is decoded; the last group of a
-      // ragged row count is predicated
-      for (int j = 0; j < n; j += U) {
-        typename Dec::Raw raw[U];
-#pragma unroll
-        for (int r = 0; r < U; ++r)
-          if (j + r < n) raw[r] = dec.fetch(cs, s_row[j + r], col);
-#pragma unroll
-        for (int r = 0; r < U; ++r) {
-          if (j + r < n) {
-            float v[VW];
-            dec.decode(cs, raw[r], Dec::kRowScale ? s_sc[j + r] : 1.f, v);
-            const float wr = s_wg[j + r];
-#pragma unroll
-            for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, v[i], acc[i]);
-          }
-        }
+      // U rows' loads in flight at a time; the rest of a row count that is
+      // not a multiple of U one predicated group (int8's 16) or row by row
+      int j = 0;
+      for (; j + U <= n; j += U)
+        add_rows<Dec, U, false>(dec, cs, s_row, s_wg, s_sc, j, n, col, acc);
+      if constexpr (Dec::kRowScale) {
+        if (j < n) add_rows<Dec, U, true>(dec, cs, s_row, s_wg, s_sc, j, n, col, acc);
+      } else {
+        for (; j < n; ++j) add_rows<Dec, 1, false>(dec, cs, s_row, s_wg, s_sc, j, n, col, acc);
       }
     } else if (live) {
       for (int j = 0; j < n; ++j) {  // scalar tail for a ragged M
         const float wr = s_wg[j];
-        const float s = Dec::kRowScale ? s_sc[j] : 1.f;
-        for (int i = 0; i < VW && col + i < M; ++i)
-          acc[i] = fmaf(wr, dec.fetch1(s_row[j], s, col + i), acc[i]);
+        for (int i = 0; i < VW && col + i < M; ++i) {
+          float x;
+          if constexpr (Dec::kRowScale) x = dec.fetch1(s_row[j], s_sc[j], col + i);
+          else x = dec.load1(s_row[j], col + i);
+          acc[i] = fmaf(wr, x, acc[i]);
+        }
       }
     }
     __syncthreads();  // the next chunk overwrites s_row / s_wg
@@ -523,11 +536,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+#define STREAM_PARAMS                                                         \
+  Dec dec, const float* __restrict__ w, const float* __restrict__ g,          \
+      const float* __restrict__ rs, const float* __restrict__ noise,          \
+      float noise_scale, O* __restrict__ out, int C, long long M
+
+template <class Dec, bool kDP, typename O>
+__global__ void __launch_bounds__(kThreads) stream_kernel(STREAM_PARAMS) {
+  stream_body<Dec, kDP, O>(dec, w, g, rs, noise, noise_scale, out, C, M);
+}
+
+// the same, held to 65536 / (5 x 256) registers (48) so that 5 blocks share
+// an SM: int8's 566 blocks at 60 x 579,402 run in one wave
+template <class Dec, bool kDP, typename O>
+__global__ void __launch_bounds__(kThreads, 5) stream_kernel_5(STREAM_PARAMS) {
+  stream_body<Dec, kDP, O>(dec, w, g, rs, noise, noise_scale, out, C, M);
+}
+#undef STREAM_PARAMS
+
 // ------------------------------------------------------------ sketch kernel
-// A thread's column vectors: the v-th of a batch at c + v stride. Columns
-// past M get bucket 0 and sign 0 and are not stored.
-template <int VW>
+// A thread's column vectors of VW = 4 (16-byte loads of h and sign): the
+// v-th of a batch at c + v stride. Columns past M get bucket 0 and sign 0
+// and are not stored.
 struct SketchCols {
+  static constexpr int VW = 4;
   int h[kSketchPre][VW];
   float sg[kSketchPre][VW];
 
@@ -586,7 +618,7 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");  // acquire
 }
 
-template <bool kDP, int VW>
+template <bool kDP>
 __global__ void __launch_bounds__(kThreads)
     sketch_kernel(const float* __restrict__ s, long long dim,
                   const int* __restrict__ h, const float* __restrict__ sign,
@@ -604,10 +636,11 @@ __global__ void __launch_bounds__(kThreads)
   const long long per = (dim + kSketchCluster - 1) / kSketchCluster;
   const long long b0 = rank * per;
   const long long b1 = b0 + per < dim ? b0 + per : dim;
+  constexpr int VW = SketchCols::VW;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads * VW;
   const long long col0 = (static_cast<long long>(blockIdx.x) * kThreads + tid) * VW;
 
-  SketchCols<VW> cols;  // the first batch is in flight during the bucket sums
+  SketchCols cols;  // the first batch is in flight during the bucket sums
   cols.load(h, sign, col0, stride, M);
 
   // 1. t[b] for this block's buckets, over the included rows in ascending
@@ -667,24 +700,31 @@ struct TopkSmem {
   float val[kTopkStage];
   unsigned short first[kTopkStageRows][kThreads];  // (row, owner): its first pair
   unsigned long long mask[kThreads];               // owner: the rows that reach it
-  long long lo[kThreads];                          // row: its window's start
+  int lo[kThreads];                                // row: its window's start
   int off[kThreads + 1];                           // row: its window's offset in
                                                    // the chunk's windows
   unsigned char rowof[kTopkStage];                 // pair: its row in the stage
 };
 
-// a step of the G-ary search: the answer lies in [a, b] (L = b - a); the G
-// lanes probed q_i = a + (i + 1) L / (G + 1), and the first t of them lie
-// below the key
-__device__ __forceinline__ void narrow(long long& a, long long& b, long long L,
-                                       int t, int G) {
+// The G-ary search for the first position of an ascending row whose value
+// is >= a key: the answer lies in [a, b]; with s = ceil((b - a) / (G + 1)),
+// lane i < G probes probe(a, b, s, i) = min(a + (i + 1) s - 1, b - 1), and
+// each step leaves at most s - 1 candidates. 32-bit: a 64-bit division is a
+// long software sequence, and positions stay below k <= M < 2^31.
+__device__ __forceinline__ int probe(int a, int b, int s, int i) {
+  const int q = a + (i + 1) * s - 1;
+  return q < b - 1 ? q : b - 1;
+}
+
+// a step: t of the G probes lie below the key
+__device__ __forceinline__ void narrow(int& a, int& b, int s, int t, int G) {
   if (a >= b) return;
-  if (t == 0) {
-    b = a + L / (G + 1);
+  if (t == 0) {                       // row[probe 0] >= key
+    b = probe(a, b, s, 0);
     return;
   }
-  const long long na = a + t * L / (G + 1) + 1;
-  if (t < G) b = a + (t + 1) * L / (G + 1);
+  const int na = probe(a, b, s, t - 1) + 1;
+  if (t < G) b = probe(a, b, s, t);   // row[probe t] >= key
   a = na;
 }
 
@@ -692,9 +732,8 @@ __device__ __forceinline__ void narrow(long long& a, long long& b, long long L,
 // s_lo, its offset in the concatenation of the windows in s_off (s_off[n]
 // the total). G lanes a row (as many as fit, at most kMaxProbe) search lo
 // and hi at once, G probes each a step.
-__device__ __forceinline__ void find_windows(const DecTopk& dec, int n, long long c0,
-                                             long long c1, const int* s_row,
-                                             long long* s_lo, int* s_off) {
+__device__ __forceinline__ void find_windows(const DecTopk& dec, int n, int c0, int c1,
+                                             const int* s_row, int* s_lo, int* s_off) {
   const int tid = threadIdx.x, lane = tid & 31;
   int G = 1;
   while (G < kMaxProbe && 2 * G * n <= kThreads) G <<= 1;
@@ -704,24 +743,22 @@ __device__ __forceinline__ void find_windows(const DecTopk& dec, int n, long lon
     const int j = j0 + tid / G;
     const bool on = j < n;
     const int* row = dec.idx + (on ? static_cast<long long>(s_row[j]) * dec.k : 0);
-    long long alo = 0, blo = on ? dec.k : 0, ahi = 0, bhi = blo;
+    int alo = 0, blo = on ? static_cast<int>(dec.k) : 0, ahi = 0, bhi = blo;
     while (__any_sync(0xffffffffu, alo < blo || ahi < bhi)) {
-      const long long llo = blo - alo, lhi = bhi - ahi;
-      const long long qlo = alo + (gl + 1) * llo / (G + 1);
-      const long long qhi = ahi + (gl + 1) * lhi / (G + 1);
-      const bool plo = alo < blo && row[qlo] < c0;
-      const bool phi = ahi < bhi && row[qhi] < c1;
+      const int slo = (blo - alo + G) / (G + 1), shi = (bhi - ahi + G) / (G + 1);
+      const bool plo = alo < blo && row[probe(alo, blo, slo, gl)] < c0;
+      const bool phi = ahi < bhi && row[probe(ahi, bhi, shi, gl)] < c1;
       const int tlo = __popc(__ballot_sync(0xffffffffu, plo) & gmask);
       const int thi = __popc(__ballot_sync(0xffffffffu, phi) & gmask);
-      narrow(alo, blo, llo, tlo, G);
-      narrow(ahi, bhi, lhi, thi, G);
+      narrow(alo, blo, slo, tlo, G);
+      narrow(ahi, bhi, shi, thi, G);
     }
     if (on && gl == 0) {
       s_lo[j] = alo;
       // at most c1 - c0 <= kTopkStage pairs, the indices being distinct; the
       // clamp only keeps a row that breaks this inside the stage
-      const long long wdt = ahi - alo;
-      s_off[j + 1] = static_cast<int>(wdt < kTopkStage ? wdt : kTopkStage);
+      const int wdt = ahi - alo;
+      s_off[j + 1] = wdt < kTopkStage ? wdt : kTopkStage;
     }
   }
   __syncthreads();
@@ -769,7 +806,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int r0 = 0; r0 < C; r0 += kThreads) {
     const int n = stage_rows<kDP>(r0, C, w, g, rs, nullptr, s_row, s_wg, nullptr,
                                   s_warp_n, s_warp_den, den);
-    find_windows(dec, n, c0, c1, s_row, sm.lo, sm.off);
+    find_windows(dec, n, static_cast<int>(c0), static_cast<int>(c1), s_row, sm.lo,
+                 sm.off);
     for (int jr = 0; jr < n;) {
       // the stage: rows [jr, je), at most kTopkStageRows rows and kTopkStage
       // pairs (one row alone always fits)
@@ -835,7 +873,7 @@ __global__ void __launch_bounds__(kThreads)
         const float wr = s_wg[jr + jj];
         const int end = sm.off[jr + jj + 1] - base;
         for (int p = sm.first[jj][tid]; p < end; ++p) {
-          const long long c = sm.idx[p] - mine;
+          const int c = static_cast<int>(sm.idx[p] - mine);  // in [0, 2048)
           if (c >= kTopkOwn) break;
           const float v = sm.val[p];
 #pragma unroll
@@ -1055,9 +1093,14 @@ cudaError_t launch_stream(const FedaggArgs& a, Dec dec, cudaStream_t s) {
   const long long per_block = static_cast<long long>(kThreads) * Dec::kVW;
   const long long blocks = (a.M + per_block - 1) / per_block;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  stream_kernel<Dec, kDP, O><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      dec, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
-      static_cast<O*>(a.out), a.C, a.M);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  auto* out = static_cast<O*>(a.out);
+  if constexpr (Dec::kFiveBlocks)
+    stream_kernel_5<Dec, kDP, O><<<grid, kThreads, 0, s>>>(
+        dec, a.w, a.g, a.row_scale, a.noise, a.noise_scale, out, a.C, a.M);
+  else
+    stream_kernel<Dec, kDP, O><<<grid, kThreads, 0, s>>>(
+        dec, a.w, a.g, a.row_scale, a.noise, a.noise_scale, out, a.C, a.M);
   return cudaGetLastError();
 }
 
@@ -1071,13 +1114,14 @@ cudaError_t allow_smem(K kern, size_t bytes, bool* done) {
   return e;
 }
 
-template <bool kDP, int VW>
+template <bool kDP>
 cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
   static bool attr_set = false;
-  const cudaError_t e = allow_smem(sketch_kernel<kDP, VW>,
+  const cudaError_t e = allow_smem(sketch_kernel<kDP>,
                                    kMaxSketchDim * sizeof(float), &attr_set);
   if (e != cudaSuccess) return e;
-  const long long per_cluster = static_cast<long long>(kSketchCluster) * kThreads * VW;
+  const long long per_cluster =
+      static_cast<long long>(kSketchCluster) * kThreads * SketchCols::VW;
   long long clusters = (a.M + per_cluster - 1) / per_cluster;
   clusters = clusters < kSketchClusters ? clusters : kSketchClusters;
   cudaLaunchConfig_t cfg = {};
@@ -1093,7 +1137,7 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, sketch_kernel<kDP, VW>, static_cast<const float*>(a.u), a.ld,
+      &cfg, sketch_kernel<kDP>, static_cast<const float*>(a.u), a.ld,
       a.sketch_h, a.sketch_sign, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
       static_cast<float*>(a.out), a.C, a.M);
   if (err != cudaSuccess) return err;
@@ -1126,21 +1170,15 @@ cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
     case kInt8: {
       const auto* q = static_cast<const int8_t*>(a.u);
       switch (a.vw) {
-        case 16: return launch_stream<DecInt8<16>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
-        case 8: return launch_stream<DecInt8<8>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
         case 4: return launch_stream<DecInt8<4>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
         case 1: return launch_stream<DecInt8<1>, kDP, float>(a, {q, a.ld, a.dequant_scale}, s);
       }
       break;
     }
     case kSketch: {
-      if (a.ld >= 1 && a.ld <= kMaxSketchDim) {  // the buckets fit shared memory
-        switch (a.vw) {
-          case 4: return launch_sketch<kDP, 4>(a, s);
-          case 1: return launch_sketch<kDP, 1>(a, s);
-        }
-        break;
-      }
+      // the buckets fit shared memory, h / sign / out take 16-byte loads
+      if (a.ld >= 1 && a.ld <= kMaxSketchDim && a.vw == SketchCols::VW)
+        return launch_sketch<kDP>(a, s);
       const auto* sk = static_cast<const float*>(a.u);  // else gather from L2
       switch (a.vw) {
         case 4: return launch_stream<DecSketch<4>, kDP, float>(a, {sk, a.ld, a.sketch_h, a.sketch_sign}, s);
@@ -1194,14 +1232,10 @@ cudaError_t launch_sorted(const FedaggArgs& a, Dec dec, cudaStream_t s) {
   if (P > kMaxSortRows || cols < 32 || cols > 1024 || cols % 32 != 0 ||
       smem > static_cast<size_t>(kMaxSmem) - kMaxSortRows)
     return cudaErrorInvalidValue;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sorted_kernel<Dec, kMedian, O>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem - kMaxSortRows);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool attr_set = false;
+  const cudaError_t e =
+      allow_smem(sorted_kernel<Dec, kMedian, O>, kMaxSmem - kMaxSortRows, &attr_set);
+  if (e != cudaSuccess) return e;
   const long long blocks = (a.M + cols - 1) / cols;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   sorted_kernel<Dec, kMedian, O><<<static_cast<unsigned>(blocks), cols, smem, s>>>(

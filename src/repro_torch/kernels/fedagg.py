@@ -49,9 +49,10 @@ _REDUCER_CODE = {name: i for i, name in enumerate(AGGREGATORS)}
 _CODEC_CODE = {name: i for i, name in enumerate(CODECS)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SORT_ROWS = 1024          # the sorted reducers hold C <= 1024 rows a column
-# mean / dp over the sketch wire: up to this many buckets (224 KB of f32) the
-# kernel sums the buckets first in shared memory (sketch_kernel); past it,
-# it gathers every row's bucket from L2 (stream_kernel)
+# mean / dp over the sketch wire: up to this many buckets (224 KB of f32),
+# with sketch_h, sketch_sign and the output on 16-byte boundaries, the
+# kernel sums the buckets first in shared memory (sketch_kernel); else it
+# gathers every row's bucket from L2 (stream_kernel)
 MAX_SKETCH_DIM = 57344
 INT8_WIDTHS = (4, 1)          # int8 columns a thread of the stream kernel
 

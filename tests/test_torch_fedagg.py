@@ -408,6 +408,21 @@ def test_cuda_sketch_dims(cuda_device, reducer, dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("reducer", ["mean", "dp"])
+def test_cuda_sketch_unaligned_planes(cuda_device, reducer):
+    """Hash and sign planes 4 bytes off a 16-byte boundary take the
+    L2-gather route."""
+    updates, w, g, kw = _variant(reducer, "sketch", 6, EDGE_M, cuda_device)
+    for k in ("sketch_h", "sketch_sign"):
+        buf = torch.empty(EDGE_M + 1, dtype=kw[k].dtype, device=cuda_device)
+        buf[1:] = kw[k]
+        kw[k] = buf[1:]
+    assert kw["sketch_h"].data_ptr() % 16
+    got = fk.fedagg(updates, w, g, **kw)
+    _close_variant(got, fk.fedagg_plain(updates, w, g, **kw), updates, w, g, kw)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["one_block", "stages"])
 @pytest.mark.parametrize("reducer", ["mean", "dp"])
 def test_cuda_topk_windows(cuda_device, reducer, case):

@@ -178,16 +178,20 @@ def test_sketch_emulation_matches_plain_version(dp):
 
 
 # ------------------------------------------------------------------- topk
-def narrow(a, b, t, G):
-    """The kernel's step (``narrow``): the answer in [a, b]."""
+def probe(a, b, s, i):
+    return min(a + (i + 1) * s - 1, b - 1)
+
+
+def narrow(a, b, s, t, G):
+    """The kernel's step (``narrow``): the answer in [a, b]; t of the G
+    probes lie below the key."""
     if a >= b:
         return a, b
-    L = b - a
     if t == 0:
-        return a, a + L // (G + 1)
-    na = a + t * L // (G + 1) + 1
+        return a, probe(a, b, s, 0)
+    na = probe(a, b, s, t - 1) + 1
     if t < G:
-        b = a + (t + 1) * L // (G + 1)
+        b = probe(a, b, s, t)
     return na, b
 
 
@@ -196,9 +200,9 @@ def gary_lower_bound(row, x, G):
     kernel's G-ary search; returns (position, steps)."""
     a, b, steps = 0, len(row), 0
     while a < b:
-        L = b - a
-        t = sum(row[a + (i + 1) * L // (G + 1)] < x for i in range(G))
-        a, b = narrow(a, b, t, G)
+        s = (b - a + G) // (G + 1)
+        t = sum(row[probe(a, b, s, i)] < x for i in range(G))
+        a, b = narrow(a, b, s, t, G)
         steps += 1
     return a, steps
 
