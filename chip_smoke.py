@@ -94,6 +94,7 @@ no JAX and none of the ``repro`` package. ``--fedagg-timing`` and
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -129,10 +130,11 @@ def ptxas_entries(log):
 
 
 # (library, the substrings of the kernel's symbol, whether its frame must
-# have no stack): K3's register route, K8, and K4's int8 stream, sketch and
-# topk kernels
+# have no stack): K3's register route, K8, K1 / K2's identity kernel, and
+# K4's int8 stream, sketch and topk kernels
 PTXAS_KERNELS = (("fedagg", ("sorted_reg_kernel",), True),
                  ("ssm_scan", ("ssm_scan_kernel",), False),
+                 ("fedagg", ("identity_kernel",), False),
                  ("fedagg", ("stream_kernel", "DecInt8"), False),
                  ("fedagg", ("sketch_kernel",), False),
                  ("fedagg", ("topk_sum_kernel",), False))
@@ -140,8 +142,8 @@ PTXAS_KERNELS = (("fedagg", ("sorted_reg_kernel",), True),
 
 def ptxas_check(check: Check, reports):
     """K3's register route (sorted_reg_kernel) compiles to no stack and no
-    spills (no register array indexed at run time); K8 and K4's kernels to
-    no spills. Prints their registers."""
+    spills (no register array indexed at run time); K8, K1 / K2's identity
+    kernel and K4's kernels to no spills. Prints their registers."""
     summary = {}
     for name, parts, stack_ok in PTXAS_KERNELS:
         found = False
@@ -155,7 +157,7 @@ def ptxas_check(check: Check, reports):
             if stack_ok:
                 check(stack == 0, f"ptxas: {sym} has a {stack}-byte stack frame")
         check(found, f"ptxas: no report of {' / '.join(parts)}")
-    print("ptxas K3 / K4 / K8:", json.dumps(summary), flush=True)
+    print("ptxas K1-K4 / K8:", json.dumps(summary), flush=True)
     return summary
 
 
@@ -532,19 +534,21 @@ def fedagg_bound(C_inc, M, in_size, out_size, C):
 
 def fedagg_times(fk, updates, w, g, ops):
     """One fedagg call's device time by CUDA-graph replay, warm (ms: the
-    same inputs every call) and cold (ms_cold: clones of every input
-    tensor rotated over COLD_BYTES, each call's inputs out of L2), and the
-    eager call's time with its host cost (eager_ms: Python, the checks,
-    the ctypes launch)."""
+    same inputs every call) and cold (ms_cold: the inputs and clones of
+    every input tensor, rotated over COLD_BYTES, each call's inputs out of
+    L2: one clone where the inputs alone exceed it), and the eager call's
+    time with its host cost (eager_ms: Python, the checks, the ctypes
+    launch)."""
     import torch
     call = lambda: fk.fedagg(updates, w, g, **ops)   # noqa: E731
     tensors = {k: v for k, v in ops.items() if torch.is_tensor(v)}
     nbytes = sum(t.numel() * t.element_size()
                  for t in (updates, w, g, *tensors.values()))
     n = cold_copies(nbytes)
-    copies = [(updates.clone(), w.clone(), g.clone(),
-               dict(ops, **{k: v.clone() for k, v in tensors.items()}))
-              for _ in range(n)]
+    copies = [(updates, w, g, ops)] + [
+        (updates.clone(), w.clone(), g.clone(),
+         dict(ops, **{k: v.clone() for k, v in tensors.items()}))
+        for _ in range(n - 1)]
     ms_cold = graph_each_ms([lambda c=c: fk.fedagg(c[0], c[1], c[2], **c[3])
                              for c in copies])
     del copies
@@ -553,10 +557,68 @@ def fedagg_times(fk, updates, w, g, ops):
                 eager_ms=time_ms(call))
 
 
-def timing_phase(device="cuda"):
+@functools.lru_cache(maxsize=None)
+def f2_width() -> int:
+    """M of the LM round's aggregation (slice f2): the parameter count of
+    qwen1.5-0.5b, from an init on the meta device (shapes alone)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_count
+    model = get_model(get_config("qwen1.5-0.5b"))
+    return param_count(model.init(prng.PRNGKey(0), device="meta"))
+
+
+F2_CLIENTS = 8                    # slice (f2)'s clients
+
+
+def f2_case(reducer, gates="all", seed=0):
+    """(updates, weights, gates, kwargs) at the LM round's shape: 8 x
+    f2_width() f32 rows laid out as flatten_stacked lays them
+    (pitched_empty), drawn on the card from a seeded generator (the same
+    bits in every run on one card: 14.85 GB would take the host minutes).
+    ``gates`` "mixed" gates out rows 2 and 5, whose clip scales are NaN
+    under dp."""
+    import torch
+    from repro_torch.core.aggregation import pitched_empty
+    C, M = F2_CLIENTS, f2_width()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    updates = pitched_empty(C, M, torch.float32, "cuda")
+    updates.normal_(generator=gen)
+    w = torch.rand(C, generator=gen, device="cuda") + 0.1
+    g = torch.ones(C, device="cuda")
+    kw = dict(aggregator=reducer)
+    if reducer == "dp":
+        rs = torch.rand(C, generator=gen, device="cuda")
+        kw.update(row_scale=rs, noise=torch.randn(M, generator=gen, device="cuda"),
+                  noise_scale=0.3)
+    if gates == "mixed":
+        g[[2, 5]] = 0.0
+        if reducer == "dp":
+            kw["row_scale"][[2, 5]] = float("nan")
+    return updates, w, g, kw
+
+
+def f2_check(check, out, want, updates):
+    """The kernel's f2 output against the plain version's, all rows
+    included: within F32_TOL x max|u| (aminmax: no [C, M] temporary).
+    Returns max_abs_err."""
+    import torch
+    lo, hi = torch.aminmax(updates)
+    scale = max(-float(lo), float(hi))
+    err = float(torch.max(torch.abs(out - want)))
+    finite = bool(torch.isfinite(out).all())
+    check(finite and err <= F32_TOL * scale, f"fedagg f2 {out.shape[0]} columns "
+          f"(C x ld = {updates.shape[0] * updates.stride(0)}): max_abs_err {err}")
+    return err
+
+
+def timing_phase(check: Check, device="cuda"):
     """K1 (mean + identity) at the slice's shapes, all gates 1 as in the
     bound: the kernel (fedagg_times), the plain version (eager) and the
-    torch.mv yardstick (graph replay, library_ms). Returns rows for PERF.md
+    torch.mv yardstick (graph replay, library_ms); and at the LM round's
+    shape (f2_case: C x ld > 2^31 elements, so the kernel is also held
+    against its plain version there, f2_check). Returns rows for PERF.md
     and the line."""
     import torch
     from repro_torch.core.aggregation import flatten_stacked
@@ -578,6 +640,19 @@ def timing_phase(device="cuda"):
                              label=label, **times, plain_ms=plain,
                              library_ms=library, bound_ms=bound, bound_by=by))
             print("timing:", json.dumps(rows[-1]), flush=True)
+    up, w, g, _ = f2_case("mean")
+    C, M = up.shape
+    err = f2_check(check, fk.fedagg(up, w, g), fk.fedagg_plain(up, w, g), up)
+    times = fedagg_times(fk, up, w, g, {})
+    plain = time_ms(lambda: fk.fedagg_plain(up, w, g), iters=3, warmup=1)
+    library = graph_ms(lambda: torch.mv(up.t(), w * g))   # every row included
+    bound, by = fedagg_bound(C, M, 4, 4, C)
+    rows.append(dict(shape=f"{C}x{M}", dtype="float32", label="f2", **times,
+                     plain_ms=plain, library_ms=library, bound_ms=bound,
+                     bound_by=by, max_abs_err=err))
+    print("timing:", json.dumps(rows[-1]), flush=True)
+    del up
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -630,17 +705,24 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
     torch.quantile(rows, 0.5, dim=0, interpolation="midpoint"),
     jnp.median's function in one call (eager), with torch.sort beside it
     (sort_ms). The sorted reducers also at C = 65 (label c65: P = 128, the
-    shared-memory route) with f32 rows."""
+    shared-memory route) with f32 rows; K2 over f32 rows also at the LM
+    round's shape (label f2, f2_case), where every row is included and
+    torch.mv reads the rows in place."""
     import torch
     from repro_torch.kernels import fedagg as fk
     rows = []
     cases = [(red, wire, C, "slice_b") for red in REDUCERS for wire in WIRES
              if (red, wire) != ("mean", "identity_f32")]   # K1, timed above
     cases += [(red, "identity_f32", 65, "c65") for red in ("trimmed_mean", "median")]
+    cases += [("dp", "identity_f32", F2_CLIENTS, "f2")]
     for red, wire, rows_c, label in cases:
-        updates, w, g, ops = variant_case(red, wire, rows_c, M, device,
-                                          gates="all")
-        dense = decoded_rows(updates, ops, M)
+        if label == "f2":
+            updates, w, g, ops = f2_case(red)
+        else:
+            updates, w, g, ops = variant_case(red, wire, rows_c, M, device,
+                                              gates="all")
+        cols = f2_width() if label == "f2" else M
+        dense = decoded_rows(updates, ops, cols)
         extra = {}
         if red in ("trimmed_mean", "median"):
             keyed = torch.where((g > 0)[:, None], dense, float("inf"))
@@ -653,17 +735,22 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
             wg = w * g
             if red == "dp":
                 wg = torch.where(wg > 0, wg * ops["row_scale"], 0.0)
-            masked = torch.where((w * g > 0)[:, None], dense, 0.0)
+            masked = dense if label == "f2" else torch.where(
+                (w * g > 0)[:, None], dense, 0.0)
             library = graph_ms(lambda: torch.mv(masked.t(), wg))
         times = fedagg_times(fk, updates, w, g, ops)
         plain = time_ms(lambda: fk.fedagg_plain(updates, w, g, **ops),
                         iters=10)
-        bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), rows_c, M)
-        rows.append(dict(reducer=red, wire=wire, shape=f"{rows_c}x{M}",
+        bound, by = variant_bound(red, wire, ops, int((g > 0).sum()), rows_c, cols)
+        rows.append(dict(reducer=red, wire=wire, shape=f"{rows_c}x{cols}",
                          label=label, **times, plain_ms=plain,
                          library_ms=library, bound_ms=bound, bound_by=by,
                          **extra))
         print("variant timing:", json.dumps(rows[-1]), flush=True)
+        del updates, dense, ops
+        if label == "f2":
+            del masked
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2306,7 +2393,7 @@ def main() -> int:
 
     errs = kernel_phase(check)
     verrs = variant_phase(check)
-    timings = timing_phase()
+    timings = timing_phase(check)
     vtimings = variant_timing_phase()
     lm_errs = lm_kernel_phase(check)
     lm_times = lm_timing_phase()
@@ -2454,10 +2541,21 @@ def main() -> int:
 def fedagg_outputs(path):
     """Save the kernel's output of every mean / dp x wire variant at 60 x
     579,402 (all gates 1, as timed, and mixed gates), its inputs made on
-    the host from a seed, so that they are the same bits in every run."""
+    the host from a seed, so that they are the same bits in every run; and
+    at the LM round's shape (f2_case, f32, mean and dp, all and mixed
+    gates) the SHA-256 of each output's bytes (1.86 GB each)."""
+    import hashlib
     import torch
     from repro_torch.kernels import fedagg as fk
     outs = {}
+    for red in ("mean", "dp"):
+        for gates in ("all", "mixed"):
+            updates, w, g, ops = f2_case(red, gates=gates)
+            out = fk.fedagg(updates, w, g, **ops).cpu()
+            del updates, ops
+            outs[f"{red}/identity_f32_f2/{gates}"] = hashlib.sha256(
+                out.numpy().tobytes()).hexdigest()
+            torch.cuda.empty_cache()
     for red in ("mean", "dp"):
         for wire in WIRES:
             for gates in ("all", "mixed"):
@@ -2478,6 +2576,9 @@ def compare_outputs(a_path, b_path) -> dict:
     res = {}
     for key in sorted(a):
         x, y = a[key], b[key]
+        if isinstance(x, str):                 # a digest of the bytes
+            res[key] = dict(bit_identical=x == y, max_abs_diff=None)
+            continue
         bits = torch.int32 if x.dtype == torch.float32 else torch.int16
         nan = torch.isnan(x.float())
         same = (bool(torch.equal(nan, torch.isnan(y.float())))
@@ -2525,15 +2626,17 @@ def fedagg_main(argv) -> int:
     smi = smi_line()
     print(smi, flush=True)
     ptxas = {sym: v for sym, v in ptxas_entries(reports["fedagg"]).items()
-             if any(k in sym for k in ("stream_kernel", "sketch_kernel",
-                                       "topk_sum_kernel"))}
-    rows = timing_phase() + variant_timing_phase()
+             if any(k in sym for k in ("stream_kernel", "identity_kernel",
+                                       "sketch_kernel", "topk_sum_kernel"))}
+    check = Check()
+    rows = timing_phase(check) + variant_timing_phase()
     if args.outputs:
         fedagg_outputs(args.outputs)
     Path(args.fedagg_timing).write_text(json.dumps(dict(
         smi=smi, device=torch.cuda.get_device_name(0),
-        src=args.src or str(ROOT / "src"), ptxas=ptxas, rows=rows)))
-    return 0
+        src=args.src or str(ROOT / "src"), ptxas=ptxas, rows=rows,
+        failed=check.failed)))
+    return 1 if check.failed else 0
 
 
 if __name__ == "__main__":

@@ -24,16 +24,41 @@
 // registers (or, for the sorted reducers and the sparse topk wire, in its
 // block's shared memory) what it reduces.
 //
-// Five kernels:
+// Six kernels:
 //
-// * stream_kernel (mean, dp; identity, int8; the sketch where
-//   sketch_kernel does not take it). Bound: bytes. Each thread owns VW
-//   adjacent columns and walks down the included rows, the sums in
-//   registers, kUnroll rows' loads (one wide load each) in flight before
-//   it adds any of them. The block compacts
+// * identity_kernel (mean, dp; identity rows on 16-byte boundaries: f32
+//   with vw 4, bf16 with vw 8, which the fused aggregation always gives).
+//   Bound: bytes, C_inc x M x 4 (or 2) read once. A persistent grid, one
+//   block an SM, each block a contiguous span of columns (a multiple of
+//   vw; planned in Python, fedagg.identity_plan) walked in tiles of 256 x
+//   vw columns, so that no SM idles through a partial last wave (bf16's
+//   283 blocks of the first version on 132 SMs) and the LM round's 453,000
+//   short-lived blocks are 132. One producer warp fills a ring of
+//   kIdStages stages, each [kIdRows rows x one tile], with TMA 1-D bulk
+//   copies (cp.async.bulk, 4 KB a row, completing on the stage's
+//   mbarrier), so the bytes in flight (up to 128 KB an SM) no longer
+//   depend on registers; the copies carry an L2 evict_first policy, the
+//   rows being read once. The producer scans the gates 32 rows a ballot
+//   for every tile (w and g stay in L1) and writes each staged row's index
+//   and weight beside its slot, so C is unbounded and nothing is staged
+//   per block. 8 consumer warps own 16 bytes of a tile row each: they add
+//   a stage's rows from shared memory, release the slot, and after the
+//   tile's last stage store their columns, while the producer already
+//   loads the next tile. The sum keeps the first version's order to the
+//   bit: each column adds its included rows in ascending order, one fmaf a
+//   row, from 0, then finish() (den the same 32-row tree sums in row
+//   order); a thread never shares a column's rows with another, which
+//   would change the order. The few columns of a ragged M past the last
+//   16-byte group are read from global memory by their thread.
+// * stream_kernel (mean, dp; int8; the identity wire with narrower rows,
+//   as aggregate_clients(fused=False) sends per leaf, off the timed paths;
+//   the sketch where sketch_kernel does not take it). Bound: bytes. Each
+//   thread owns VW adjacent columns and walks down the included rows, the
+//   sums in registers, kUnroll rows' loads (one wide load each) in flight
+//   before it adds any of them. The block compacts
 //   the included row indices into shared memory first (one ballot per
-//   warp), with int8's per-row scales beside them. identity: 16-byte
-//   loads, 4 rows in flight. int8: 4 columns a thread, 8 rows in flight,
+//   warp), with int8's per-row scales beside them. identity: 4 rows in
+//   flight. int8: 4 columns a thread, 8 rows in flight,
 //   the last group of a ragged row count predicated, at most 48 registers
 //   so that 5 blocks share an SM (the 566 blocks of 256 at 60 x 579,402 in
 //   one wave); each int8 turned into f32 as the float bits 0x4B000080 + q
@@ -110,10 +135,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_tc.cuh"  // the mbarrier helpers
+
 namespace cg = cooperative_groups;
+using hopper_tc::mbar_arrive;
+using hopper_tc::mbar_fence_init;
+using hopper_tc::mbar_init;
+using hopper_tc::mbar_wait;
+using hopper_tc::smem_u32;
 
 namespace {
 
+constexpr int kIdConsumers = 256;  // identity_kernel: consumer threads, 16 B of a row each
+constexpr int kIdThreads = kIdConsumers + 32;  // ... and one producer warp
+constexpr int kIdStages = 4;       // ... the ring's stages
+constexpr int kIdRows = 8;         // ... rows a stage
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTopkCols = 2048;    // columns per block of topk_sum_kernel
@@ -553,6 +589,182 @@ __global__ void __launch_bounds__(kThreads, 5) stream_kernel_5(STREAM_PARAMS) {
   stream_body<Dec, kDP, O>(dec, w, g, rs, noise, noise_scale, out, C, M);
 }
 #undef STREAM_PARAMS
+
+// ---------------------------------------------------------- identity kernel
+// Shared memory of identity_kernel (dynamic, ~129 KB: one block an SM)
+struct IdSmem {
+  uint4 ring[kIdStages][kIdRows][kIdConsumers];  // a stage: rows x one tile
+  int row[kIdStages][kIdRows];                   // the stage's rows
+  float wr[kIdStages][kIdRows];                  // ... and their weights
+  uint64_t full[kIdStages];                      // the producer's copies landed
+  uint64_t empty[kIdStages];                     // the consumers read the slot
+};
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16) from 16-byte-aligned global src into shared dst,
+// completing on bar; L2 keeps the lines as first to evict
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// The producer warp: for each tile of the block's span, the included rows
+// in ascending order, kIdRows a stage (the tile's last stage may hold
+// fewer), each row's segment of the tile (its whole 16-byte groups) one
+// bulk copy. Lane 0 does the ring's bookkeeping; the warp scans 32 gates a
+// ballot.
+template <typename S, bool kDP>
+__device__ __forceinline__ void id_produce(IdSmem& sm, const S* u, long long ld,
+                                           const float* w, const float* g,
+                                           const float* rs, int C, long long c_begin,
+                                           long long c_end, long long m_vec) {
+  constexpr int TC = kIdConsumers * (16 / static_cast<int>(sizeof(S)));
+  const int lane = threadIdx.x & 31;
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  int slot = 0, fill = 0;
+  uint32_t phase = 0;
+  for (long long c0 = c_begin; c0 < c_end; c0 += TC) {
+    long long cv = c0 + TC < c_end ? c0 + TC : c_end;
+    cv = cv < m_vec ? cv : m_vec;
+    const uint32_t bytes = cv > c0 ? static_cast<uint32_t>((cv - c0) * sizeof(S)) : 0u;
+    for (int k0 = 0; k0 < C; k0 += 32) {
+      const int k = k0 + lane;
+      const float wg = k < C ? w[k] * g[k] : 0.f;
+      const bool inc = wg > 0.f;
+      // dp's clip scale only for an included row: a NaN behind a zero gate
+      const float wr = inc ? (kDP ? wg * rs[k] : wg) : 0.f;
+      for (unsigned bits = __ballot_sync(0xffffffffu, inc); bits; bits &= bits - 1) {
+        const int l = __ffs(bits) - 1;
+        const float wl = __shfl_sync(0xffffffffu, wr, l);
+        if (lane == 0) {
+          if (fill == 0) mbar_wait(&sm.empty[slot], phase ^ 1u);
+          sm.row[slot][fill] = k0 + l;
+          sm.wr[slot][fill] = wl;
+          if (bytes) {
+            mbar_expect(&sm.full[slot], bytes);
+            bulk_load(&sm.ring[slot][fill][0], u + static_cast<long long>(k0 + l) * ld + c0,
+                      bytes, &sm.full[slot], policy);
+          }
+          if (++fill == kIdRows) {
+            mbar_arrive(&sm.full[slot]);  // releases row / wr with the copies
+            fill = 0;
+            if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
+          }
+        }
+      }
+    }
+    if (lane == 0 && fill) {  // the tile's last, partial stage
+      mbar_arrive(&sm.full[slot]);
+      fill = 0;
+      if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
+    }
+  }
+}
+
+template <typename S, bool kDP>
+__global__ void __launch_bounds__(kIdThreads, 1)
+    identity_kernel(const S* __restrict__ u, long long ld, const float* __restrict__ w,
+                    const float* __restrict__ g, const float* __restrict__ rs,
+                    const float* __restrict__ noise, float noise_scale,
+                    S* __restrict__ out, int C, long long M, long long span) {
+  constexpr int VW = 16 / static_cast<int>(sizeof(S));
+  constexpr int TC = kIdConsumers * VW;  // columns a tile
+  extern __shared__ __align__(128) unsigned char id_smem[];
+  IdSmem& sm = *reinterpret_cast<IdSmem*>(id_smem);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kIdStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kIdConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const long long c_begin = static_cast<long long>(blockIdx.x) * span;
+  const long long c_end = c_begin + span < M ? c_begin + span : M;
+  const long long m_vec = M - M % VW;  // the columns in whole 16-byte groups
+  if (tid >= kIdConsumers) {
+    id_produce<S, kDP>(sm, u, ld, w, g, rs, C, c_begin, c_end, m_vec);
+    return;
+  }
+
+  // den and the included count, as stage_rows sums den: the tree sum of
+  // each 32 rows' wg, added in row order (a chunk's zero sums past C leave
+  // den unchanged: it starts at +0, so it is never -0)
+  const int lane = tid & 31;
+  float den = 0.f;
+  int n = 0;
+  for (int k0 = 0; k0 < C; k0 += 32) {
+    const int k = k0 + lane;
+    const float wg = k < C ? w[k] * g[k] : 0.f;
+    n += __popc(__ballot_sync(0xffffffffu, wg > 0.f));
+    float part = wg;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part += __shfl_down_sync(0xffffffffu, part, off);
+    den += __shfl_sync(0xffffffffu, part, 0);
+  }
+
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long c0 = c_begin; c0 < c_end; c0 += TC) {
+    const long long col = c0 + static_cast<long long>(tid) * VW;
+    const bool live = col < (c0 + TC < c_end ? c0 + TC : c_end);
+    const bool full = live && col + VW <= M;  // else the ragged tail, from global
+    float nz[VW];  // dp: this tile's noise, loaded ahead of the rows
+#pragma unroll
+    for (int i = 0; i < VW; ++i) nz[i] = kDP && live && col + i < M ? noise[col + i] : 0.f;
+    float acc[VW];
+#pragma unroll
+    for (int i = 0; i < VW; ++i) acc[i] = 0.f;
+    for (int j = 0; j < n; j += kIdRows) {
+      mbar_wait(&sm.full[slot], phase);
+      const int rows = n - j < kIdRows ? n - j : kIdRows;
+      if (full) {
+        Pack<S, VW> v[kIdRows];
+#pragma unroll
+        for (int r = 0; r < kIdRows; ++r)
+          if (r < rows) v[r].raw = sm.ring[slot][r][tid];
+#pragma unroll
+        for (int r = 0; r < kIdRows; ++r) {
+          if (r < rows) {
+            const float wr = sm.wr[slot][r];
+#pragma unroll
+            for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, to_f32(v[r].v[i]), acc[i]);
+          }
+        }
+      } else if (live) {
+        for (int r = 0; r < rows; ++r) {
+          const float wr = sm.wr[slot][r];
+          const S* src = u + static_cast<long long>(sm.row[slot][r]) * ld;
+          for (int i = 0; i < VW && col + i < M; ++i)
+            acc[i] = fmaf(wr, to_f32(src[col + i]), acc[i]);
+        }
+      }
+      mbar_arrive(&sm.empty[slot]);
+      if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
+    }
+    if (!live) continue;
+    float o[VW];
+#pragma unroll
+    for (int i = 0; i < VW; ++i) o[i] = finish<kDP>(acc[i], den, nz, noise_scale, i);
+    if (full) {
+      store_vec<S, VW>(out + col, o);
+    } else {
+      for (int i = 0; i < VW && col + i < M; ++i) out[col + i] = from_f32<S>(o[i]);
+    }
+  }
+}
 
 // ------------------------------------------------------------ sketch kernel
 // A thread's column vectors of VW = 4 (16-byte loads of h and sign): the
@@ -1082,6 +1294,8 @@ struct FedaggArgs {
   int vw;                     // stream_kernel columns per thread
   int C;
   int sort_cols;              // sorted_kernel threads (= columns) per block
+  long long span;             // identity_kernel: columns a block (fedagg.identity_plan)
+  int grid;                   // ... and its blocks
 };
 
 }  // extern "C"
@@ -1144,15 +1358,33 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// identity rows whose pitch and base are 16-byte multiples
+template <typename S, bool kDP>
+cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
+  constexpr int VW = 16 / static_cast<int>(sizeof(S));
+  if (a.grid < 1 || a.span < VW || a.span % VW != 0 || a.span > LLONG_MAX / a.grid ||
+      a.span * a.grid < a.M || (a.grid - 1) * a.span >= a.M)
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  const cudaError_t e = allow_smem(identity_kernel<S, kDP>, sizeof(IdSmem), &attr_set);
+  if (e != cudaSuccess) return e;
+  identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, sizeof(IdSmem), s>>>(
+      static_cast<const S*>(a.u), a.ld, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
+      static_cast<S*>(a.out), a.C, a.M, a.span);
+  return cudaGetLastError();
+}
+
 template <bool kDP>
 cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
   switch (a.codec) {
     case kIdentity:
+      // 16-byte rows take identity_kernel; narrower ones (per-leaf rows of
+      // an odd pitch) the stream kernel
       if (a.dtype == 0) {
         using F = float;
         const auto* u = static_cast<const F*>(a.u);
         switch (a.vw) {
-          case 4: return launch_stream<DecIdentity<F, 4>, kDP, F>(a, {u, a.ld}, s);
+          case 4: return launch_identity<F, kDP>(a, s);
           case 2: return launch_stream<DecIdentity<F, 2>, kDP, F>(a, {u, a.ld}, s);
           case 1: return launch_stream<DecIdentity<F, 1>, kDP, F>(a, {u, a.ld}, s);
         }
@@ -1160,7 +1392,7 @@ cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
         using B = uint16_t;
         const auto* u = static_cast<const B*>(a.u);
         switch (a.vw) {
-          case 8: return launch_stream<DecIdentity<B, 8>, kDP, B>(a, {u, a.ld}, s);
+          case 8: return launch_identity<B, kDP>(a, s);
           case 4: return launch_stream<DecIdentity<B, 4>, kDP, B>(a, {u, a.ld}, s);
           case 2: return launch_stream<DecIdentity<B, 2>, kDP, B>(a, {u, a.ld}, s);
           case 1: return launch_stream<DecIdentity<B, 1>, kDP, B>(a, {u, a.ld}, s);

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -55,6 +56,9 @@ MAX_SORT_ROWS = 1024          # the sorted reducers hold C <= 1024 rows a column
 # gathers every row's bucket from L2 (stream_kernel)
 MAX_SKETCH_DIM = 57344
 INT8_WIDTHS = (4, 1)          # int8 columns a thread of the stream kernel
+# mean / dp over identity rows on 16-byte boundaries (identity_kernel): the
+# consumer threads of a block, 16 bytes of a tile row each
+IDENTITY_CONSUMERS = 256
 
 
 def _next_pow2(n: int) -> int:
@@ -192,7 +196,8 @@ class FedaggArgs(ctypes.Structure):
         ("noise_scale", ctypes.c_float), ("trim_frac", ctypes.c_float),
         ("reducer", ctypes.c_int), ("codec", ctypes.c_int),
         ("dtype", ctypes.c_int), ("vw", ctypes.c_int), ("C", ctypes.c_int),
-        ("sort_cols", ctypes.c_int)]
+        ("sort_cols", ctypes.c_int), ("span", ctypes.c_longlong),
+        ("grid", ctypes.c_int)]
 
 
 def _bind():
@@ -215,6 +220,23 @@ def _vector_width(widths, ld: int, *tensors) -> int:
                                    for t in tensors):
             return vw
     return 1
+
+
+def identity_plan(M: int, vw: int, sms: int) -> tuple[int, int]:
+    """(grid, span) of identity_kernel: at most one block an SM (``sms``),
+    each a contiguous span of columns, a multiple of ``vw`` (16-byte
+    groups), walked in tiles of IDENTITY_CONSUMERS x vw columns; every
+    block gets a nonempty span and the spans cover [0, M)."""
+    tile = IDENTITY_CONSUMERS * vw
+    grid = max(1, min(sms, -(-M // tile)))
+    span = -(-M // grid)
+    span = -(-span // vw) * vw
+    return -(-M // span), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _sort_cols(C: int) -> int:
@@ -299,6 +321,10 @@ def fedagg(updates: torch.Tensor, weights: torch.Tensor, gates: torch.Tensor,
         out = torch.empty(M, dtype=updates.dtype, device=dev)
         args.vw = _vector_width((4, 2, 1) if args.dtype == 0 else (8, 4, 2, 1),
                                 args.ld, updates, out)
+        if (aggregator in ("mean", "dp") and M
+                and args.vw * updates.element_size() == 16):
+            args.grid, args.span = identity_plan(M, args.vw, _sm_count(
+                dev.index if dev.index is not None else torch.cuda.current_device()))
     else:
         if out_m is None and codec != "int8":
             raise ValueError(f"fedagg: codec={codec!r} needs out_m")

@@ -449,3 +449,82 @@ def test_cuda_int8_ragged_pitched(cuda_device, reducer, M):
     stream kernel's scalar tail)."""
     updates, *_ = _edge(cuda_device, reducer, "int8", 6, M)
     assert updates.stride(0) > M and M % 4
+
+
+# ------------------------------- K1 / K2's identity kernel: geometry and order
+def _rows_with_vw(u, vw, device):
+    """u's rows in a buffer whose pitch allows loads of exactly vw elements
+    (the widest _vector_width picks): a multiple of vw, not of 2 vw (vw 1:
+    odd), as per-leaf rows of an odd size come."""
+    C, M = u.shape
+    pitch = -(-M // vw) * vw
+    if (pitch // vw) % 2 == 0:
+        pitch += vw
+    buf = torch.full((C, pitch), float("nan"), dtype=u.dtype, device=device)
+    buf[:, :M] = u.to(device)
+    return buf[:, :M]
+
+
+def _stream_route(u):
+    """The same rows 1 element off a 16-byte boundary with an odd pitch:
+    the wrapper picks vw 1, the first version's stream kernel, whose order
+    (one fmaf an included row, ascending, from 0; stage_rows' den) the
+    identity kernel keeps."""
+    C, M = u.shape
+    flat = torch.empty(C * (M + 1) + 1, dtype=u.dtype, device=u.device)
+    rows = flat[1:].view(C, M + 1)[:, :M]
+    rows.copy_(u)
+    assert fk._vector_width((4, 2, 1), M + 1, rows) == 1
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["mean", "dp"])
+@pytest.mark.parametrize("dtype,vw", [("float32", 4), ("float32", 2), ("float32", 1),
+                                      ("bfloat16", 8), ("bfloat16", 4),
+                                      ("bfloat16", 2), ("bfloat16", 1)])
+@pytest.mark.parametrize("C,M", [(1, 1000), (257, 2051), (1000, 1029), (8, 100),
+                                 (8, 1027), (60, 8195)],
+                         ids=["c1", "c257", "c1000", "below_a_tile", "ragged",
+                              "tiles"])
+def test_cuda_identity_routes_match_plain_and_the_stream_order(
+        cuda_device, C, M, dtype, vw, aggregator):
+    """Every row width the wrapper can pick, under mean and dp, C past one
+    256-row chunk, M below one tile and ragged: within the file's bounds of
+    fedagg_plain, and bit for bit the stream kernel's order (the output of
+    the same rows through the vw-1 route)."""
+    tdtype = getattr(torch, dtype)
+    updates, w, g, kw = _variant(aggregator, "identity_f32", C, M, cuda_device,
+                                 seed=C + M)
+    rows = _rows_with_vw(updates.to(tdtype), vw, cuda_device)
+    elt = rows.element_size()
+    assert fk._vector_width((4, 2, 1) if elt == 4 else (8, 4, 2, 1),
+                            rows.stride(0), rows) == vw
+    before = fk.fedagg.launches
+    got = fk.fedagg(rows, w, g, **kw)
+    torch.cuda.synchronize()
+    assert fk.fedagg.launches == before + 1 and got.dtype == tdtype
+    _close_variant(got, fk.fedagg_plain(rows, w, g, **kw), rows, w, g, kw)
+    want = fk.fedagg(_stream_route(rows), w, g, **kw)
+    assert torch.equal(got.view(torch.int32 if elt == 4 else torch.int16),
+                       want.view(torch.int32 if elt == 4 else torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["mean", "dp"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_identity_zero_inclusion_and_gated_nan(cuda_device, dtype, aggregator):
+    """C = 1,000 with every gate 0 gives exact +0; NaN rows (and their NaN
+    clip scales) behind zero gates never reach the sum."""
+    tdtype = getattr(torch, dtype)
+    updates, w, g, kw = _variant(aggregator, "identity_f32", 1000, 2051,
+                                 cuda_device, gates="none")
+    out = fk.fedagg(updates.to(tdtype), w, g, **kw)
+    assert bool(torch.all(out == 0)) and not bool(torch.signbit(out.float()).any())
+    updates, w, g, kw = _variant(aggregator, "identity_f32", 300, 2051,
+                                 cuda_device, nan_row=257)
+    rows = updates.to(tdtype)
+    got = fk.fedagg(rows, w, g, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    want = fk.fedagg(_stream_route(rows), w, g, **kw)
+    assert torch.equal(got.float(), want.float())
