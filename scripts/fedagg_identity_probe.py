@@ -11,9 +11,12 @@ replay warm and cold, ``fedagg_times``) and K1 f32 at the LM round's 8 x
 qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 
 * ``shipped`` — the source as it is;
-* ``no_hint`` — the row copies without the L2 evict_first policy;
+* ``evict_first`` — the row copies with an L2 evict_first policy;
+* ``thread_arrive`` — every consumer thread arrives on a slot's empty
+  barrier (256 arrivals a stage), not one lane a warp;
 * ``s3``, ``s6`` — 3 or 6 ring stages of 8 rows;
 * ``r4s8`` — 8 stages of 4 rows (the same bytes in flight, finer stages);
+* ``two_blocks`` — two blocks an SM, each a ring of 4 stages of 4 rows;
 * ``parent`` (with ``--parent DIR``) — ``DIR``'s ``fedagg.cu`` unchanged,
   e.g. an unpacked ``git archive`` of the parent commit, timed first and
   last.
@@ -37,20 +40,33 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-HINTED = ("complete_tx::bytes.L2::cache_hint\"\n      \" [%0], [%1], %2, [%3], %4;\\n\" ::\"r\"(smem_u32(dst)),\n"
-          "      \"l\"(src), \"r\"(bytes), \"r\"(smem_u32(bar)), \"l\"(policy)")
-UNHINTED = ("complete_tx::bytes\"\n      \" [%0], [%1], %2, [%3];\\n\" ::\"r\"(smem_u32(dst)),\n"
+UNHINTED = ("  asm volatile(\n      \"cp.async.bulk.shared::cluster.global.mbarrier::"
+            "complete_tx::bytes\"\n      \" [%0], [%1], %2, [%3];\\n\" ::\"r\"(smem_u32(dst)),\n"
             "      \"l\"(src), \"r\"(bytes), \"r\"(smem_u32(bar))")
+HINTED = ("  uint64_t policy;\n  asm volatile(\"createpolicy.fractional.L2::evict_first.b64 "
+          "%0, 1.0;\\n\" : \"=l\"(policy));\n"
+          "  asm volatile(\n      \"cp.async.bulk.shared::cluster.global.mbarrier::"
+          "complete_tx::bytes.L2::cache_hint\"\n      \" [%0], [%1], %2, [%3], %4;\\n\" "
+          "::\"r\"(smem_u32(dst)),\n"
+          "      \"l\"(src), \"r\"(bytes), \"r\"(smem_u32(bar)), \"l\"(policy)")
+WARP_INIT = "mbar_init(&sm.empty[s], kIdConsumers / 32);"
+WARP_ARRIVE = "      __syncwarp();\n      if (lane == 0) mbar_arrive(&sm.empty[slot]);"
 STAGES = "constexpr int kIdStages = 4;"
 ROWS = "constexpr int kIdRows = 8;"
+BOUNDS = "__launch_bounds__(kIdThreads, 1)"
 EDITS = {
     "shipped": [],
-    "no_hint": [(HINTED, UNHINTED)],
+    "evict_first": [(UNHINTED, HINTED)],
+    "thread_arrive": [(WARP_INIT, "mbar_init(&sm.empty[s], kIdConsumers);"),
+                      (WARP_ARRIVE, "      mbar_arrive(&sm.empty[slot]);")],
     "s3": [(STAGES, "constexpr int kIdStages = 3;")],
     "s6": [(STAGES, "constexpr int kIdStages = 6;")],
     "r4s8": [(STAGES, "constexpr int kIdStages = 8;"),
              (ROWS, "constexpr int kIdRows = 4;")],
+    "two_blocks": [(ROWS, "constexpr int kIdRows = 4;"),
+                   (BOUNDS, "__launch_bounds__(kIdThreads, 2)")],
 }
+SMS_FACTOR = {"two_blocks": 2}     # blocks an SM that identity_plan plans for
 
 
 def build_variants(parent: Path | None) -> dict[str, Path]:
@@ -93,15 +109,23 @@ def build_variants(parent: Path | None) -> dict[str, Path]:
     return libs
 
 
-def bind(lib_path: Path):
-    """Point the fedagg wrapper at one variant's library."""
+def bind(lib_path: Path, sms_factor: int = 1):
+    """Point the fedagg wrapper at one variant's library, planning
+    ``sms_factor`` identity blocks an SM."""
     from repro_torch.kernels import fedagg as fk
+    sms = torch_sms()
+    fk._sm_count = lambda index: sms_factor * sms
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
     lib.fedagg_launch.restype = ctypes.c_int
     lib.fedagg_error_string.argtypes = [ctypes.c_int]
     lib.fedagg_error_string.restype = ctypes.c_char_p
     fk._bind = lambda: lib
+
+
+def torch_sms() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def cases():
@@ -146,7 +170,7 @@ def main() -> int:
         updates, w, g, ops = make()
         ops = dict(ops, aggregator=red)
         for name in order:
-            bind(libs[name])
+            bind(libs[name], SMS_FACTOR.get(name, 1))
             out = fk.fedagg(updates, w, g, **ops)
             bits = out.view(torch.int32 if out.dtype == torch.float32 else torch.int16)
             if name == "shipped":
@@ -156,7 +180,7 @@ def main() -> int:
             rows.append(row)
             print("probe:", json.dumps(row), flush=True)
         for name in order:        # bit for bit against the shipped source
-            bind(libs[name])
+            bind(libs[name], SMS_FACTOR.get(name, 1))
             bits = fk.fedagg(updates, w, g, **ops)
             bits = bits.view(torch.int32 if bits.dtype == torch.float32 else torch.int16)
             same = bool(torch.equal(bits, ref[label, red, dtype]))

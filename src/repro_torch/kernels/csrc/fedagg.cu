@@ -29,20 +29,23 @@
 // * identity_kernel (mean, dp; identity rows on 16-byte boundaries: f32
 //   with vw 4, bf16 with vw 8, which the fused aggregation always gives).
 //   Bound: bytes, C_inc x M x 4 (or 2) read once. A persistent grid, one
-//   block an SM, each block a contiguous span of columns (a multiple of
-//   vw; planned in Python, fedagg.identity_plan) walked in tiles of 256 x
-//   vw columns, so that no SM idles through a partial last wave (bf16's
-//   283 blocks of the first version on 132 SMs) and the LM round's 453,000
-//   short-lived blocks are 132. One producer warp fills a ring of
-//   kIdStages stages, each [kIdRows rows x one tile], with TMA 1-D bulk
-//   copies (cp.async.bulk, 4 KB a row, completing on the stage's
-//   mbarrier), so the bytes in flight (up to 128 KB an SM) no longer
-//   depend on registers; the copies carry an L2 evict_first policy, the
-//   rows being read once. The producer scans the gates 32 rows a ballot
-//   for every tile (w and g stay in L1) and writes each staged row's index
-//   and weight beside its slot, so C is unbounded and nothing is staged
-//   per block. 8 consumer warps own 16 bytes of a tile row each: they add
-//   a stage's rows from shared memory, release the slot, and after the
+//   block an SM, walking tiles of up to 256 x vw columns grid-stride (the
+//   tile width cut in Python, fedagg.identity_plan, so that every block
+//   takes as many tiles as the others, or one fewer): no SM idles through
+//   a partial last wave (bf16's 283 blocks of the stream kernel on 132
+//   SMs), the LM round's 453,000 short-lived blocks are 132, and
+//   neighbouring blocks read neighbouring columns, as the stream kernel's
+//   grid does. One producer
+//   warp fills a ring of kIdStages stages, each [kIdRows rows x one
+//   tile], with TMA 1-D bulk copies (cp.async.bulk, up to 4 KB a row,
+//   completing on the stage's mbarrier), so the bytes in flight (up to 128
+//   KB an SM) no longer depend on registers. No L2 cache hint: an
+//   evict_first policy on the copies cost ~17% at the LM round's shape.
+//   The producer scans the gates 32 rows a ballot for every tile (w and g
+//   stay in L1) and writes each staged row's index and weight beside its
+//   slot, so C is unbounded and nothing is staged per block. 8 consumer
+//   warps own 16 bytes of a tile row each: they add a stage's rows from
+//   shared memory, release the slot (one arrival a warp), and after the
 //   tile's last stage store their columns, while the producer already
 //   loads the next tile. The sum keeps the first version's order to the
 //   bit: each column adds its included rows in ascending order, one fmaf a
@@ -607,34 +610,31 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
 }
 
 // bytes (a multiple of 16) from 16-byte-aligned global src into shared dst,
-// completing on bar; L2 keeps the lines as first to evict
+// completing on bar
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar, uint64_t policy) {
+                                          uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
-// The producer warp: for each tile of the block's span, the included rows
-// in ascending order, kIdRows a stage (the tile's last stage may hold
-// fewer), each row's segment of the tile (its whole 16-byte groups) one
-// bulk copy. Lane 0 does the ring's bookkeeping; the warp scans 32 gates a
-// ballot.
+// The producer warp: for each of the block's tiles, the included rows in
+// ascending order, kIdRows a stage (the tile's last stage may hold fewer),
+// each row's segment of the tile (its whole 16-byte groups) one bulk copy.
+// Lane 0 does the ring's bookkeeping; the warp scans 32 gates a ballot.
 template <typename S, bool kDP>
 __device__ __forceinline__ void id_produce(IdSmem& sm, const S* u, long long ld,
                                            const float* w, const float* g,
-                                           const float* rs, int C, long long c_begin,
-                                           long long c_end, long long m_vec) {
-  constexpr int TC = kIdConsumers * (16 / static_cast<int>(sizeof(S)));
+                                           const float* rs, int C, long long M,
+                                           long long width, long long m_vec) {
   const int lane = threadIdx.x & 31;
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
   int slot = 0, fill = 0;
   uint32_t phase = 0;
-  for (long long c0 = c_begin; c0 < c_end; c0 += TC) {
-    long long cv = c0 + TC < c_end ? c0 + TC : c_end;
+  const long long stride = static_cast<long long>(gridDim.x) * width;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * width; c0 < M; c0 += stride) {
+    long long cv = c0 + width < M ? c0 + width : M;
     cv = cv < m_vec ? cv : m_vec;
     const uint32_t bytes = cv > c0 ? static_cast<uint32_t>((cv - c0) * sizeof(S)) : 0u;
     for (int k0 = 0; k0 < C; k0 += 32) {
@@ -653,7 +653,7 @@ __device__ __forceinline__ void id_produce(IdSmem& sm, const S* u, long long ld,
           if (bytes) {
             mbar_expect(&sm.full[slot], bytes);
             bulk_load(&sm.ring[slot][fill][0], u + static_cast<long long>(k0 + l) * ld + c0,
-                      bytes, &sm.full[slot], policy);
+                      bytes, &sm.full[slot]);
           }
           if (++fill == kIdRows) {
             mbar_arrive(&sm.full[slot]);  // releases row / wr with the copies
@@ -676,25 +676,22 @@ __global__ void __launch_bounds__(kIdThreads, 1)
     identity_kernel(const S* __restrict__ u, long long ld, const float* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ rs,
                     const float* __restrict__ noise, float noise_scale,
-                    S* __restrict__ out, int C, long long M, long long span) {
+                    S* __restrict__ out, int C, long long M, long long width) {
   constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  constexpr int TC = kIdConsumers * VW;  // columns a tile
   extern __shared__ __align__(128) unsigned char id_smem[];
   IdSmem& sm = *reinterpret_cast<IdSmem*>(id_smem);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < kIdStages; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kIdConsumers);
+      mbar_init(&sm.empty[s], kIdConsumers / 32);
     }
     mbar_fence_init();
   }
   __syncthreads();
-  const long long c_begin = static_cast<long long>(blockIdx.x) * span;
-  const long long c_end = c_begin + span < M ? c_begin + span : M;
   const long long m_vec = M - M % VW;  // the columns in whole 16-byte groups
   if (tid >= kIdConsumers) {
-    id_produce<S, kDP>(sm, u, ld, w, g, rs, C, c_begin, c_end, m_vec);
+    id_produce<S, kDP>(sm, u, ld, w, g, rs, C, M, width, m_vec);
     return;
   }
 
@@ -717,9 +714,10 @@ __global__ void __launch_bounds__(kIdThreads, 1)
 
   int slot = 0;
   uint32_t phase = 0;
-  for (long long c0 = c_begin; c0 < c_end; c0 += TC) {
+  const long long stride = static_cast<long long>(gridDim.x) * width;
+  for (long long c0 = static_cast<long long>(blockIdx.x) * width; c0 < M; c0 += stride) {
     const long long col = c0 + static_cast<long long>(tid) * VW;
-    const bool live = col < (c0 + TC < c_end ? c0 + TC : c_end);
+    const bool live = col < (c0 + width < M ? c0 + width : M);
     const bool full = live && col + VW <= M;  // else the ragged tail, from global
     float nz[VW];  // dp: this tile's noise, loaded ahead of the rows
 #pragma unroll
@@ -751,7 +749,8 @@ __global__ void __launch_bounds__(kIdThreads, 1)
             acc[i] = fmaf(wr, to_f32(src[col + i]), acc[i]);
         }
       }
-      mbar_arrive(&sm.empty[slot]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[slot]);  // the warp's reads are done
       if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
     }
     if (!live) continue;
@@ -1294,7 +1293,7 @@ struct FedaggArgs {
   int vw;                     // stream_kernel columns per thread
   int C;
   int sort_cols;              // sorted_kernel threads (= columns) per block
-  long long span;             // identity_kernel: columns a block (fedagg.identity_plan)
+  long long width;            // identity_kernel: columns a tile (fedagg.identity_plan)
   int grid;                   // ... and its blocks
 };
 
@@ -1362,15 +1361,15 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
 template <typename S, bool kDP>
 cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
   constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  if (a.grid < 1 || a.span < VW || a.span % VW != 0 || a.span > LLONG_MAX / a.grid ||
-      a.span * a.grid < a.M || (a.grid - 1) * a.span >= a.M)
+  if (a.grid < 1 || a.width < VW || a.width % VW != 0 || a.width > kIdConsumers * VW ||
+      a.grid > (a.M + a.width - 1) / a.width)
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   const cudaError_t e = allow_smem(identity_kernel<S, kDP>, sizeof(IdSmem), &attr_set);
   if (e != cudaSuccess) return e;
   identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, sizeof(IdSmem), s>>>(
       static_cast<const S*>(a.u), a.ld, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
-      static_cast<S*>(a.out), a.C, a.M, a.span);
+      static_cast<S*>(a.out), a.C, a.M, a.width);
   return cudaGetLastError();
 }
 

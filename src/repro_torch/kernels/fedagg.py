@@ -196,7 +196,7 @@ class FedaggArgs(ctypes.Structure):
         ("noise_scale", ctypes.c_float), ("trim_frac", ctypes.c_float),
         ("reducer", ctypes.c_int), ("codec", ctypes.c_int),
         ("dtype", ctypes.c_int), ("vw", ctypes.c_int), ("C", ctypes.c_int),
-        ("sort_cols", ctypes.c_int), ("span", ctypes.c_longlong),
+        ("sort_cols", ctypes.c_int), ("width", ctypes.c_longlong),
         ("grid", ctypes.c_int)]
 
 
@@ -223,15 +223,18 @@ def _vector_width(widths, ld: int, *tensors) -> int:
 
 
 def identity_plan(M: int, vw: int, sms: int) -> tuple[int, int]:
-    """(grid, span) of identity_kernel: at most one block an SM (``sms``),
-    each a contiguous span of columns, a multiple of ``vw`` (16-byte
-    groups), walked in tiles of IDENTITY_CONSUMERS x vw columns; every
-    block gets a nonempty span and the spans cover [0, M)."""
+    """(grid, width) of identity_kernel: at most one block an SM (``sms``)
+    and tiles of ``width`` columns (a multiple of ``vw``, the 16-byte
+    groups; at most IDENTITY_CONSUMERS x vw), which block b takes in turn
+    b, b + grid, ...: neighbouring blocks read neighbouring columns, and
+    the width is cut so that every block takes as many tiles as the
+    others, or one fewer."""
     tile = IDENTITY_CONSUMERS * vw
     grid = max(1, min(sms, -(-M // tile)))
-    span = -(-M // grid)
-    span = -(-span // vw) * vw
-    return -(-M // span), span
+    per = -(-M // (grid * tile))                 # tiles a block
+    width = -(-M // (per * grid))
+    width = -(-width // vw) * vw
+    return min(grid, -(-M // width)), width
 
 
 @functools.lru_cache(maxsize=None)
@@ -323,7 +326,7 @@ def fedagg(updates: torch.Tensor, weights: torch.Tensor, gates: torch.Tensor,
                                 args.ld, updates, out)
         if (aggregator in ("mean", "dp") and M
                 and args.vw * updates.element_size() == 16):
-            args.grid, args.span = identity_plan(M, args.vw, _sm_count(
+            args.grid, args.width = identity_plan(M, args.vw, _sm_count(
                 dev.index if dev.index is not None else torch.cuda.current_device()))
     else:
         if out_m is None and codec != "int8":

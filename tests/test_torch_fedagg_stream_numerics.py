@@ -3,8 +3,8 @@ on 16-byte boundaries: ``identity_kernel`` in ``csrc/fedagg.cu``), emulated
 on the CPU, against the first version's order bit for bit.
 
 The kernel: ``identity_plan`` gives a persistent grid of at most one block
-an SM, each a contiguous span of columns (a multiple of vw) walked in tiles
-of kIdConsumers x vw columns. For every tile the producer warp scans the
+an SM and a tile width (a multiple of vw, at most kIdConsumers x vw);
+block b takes tiles b, b + grid, ... For every tile the producer warp scans the
 gates 32 rows a ballot and stages the included rows in ascending order,
 kIdRows a stage (the tile's last stage may hold fewer), each row's whole
 16-byte groups of the tile one bulk copy; consumer thread t owns the vw
@@ -155,8 +155,7 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
     the columns read from global memory). Checks the geometry as it goes."""
     C, M = u.shape
     vw = 16 // u.element_size()
-    tile = CONSUMERS * vw
-    grid, span = fk.identity_plan(M, vw, sms)
+    grid, width = fk.identity_plan(M, vw, sms)
     m_vec = M - M % vw
     wg, inc, wr = _weights(w, g, rs, dp)
     n = int(inc.sum())
@@ -167,10 +166,9 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
     from_global = torch.zeros(M, dtype=torch.bool)
     consumed = 0
     for b in range(grid):
-        c_begin, c_end = b * span, min(b * span + span, M)
-        assert c_begin < c_end
-        for c0 in range(c_begin, c_end, tile):
-            c1 = min(c0 + tile, c_end)
+        assert b * width < M                    # every block has a tile
+        for c0 in range(b * width, M, grid * width):
+            c1 = min(c0 + width, M)
             cv = min(c1, m_vec)                 # the bulk copies' columns
             nbytes = max(cv - c0, 0) * u.element_size()
             assert nbytes % 16 == 0 and nbytes <= CONSUMERS * 16
@@ -235,37 +233,35 @@ def test_constants_match_the_wrapper_and_one_block_an_sm():
     assert STAGES >= 3
 
 
-def _plan_ok(M, vw, sms):
-    grid, span = fk.identity_plan(M, vw, sms)
-    # the launch's own checks (launch_identity)
-    assert grid >= 1 and span >= vw and span % vw == 0
-    assert span * grid >= M and (grid - 1) * span < M
-    assert grid <= max(1, sms)
-    assert grid <= -(-M // (CONSUMERS * vw)) or grid == 1
-    return grid, span
+def _tiles_a_block(M, grid, width):
+    tiles = -(-M // width)
+    return [len(range(b, tiles, grid)) for b in range(grid)]
 
 
 @pytest.mark.parametrize("vw", [4, 8])
 @pytest.mark.parametrize("M", [1, 3, 7, 8, 100, 610, 1023, 1024, 1025, 2048,
                                4099, 8195, 579402, 10 ** 7 + 3, F2_M])
 @pytest.mark.parametrize("sms", [1, 3, 132])
-def test_identity_plan_covers_the_columns(M, vw, sms):
-    grid, span = _plan_ok(M, vw, sms)
-    # every block a nonempty span; the spans tile [0, M) once
-    starts = [b * span for b in range(grid)]
-    ends = [min(s + span, M) for s in starts]
-    assert all(s < e for s, e in zip(starts, ends))
-    assert ends[-1] == M and all(e == s for e, s in zip(ends[:-1], starts[1:]))
+def test_identity_plan(M, vw, sms):
+    """The launch's own checks (launch_identity), every block at least one
+    tile and at most one more than any other, and the tiles as wide as
+    the consumers allow but cut so that blocks get (nearly) equal work."""
+    grid, width = fk.identity_plan(M, vw, sms)
+    assert 1 <= grid <= max(1, sms) and grid <= -(-M // width)
+    assert vw <= width <= CONSUMERS * vw and width % vw == 0
+    per = _tiles_a_block(M, grid, width)
+    assert min(per) >= 1 and max(per) - min(per) <= 1
+    assert grid == min(max(1, sms), -(-M // (CONSUMERS * vw))) or grid == -(-M // width)
 
 
 def test_identity_plan_at_the_timed_shapes():
     """Cell (b)'s 579,402 columns and the LM round's 463,987,712 on 132
-    SMs: one block an SM, balanced to one 16-byte group; 20 x 610 one
-    block."""
-    for M, vw in ((579402, 4), (579402, 8), (F2_M, 4)):
-        grid, span = fk.identity_plan(M, vw, H100_SMS)
-        assert grid == H100_SMS
-        assert span - (M - (grid - 1) * span) <= grid * vw
+    SMs: one block an SM, each the same number of tiles to within one;
+    20 x 610 one block, one tile."""
+    for M, vw, per in ((579402, 4, 5), (579402, 8, 3), (F2_M, 4, 3433)):
+        grid, width = fk.identity_plan(M, vw, H100_SMS)
+        tiles = _tiles_a_block(M, grid, width)
+        assert grid == H100_SMS and max(tiles) == per and min(tiles) >= per - 1
     assert fk.identity_plan(610, 4, H100_SMS) == (1, 612)
     # the last row of the LM round starts past 2^31 elements: 64-bit offsets
     assert 7 * F2_M > 2 ** 31
@@ -306,10 +302,8 @@ def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
     assert torch.equal(owners, torch.ones(M, dtype=torch.int64))
     vw = 16 // u.element_size()
     assert int(from_global.sum()) == M % vw
-    grid, span = fk.identity_plan(M, vw, sms)
-    tiles = sum(-(-(min(b * span + span, M) - b * span) // (CONSUMERS * vw))
-                for b in range(grid))
-    assert consumed == tiles * -(-int((w * g > 0).sum()) // ROWS)
+    grid, width = fk.identity_plan(M, vw, sms)
+    assert consumed == -(-M // width) * -(-int((w * g > 0).sum()) // ROWS)
     _same_bits(out, parent_order(u, w, g, rs, noise, 0.3, dp))
 
 
