@@ -11,12 +11,10 @@ replay warm and cold, ``fedagg_times``) and K1 f32 at the LM round's 8 x
 qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 
 * ``shipped`` — the source as it is;
-* ``evict_first`` — the row copies with an L2 evict_first policy;
-* ``thread_arrive`` — every consumer thread arrives on a slot's empty
-  barrier (256 arrivals a stage), not one lane a warp;
-* ``s3``, ``s6`` — 3 or 6 ring stages of 8 rows;
-* ``r4s8`` — 8 stages of 4 rows (the same bytes in flight, finer stages);
-* ``two_blocks`` — two blocks an SM, each a ring of 4 stages of 4 rows;
+* ``evict_first`` — the rows' copies with an L2 evict_first policy;
+* ``s4r6``, ``s4r4`` — 4 ring stages of 6 or 4 rows (the shipped 3 x 8);
+* ``b1s6`` — one block an SM with 6 stages of 8 rows;
+* ``b3r5`` — three blocks an SM with 3 stages of 5 rows;
 * ``parent`` (with ``--parent DIR``) — ``DIR``'s ``fedagg.cu`` unchanged,
   e.g. an unpacked ``git archive`` of the parent commit, timed first and
   last.
@@ -40,33 +38,24 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-UNHINTED = ("  asm volatile(\n      \"cp.async.bulk.shared::cluster.global.mbarrier::"
-            "complete_tx::bytes\"\n      \" [%0], [%1], %2, [%3];\\n\" ::\"r\"(smem_u32(dst)),\n"
-            "      \"l\"(src), \"r\"(bytes), \"r\"(smem_u32(bar))")
-HINTED = ("  uint64_t policy;\n  asm volatile(\"createpolicy.fractional.L2::evict_first.b64 "
-          "%0, 1.0;\\n\" : \"=l\"(policy));\n"
-          "  asm volatile(\n      \"cp.async.bulk.shared::cluster.global.mbarrier::"
-          "complete_tx::bytes.L2::cache_hint\"\n      \" [%0], [%1], %2, [%3], %4;\\n\" "
-          "::\"r\"(smem_u32(dst)),\n"
-          "      \"l\"(src), \"r\"(bytes), \"r\"(smem_u32(bar)), \"l\"(policy)")
-WARP_INIT = "mbar_init(&sm.empty[s], kIdConsumers / 32);"
-WARP_ARRIVE = "      __syncwarp();\n      if (lane == 0) mbar_arrive(&sm.empty[slot]);"
-STAGES = "constexpr int kIdStages = 4;"
+PLAIN_COPY = ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(smem_u32(smem)),\n'
+              '               "l"(gmem)')
+HINTED_COPY = ('uint64_t policy;\n  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n"'
+               ' : "=l"(policy));\n'
+               '  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, 16, %2;\\n"'
+               ' ::"r"(smem_u32(smem)),\n               "l"(gmem), "l"(policy)')
+STAGES = "constexpr int kIdStages = 3;"
 ROWS = "constexpr int kIdRows = 8;"
-BOUNDS = "__launch_bounds__(kIdThreads, 1)"
+BLOCKS = "constexpr int kIdBlocks = 2;"
 EDITS = {
     "shipped": [],
-    "evict_first": [(UNHINTED, HINTED)],
-    "thread_arrive": [(WARP_INIT, "mbar_init(&sm.empty[s], kIdConsumers);"),
-                      (WARP_ARRIVE, "      mbar_arrive(&sm.empty[slot]);")],
-    "s3": [(STAGES, "constexpr int kIdStages = 3;")],
-    "s6": [(STAGES, "constexpr int kIdStages = 6;")],
-    "r4s8": [(STAGES, "constexpr int kIdStages = 8;"),
-             (ROWS, "constexpr int kIdRows = 4;")],
-    "two_blocks": [(ROWS, "constexpr int kIdRows = 4;"),
-                   (BOUNDS, "__launch_bounds__(kIdThreads, 2)")],
+    "evict_first": [(PLAIN_COPY, HINTED_COPY)],
+    "s4r6": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 6;")],
+    "s4r4": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 4;")],
+    "b1s6": [(BLOCKS, "constexpr int kIdBlocks = 1;"), (STAGES, "constexpr int kIdStages = 6;")],
+    "b3r5": [(BLOCKS, "constexpr int kIdBlocks = 3;"), (ROWS, "constexpr int kIdRows = 5;")],
 }
-SMS_FACTOR = {"two_blocks": 2}     # blocks an SM that identity_plan plans for
+BLOCKS_AN_SM = {"b1s6": 1, "b3r5": 3}   # what identity_plan plans for
 
 
 def build_variants(parent: Path | None) -> dict[str, Path]:
@@ -109,23 +98,17 @@ def build_variants(parent: Path | None) -> dict[str, Path]:
     return libs
 
 
-def bind(lib_path: Path, sms_factor: int = 1):
+def bind(lib_path: Path, blocks: int):
     """Point the fedagg wrapper at one variant's library, planning
-    ``sms_factor`` identity blocks an SM."""
+    ``blocks`` identity blocks an SM."""
     from repro_torch.kernels import fedagg as fk
-    sms = torch_sms()
-    fk._sm_count = lambda index: sms_factor * sms
+    fk.IDENTITY_BLOCKS = blocks
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
     lib.fedagg_launch.restype = ctypes.c_int
     lib.fedagg_error_string.argtypes = [ctypes.c_int]
     lib.fedagg_error_string.restype = ctypes.c_char_p
     fk._bind = lambda: lib
-
-
-def torch_sms() -> int:
-    import torch
-    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def cases():
@@ -170,7 +153,7 @@ def main() -> int:
         updates, w, g, ops = make()
         ops = dict(ops, aggregator=red)
         for name in order:
-            bind(libs[name], SMS_FACTOR.get(name, 1))
+            bind(libs[name], BLOCKS_AN_SM.get(name, 2))
             out = fk.fedagg(updates, w, g, **ops)
             bits = out.view(torch.int32 if out.dtype == torch.float32 else torch.int16)
             if name == "shipped":
@@ -180,7 +163,7 @@ def main() -> int:
             rows.append(row)
             print("probe:", json.dumps(row), flush=True)
         for name in order:        # bit for bit against the shipped source
-            bind(libs[name], SMS_FACTOR.get(name, 1))
+            bind(libs[name], BLOCKS_AN_SM.get(name, 2))
             bits = fk.fedagg(updates, w, g, **ops)
             bits = bits.view(torch.int32 if bits.dtype == torch.float32 else torch.int16)
             same = bool(torch.equal(bits, ref[label, red, dtype]))

@@ -138,20 +138,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "hopper_tc.cuh"  // the mbarrier helpers
-
 namespace cg = cooperative_groups;
-using hopper_tc::mbar_arrive;
-using hopper_tc::mbar_fence_init;
-using hopper_tc::mbar_init;
-using hopper_tc::mbar_wait;
-using hopper_tc::smem_u32;
 
 namespace {
 
-constexpr int kIdConsumers = 256;  // identity_kernel: consumer threads, 16 B of a row each
-constexpr int kIdThreads = kIdConsumers + 32;  // ... and one producer warp
-constexpr int kIdStages = 4;       // ... the ring's stages
+constexpr int kIdThreads = 256;    // identity_kernel: threads a block, 16 B of a row each
+constexpr int kIdWarps = kIdThreads / 32;
+constexpr int kIdBlocks = 2;       // ... blocks an SM
+constexpr int kIdStages = 3;       // ... the ring's stages
 constexpr int kIdRows = 8;         // ... rows a stage
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -594,111 +588,82 @@ __global__ void __launch_bounds__(kThreads, 5) stream_kernel_5(STREAM_PARAMS) {
 #undef STREAM_PARAMS
 
 // ---------------------------------------------------------- identity kernel
-// Shared memory of identity_kernel (dynamic, ~129 KB: one block an SM)
-struct IdSmem {
-  uint4 ring[kIdStages][kIdRows][kIdConsumers];  // a stage: rows x one tile
-  int row[kIdStages][kIdRows];                   // the stage's rows
-  float wr[kIdStages][kIdRows];                  // ... and their weights
-  uint64_t full[kIdStages];                      // the producer's copies landed
-  uint64_t empty[kIdStages];                     // the consumers read the slot
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
+// A thread's 16-byte copies into its own slots of the ring, and the wait
+// for all but the newest N groups: no other thread reads them, so no
+// barrier stands between the copies and the reads
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem)
                : "memory");
 }
-
-// bytes (a multiple of 16) from 16-byte-aligned global src into shared dst,
-// completing on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The producer warp: for each of the block's tiles, the included rows in
-// ascending order, kIdRows a stage (the tile's last stage may hold fewer),
-// each row's segment of the tile (its whole 16-byte groups) one bulk copy.
-// Lane 0 does the ring's bookkeeping; the warp scans 32 gates a ballot.
-template <typename S, bool kDP>
-__device__ __forceinline__ void id_produce(IdSmem& sm, const S* u, long long ld,
-                                           const float* w, const float* g,
-                                           const float* rs, int C, long long M,
-                                           long long width, long long m_vec) {
-  const int lane = threadIdx.x & 31;
-  int slot = 0, fill = 0;
-  uint32_t phase = 0;
-  const long long stride = static_cast<long long>(gridDim.x) * width;
-  for (long long c0 = static_cast<long long>(blockIdx.x) * width; c0 < M; c0 += stride) {
-    long long cv = c0 + width < M ? c0 + width : M;
-    cv = cv < m_vec ? cv : m_vec;
-    const uint32_t bytes = cv > c0 ? static_cast<uint32_t>((cv - c0) * sizeof(S)) : 0u;
-    for (int k0 = 0; k0 < C; k0 += 32) {
+// The included rows of [0, C) in ascending order, for one warp: the gates
+// read 32 a ballot (w and g stay in L1), the row's weight (dp: times its
+// clip scale, read only for an included row) from the lane that read it.
+// next() must only be called while an included row is left.
+template <bool kDP>
+struct RowCursor {
+  const float* w;
+  const float* g;
+  const float* rs;
+  int C;
+  int k0 = -32;       // the current 32-row group
+  unsigned bits = 0;  // its included rows not yet taken
+  float wr = 0.f;     // this lane's row weight in the group
+
+  __device__ __forceinline__ void restart() {
+    k0 = -32;
+    bits = 0;
+  }
+  __device__ __forceinline__ int next(float& weight) {
+    const int lane = threadIdx.x & 31;
+    while (bits == 0) {
+      k0 += 32;
       const int k = k0 + lane;
       const float wg = k < C ? w[k] * g[k] : 0.f;
       const bool inc = wg > 0.f;
-      // dp's clip scale only for an included row: a NaN behind a zero gate
-      const float wr = inc ? (kDP ? wg * rs[k] : wg) : 0.f;
-      for (unsigned bits = __ballot_sync(0xffffffffu, inc); bits; bits &= bits - 1) {
-        const int l = __ffs(bits) - 1;
-        const float wl = __shfl_sync(0xffffffffu, wr, l);
-        if (lane == 0) {
-          if (fill == 0) mbar_wait(&sm.empty[slot], phase ^ 1u);
-          sm.row[slot][fill] = k0 + l;
-          sm.wr[slot][fill] = wl;
-          if (bytes) {
-            mbar_expect(&sm.full[slot], bytes);
-            bulk_load(&sm.ring[slot][fill][0], u + static_cast<long long>(k0 + l) * ld + c0,
-                      bytes, &sm.full[slot]);
-          }
-          if (++fill == kIdRows) {
-            mbar_arrive(&sm.full[slot]);  // releases row / wr with the copies
-            fill = 0;
-            if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
-          }
-        }
-      }
+      wr = inc ? (kDP ? wg * rs[k] : wg) : 0.f;
+      bits = __ballot_sync(0xffffffffu, inc);
     }
-    if (lane == 0 && fill) {  // the tile's last, partial stage
-      mbar_arrive(&sm.full[slot]);
-      fill = 0;
-      if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
-    }
+    const int l = __ffs(bits) - 1;
+    bits &= bits - 1;
+    weight = __shfl_sync(0xffffffffu, wr, l);
+    return k0 + l;
   }
-}
+};
+
+// Shared memory of identity_kernel (dynamic, 96 KB: two blocks an SM)
+struct IdSmem {
+  uint4 ring[kIdStages][kIdRows][kIdThreads];  // each thread's own slots
+  int row[kIdWarps][kIdStages][kIdRows];       // a warp's staged rows
+  float wr[kIdWarps][kIdStages][kIdRows];      // ... and their weights
+};
 
 template <typename S, bool kDP>
-__global__ void __launch_bounds__(kIdThreads, 1)
+__global__ void __launch_bounds__(kIdThreads, kIdBlocks)
     identity_kernel(const S* __restrict__ u, long long ld, const float* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ rs,
                     const float* __restrict__ noise, float noise_scale,
                     S* __restrict__ out, int C, long long M, long long width) {
   constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  extern __shared__ __align__(128) unsigned char id_smem[];
+  extern __shared__ __align__(16) unsigned char id_smem[];
   IdSmem& sm = *reinterpret_cast<IdSmem*>(id_smem);
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < kIdStages; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kIdConsumers / 32);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  const long long m_vec = M - M % VW;  // the columns in whole 16-byte groups
-  if (tid >= kIdConsumers) {
-    id_produce<S, kDP>(sm, u, ld, w, g, rs, C, M, width, m_vec);
-    return;
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // den and the included count, as stage_rows sums den: the tree sum of
   // each 32 rows' wg, added in row order (a chunk's zero sums past C leave
   // den unchanged: it starts at +0, so it is never -0)
-  const int lane = tid & 31;
   float den = 0.f;
   int n = 0;
   for (int k0 = 0; k0 < C; k0 += 32) {
@@ -712,22 +677,68 @@ __global__ void __launch_bounds__(kIdThreads, 1)
     den += __shfl_sync(0xffffffffu, part, 0);
   }
 
-  int slot = 0;
-  uint32_t phase = 0;
-  const long long stride = static_cast<long long>(gridDim.x) * width;
-  for (long long c0 = static_cast<long long>(blockIdx.x) * width; c0 < M; c0 += stride) {
-    const long long col = c0 + static_cast<long long>(tid) * VW;
-    const bool live = col < (c0 + width < M ? c0 + width : M);
+  // this warp's tiles: gw, gw + W, ... of width columns each
+  const long long W = static_cast<long long>(gridDim.x) * kIdWarps;
+  const long long gw = static_cast<long long>(blockIdx.x) * kIdWarps + warp;
+  const long long tiles = (M + width - 1) / width;
+  const int mine = gw < tiles ? static_cast<int>((tiles - 1 - gw) / W + 1) : 0;
+  const int per_tile = (n + kIdRows - 1) / kIdRows;  // stages a tile
+  const long long stages = static_cast<long long>(mine) * per_tile;
+  auto cols = [&](int i, long long& col, long long& c1) {
+    const long long c0 = (gw + i * W) * width;
+    c1 = c0 + width < M ? c0 + width : M;
+    col = c0 + static_cast<long long>(lane) * VW;
+  };
+
+  // the copies run kIdStages - 1 stages ahead of the sums, across tiles:
+  // stage j is tile j / per_tile, rows [(j % per_tile) kIdRows, ...)
+  RowCursor<kDP> ahead{w, g, rs, C};
+  long long issued = 0;
+  auto issue = [&]() {
+    if (issued < stages) {
+      const int i = static_cast<int>(issued / per_tile);
+      const int q = static_cast<int>(issued % per_tile);
+      if (q == 0) ahead.restart();
+      long long col, c1;
+      cols(i, col, c1);
+      const bool full = col + VW <= c1;  // the ragged tail is read from global
+      const int slot = static_cast<int>(issued % kIdStages);
+      const int rows = n - q * kIdRows < kIdRows ? n - q * kIdRows : kIdRows;
+      for (int r = 0; r < rows; ++r) {
+        float wt;
+        const int k = ahead.next(wt);
+        if (lane == 0) {
+          sm.row[warp][slot][r] = k;
+          sm.wr[warp][slot][r] = wt;
+        }
+        if (full) cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(k) * ld + col);
+      }
+    }
+    cp_async_commit();  // one group an iteration, empty past the end
+    ++issued;
+  };
+#pragma unroll
+  for (int s = 0; s < kIdStages - 1; ++s) issue();
+
+  long long j = 0;  // the stage summed next
+  for (int i = 0; i < mine; ++i) {
+    long long col, c1;
+    cols(i, col, c1);
+    const bool live = col < c1;
     const bool full = live && col + VW <= M;  // else the ragged tail, from global
     float nz[VW];  // dp: this tile's noise, loaded ahead of the rows
 #pragma unroll
-    for (int i = 0; i < VW; ++i) nz[i] = kDP && live && col + i < M ? noise[col + i] : 0.f;
+    for (int e = 0; e < VW; ++e) nz[e] = kDP && live && col + e < M ? noise[col + e] : 0.f;
     float acc[VW];
 #pragma unroll
-    for (int i = 0; i < VW; ++i) acc[i] = 0.f;
-    for (int j = 0; j < n; j += kIdRows) {
-      mbar_wait(&sm.full[slot], phase);
-      const int rows = n - j < kIdRows ? n - j : kIdRows;
+    for (int e = 0; e < VW; ++e) acc[e] = 0.f;
+    for (int q = 0; q < per_tile; ++q, ++j) {
+      __syncwarp();  // every lane is done with the slot issue() overwrites
+      issue();
+      cp_async_wait<kIdStages - 1>();  // this thread's copies of stage j landed
+      __syncwarp();                    // ... and lane 0's rows and weights
+      const int slot = static_cast<int>(j % kIdStages);
+      const int rows = n - q * kIdRows < kIdRows ? n - q * kIdRows : kIdRows;
       if (full) {
         Pack<S, VW> v[kIdRows];
 #pragma unroll
@@ -736,33 +747,31 @@ __global__ void __launch_bounds__(kIdThreads, 1)
 #pragma unroll
         for (int r = 0; r < kIdRows; ++r) {
           if (r < rows) {
-            const float wr = sm.wr[slot][r];
+            const float wt = sm.wr[warp][slot][r];
 #pragma unroll
-            for (int i = 0; i < VW; ++i) acc[i] = fmaf(wr, to_f32(v[r].v[i]), acc[i]);
+            for (int e = 0; e < VW; ++e) acc[e] = fmaf(wt, to_f32(v[r].v[e]), acc[e]);
           }
         }
       } else if (live) {
         for (int r = 0; r < rows; ++r) {
-          const float wr = sm.wr[slot][r];
-          const S* src = u + static_cast<long long>(sm.row[slot][r]) * ld;
-          for (int i = 0; i < VW && col + i < M; ++i)
-            acc[i] = fmaf(wr, to_f32(src[col + i]), acc[i]);
+          const float wt = sm.wr[warp][slot][r];
+          const S* src = u + static_cast<long long>(sm.row[warp][slot][r]) * ld;
+          for (int e = 0; e < VW && col + e < M; ++e)
+            acc[e] = fmaf(wt, to_f32(src[col + e]), acc[e]);
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&sm.empty[slot]);  // the warp's reads are done
-      if (++slot == kIdStages) { slot = 0; phase ^= 1u; }
     }
     if (!live) continue;
     float o[VW];
 #pragma unroll
-    for (int i = 0; i < VW; ++i) o[i] = finish<kDP>(acc[i], den, nz, noise_scale, i);
+    for (int e = 0; e < VW; ++e) o[e] = finish<kDP>(acc[e], den, nz, noise_scale, e);
     if (full) {
       store_vec<S, VW>(out + col, o);
     } else {
-      for (int i = 0; i < VW && col + i < M; ++i) out[col + i] = from_f32<S>(o[i]);
+      for (int e = 0; e < VW && col + e < M; ++e) out[col + e] = from_f32<S>(o[e]);
     }
   }
+  cp_async_wait<0>();
 }
 
 // ------------------------------------------------------------ sketch kernel
@@ -1361,10 +1370,16 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
 template <typename S, bool kDP>
 cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
   constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  if (a.grid < 1 || a.width < VW || a.width % VW != 0 || a.width > kIdConsumers * VW ||
-      a.grid > (a.M + a.width - 1) / a.width)
+  if (a.grid < 1 || a.width < VW || a.width % VW != 0 || a.width > 32 * VW ||
+      static_cast<long long>(a.grid - 1) * kIdWarps >= (a.M + a.width - 1) / a.width)
     return cudaErrorInvalidValue;
   static bool attr_set = false;
+  if (!attr_set) {  // the whole carveout shared, so that kIdBlocks blocks fit an SM
+    const cudaError_t c = cudaFuncSetAttribute(
+        identity_kernel<S, kDP>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (c != cudaSuccess) return c;
+  }
   const cudaError_t e = allow_smem(identity_kernel<S, kDP>, sizeof(IdSmem), &attr_set);
   if (e != cudaSuccess) return e;
   identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, sizeof(IdSmem), s>>>(

@@ -56,9 +56,10 @@ MAX_SORT_ROWS = 1024          # the sorted reducers hold C <= 1024 rows a column
 # gathers every row's bucket from L2 (stream_kernel)
 MAX_SKETCH_DIM = 57344
 INT8_WIDTHS = (4, 1)          # int8 columns a thread of the stream kernel
-# mean / dp over identity rows on 16-byte boundaries (identity_kernel): the
-# consumer threads of a block, 16 bytes of a tile row each
-IDENTITY_CONSUMERS = 256
+# mean / dp over identity rows on 16-byte boundaries (identity_kernel):
+# warps a block and blocks an SM
+IDENTITY_WARPS = 8
+IDENTITY_BLOCKS = 2
 
 
 def _next_pow2(n: int) -> int:
@@ -223,18 +224,22 @@ def _vector_width(widths, ld: int, *tensors) -> int:
 
 
 def identity_plan(M: int, vw: int, sms: int) -> tuple[int, int]:
-    """(grid, width) of identity_kernel: at most one block an SM (``sms``)
-    and tiles of ``width`` columns (a multiple of ``vw``, the 16-byte
-    groups; at most IDENTITY_CONSUMERS x vw), which block b takes in turn
-    b, b + grid, ...: neighbouring blocks read neighbouring columns, and
-    the width is cut so that every block takes as many tiles as the
-    others, or one fewer."""
-    tile = IDENTITY_CONSUMERS * vw
-    grid = max(1, min(sms, -(-M // tile)))
-    per = -(-M // (grid * tile))                 # tiles a block
-    width = -(-M // (per * grid))
-    width = -(-width // vw) * vw
-    return min(grid, -(-M // width)), width
+    """(grid, width) of identity_kernel. Its W = grid x IDENTITY_WARPS warps
+    (at most IDENTITY_BLOCKS blocks on each of ``sms`` SMs) take tiles of
+    ``width`` columns in turn, warp v tiles v, v + W, ...: neighbouring
+    warps read neighbouring columns. A tile is at most one 16-byte group a
+    lane (32 vw columns) and a multiple of ``vw``; where the columns fill
+    more than one such tile a warp, the width is cut so that every warp
+    takes as many tiles as the others, or one fewer."""
+    tile = 32 * vw
+    warps = max(1, sms) * IDENTITY_BLOCKS * IDENTITY_WARPS
+    per = -(-M // (warps * tile))                # tiles a warp
+    width = tile
+    if per > 1:
+        width = -(-M // (per * warps))
+        width = -(-width // vw) * vw
+    tiles = -(-M // width)
+    return min(max(1, sms) * IDENTITY_BLOCKS, -(-tiles // IDENTITY_WARPS)), width
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,16 +2,17 @@
 on 16-byte boundaries: ``identity_kernel`` in ``csrc/fedagg.cu``), emulated
 on the CPU, against the first version's order bit for bit.
 
-The kernel: ``identity_plan`` gives a persistent grid of at most one block
-an SM and a tile width (a multiple of vw, at most kIdConsumers x vw);
-block b takes tiles b, b + grid, ... For every tile the producer warp scans the
-gates 32 rows a ballot and stages the included rows in ascending order,
-kIdRows a stage (the tile's last stage may hold fewer), each row's whole
-16-byte groups of the tile one bulk copy; consumer thread t owns the vw
-columns at c0 + t vw, adds the staged rows in order (one fmaf a row,
-from 0) and finishes its columns; the columns of a ragged M past the last
-16-byte group are read from global memory by their thread. den is the tree
-sum of each 32 rows' w g, added in row order.
+The kernel: ``identity_plan`` gives a persistent grid of at most kIdBlocks
+blocks an SM and a tile width (a multiple of vw, at most 32 vw); warp v of
+the W in the grid takes tiles v, v + W, ..., lane l the vw columns at
+c0 + l vw. For every tile the warp scans the gates 32 rows a ballot and
+stages the included rows in ascending order, kIdRows a stage (the tile's
+last stage may hold fewer): each lane copies its 16 bytes of each row into
+its own slot of a ring of kIdStages stages (cp.async), kIdStages - 1
+stages ahead of the sums, across tiles. Each lane adds the staged rows in
+order (one fmaf a row, from 0) and finishes its columns; the columns of a
+ragged M past the last 16-byte group are read from global memory by their
+lane. den is the tree sum of each 32 rows' w g, added in row order.
 
 The first version (``stream_kernel``): per column one fmaf an included row
 in ascending order from 0, den from ``stage_rows`` (chunks of 256 rows,
@@ -40,7 +41,9 @@ def _const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
 
 
-CONSUMERS = _const("kIdConsumers")
+THREADS = _const("kIdThreads")
+WARPS = THREADS // 32
+BLOCKS = _const("kIdBlocks")
 STAGES = _const("kIdStages")
 ROWS = _const("kIdRows")
 PARENT_THREADS = _const("kThreads")      # stage_rows' chunk of rows
@@ -150,48 +153,71 @@ def producer_stages(wg, inc, wr):
 
 
 def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
-    """The kernel's schedule on the CPU: (out, the number of consumer
-    threads that store each column, the number of ring stages consumed,
-    the columns read from global memory). Checks the geometry as it goes."""
+    """The kernel's schedule on the CPU: (out, the number of lanes that
+    store each column, the number of ring stages consumed, the columns
+    read from global memory). Checks the geometry and the ring as it goes:
+    every stage is in its slot, copied for its tile, when it is summed."""
     C, M = u.shape
     vw = 16 // u.element_size()
     grid, width = fk.identity_plan(M, vw, sms)
+    tiles = -(-M // width)
+    # launch_identity's checks: no block without a tile
+    assert grid >= 1 and vw <= width <= 32 * vw and width % vw == 0
+    assert (grid - 1) * WARPS < tiles
+    W = grid * WARPS
     m_vec = M - M % vw
     wg, inc, wr = _weights(w, g, rs, dp)
     n = int(inc.sum())
     den = den_identity(wg)
+    tile_stages = producer_stages(wg, inc, wr)      # the same for every tile
+    assert [len(s) for s in tile_stages[:-1]] == [ROWS] * (len(tile_stages) - 1)
+    assert sum(len(s) for s in tile_stages) == n
+    per_tile = -(-n // ROWS)
+    assert len(tile_stages) == per_tile
     uf = u.float()
     out = torch.full((M,), float("nan"))
     owners = torch.zeros(M, dtype=torch.int64)
     from_global = torch.zeros(M, dtype=torch.bool)
     consumed = 0
-    for b in range(grid):
-        assert b * width < M                    # every block has a tile
-        for c0 in range(b * width, M, grid * width):
-            c1 = min(c0 + width, M)
-            cv = min(c1, m_vec)                 # the bulk copies' columns
-            nbytes = max(cv - c0, 0) * u.element_size()
-            assert nbytes % 16 == 0 and nbytes <= CONSUMERS * 16
-            assert (c0 * u.element_size()) % 16 == 0
-            stages = producer_stages(wg, inc, wr)
-            assert [len(s) for s in stages[:-1]] == [ROWS] * (len(stages) - 1)
-            assert sum(len(s) for s in stages) == n
-            assert len(stages) == -(-n // ROWS)  # the consumers' count
-            consumed += len(stages)
-            for t in range(CONSUMERS):
-                col = c0 + t * vw
+    for v in range(W):
+        mine = list(range(v, tiles, W))
+        order = [(t, q) for t in mine for q in range(per_tile)]
+        ring, issued = {}, 0
+
+        def issue():
+            nonlocal issued
+            if issued < len(order):
+                t, q = order[issued]
+                c0 = t * width
+                cv = min(c0 + width, m_vec)
+                assert (c0 * u.element_size()) % 16 == 0
+                ring[issued % STAGES] = (issued, t, tile_stages[q], cv)
+            issued += 1
+
+        for _ in range(STAGES - 1):
+            issue()
+        j = 0
+        for t in mine:
+            c0, c1 = t * width, min(t * width + width, M)
+            for lane in range(32):
+                col = c0 + lane * vw
                 if col >= c1:
                     continue                    # not live
                 owned = slice(col, min(col + vw, M))
                 owners[owned] += 1
                 if col + vw > M:                # the ragged tail
                     from_global[owned] = True
-                else:
-                    assert col + vw <= cv       # in the stage's copies
             acc = torch.zeros(c1 - c0, dtype=torch.float32)
-            for stage in stages:
-                for k, weight in stage:
+            for _ in range(per_tile):
+                issue()
+                stage, tile, rows, cv = ring[j % STAGES]
+                assert stage == j and tile == t
+                # the copies hold every lane's whole 16-byte groups
+                assert cv == min(c1, m_vec)
+                for k, weight in rows:
                     acc = _fma(weight, uf[k, c0:c1], acc)
+                j += 1
+            consumed += per_tile
             out[c0:c1] = _finish(acc, den, noise[c0:c1], noise_scale, dp)
     return out.to(u.dtype), owners, consumed, from_global
 
@@ -222,20 +248,20 @@ def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
 
 
 # ------------------------------------------------------------------ geometry
-def test_constants_match_the_wrapper_and_one_block_an_sm():
-    """The wrapper plans with the kernel's consumer count; the ring is more
-    than half an SM's shared memory, so identity_plan's one block an SM is
-    what the card schedules, and it fits."""
-    assert fk.IDENTITY_CONSUMERS == CONSUMERS
-    assert "constexpr int kIdThreads = kIdConsumers + 32;" in SRC
-    smem = STAGES * ROWS * CONSUMERS * 16 + STAGES * ROWS * 8 + STAGES * 16
-    assert SMEM_LIMIT // 2 < smem <= SMEM_LIMIT
+def test_constants_match_the_wrapper_and_fit_the_sm():
+    """The wrapper plans with the kernel's warps and blocks an SM; the
+    ring (a thread's own kIdStages x kIdRows slots of 16 bytes) and each
+    warp's staged rows fit kIdBlocks blocks into an SM's shared memory."""
+    assert fk.IDENTITY_WARPS == WARPS and fk.IDENTITY_BLOCKS == BLOCKS
+    assert "constexpr int kIdWarps = kIdThreads / 32;" in SRC
+    smem = STAGES * ROWS * THREADS * 16 + WARPS * STAGES * ROWS * 8
+    assert BLOCKS * (smem + 1024) <= SMEM_LIMIT + 1024
     assert STAGES >= 3
 
 
-def _tiles_a_block(M, grid, width):
-    tiles = -(-M // width)
-    return [len(range(b, tiles, grid)) for b in range(grid)]
+def _tiles_a_warp(M, grid, width):
+    tiles, W = -(-M // width), grid * WARPS
+    return [len(range(v, tiles, W)) for v in range(W)]
 
 
 @pytest.mark.parametrize("vw", [4, 8])
@@ -243,26 +269,33 @@ def _tiles_a_block(M, grid, width):
                                4099, 8195, 579402, 10 ** 7 + 3, F2_M])
 @pytest.mark.parametrize("sms", [1, 3, 132])
 def test_identity_plan(M, vw, sms):
-    """The launch's own checks (launch_identity), every block at least one
-    tile and at most one more than any other, and the tiles as wide as
-    the consumers allow but cut so that blocks get (nearly) equal work."""
+    """The launch's own checks (launch_identity); every block has a tile;
+    full 32 vw tiles while one a warp covers the columns, else every warp
+    of the full grid takes as many tiles as the others, or one fewer."""
     grid, width = fk.identity_plan(M, vw, sms)
-    assert 1 <= grid <= max(1, sms) and grid <= -(-M // width)
-    assert vw <= width <= CONSUMERS * vw and width % vw == 0
-    per = _tiles_a_block(M, grid, width)
-    assert min(per) >= 1 and max(per) - min(per) <= 1
-    assert grid == min(max(1, sms), -(-M // (CONSUMERS * vw))) or grid == -(-M // width)
+    tiles = -(-M // width)
+    assert 1 <= grid <= sms * BLOCKS and (grid - 1) * WARPS < tiles
+    assert vw <= width <= 32 * vw and width % vw == 0
+    warps = sms * BLOCKS * WARPS
+    if M <= warps * 32 * vw:
+        assert width == 32 * vw and tiles <= grid * WARPS
+    else:
+        assert grid == sms * BLOCKS
+        per = _tiles_a_warp(M, grid, width)
+        assert max(per) == -(-M // (warps * 32 * vw)) and min(per) >= max(per) - 1
 
 
 def test_identity_plan_at_the_timed_shapes():
     """Cell (b)'s 579,402 columns and the LM round's 463,987,712 on 132
-    SMs: one block an SM, each the same number of tiles to within one;
-    20 x 610 one block, one tile."""
-    for M, vw, per in ((579402, 4, 5), (579402, 8, 3), (F2_M, 4, 3433)):
-        grid, width = fk.identity_plan(M, vw, H100_SMS)
-        tiles = _tiles_a_block(M, grid, width)
-        assert grid == H100_SMS and max(tiles) == per and min(tiles) >= per - 1
-    assert fk.identity_plan(610, 4, H100_SMS) == (1, 612)
+    SMs: every warp of the grid the same number of tiles to within one;
+    20 x 610 one block."""
+    for M, vw, per, width in ((579402, 4, 3, 92), (579402, 8, 2, 144),
+                              (F2_M, 4, 1717, 128)):
+        grid, w = fk.identity_plan(M, vw, H100_SMS)
+        tiles = _tiles_a_warp(M, grid, w)
+        assert (grid, w) == (H100_SMS * BLOCKS, width)
+        assert max(tiles) == per and min(tiles) >= per - 1
+    assert fk.identity_plan(610, 4, H100_SMS) == (1, 128)
     # the last row of the LM round starts past 2^31 elements: 64-bit offsets
     assert 7 * F2_M > 2 ** 31
 
@@ -304,6 +337,7 @@ def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
     assert int(from_global.sum()) == M % vw
     grid, width = fk.identity_plan(M, vw, sms)
     assert consumed == -(-M // width) * -(-int((w * g > 0).sum()) // ROWS)
+    assert grid <= sms * BLOCKS
     _same_bits(out, parent_order(u, w, g, rs, noise, 0.3, dp))
 
 
