@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Design probes of fedagg's identity kernel (K1 mean, K2 dp) on one CUDA card.
 
-    python3 scripts/fedagg_identity_probe.py [--parent DIR] [--out FILE]
+    python3 scripts/fedagg_identity_probe.py [--parent DIR] [--variants A,B]
+        [--out FILE]
 
 Builds variants of ``src/repro_torch/kernels/csrc/fedagg.cu`` made by
 string edits (into ``build/probe/``, one nvcc each, all started together)
@@ -14,7 +15,16 @@ qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 * ``evict_first`` — the rows' copies with an L2 evict_first policy;
 * ``s4r6``, ``s4r4`` — 4 ring stages of 6 or 4 rows (the shipped 3 x 8);
 * ``b1s6`` — one block an SM with 6 stages of 8 rows;
-* ``b3r5`` — three blocks an SM with 3 stages of 5 rows;
+* ``aligned`` — the persistent grid with whole warp tiles (32 x 16 bytes,
+  on 128-byte lines), not cut for balance;
+* ``one_tile`` — not persistent: one whole warp tile a warp, as many
+  blocks as tiles need (the stream kernel's geometry: 8 x 128 f32
+  columns a block);
+* ``timed``, ``timed_one_tile`` — the shipped source (and the one_tile
+  plan) with %globaltimer marks a warp (start, rows staged, first tile
+  stored, end; and its tile count) kept in a device array, read after one
+  more call and summarised as quantiles over the warps (``marks``, in us
+  from the first warp's start);
 * ``parent`` (with ``--parent DIR``) — ``DIR``'s ``fedagg.cu`` unchanged,
   e.g. an unpacked ``git archive`` of the parent commit, timed first and
   last.
@@ -53,13 +63,79 @@ EDITS = {
     "s4r6": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 6;")],
     "s4r4": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 4;")],
     "b1s6": [(BLOCKS, "constexpr int kIdBlocks = 1;"), (STAGES, "constexpr int kIdStages = 6;")],
-    "b3r5": [(BLOCKS, "constexpr int kIdBlocks = 3;"), (ROWS, "constexpr int kIdRows = 5;")],
+    "aligned": [],
+    "one_tile": [],
 }
-BLOCKS_AN_SM = {"b1s6": 1, "b3r5": 3}   # what identity_plan plans for
+_MARK = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tm_[{}]));'
+TIMED = [
+    ("// Shared memory of identity_kernel",
+     "constexpr int kProbeWarps = 1 << 16;\n"
+     "__device__ unsigned long long g_probe[kProbeWarps * 5];\n\n"
+     "// Shared memory of identity_kernel"),
+    ("  int* s_row = sm.row[warp];",
+     "  unsigned long long tm_[4] = {0, 0, 0, 0};\n  " + _MARK.format(0)
+     + "\n  int* s_row = sm.row[warp];"),
+    ("  if (n <= kIdStaged) {\n    // every tile",
+     "  " + _MARK.format(1) + "\n  if (n <= kIdStaged) {\n    // every tile"),
+    ("      if (whole && live) store(col, c1);\n    }\n    cp_async_wait<0>();",
+     "      if (whole && live) store(col, c1);\n"
+     "      if (tm_[2] == 0) " + _MARK.format(2) + "\n    }\n    cp_async_wait<0>();"),
+    ("      if (col < c1) store(col, c1);\n    }\n  }\n}\n",
+     "      if (col < c1) store(col, c1);\n    }\n  }\n  " + _MARK.format(3) + "\n"
+     "  if (lane == 0 && gw < kProbeWarps) {\n"
+     "    for (int x = 0; x < 4; ++x) g_probe[gw * 5 + x] = tm_[x];\n"
+     "    g_probe[gw * 5 + 4] = mine;\n  }\n}\n"),
+    ("const char* fedagg_error_string(int err) {",
+     "int fedagg_probe_times(void* dst, unsigned long long n) {\n"
+     "  return cudaMemcpyFromSymbol(dst, g_probe, n * 8);\n}\n\n"
+     "const char* fedagg_error_string(int err) {"),
+]
+EDITS["timed"] = TIMED
+EDITS["timed_one_tile"] = TIMED
+BLOCKS_AN_SM = {"b1s6": 1}   # what identity_plan plans for
 
 
-def build_variants(parent: Path | None) -> dict[str, Path]:
-    """Write and compile every variant; returns {name: library path}."""
+def _whole_tiles(M, vw, sms, persistent):
+    tiles = -(-M // (32 * vw))
+    blocks = -(-tiles // 8)
+    return (min(2 * sms, blocks) if persistent else blocks), 32 * vw
+
+
+PLANS = {"aligned": lambda M, vw, sms: _whole_tiles(M, vw, sms, True),
+         "one_tile": lambda M, vw, sms: _whole_tiles(M, vw, sms, False),
+         "timed_one_tile": lambda M, vw, sms: _whole_tiles(M, vw, sms, False)}
+
+
+def marks(lib, updates, w, g, ops):
+    """One more call of a timed variant; quantiles (0, 10, 50, 90, 100%)
+    over the recorded warps of each mark, in us from the first start."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fedagg as fk
+    fk.fedagg(updates, w, g, **ops)
+    torch.cuda.synchronize()
+    M = updates.shape[1]
+    vw = 16 // updates.element_size()
+    grid, width = fk.identity_plan(M, vw, fk._sm_count(0))
+    nw = min(grid * fk.IDENTITY_WARPS, 1 << 16)
+    buf = np.zeros(nw * 5, dtype=np.uint64)
+    lib.fedagg_probe_times.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
+    lib.fedagg_probe_times.restype = ctypes.c_int
+    if lib.fedagg_probe_times(buf.ctypes.data, nw * 5) != 0:
+        raise RuntimeError("probe: reading the marks failed")
+    rec = buf.reshape(nw, 5).astype(np.float64)
+    rec = rec[rec[:, 4] > 0]
+    t0 = rec[:, 0].min()
+    q = lambda x: [round(float(v), 3) for v in np.percentile(x, [0, 10, 50, 90, 100])]  # noqa: E731
+    return dict(warps=int(rec.shape[0]), start=q((rec[:, 0] - t0) / 1e3),
+                staged=q((rec[:, 1] - rec[:, 0]) / 1e3),
+                first_tile=q((rec[:, 2] - rec[:, 1]) / 1e3),
+                end=q((rec[:, 3] - t0) / 1e3), tiles=q(rec[:, 4] * 1e3))
+
+
+def build_variants(parent: Path | None, names) -> dict[str, Path]:
+    """Write and compile the variants ``names`` (all if empty); returns
+    {name: library path}."""
     from repro_torch.kernels import build
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     src = (csrc / "fedagg.cu").read_text()
@@ -68,6 +144,8 @@ def build_variants(parent: Path | None) -> dict[str, Path]:
     jobs = {}
     sources = {}
     for name, edits in EDITS.items():
+        if names and name not in names:
+            continue
         text = src
         for old, new in edits:
             if old not in text:
@@ -98,11 +176,16 @@ def build_variants(parent: Path | None) -> dict[str, Path]:
     return libs
 
 
-def bind(lib_path: Path, blocks: int):
-    """Point the fedagg wrapper at one variant's library, planning
-    ``blocks`` identity blocks an SM."""
+PLAN = None
+
+
+def bind(lib_path: Path, name: str):
+    """Point the fedagg wrapper at one variant's library and plan."""
     from repro_torch.kernels import fedagg as fk
-    fk.IDENTITY_BLOCKS = blocks
+    global PLAN
+    PLAN = PLAN or fk.identity_plan
+    fk.IDENTITY_BLOCKS = BLOCKS_AN_SM.get(name, 2)
+    fk.identity_plan = PLANS.get(name, PLAN)
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
     lib.fedagg_launch.restype = ctypes.c_int
@@ -134,6 +217,7 @@ def cases():
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
+    ap.add_argument("--variants", default="", help="comma-separated; default all")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "fedagg_identity_probe.json"))
     args = ap.parse_args()
     import torch
@@ -144,7 +228,7 @@ def main() -> int:
     from repro_torch.kernels import fedagg as fk
     smi = cs.smi_line()
     print(smi, flush=True)
-    libs = build_variants(args.parent)
+    libs = build_variants(args.parent, [v for v in args.variants.split(",") if v])
     order = list(libs)
     if "parent" in libs:
         order = ["parent"] + [n for n in order if n != "parent"] + ["parent"]
@@ -153,17 +237,19 @@ def main() -> int:
         updates, w, g, ops = make()
         ops = dict(ops, aggregator=red)
         for name in order:
-            bind(libs[name], BLOCKS_AN_SM.get(name, 2))
+            bind(libs[name], name)
             out = fk.fedagg(updates, w, g, **ops)
             bits = out.view(torch.int32 if out.dtype == torch.float32 else torch.int16)
             if name == "shipped":
                 ref[label, red, dtype] = bits.clone()
             times = cs.fedagg_times(fk, updates, w, g, ops)
             row = dict(variant=name, shape=label, reducer=red, dtype=dtype, **times)
+            if name.startswith("timed"):
+                row["marks"] = marks(fk._bind(), updates, w, g, ops)
             rows.append(row)
             print("probe:", json.dumps(row), flush=True)
         for name in order:        # bit for bit against the shipped source
-            bind(libs[name], BLOCKS_AN_SM.get(name, 2))
+            bind(libs[name], name)
             bits = fk.fedagg(updates, w, g, **ops)
             bits = bits.view(torch.int32 if bits.dtype == torch.float32 else torch.int16)
             same = bool(torch.equal(bits, ref[label, red, dtype]))

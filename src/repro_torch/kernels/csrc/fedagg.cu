@@ -147,6 +147,7 @@ constexpr int kIdWarps = kIdThreads / 32;
 constexpr int kIdBlocks = 2;       // ... blocks an SM
 constexpr int kIdStages = 3;       // ... the ring's stages
 constexpr int kIdRows = 8;         // ... rows a stage
+constexpr int kIdStaged = 128;     // ... included rows a warp stages at once
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTopkCols = 2048;    // columns per block of topk_sum_kernel
@@ -608,46 +609,38 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The included rows of [0, C) in ascending order, for one warp: the gates
-// read 32 a ballot (w and g stay in L1), the row's weight (dp: times its
-// clip scale, read only for an included row) from the lane that read it.
-// next() must only be called while an included row is left.
+// Stage the included rows of ranks [first, first + kIdStaged) in the
+// ascending order of [0, C), for one warp: their indices in s_row, their
+// weights in s_wr (dp: times the clip scale, read only for an included
+// row); the gates read 32 a ballot. Returns how many were staged.
 template <bool kDP>
-struct RowCursor {
-  const float* w;
-  const float* g;
-  const float* rs;
-  int C;
-  int k0 = -32;       // the current 32-row group
-  unsigned bits = 0;  // its included rows not yet taken
-  float wr = 0.f;     // this lane's row weight in the group
-
-  __device__ __forceinline__ void restart() {
-    k0 = -32;
-    bits = 0;
-  }
-  __device__ __forceinline__ int next(float& weight) {
-    const int lane = threadIdx.x & 31;
-    while (bits == 0) {
-      k0 += 32;
-      const int k = k0 + lane;
-      const float wg = k < C ? w[k] * g[k] : 0.f;
-      const bool inc = wg > 0.f;
-      wr = inc ? (kDP ? wg * rs[k] : wg) : 0.f;
-      bits = __ballot_sync(0xffffffffu, inc);
+__device__ __forceinline__ int stage_warp_rows(const float* w, const float* g,
+                                               const float* rs, int C, int first,
+                                               int* s_row, float* s_wr) {
+  const int lane = threadIdx.x & 31;
+  int rank = 0;
+  for (int k0 = 0; k0 < C && rank < first + kIdStaged; k0 += 32) {
+    const int k = k0 + lane;
+    const float wg = k < C ? w[k] * g[k] : 0.f;
+    const bool inc = wg > 0.f;
+    const unsigned bits = __ballot_sync(0xffffffffu, inc);
+    const int pos = rank + __popc(bits & ((1u << lane) - 1u)) - first;
+    if (inc && pos >= 0 && pos < kIdStaged) {
+      s_row[pos] = k;
+      s_wr[pos] = kDP ? wg * rs[k] : wg;
     }
-    const int l = __ffs(bits) - 1;
-    bits &= bits - 1;
-    weight = __shfl_sync(0xffffffffu, wr, l);
-    return k0 + l;
+    rank += __popc(bits);
   }
-};
+  __syncwarp();
+  const int staged = rank - first;
+  return staged < kIdStaged ? staged : kIdStaged;
+}
 
-// Shared memory of identity_kernel (dynamic, 96 KB: two blocks an SM)
+// Shared memory of identity_kernel (dynamic, ~104 KB: two blocks an SM)
 struct IdSmem {
   uint4 ring[kIdStages][kIdRows][kIdThreads];  // each thread's own slots
-  int row[kIdWarps][kIdStages][kIdRows];       // a warp's staged rows
-  float wr[kIdWarps][kIdStages][kIdRows];      // ... and their weights
+  int row[kIdWarps][kIdStaged];                // a warp's staged rows
+  float wr[kIdWarps][kIdStaged];               // ... and their weights
 };
 
 template <typename S, bool kDP>
@@ -660,6 +653,8 @@ __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
   extern __shared__ __align__(16) unsigned char id_smem[];
   IdSmem& sm = *reinterpret_cast<IdSmem*>(id_smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* s_row = sm.row[warp];
+  float* s_wr = sm.wr[warp];
 
   // den and the included count, as stage_rows sums den: the tree sum of
   // each 32 rows' wg, added in row order (a chunk's zero sums past C leave
@@ -677,101 +672,120 @@ __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
     den += __shfl_sync(0xffffffffu, part, 0);
   }
 
-  // this warp's tiles: gw, gw + W, ... of width columns each
+  // this warp's tiles: gw, gw + W, ... of width columns each, a lane the
+  // VW columns at c0 + lane VW
   const long long W = static_cast<long long>(gridDim.x) * kIdWarps;
   const long long gw = static_cast<long long>(blockIdx.x) * kIdWarps + warp;
   const long long tiles = (M + width - 1) / width;
   const int mine = gw < tiles ? static_cast<int>((tiles - 1 - gw) / W + 1) : 0;
-  const int per_tile = (n + kIdRows - 1) / kIdRows;  // stages a tile
-  const long long stages = static_cast<long long>(mine) * per_tile;
   auto cols = [&](int i, long long& col, long long& c1) {
     const long long c0 = (gw + i * W) * width;
     c1 = c0 + width < M ? c0 + width : M;
     col = c0 + static_cast<long long>(lane) * VW;
   };
 
-  // the copies run kIdStages - 1 stages ahead of the sums, across tiles:
-  // stage j is tile j / per_tile, rows [(j % per_tile) kIdRows, ...)
-  RowCursor<kDP> ahead{w, g, rs, C};
-  long long issued = 0;
-  auto issue = [&]() {
-    if (issued < stages) {
-      const int i = static_cast<int>(issued / per_tile);
-      const int q = static_cast<int>(issued % per_tile);
-      if (q == 0) ahead.restart();
-      long long col, c1;
-      cols(i, col, c1);
-      const bool full = col + VW <= c1;  // the ragged tail is read from global
-      const int slot = static_cast<int>(issued % kIdStages);
-      const int rows = n - q * kIdRows < kIdRows ? n - q * kIdRows : kIdRows;
-      for (int r = 0; r < rows; ++r) {
-        float wt;
-        const int k = ahead.next(wt);
-        if (lane == 0) {
-          sm.row[warp][slot][r] = k;
-          sm.wr[warp][slot][r] = wt;
-        }
-        if (full) cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(k) * ld + col);
-      }
-    }
-    cp_async_commit();  // one group an iteration, empty past the end
-    ++issued;
-  };
-#pragma unroll
-  for (int s = 0; s < kIdStages - 1; ++s) issue();
-
-  long long j = 0;  // the stage summed next
-  for (int i = 0; i < mine; ++i) {
-    long long col, c1;
-    cols(i, col, c1);
-    const bool live = col < c1;
-    const bool full = live && col + VW <= M;  // else the ragged tail, from global
-    float nz[VW];  // dp: this tile's noise, loaded ahead of the rows
-#pragma unroll
-    for (int e = 0; e < VW; ++e) nz[e] = kDP && live && col + e < M ? noise[col + e] : 0.f;
-    float acc[VW];
-#pragma unroll
-    for (int e = 0; e < VW; ++e) acc[e] = 0.f;
-    for (int q = 0; q < per_tile; ++q, ++j) {
-      __syncwarp();  // every lane is done with the slot issue() overwrites
-      issue();
-      cp_async_wait<kIdStages - 1>();  // this thread's copies of stage j landed
-      __syncwarp();                    // ... and lane 0's rows and weights
-      const int slot = static_cast<int>(j % kIdStages);
-      const int rows = n - q * kIdRows < kIdRows ? n - q * kIdRows : kIdRows;
-      if (full) {
-        Pack<S, VW> v[kIdRows];
-#pragma unroll
-        for (int r = 0; r < kIdRows; ++r)
-          if (r < rows) v[r].raw = sm.ring[slot][r][tid];
-#pragma unroll
-        for (int r = 0; r < kIdRows; ++r) {
-          if (r < rows) {
-            const float wt = sm.wr[warp][slot][r];
-#pragma unroll
-            for (int e = 0; e < VW; ++e) acc[e] = fmaf(wt, to_f32(v[r].v[e]), acc[e]);
-          }
-        }
-      } else if (live) {
-        for (int r = 0; r < rows; ++r) {
-          const float wt = sm.wr[warp][slot][r];
-          const S* src = u + static_cast<long long>(sm.row[warp][slot][r]) * ld;
-          for (int e = 0; e < VW && col + e < M; ++e)
-            acc[e] = fmaf(wt, to_f32(src[col + e]), acc[e]);
-        }
-      }
-    }
-    if (!live) continue;
+  // The staged rows summed into this warp's tiles i0 .. i1, kIdRows a
+  // stage, every tile the same stages; the copies run kIdStages - 1 stages
+  // ahead of the sums, across tiles (dp's noise prefetched to L2 with its
+  // tile's first copies). With whole, each tile's sum starts from 0 and is
+  // finished and stored; else one tile's sum carries on in acc.
+  float acc[VW];
+  auto store = [&](long long col, long long c1) {
     float o[VW];
 #pragma unroll
-    for (int e = 0; e < VW; ++e) o[e] = finish<kDP>(acc[e], den, nz, noise_scale, e);
-    if (full) {
+    for (int e = 0; e < VW; ++e)
+      o[e] = finish<kDP>(acc[e], den, noise, noise_scale, col + e < M ? col + e : col);
+    if (col + VW <= c1) {
       store_vec<S, VW>(out + col, o);
     } else {
       for (int e = 0; e < VW && col + e < M; ++e) out[col + e] = from_f32<S>(o[e]);
     }
+  };
+  auto run = [&](int i0, int i1, int rows_staged, bool whole) {
+    const int per = (rows_staged + kIdRows - 1) / kIdRows;
+    int ii = i0, iq = 0, issued = 0;  // the next stage copied
+    auto issue = [&]() {
+      if (ii < i1) {
+        long long col, c1;
+        cols(ii, col, c1);
+        if (kDP && iq == 0 && col < c1)
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(noise + col));
+        if (col + VW <= c1) {  // else the ragged tail, read from global
+          const int slot = issued % kIdStages;
+          const int* rows = s_row + iq * kIdRows;
+          const int nr = rows_staged - iq * kIdRows;
+#pragma unroll
+          for (int r = 0; r < kIdRows; ++r)
+            if (r < nr)
+              cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(rows[r]) * ld + col);
+        }
+        if (++iq == per) { iq = 0; ++ii; }
+      }
+      cp_async_commit();  // one group a stage, empty past the end
+      ++issued;
+    };
+#pragma unroll
+    for (int s = 0; s < kIdStages - 1; ++s) issue();
+    int j = 0;  // the stage summed next
+    for (int i = i0; i < i1; ++i) {
+      long long col, c1;
+      cols(i, col, c1);
+      const bool live = col < c1;
+      const bool full = col + VW <= c1;
+      if (whole) {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) acc[e] = 0.f;
+      }
+      for (int q = 0; q < per; ++q, ++j) {
+        issue();
+        cp_async_wait<kIdStages - 1>();  // this thread's copies of stage j landed
+        const int slot = j % kIdStages;
+        const int nr = rows_staged - q * kIdRows;
+        const float* wts = s_wr + q * kIdRows;
+        if (full) {
+          Pack<S, VW> v[kIdRows];
+#pragma unroll
+          for (int r = 0; r < kIdRows; ++r)
+            if (r < nr) v[r].raw = sm.ring[slot][r][tid];
+#pragma unroll
+          for (int r = 0; r < kIdRows; ++r) {
+            if (r < nr) {
+#pragma unroll
+              for (int e = 0; e < VW; ++e) acc[e] = fmaf(wts[r], to_f32(v[r].v[e]), acc[e]);
+            }
+          }
+        } else if (live) {
+          const int* rows = s_row + q * kIdRows;
+          for (int r = 0; r < kIdRows && r < nr; ++r) {
+            const S* src = u + static_cast<long long>(rows[r]) * ld;
+            for (int e = 0; e < VW && col + e < M; ++e)
+              acc[e] = fmaf(wts[r], to_f32(src[col + e]), acc[e]);
+          }
+        }
+      }
+      if (whole && live) store(col, c1);
+    }
+    cp_async_wait<0>();
+  };
+
+  if (n <= kIdStaged) {
+    // every tile sums the same rows: stage them once, stream every tile
+    run(0, mine, stage_warp_rows<kDP>(w, g, rs, C, 0, s_row, s_wr), true);
+  } else {
+    // more included rows than a warp stages: tile by tile, kIdStaged rows
+    // at a time, the sum carried on in acc
+    for (int i = 0; i < mine; ++i) {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc[e] = 0.f;
+      for (int first = 0; first < n; first += kIdStaged) {
+        __syncwarp();  // every lane is done with the rows staged before
+        run(i, i + 1, stage_warp_rows<kDP>(w, g, rs, C, first, s_row, s_wr), false);
+      }
+      long long col, c1;
+      cols(i, col, c1);
+      if (col < c1) store(col, c1);
+    }
   }
-  cp_async_wait<0>();
 }
 
 // ------------------------------------------------------------ sketch kernel

@@ -5,14 +5,17 @@ on the CPU, against the first version's order bit for bit.
 The kernel: ``identity_plan`` gives a persistent grid of at most kIdBlocks
 blocks an SM and a tile width (a multiple of vw, at most 32 vw); warp v of
 the W in the grid takes tiles v, v + W, ..., lane l the vw columns at
-c0 + l vw. For every tile the warp scans the gates 32 rows a ballot and
-stages the included rows in ascending order, kIdRows a stage (the tile's
+c0 + l vw. Each warp stages its included rows (index and weight, in
+ascending order, the gates read 32 a ballot) in shared memory, up to
+kIdStaged at once; the staged rows are summed kIdRows a stage (a chunk's
 last stage may hold fewer): each lane copies its 16 bytes of each row into
 its own slot of a ring of kIdStages stages (cp.async), kIdStages - 1
-stages ahead of the sums, across tiles. Each lane adds the staged rows in
-order (one fmaf a row, from 0) and finishes its columns; the columns of a
-ragged M past the last 16-byte group are read from global memory by their
-lane. den is the tree sum of each 32 rows' w g, added in row order.
+stages ahead of the sums, across tiles while all included rows fit one
+staging, else tile by tile, chunk by chunk, the sum carried on. Each lane
+adds the rows in order (one fmaf a row, from 0) and finishes its columns;
+the columns of a ragged M past the last 16-byte group are read from
+global memory by their lane. den is the tree sum of each 32 rows' w g,
+added in row order.
 
 The first version (``stream_kernel``): per column one fmaf an included row
 in ascending order from 0, den from ``stage_rows`` (chunks of 256 rows,
@@ -46,6 +49,7 @@ WARPS = THREADS // 32
 BLOCKS = _const("kIdBlocks")
 STAGES = _const("kIdStages")
 ROWS = _const("kIdRows")
+STAGED = _const("kIdStaged")
 PARENT_THREADS = _const("kThreads")      # stage_rows' chunk of rows
 H100_SMS = 132
 F2_M = 463987712                         # qwen1.5-0.5b's parameter count
@@ -134,29 +138,29 @@ def parent_order(u, w, g, rs, noise, noise_scale, dp):
     return _finish(acc, den_parent(wg), noise, noise_scale, dp).to(u.dtype)
 
 
-def producer_stages(wg, inc, wr):
-    """One tile's stages as the producer warp fills them: 32 gates a ballot,
-    the included rows in ascending order, ROWS a stage, the last one closed
-    at the tile's end. Each entry (row, weight)."""
-    stages, fill = [], []
+def staged_rows(wg, inc, wr, first):
+    """stage_warp_rows: the included rows of ranks [first, first + STAGED),
+    in ascending order, each (row, weight), scanning 32 gates a ballot."""
+    rows, rank = [], 0
     C = wg.shape[0]
     for k0 in range(0, C, 32):
-        bits = [lane for lane in range(32) if k0 + lane < C and inc[k0 + lane]]
-        for lane in bits:                       # __ffs order: ascending
-            fill.append((k0 + lane, wr[k0 + lane]))
-            if len(fill) == ROWS:
-                stages.append(fill)
-                fill = []
-    if fill:
-        stages.append(fill)
-    return stages
+        if rank >= first + STAGED:
+            break
+        for lane in range(32):                  # ballot + popc: ascending
+            k = k0 + lane
+            if k < C and inc[k]:
+                if first <= rank < first + STAGED:
+                    rows.append((k, wr[k]))
+                rank += 1
+    return rows
 
 
 def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
-    """The kernel's schedule on the CPU: (out, the number of lanes that
-    store each column, the number of ring stages consumed, the columns
-    read from global memory). Checks the geometry and the ring as it goes:
-    every stage is in its slot, copied for its tile, when it is summed."""
+    """The kernel's schedule on the CPU, its run() calls and their rings
+    mirrored: (out, the number of lanes that store each column, the number
+    of ring stages summed, the columns read from global memory). Checks
+    the geometry and the ring as it goes: every stage is in its slot,
+    copied for its tile, when it is summed."""
     C, M = u.shape
     vw = 16 // u.element_size()
     grid, width = fk.identity_plan(M, vw, sms)
@@ -169,29 +173,26 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
     wg, inc, wr = _weights(w, g, rs, dp)
     n = int(inc.sum())
     den = den_identity(wg)
-    tile_stages = producer_stages(wg, inc, wr)      # the same for every tile
-    assert [len(s) for s in tile_stages[:-1]] == [ROWS] * (len(tile_stages) - 1)
-    assert sum(len(s) for s in tile_stages) == n
-    per_tile = -(-n // ROWS)
-    assert len(tile_stages) == per_tile
     uf = u.float()
     out = torch.full((M,), float("nan"))
     owners = torch.zeros(M, dtype=torch.int64)
     from_global = torch.zeros(M, dtype=torch.bool)
     consumed = 0
-    for v in range(W):
-        mine = list(range(v, tiles, W))
-        order = [(t, q) for t in mine for q in range(per_tile)]
+    acc = {}
+
+    def run(mine, rows):
+        """The tiles ``mine`` summing the staged ``rows``, ROWS a stage,
+        the copies STAGES - 1 stages ahead; returns the stages summed."""
+        per = -(-len(rows) // ROWS)
+        order = [(t, q) for t in mine for q in range(per)]
         ring, issued = {}, 0
 
         def issue():
             nonlocal issued
             if issued < len(order):
                 t, q = order[issued]
-                c0 = t * width
-                cv = min(c0 + width, m_vec)
-                assert (c0 * u.element_size()) % 16 == 0
-                ring[issued % STAGES] = (issued, t, tile_stages[q], cv)
+                assert (t * width * u.element_size()) % 16 == 0
+                ring[issued % STAGES] = (issued, t, rows[q * ROWS:q * ROWS + ROWS])
             issued += 1
 
         for _ in range(STAGES - 1):
@@ -199,27 +200,47 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
         j = 0
         for t in mine:
             c0, c1 = t * width, min(t * width + width, M)
+            for _ in range(per):
+                issue()
+                stage, tile, stage_rows = ring[j % STAGES]
+                assert stage == j and tile == t and 0 < len(stage_rows) <= ROWS
+                for k, weight in stage_rows:
+                    acc[t] = _fma(weight, uf[k, c0:c1], acc[t])
+                j += 1
+        return j
+
+    for v in range(W):
+        mine = list(range(v, tiles, W))
+        for t in mine:
+            c0, c1 = t * width, min(t * width + width, M)
+            acc[t] = torch.zeros(c1 - c0, dtype=torch.float32)
             for lane in range(32):
                 col = c0 + lane * vw
                 if col >= c1:
                     continue                    # not live
                 owned = slice(col, min(col + vw, M))
                 owners[owned] += 1
-                if col + vw > M:                # the ragged tail
+                if col + vw > M:                # the ragged tail, from global
                     from_global[owned] = True
-            acc = torch.zeros(c1 - c0, dtype=torch.float32)
-            for _ in range(per_tile):
-                issue()
-                stage, tile, rows, cv = ring[j % STAGES]
-                assert stage == j and tile == t
-                # the copies hold every lane's whole 16-byte groups
-                assert cv == min(c1, m_vec)
-                for k, weight in rows:
-                    acc = _fma(weight, uf[k, c0:c1], acc)
-                j += 1
-            consumed += per_tile
-            out[c0:c1] = _finish(acc, den, noise[c0:c1], noise_scale, dp)
+                else:                           # in the lane's copies
+                    assert col + vw <= min(c1, m_vec)
+        if n <= STAGED:                         # staged once, across tiles
+            consumed += run(mine, staged_rows(wg, inc, wr, 0))
+        else:                                   # tile by tile, chunk by chunk
+            for t in mine:
+                for first in range(0, n, STAGED):
+                    chunk = staged_rows(wg, inc, wr, first)
+                    assert len(chunk) == min(STAGED, n - first)
+                    consumed += run([t], chunk)
+        for t in mine:
+            c0, c1 = t * width, min(t * width + width, M)
+            out[c0:c1] = _finish(acc[t], den, noise[c0:c1], noise_scale, dp)
     return out.to(u.dtype), owners, consumed, from_global
+
+
+def stages_a_tile(n):
+    """The ring stages one tile takes for n included rows."""
+    return sum(-(-min(STAGED, n - first) // ROWS) for first in range(0, n, STAGED))
 
 
 def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
@@ -254,7 +275,7 @@ def test_constants_match_the_wrapper_and_fit_the_sm():
     warp's staged rows fit kIdBlocks blocks into an SM's shared memory."""
     assert fk.IDENTITY_WARPS == WARPS and fk.IDENTITY_BLOCKS == BLOCKS
     assert "constexpr int kIdWarps = kIdThreads / 32;" in SRC
-    smem = STAGES * ROWS * THREADS * 16 + WARPS * STAGES * ROWS * 8
+    smem = STAGES * ROWS * THREADS * 16 + WARPS * STAGED * 8
     assert BLOCKS * (smem + 1024) <= SMEM_LIMIT + 1024
     assert STAGES >= 3
 
@@ -301,6 +322,19 @@ def test_identity_plan_at_the_timed_shapes():
 
 
 # ------------------------------------------------------------------ den order
+def test_staged_chunks_are_the_included_rows_in_order():
+    """stage_warp_rows' chunks, concatenated, are the included rows in
+    ascending order, each at most kIdStaged."""
+    rng = np.random.default_rng(3)
+    for C in (1, 40, 129, 300, 1000):
+        g = torch.from_numpy((rng.random(C) > 0.3).astype(np.float32))
+        wg, inc, wr = _weights(torch.ones(C), g, torch.ones(C), False)
+        n = int(inc.sum())
+        chunks = [staged_rows(wg, inc, wr, f) for f in range(0, max(n, 1), STAGED)]
+        assert all(len(c) <= STAGED for c in chunks)
+        assert [k for c in chunks for k, _ in c] == torch.nonzero(inc).flatten().tolist()
+
+
 @pytest.mark.parametrize("C", [1, 5, 31, 32, 33, 60, 255, 256, 257, 300, 1000, 1025])
 def test_den_is_the_parents_sum_bit_for_bit(C):
     """The kernel's den (32-row tree sums in row order, up to C) and
@@ -336,7 +370,7 @@ def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
     vw = 16 // u.element_size()
     assert int(from_global.sum()) == M % vw
     grid, width = fk.identity_plan(M, vw, sms)
-    assert consumed == -(-M // width) * -(-int((w * g > 0).sum()) // ROWS)
+    assert consumed == -(-M // width) * stages_a_tile(int((w * g > 0).sum()))
     assert grid <= sms * BLOCKS
     _same_bits(out, parent_order(u, w, g, rs, noise, 0.3, dp))
 
