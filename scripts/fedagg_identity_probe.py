@@ -15,16 +15,11 @@ qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 * ``evict_first`` — the rows' copies with an L2 evict_first policy;
 * ``s4r6``, ``s4r4`` — 4 ring stages of 6 or 4 rows (the shipped 3 x 8);
 * ``b1s6`` — one block an SM with 6 stages of 8 rows;
-* ``aligned`` — the persistent grid with whole warp tiles (32 x 16 bytes,
-  on 128-byte lines), not cut for balance;
-* ``one_tile`` — not persistent: one whole warp tile a warp, as many
-  blocks as tiles need (the stream kernel's geometry: 8 x 128 f32
-  columns a block);
-* ``timed``, ``timed_one_tile`` — the shipped source (and the one_tile
-  plan) with %globaltimer marks a warp (start, rows staged, first tile
-  stored, end; and its tile count) kept in a device array, read after one
-  more call and summarised as quantiles over the warps (``marks``, in us
-  from the first warp's start);
+* ``grab1`` — one tile an atomic whatever the row count;
+* ``timed`` — the shipped source with %globaltimer marks a warp (start,
+  rows staged, first tile stored, end; and its tile count) kept in a
+  device array, read after one more call and summarised as quantiles over
+  the warps (``marks``, in us from the first warp's start);
 * ``parent`` (with ``--parent DIR``) — ``DIR``'s ``fedagg.cu`` unchanged,
   e.g. an unpacked ``git archive`` of the parent commit, timed first and
   last.
@@ -63,52 +58,41 @@ EDITS = {
     "s4r6": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 6;")],
     "s4r4": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 4;")],
     "b1s6": [(BLOCKS, "constexpr int kIdBlocks = 1;"), (STAGES, "constexpr int kIdStages = 6;")],
-    "aligned": [],
-    "one_tile": [],
+    "grab1": [("const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;", "const int grab = 1;")],
 }
 _MARK = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tm_[{}]));'
-TIMED = [
+EDITS["timed"] = [
     ("// Shared memory of identity_kernel",
      "constexpr int kProbeWarps = 1 << 16;\n"
      "__device__ unsigned long long g_probe[kProbeWarps * 5];\n\n"
      "// Shared memory of identity_kernel"),
-    ("  int* s_row = sm.row[warp];",
-     "  unsigned long long tm_[4] = {0, 0, 0, 0};\n  " + _MARK.format(0)
-     + "\n  int* s_row = sm.row[warp];"),
-    ("  if (n <= kIdStaged) {\n    // every tile",
-     "  " + _MARK.format(1) + "\n  if (n <= kIdStaged) {\n    // every tile"),
-    ("      if (whole && live) store(col, c1);\n    }\n    cp_async_wait<0>();",
-     "      if (whole && live) store(col, c1);\n"
-     "      if (tm_[2] == 0) " + _MARK.format(2) + "\n    }\n    cp_async_wait<0>();"),
-    ("      if (col < c1) store(col, c1);\n    }\n  }\n}\n",
-     "      if (col < c1) store(col, c1);\n    }\n  }\n  " + _MARK.format(3) + "\n"
-     "  if (lane == 0 && gw < kProbeWarps) {\n"
-     "    for (int x = 0; x < 4; ++x) g_probe[gw * 5 + x] = tm_[x];\n"
-     "    g_probe[gw * 5 + 4] = mine;\n  }\n}\n"),
+    ("  long long* s_tile = sm.tile[warp];",
+     "  long long* s_tile = sm.tile[warp];\n  unsigned long long tm_[4] = {0, 0, 0, 0}, "
+     "ntiles_ = 0;\n  " + _MARK.format(0)),
+    ("  if (n <= kIdStaged) {\n    // Every tile",
+     "  " + _MARK.format(1) + "\n  if (n <= kIdStaged) {\n    // Every tile"),
+    ("      if (q == per - 1) store(t);",
+     "      if (q == per - 1) {\n        store(t);\n        ++ntiles_;\n"
+     "        if (tm_[2] == 0) " + _MARK.format(2) + "\n      }"),
+    ("  cp_async_wait<0>();\n}\n\n// ------------------------------------------------------------ sketch",
+     "  cp_async_wait<0>();\n  " + _MARK.format(3) + "\n"
+     "  const long long gw_ = static_cast<long long>(blockIdx.x) * kIdWarps + warp;\n"
+     "  if (lane == 0 && gw_ < kProbeWarps) {\n"
+     "    for (int x = 0; x < 4; ++x) g_probe[gw_ * 5 + x] = tm_[x];\n"
+     "    g_probe[gw_ * 5 + 4] = ntiles_;\n  }\n}\n\n"
+     "// ------------------------------------------------------------ sketch"),
     ("const char* fedagg_error_string(int err) {",
      "int fedagg_probe_times(void* dst, unsigned long long n) {\n"
      "  return cudaMemcpyFromSymbol(dst, g_probe, n * 8);\n}\n\n"
      "const char* fedagg_error_string(int err) {"),
 ]
-EDITS["timed"] = TIMED
-EDITS["timed_one_tile"] = TIMED
-BLOCKS_AN_SM = {"b1s6": 1}   # what identity_plan plans for
-
-
-def _whole_tiles(M, vw, sms, persistent):
-    tiles = -(-M // (32 * vw))
-    blocks = -(-tiles // 8)
-    return (min(2 * sms, blocks) if persistent else blocks), 32 * vw
-
-
-PLANS = {"aligned": lambda M, vw, sms: _whole_tiles(M, vw, sms, True),
-         "one_tile": lambda M, vw, sms: _whole_tiles(M, vw, sms, False),
-         "timed_one_tile": lambda M, vw, sms: _whole_tiles(M, vw, sms, False)}
+BLOCKS_AN_SM = {"b1s6": 1}   # what identity_grid plans for
 
 
 def marks(lib, updates, w, g, ops):
-    """One more call of a timed variant; quantiles (0, 10, 50, 90, 100%)
-    over the recorded warps of each mark, in us from the first start."""
+    """One more call of the timed variant; quantiles (0, 10, 50, 90, 100%)
+    over the warps of each mark, in us from the first start, and of the
+    tiles each warp took."""
     import numpy as np
     import torch
     from repro_torch.kernels import fedagg as fk
@@ -116,21 +100,18 @@ def marks(lib, updates, w, g, ops):
     torch.cuda.synchronize()
     M = updates.shape[1]
     vw = 16 // updates.element_size()
-    grid, width = fk.identity_plan(M, vw, fk._sm_count(0))
-    nw = min(grid * fk.IDENTITY_WARPS, 1 << 16)
+    nw = min(fk.identity_grid(M, vw, fk._sm_count(0)) * fk.IDENTITY_WARPS, 1 << 16)
     buf = np.zeros(nw * 5, dtype=np.uint64)
     lib.fedagg_probe_times.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
     lib.fedagg_probe_times.restype = ctypes.c_int
     if lib.fedagg_probe_times(buf.ctypes.data, nw * 5) != 0:
         raise RuntimeError("probe: reading the marks failed")
     rec = buf.reshape(nw, 5).astype(np.float64)
-    rec = rec[rec[:, 4] > 0]
     t0 = rec[:, 0].min()
     q = lambda x: [round(float(v), 3) for v in np.percentile(x, [0, 10, 50, 90, 100])]  # noqa: E731
     return dict(warps=int(rec.shape[0]), start=q((rec[:, 0] - t0) / 1e3),
                 staged=q((rec[:, 1] - rec[:, 0]) / 1e3),
-                first_tile=q((rec[:, 2] - rec[:, 1]) / 1e3),
-                end=q((rec[:, 3] - t0) / 1e3), tiles=q(rec[:, 4] * 1e3))
+                end=q((rec[:, 3] - t0) / 1e3), tiles=q(rec[:, 4]))
 
 
 def build_variants(parent: Path | None, names) -> dict[str, Path]:
@@ -176,16 +157,10 @@ def build_variants(parent: Path | None, names) -> dict[str, Path]:
     return libs
 
 
-PLAN = None
-
-
 def bind(lib_path: Path, name: str):
-    """Point the fedagg wrapper at one variant's library and plan."""
+    """Point the fedagg wrapper at one variant's library."""
     from repro_torch.kernels import fedagg as fk
-    global PLAN
-    PLAN = PLAN or fk.identity_plan
     fk.IDENTITY_BLOCKS = BLOCKS_AN_SM.get(name, 2)
-    fk.identity_plan = PLANS.get(name, PLAN)
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
     lib.fedagg_launch.restype = ctypes.c_int

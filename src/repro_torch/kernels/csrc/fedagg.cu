@@ -641,6 +641,7 @@ struct IdSmem {
   uint4 ring[kIdStages][kIdRows][kIdThreads];  // each thread's own slots
   int row[kIdWarps][kIdStaged];                // a warp's staged rows
   float wr[kIdWarps][kIdStaged];               // ... and their weights
+  long long tile[kIdWarps][kIdStages];         // the tile of each slot's stage
 };
 
 template <typename S, bool kDP>
@@ -648,13 +649,16 @@ __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
     identity_kernel(const S* __restrict__ u, long long ld, const float* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ rs,
                     const float* __restrict__ noise, float noise_scale,
-                    S* __restrict__ out, int C, long long M, long long width) {
+                    S* __restrict__ out, int C, long long M,
+                    unsigned long long* __restrict__ work) {
   constexpr int VW = 16 / static_cast<int>(sizeof(S));
+  constexpr int kWidth = 32 * VW;  // a tile: 16 bytes of each row a lane
   extern __shared__ __align__(16) unsigned char id_smem[];
   IdSmem& sm = *reinterpret_cast<IdSmem*>(id_smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int* s_row = sm.row[warp];
   float* s_wr = sm.wr[warp];
+  long long* s_tile = sm.tile[warp];
 
   // den and the included count, as stage_rows sums den: the tree sum of
   // each 32 rows' wg, added in row order (a chunk's zero sums past C leave
@@ -672,25 +676,79 @@ __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
     den += __shfl_sync(0xffffffffu, part, 0);
   }
 
-  // this warp's tiles: gw, gw + W, ... of width columns each, a lane the
-  // VW columns at c0 + lane VW
-  const long long W = static_cast<long long>(gridDim.x) * kIdWarps;
-  const long long gw = static_cast<long long>(blockIdx.x) * kIdWarps + warp;
-  const long long tiles = (M + width - 1) / width;
-  const int mine = gw < tiles ? static_cast<int>((tiles - 1 - gw) / W + 1) : 0;
-  auto cols = [&](int i, long long& col, long long& c1) {
-    const long long c0 = (gw + i * W) * width;
-    c1 = c0 + width < M ? c0 + width : M;
+  // Tiles are handed out at run time: SMs stream at unequal rates, so a
+  // split fixed at launch leaves the slowest SMs' tail. A warp takes grab
+  // tiles an atomic (about 64 rows' worth), in the order they come, so the
+  // tiles in flight stay neighbours.
+  const long long tiles = (M + kWidth - 1) / kWidth;
+  const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;
+  long long got = 0, got_end = 0;  // the warp's tiles not yet started
+  auto next_tile = [&]() -> long long {
+    if (got == got_end) {
+      unsigned long long c = 0;
+      if (lane == 0) c = atomicAdd(work, 1ull);
+      c = __shfl_sync(0xffffffffu, c, 0);
+      got = static_cast<long long>(c) * grab;
+      got_end = got + grab < tiles ? got + grab : tiles;
+      if (got >= tiles) {
+        got = got_end;
+        return -1;
+      }
+    }
+    return got++;
+  };
+  auto cols = [&](long long t, long long& col, long long& c1) {
+    const long long c0 = t * kWidth;
+    c1 = c0 + kWidth < M ? c0 + kWidth : M;
     col = c0 + static_cast<long long>(lane) * VW;
   };
 
-  // The staged rows summed into this warp's tiles i0 .. i1, kIdRows a
-  // stage, every tile the same stages; the copies run kIdStages - 1 stages
-  // ahead of the sums, across tiles (dp's noise prefetched to L2 with its
-  // tile's first copies). With whole, each tile's sum starts from 0 and is
-  // finished and stored; else one tile's sum carries on in acc.
+  // stage q of tile t: lane's 16 bytes of the staged rows q kIdRows ..
+  // into its slots (the ragged tail is read from global when summed)
+  auto copy_stage = [&](long long t, int q, int slot, int staged) {
+    long long col, c1;
+    cols(t, col, c1);
+    if (kDP && q == 0 && col < c1)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(noise + col));
+    if (col + VW > c1) return;
+    const int* rows = s_row + q * kIdRows;
+    const int nr = staged - q * kIdRows;
+#pragma unroll
+    for (int r = 0; r < kIdRows; ++r)
+      if (r < nr)
+        cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(rows[r]) * ld + col);
+  };
   float acc[VW];
-  auto store = [&](long long col, long long c1) {
+  auto sum_stage = [&](long long t, int q, int slot, int staged) {
+    long long col, c1;
+    cols(t, col, c1);
+    const int nr = staged - q * kIdRows;
+    const float* wts = s_wr + q * kIdRows;
+    if (col + VW <= c1) {
+      Pack<S, VW> v[kIdRows];
+#pragma unroll
+      for (int r = 0; r < kIdRows; ++r)
+        if (r < nr) v[r].raw = sm.ring[slot][r][tid];
+#pragma unroll
+      for (int r = 0; r < kIdRows; ++r) {
+        if (r < nr) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) acc[e] = fmaf(wts[r], to_f32(v[r].v[e]), acc[e]);
+        }
+      }
+    } else if (col < c1) {  // the ragged tail
+      const int* rows = s_row + q * kIdRows;
+      for (int r = 0; r < kIdRows && r < nr; ++r) {
+        const S* src = u + static_cast<long long>(rows[r]) * ld;
+        for (int e = 0; e < VW && col + e < M; ++e)
+          acc[e] = fmaf(wts[r], to_f32(src[col + e]), acc[e]);
+      }
+    }
+  };
+  auto store = [&](long long t) {
+    long long col, c1;
+    cols(t, col, c1);
+    if (col >= c1) return;
     float o[VW];
 #pragma unroll
     for (int e = 0; e < VW; ++e)
@@ -701,91 +759,73 @@ __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
       for (int e = 0; e < VW && col + e < M; ++e) out[col + e] = from_f32<S>(o[e]);
     }
   };
-  auto run = [&](int i0, int i1, int rows_staged, bool whole) {
-    const int per = (rows_staged + kIdRows - 1) / kIdRows;
-    int ii = i0, iq = 0, issued = 0;  // the next stage copied
-    auto issue = [&]() {
-      if (ii < i1) {
-        long long col, c1;
-        cols(ii, col, c1);
-        if (kDP && iq == 0 && col < c1)
-          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(noise + col));
-        if (col + VW <= c1) {  // else the ragged tail, read from global
-          const int slot = issued % kIdStages;
-          const int* rows = s_row + iq * kIdRows;
-          const int nr = rows_staged - iq * kIdRows;
+  auto zero = [&]() {
 #pragma unroll
-          for (int r = 0; r < kIdRows; ++r)
-            if (r < nr)
-              cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(rows[r]) * ld + col);
-        }
-        if (++iq == per) { iq = 0; ++ii; }
-      }
-      cp_async_commit();  // one group a stage, empty past the end
-      ++issued;
-    };
-#pragma unroll
-    for (int s = 0; s < kIdStages - 1; ++s) issue();
-    int j = 0;  // the stage summed next
-    for (int i = i0; i < i1; ++i) {
-      long long col, c1;
-      cols(i, col, c1);
-      const bool live = col < c1;
-      const bool full = col + VW <= c1;
-      if (whole) {
-#pragma unroll
-        for (int e = 0; e < VW; ++e) acc[e] = 0.f;
-      }
-      for (int q = 0; q < per; ++q, ++j) {
-        issue();
-        cp_async_wait<kIdStages - 1>();  // this thread's copies of stage j landed
-        const int slot = j % kIdStages;
-        const int nr = rows_staged - q * kIdRows;
-        const float* wts = s_wr + q * kIdRows;
-        if (full) {
-          Pack<S, VW> v[kIdRows];
-#pragma unroll
-          for (int r = 0; r < kIdRows; ++r)
-            if (r < nr) v[r].raw = sm.ring[slot][r][tid];
-#pragma unroll
-          for (int r = 0; r < kIdRows; ++r) {
-            if (r < nr) {
-#pragma unroll
-              for (int e = 0; e < VW; ++e) acc[e] = fmaf(wts[r], to_f32(v[r].v[e]), acc[e]);
-            }
-          }
-        } else if (live) {
-          const int* rows = s_row + q * kIdRows;
-          for (int r = 0; r < kIdRows && r < nr; ++r) {
-            const S* src = u + static_cast<long long>(rows[r]) * ld;
-            for (int e = 0; e < VW && col + e < M; ++e)
-              acc[e] = fmaf(wts[r], to_f32(src[col + e]), acc[e]);
-          }
-        }
-      }
-      if (whole && live) store(col, c1);
-    }
-    cp_async_wait<0>();
+    for (int e = 0; e < VW; ++e) acc[e] = 0.f;
   };
 
   if (n <= kIdStaged) {
-    // every tile sums the same rows: stage them once, stream every tile
-    run(0, mine, stage_warp_rows<kDP>(w, g, rs, C, 0, s_row, s_wr), true);
-  } else {
-    // more included rows than a warp stages: tile by tile, kIdStaged rows
-    // at a time, the sum carried on in acc
-    for (int i = 0; i < mine; ++i) {
+    // Every tile sums the same rows: stage them once; the copies run
+    // kIdStages - 1 stages ahead of the sums, across tiles, each slot's
+    // tile noted beside it (-1: none left).
+    const int staged = stage_warp_rows<kDP>(w, g, rs, C, 0, s_row, s_wr);
+    const int per = staged > 0 ? (staged + kIdRows - 1) / kIdRows : 1;  // stages a tile
+    long long it = -1;  // the tile copied next
+    int iq = 0, issued = 0;
+    auto issue = [&]() {
+      const int slot = issued++ % kIdStages;
+      if (iq == 0 && it != -2) it = next_tile();
+      if (it < 0) {
+        it = -2;  // no tile left: take none again
+        if (lane == 0) s_tile[slot] = -1;
+      } else {
+        copy_stage(it, iq, slot, staged);
+        if (lane == 0) s_tile[slot] = it;
+        if (++iq == per) iq = 0;
+      }
+      cp_async_commit();  // one group a stage, empty past the end
+    };
 #pragma unroll
-      for (int e = 0; e < VW; ++e) acc[e] = 0.f;
+    for (int s = 0; s < kIdStages - 1; ++s) issue();
+    for (int j = 0;; ++j) {
+      __syncwarp();  // every lane is done with the slot issue() overwrites
+      issue();
+      cp_async_wait<kIdStages - 1>();  // this thread's copies of stage j landed
+      __syncwarp();                    // ... and lane 0's tile of it is seen
+      const int slot = j % kIdStages, q = j % per;
+      const long long t = s_tile[slot];
+      if (t < 0) break;
+      if (q == 0) zero();
+      sum_stage(t, q, slot, staged);
+      if (q == per - 1) store(t);
+    }
+  } else {
+    // More included rows than a warp stages: tile by tile, kIdStaged rows
+    // at a time, each chunk's copies kIdStages - 1 stages ahead, the sum
+    // carried on in acc.
+    for (long long t = next_tile(); t >= 0; t = next_tile()) {
+      zero();
       for (int first = 0; first < n; first += kIdStaged) {
         __syncwarp();  // every lane is done with the rows staged before
-        run(i, i + 1, stage_warp_rows<kDP>(w, g, rs, C, first, s_row, s_wr), false);
+        const int staged = stage_warp_rows<kDP>(w, g, rs, C, first, s_row, s_wr);
+        const int per = (staged + kIdRows - 1) / kIdRows;
+#pragma unroll
+        for (int s = 0; s < kIdStages - 1; ++s) {
+          if (s < per) copy_stage(t, s, s, staged);
+          cp_async_commit();
+        }
+        for (int q = 0; q < per; ++q) {
+          if (q + kIdStages - 1 < per)
+            copy_stage(t, q + kIdStages - 1, (q + kIdStages - 1) % kIdStages, staged);
+          cp_async_commit();
+          cp_async_wait<kIdStages - 1>();
+          sum_stage(t, q, q % kIdStages, staged);
+        }
       }
-      long long col, c1;
-      cols(i, col, c1);
-      if (col < c1) store(col, c1);
+      store(t);
     }
   }
+  cp_async_wait<0>();
 }
 
 // ------------------------------------------------------------ sketch kernel
@@ -1316,8 +1356,8 @@ struct FedaggArgs {
   int vw;                     // stream_kernel columns per thread
   int C;
   int sort_cols;              // sorted_kernel threads (= columns) per block
-  long long width;            // identity_kernel: columns a tile (fedagg.identity_plan)
-  int grid;                   // ... and its blocks
+  void* work;                 // identity_kernel: 8 bytes of scratch (its tile counter)
+  int grid;                   // ... and its blocks (fedagg.identity_grid)
 };
 
 }  // extern "C"
@@ -1383,10 +1423,7 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
 // identity rows whose pitch and base are 16-byte multiples
 template <typename S, bool kDP>
 cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
-  constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  if (a.grid < 1 || a.width < VW || a.width % VW != 0 || a.width > 32 * VW ||
-      static_cast<long long>(a.grid - 1) * kIdWarps >= (a.M + a.width - 1) / a.width)
-    return cudaErrorInvalidValue;
+  if (a.grid < 1 || a.work == nullptr) return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {  // the whole carveout shared, so that kIdBlocks blocks fit an SM
     const cudaError_t c = cudaFuncSetAttribute(
@@ -1396,9 +1433,12 @@ cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
   }
   const cudaError_t e = allow_smem(identity_kernel<S, kDP>, sizeof(IdSmem), &attr_set);
   if (e != cudaSuccess) return e;
+  auto* work = static_cast<unsigned long long*>(a.work);
+  const cudaError_t z = cudaMemsetAsync(work, 0, sizeof(*work), s);
+  if (z != cudaSuccess) return z;
   identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, sizeof(IdSmem), s>>>(
       static_cast<const S*>(a.u), a.ld, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
-      static_cast<S*>(a.out), a.C, a.M, a.width);
+      static_cast<S*>(a.out), a.C, a.M, work);
   return cudaGetLastError();
 }
 

@@ -197,7 +197,7 @@ class FedaggArgs(ctypes.Structure):
         ("noise_scale", ctypes.c_float), ("trim_frac", ctypes.c_float),
         ("reducer", ctypes.c_int), ("codec", ctypes.c_int),
         ("dtype", ctypes.c_int), ("vw", ctypes.c_int), ("C", ctypes.c_int),
-        ("sort_cols", ctypes.c_int), ("width", ctypes.c_longlong),
+        ("sort_cols", ctypes.c_int), ("work", ctypes.c_void_p),
         ("grid", ctypes.c_int)]
 
 
@@ -223,23 +223,12 @@ def _vector_width(widths, ld: int, *tensors) -> int:
     return 1
 
 
-def identity_plan(M: int, vw: int, sms: int) -> tuple[int, int]:
-    """(grid, width) of identity_kernel. Its W = grid x IDENTITY_WARPS warps
-    (at most IDENTITY_BLOCKS blocks on each of ``sms`` SMs) take tiles of
-    ``width`` columns in turn, warp v tiles v, v + W, ...: neighbouring
-    warps read neighbouring columns. A tile is at most one 16-byte group a
-    lane (32 vw columns) and a multiple of ``vw``; where the columns fill
-    more than one such tile a warp, the width is cut so that every warp
-    takes as many tiles as the others, or one fewer."""
-    tile = 32 * vw
-    warps = max(1, sms) * IDENTITY_BLOCKS * IDENTITY_WARPS
-    per = -(-M // (warps * tile))                # tiles a warp
-    width = tile
-    if per > 1:
-        width = -(-M // (per * warps))
-        width = -(-width // vw) * vw
-    tiles = -(-M // width)
-    return min(max(1, sms) * IDENTITY_BLOCKS, -(-tiles // IDENTITY_WARPS)), width
+def identity_grid(M: int, vw: int, sms: int) -> int:
+    """Blocks of identity_kernel: IDENTITY_BLOCKS on each of ``sms`` SMs,
+    or fewer where the columns' warp tiles (32 vw columns each) do not
+    give each warp one."""
+    tiles = -(-M // (32 * vw))
+    return max(1, min(sms * IDENTITY_BLOCKS, -(-tiles // IDENTITY_WARPS)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,8 +320,10 @@ def fedagg(updates: torch.Tensor, weights: torch.Tensor, gates: torch.Tensor,
                                 args.ld, updates, out)
         if (aggregator in ("mean", "dp") and M
                 and args.vw * updates.element_size() == 16):
-            args.grid, args.width = identity_plan(M, args.vw, _sm_count(
+            args.grid = identity_grid(M, args.vw, _sm_count(
                 dev.index if dev.index is not None else torch.cuda.current_device()))
+            work = torch.empty(1, dtype=torch.int64, device=dev)  # the tile counter
+            args.work = work.data_ptr()
     else:
         if out_m is None and codec != "int8":
             raise ValueError(f"fedagg: codec={codec!r} needs out_m")

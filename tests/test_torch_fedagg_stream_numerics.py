@@ -2,20 +2,22 @@
 on 16-byte boundaries: ``identity_kernel`` in ``csrc/fedagg.cu``), emulated
 on the CPU, against the first version's order bit for bit.
 
-The kernel: ``identity_plan`` gives a persistent grid of at most kIdBlocks
-blocks an SM and a tile width (a multiple of vw, at most 32 vw); warp v of
-the W in the grid takes tiles v, v + W, ..., lane l the vw columns at
-c0 + l vw. Each warp stages its included rows (index and weight, in
-ascending order, the gates read 32 a ballot) in shared memory, up to
-kIdStaged at once; the staged rows are summed kIdRows a stage (a chunk's
-last stage may hold fewer): each lane copies its 16 bytes of each row into
-its own slot of a ring of kIdStages stages (cp.async), kIdStages - 1
-stages ahead of the sums, across tiles while all included rows fit one
-staging, else tile by tile, chunk by chunk, the sum carried on. Each lane
-adds the rows in order (one fmaf a row, from 0) and finishes its columns;
-the columns of a ragged M past the last 16-byte group are read from
-global memory by their lane. den is the tree sum of each 32 rows' w g,
-added in row order.
+The kernel: ``identity_grid`` gives a persistent grid of at most kIdBlocks
+blocks an SM; the columns are cut into warp tiles of 32 vw (lane l the vw
+columns at c0 + l vw), handed out at run time: a warp takes the next
+``grab`` tiles from an atomic counter (64 // n of them below 64 included
+rows, else one), in whatever order the warps come. Each warp stages its
+included rows (index and weight, in ascending order, the gates read 32 a
+ballot) in shared memory, up to kIdStaged at once; the staged rows are
+summed kIdRows a stage (a chunk's last stage may hold fewer): each lane
+copies its 16 bytes of each row into its own slot of a ring of kIdStages
+stages (cp.async), kIdStages - 1 stages ahead of the sums, across tiles
+while all included rows fit one staging (each slot's tile noted beside
+it, -1 once none is left), else tile by tile, chunk by chunk, the sum
+carried on. Each lane adds the rows in order (one fmaf a row, from 0) and
+finishes its columns; the columns of a ragged M past the last 16-byte
+group are read from global memory by their lane. den is the tree sum of
+each 32 rows' w g, added in row order.
 
 The first version (``stream_kernel``): per column one fmaf an included row
 in ascending order from 0, den from ``stage_rows`` (chunks of 256 rows,
@@ -155,19 +157,36 @@ def staged_rows(wg, inc, wr, first):
     return rows
 
 
-def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
-    """The kernel's schedule on the CPU, its run() calls and their rings
-    mirrored: (out, the number of lanes that store each column, the number
-    of ring stages summed, the columns read from global memory). Checks
-    the geometry and the ring as it goes: every stage is in its slot,
-    copied for its tile, when it is summed."""
+def grabs(tiles, n, W, seed):
+    """The tiles each of W warps takes from the counter, the warps coming
+    in a random order (any order the card may give): [tiles of warp v]."""
+    grab = 64 // max(n, 1) if n < 64 else 1
+    rng = np.random.default_rng(seed)
+    taken, counter = [[] for _ in range(W)], 0
+    live = list(range(W))
+    while live:                                 # each warp until one grab fails
+        v = live[int(rng.integers(len(live)))]
+        got = range(counter * grab, min(counter * grab + grab, tiles))
+        counter += 1
+        if len(got) == 0:
+            live.remove(v)
+        taken[v].extend(got)
+    return taken
+
+
+def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms, seed=0):
+    """The kernel's schedule on the CPU, its rings mirrored, for one order
+    of the warps' grabs: (out, the number of lanes that store each column,
+    the number of ring stages summed, the columns read from global
+    memory). Checks the ring as it goes: every stage is in its slot,
+    copied for its tile, when it is summed, and a warp stops at the first
+    slot that holds no tile."""
     C, M = u.shape
     vw = 16 // u.element_size()
-    grid, width = fk.identity_plan(M, vw, sms)
+    width = 32 * vw
+    grid = fk.identity_grid(M, vw, sms)
     tiles = -(-M // width)
-    # launch_identity's checks: no block without a tile
-    assert grid >= 1 and vw <= width <= 32 * vw and width % vw == 0
-    assert (grid - 1) * WARPS < tiles
+    assert 1 <= grid <= sms * BLOCKS and (grid - 1) * WARPS < tiles
     W = grid * WARPS
     m_vec = M - M % vw
     wg, inc, wr = _weights(w, g, rs, dp)
@@ -180,37 +199,36 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
     consumed = 0
     acc = {}
 
-    def run(mine, rows):
-        """The tiles ``mine`` summing the staged ``rows``, ROWS a stage,
-        the copies STAGES - 1 stages ahead; returns the stages summed."""
-        per = -(-len(rows) // ROWS)
-        order = [(t, q) for t in mine for q in range(per)]
+    def ring_walk(order, rows):
+        """Stages ``order`` (tile, q) or None (no tile left), copied
+        STAGES - 1 ahead of the sums; returns the stages summed."""
         ring, issued = {}, 0
 
         def issue():
             nonlocal issued
-            if issued < len(order):
-                t, q = order[issued]
-                assert (t * width * u.element_size()) % 16 == 0
+            stage = order[issued] if issued < len(order) else None
+            if stage is not None:
+                t, q = stage
                 ring[issued % STAGES] = (issued, t, rows[q * ROWS:q * ROWS + ROWS])
+            else:
+                ring[issued % STAGES] = (issued, -1, [])
             issued += 1
 
         for _ in range(STAGES - 1):
             issue()
         j = 0
-        for t in mine:
+        while True:
+            issue()
+            stage, t, stage_rows = ring[j % STAGES]
+            assert stage == j
+            if t < 0:
+                return j
             c0, c1 = t * width, min(t * width + width, M)
-            for _ in range(per):
-                issue()
-                stage, tile, stage_rows = ring[j % STAGES]
-                assert stage == j and tile == t and 0 < len(stage_rows) <= ROWS
-                for k, weight in stage_rows:
-                    acc[t] = _fma(weight, uf[k, c0:c1], acc[t])
-                j += 1
-        return j
+            for k, weight in stage_rows:
+                acc[t] = _fma(weight, uf[k, c0:c1], acc[t])
+            j += 1
 
-    for v in range(W):
-        mine = list(range(v, tiles, W))
+    for v, mine in enumerate(grabs(tiles, n, W, seed + 1)):
         for t in mine:
             c0, c1 = t * width, min(t * width + width, M)
             acc[t] = torch.zeros(c1 - c0, dtype=torch.float32)
@@ -225,13 +243,16 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
                 else:                           # in the lane's copies
                     assert col + vw <= min(c1, m_vec)
         if n <= STAGED:                         # staged once, across tiles
-            consumed += run(mine, staged_rows(wg, inc, wr, 0))
+            rows = staged_rows(wg, inc, wr, 0)
+            per = max(1, -(-len(rows) // ROWS))
+            consumed += ring_walk([(t, q) for t in mine for q in range(per)], rows)
         else:                                   # tile by tile, chunk by chunk
             for t in mine:
                 for first in range(0, n, STAGED):
                     chunk = staged_rows(wg, inc, wr, first)
                     assert len(chunk) == min(STAGED, n - first)
-                    consumed += run([t], chunk)
+                    per = -(-len(chunk) // ROWS)
+                    consumed += ring_walk([(t, q) for q in range(per)], chunk)
         for t in mine:
             c0, c1 = t * width, min(t * width + width, M)
             out[c0:c1] = _finish(acc[t], den, noise[c0:c1], noise_scale, dp)
@@ -239,7 +260,10 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms):
 
 
 def stages_a_tile(n):
-    """The ring stages one tile takes for n included rows."""
+    """The ring stages one tile takes for n included rows (one, empty, at
+    none: its columns are stored as zeros)."""
+    if n == 0:
+        return 1
     return sum(-(-min(STAGED, n - first) // ROWS) for first in range(0, n, STAGED))
 
 
@@ -280,45 +304,37 @@ def test_constants_match_the_wrapper_and_fit_the_sm():
     assert STAGES >= 3
 
 
-def _tiles_a_warp(M, grid, width):
-    tiles, W = -(-M // width), grid * WARPS
-    return [len(range(v, tiles, W)) for v in range(W)]
-
-
 @pytest.mark.parametrize("vw", [4, 8])
 @pytest.mark.parametrize("M", [1, 3, 7, 8, 100, 610, 1023, 1024, 1025, 2048,
                                4099, 8195, 579402, 10 ** 7 + 3, F2_M])
 @pytest.mark.parametrize("sms", [1, 3, 132])
-def test_identity_plan(M, vw, sms):
-    """The launch's own checks (launch_identity); every block has a tile;
-    full 32 vw tiles while one a warp covers the columns, else every warp
-    of the full grid takes as many tiles as the others, or one fewer."""
-    grid, width = fk.identity_plan(M, vw, sms)
-    tiles = -(-M // width)
+def test_identity_grid(M, vw, sms):
+    """launch_identity's check, and every block at least one warp tile:
+    kIdBlocks blocks an SM, fewer where the tiles run out."""
+    grid = fk.identity_grid(M, vw, sms)
+    tiles = -(-M // (32 * vw))
     assert 1 <= grid <= sms * BLOCKS and (grid - 1) * WARPS < tiles
-    assert vw <= width <= 32 * vw and width % vw == 0
-    warps = sms * BLOCKS * WARPS
-    if M <= warps * 32 * vw:
-        assert width == 32 * vw and tiles <= grid * WARPS
-    else:
-        assert grid == sms * BLOCKS
-        per = _tiles_a_warp(M, grid, width)
-        assert max(per) == -(-M // (warps * 32 * vw)) and min(per) >= max(per) - 1
+    assert grid == sms * BLOCKS or grid == -(-tiles // WARPS)
 
 
-def test_identity_plan_at_the_timed_shapes():
-    """Cell (b)'s 579,402 columns and the LM round's 463,987,712 on 132
-    SMs: every warp of the grid the same number of tiles to within one;
-    20 x 610 one block."""
-    for M, vw, per, width in ((579402, 4, 3, 92), (579402, 8, 2, 144),
-                              (F2_M, 4, 1717, 128)):
-        grid, w = fk.identity_plan(M, vw, H100_SMS)
-        tiles = _tiles_a_warp(M, grid, w)
-        assert (grid, w) == (H100_SMS * BLOCKS, width)
-        assert max(tiles) == per and min(tiles) >= per - 1
-    assert fk.identity_plan(610, 4, H100_SMS) == (1, 128)
-    # the last row of the LM round starts past 2^31 elements: 64-bit offsets
+def test_identity_grid_at_the_timed_shapes():
+    """Cell (b)'s 579,402 columns and the LM round's 463,987,712 fill 132
+    SMs; 20 x 610 is one block; the LM round's last row starts past 2^31
+    elements (64-bit offsets)."""
+    for M, vw in ((579402, 4), (579402, 8), (F2_M, 4)):
+        assert fk.identity_grid(M, vw, H100_SMS) == H100_SMS * BLOCKS
+    assert fk.identity_grid(610, 4, H100_SMS) == 1
     assert 7 * F2_M > 2 ** 31
+
+
+@pytest.mark.parametrize("n", [0, 1, 8, 60, 63, 64, 200])
+def test_grabs_hand_out_every_tile_once(n):
+    """Whatever order the warps come in, the counter hands out every tile
+    once, in runs of 64 // n (one at 64 or more included rows)."""
+    for tiles, W in ((1, 8), (37, 8), (1000, 16), (4527, 64)):
+        for seed in range(3):
+            taken = grabs(tiles, n, W, seed)
+            assert sorted(t for mine in taken for t in mine) == list(range(tiles))
 
 
 # ------------------------------------------------------------------ den order
@@ -369,9 +385,7 @@ def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
     assert torch.equal(owners, torch.ones(M, dtype=torch.int64))
     vw = 16 // u.element_size()
     assert int(from_global.sum()) == M % vw
-    grid, width = fk.identity_plan(M, vw, sms)
-    assert consumed == -(-M // width) * stages_a_tile(int((w * g > 0).sum()))
-    assert grid <= sms * BLOCKS
+    assert consumed == -(-M // (32 * vw)) * stages_a_tile(int((w * g > 0).sum()))
     _same_bits(out, parent_order(u, w, g, rs, noise, 0.3, dp))
 
 
@@ -380,7 +394,7 @@ def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
 def test_zero_inclusion_gives_exact_zeros(dtype, dp):
     u, w, g, rs, noise = _case(6, 2053, dtype, gates="none")
     out, _, consumed, _ = identity_walk(u, w, g, rs, noise, 0.3, dp, 2)
-    assert consumed == 0
+    assert consumed == -(-2053 // (512 // u.element_size()))  # one empty stage a tile
     assert bool(torch.all(out == 0)) and not bool(torch.signbit(out.float()).any())
 
 
