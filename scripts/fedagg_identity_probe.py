@@ -16,6 +16,14 @@ qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 * ``s4r6``, ``s4r4`` — 4 ring stages of 6 or 4 rows (the shipped 3 x 8);
 * ``b1s6`` — one block an SM with 6 stages of 8 rows;
 * ``grab1`` — one tile an atomic whatever the row count;
+* ``np64r4``, ``np64r2``, ``np128r4`` — not persistent: blocks of 64 or
+  128 threads, as many as the warp tiles need, each warp its own tile (no
+  counter; the card schedules the blocks), 3 stages of 4 or 2 rows, 64
+  rows staged a warp; ``np64r2b20``, ``np64r3b18`` the same with 20 or 18
+  blocks an SM (40 or 36 warps: every warp tile of 60 x 579,402 resident
+  at once); ``np64r4_ldg`` as np64r4 with each stage's rows loaded into
+  registers when summed (no ring: the stream kernel's loads), and
+  ``np64r4_ldg_b18`` with 18 blocks an SM;
 * ``timed`` — the shipped source with %globaltimer marks a warp (start,
   rows staged, first tile stored, end; and its tile count) kept in a
   device array, read after one more call and summarised as quantiles over
@@ -60,6 +68,36 @@ EDITS = {
     "b1s6": [(BLOCKS, "constexpr int kIdBlocks = 1;"), (STAGES, "constexpr int kIdStages = 6;")],
     "grab1": [("const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;", "const int grab = 1;")],
 }
+_NP = [("constexpr int kIdStaged = 128;", "constexpr int kIdStaged = 64;"),
+       # one tile a warp, its own, no counter: the card schedules the blocks
+       ("const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;",
+        "const int grab = 1;\n  bool np_first_ = true;"),
+       ("      if (lane == 0) c = atomicAdd(work, 1ull);\n      c = __shfl_sync(0xffffffffu, c, 0);",
+        "      c = np_first_ ? static_cast<unsigned long long>(blockIdx.x) * kIdWarps + warp\n"
+        "                    : (1ull << 60);\n      np_first_ = false;")]
+EDITS["np64r4"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
+                         (BLOCKS, "constexpr int kIdBlocks = 16;"),
+                         (ROWS, "constexpr int kIdRows = 4;")]
+EDITS["np64r2"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
+                         (BLOCKS, "constexpr int kIdBlocks = 16;"),
+                         (ROWS, "constexpr int kIdRows = 2;")]
+EDITS["np64r2b20"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
+                            (BLOCKS, "constexpr int kIdBlocks = 20;"),
+                            (ROWS, "constexpr int kIdRows = 2;")]
+EDITS["np64r3b18"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
+                            (BLOCKS, "constexpr int kIdBlocks = 18;"),
+                            (ROWS, "constexpr int kIdRows = 3;")]
+_LDG = [("        cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(rows[r]) * ld + col);",
+         "        (void)rows;"),
+        ("        if (r < nr) v[r].raw = sm.ring[slot][r][tid];",
+         "        if (r < nr)\n          v[r].raw = *reinterpret_cast<const uint4*>(\n"
+         "              u + static_cast<long long>(s_row[q * kIdRows + r]) * ld + col);")]
+EDITS["np64r4_ldg"] = EDITS["np64r4"] + _LDG
+EDITS["np64r4_ldg_b18"] = [e if e[0] != BLOCKS else (BLOCKS, "constexpr int kIdBlocks = 18;")
+                           for e in EDITS["np64r4_ldg"]]
+EDITS["np128r4"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 128;"),
+                          (BLOCKS, "constexpr int kIdBlocks = 8;"),
+                          (ROWS, "constexpr int kIdRows = 4;")]
 _MARK = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tm_[{}]));'
 EDITS["timed"] = [
     ("// Shared memory of identity_kernel",
@@ -86,7 +124,16 @@ EDITS["timed"] = [
      "  return cudaMemcpyFromSymbol(dst, g_probe, n * 8);\n}\n\n"
      "const char* fedagg_error_string(int err) {"),
 ]
-BLOCKS_AN_SM = {"b1s6": 1}   # what identity_grid plans for
+# what identity_grid plans with (not persistent: a block for every 2 or 4
+# warp tiles)
+PY_PLAN = {"b1s6": dict(IDENTITY_BLOCKS=1),
+           "np64r4": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
+           "np64r2": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
+           "np128r4": dict(IDENTITY_WARPS=4, IDENTITY_BLOCKS=10 ** 9),
+           "np64r2b20": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
+           "np64r4_ldg": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
+           "np64r4_ldg_b18": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
+           "np64r3b18": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9)}
 
 
 def marks(lib, updates, w, g, ops):
@@ -160,7 +207,9 @@ def build_variants(parent: Path | None, names) -> dict[str, Path]:
 def bind(lib_path: Path, name: str):
     """Point the fedagg wrapper at one variant's library."""
     from repro_torch.kernels import fedagg as fk
-    fk.IDENTITY_BLOCKS = BLOCKS_AN_SM.get(name, 2)
+    for key, value in dict(dict(IDENTITY_WARPS=8, IDENTITY_BLOCKS=2),
+                           **PY_PLAN.get(name, {})).items():
+        setattr(fk, key, value)
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
     lib.fedagg_launch.restype = ctypes.c_int
