@@ -12,22 +12,10 @@ replay warm and cold, ``fedagg_times``) and K1 f32 at the LM round's 8 x
 qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 
 * ``shipped`` — the source as it is;
-* ``evict_first`` — the rows' copies with an L2 evict_first policy;
-* ``s4r6``, ``s4r4`` — 4 ring stages of 6 or 4 rows (the shipped 3 x 8);
-* ``b1s6`` — one block an SM with 6 stages of 8 rows;
-* ``grab1`` — one tile an atomic whatever the row count;
-* ``np64r4``, ``np64r2``, ``np128r4`` — not persistent: blocks of 64 or
-  128 threads, as many as the warp tiles need, each warp its own tile (no
-  counter; the card schedules the blocks), 3 stages of 4 or 2 rows, 64
-  rows staged a warp; ``np64r2b20``, ``np64r3b18`` the same with 20 or 18
-  blocks an SM (40 or 36 warps: every warp tile of 60 x 579,402 resident
-  at once); ``np64r4_ldg`` as np64r4 with each stage's rows loaded into
-  registers when summed (no ring: the stream kernel's loads), and
-  ``np64r4_ldg_b18`` with 18 blocks an SM;
-* ``timed`` — the shipped source with %globaltimer marks a warp (start,
-  rows staged, first tile stored, end; and its tile count) kept in a
-  device array, read after one more call and summarised as quantiles over
-  the warps (``marks``, in us from the first warp's start);
+* ``evict_first`` — the rows' loads with an L2 evict_first policy;
+* ``r8`` — 8 rows' loads in flight a lane, not 4;
+* ``w8`` — blocks of 8 warps (256 threads), 4 an SM;
+* ``b12`` — compiled to hold 12 blocks an SM, not 18 (more registers);
 * ``parent`` (with ``--parent DIR``) — ``DIR``'s ``fedagg.cu`` unchanged,
   e.g. an unpacked ``git archive`` of the parent commit, timed first and
   last.
@@ -35,7 +23,9 @@ qwen1.5-0.5b's parameter count (``f2_case``). Variants:
 Every variant's outputs are checked bit for bit against ``shipped``'s (the
 edits change no arithmetic). Prints one JSON line a row and writes them all
 to ``--out`` (default ``chiprun_out/fedagg_identity_probe.json``), with the
-card's name and power limit. Needs a CUDA card and nvcc.
+card's name and power limit. Needs a CUDA card and nvcc. Earlier designs
+of the kernel (a TMA ring, cp.async rings, persistent grids) were probed
+by this script's earlier revisions, in this file's git history.
 """
 from __future__ import annotations
 
@@ -51,114 +41,26 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-PLAIN_COPY = ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(smem_u32(smem)),\n'
-              '               "l"(gmem)')
-HINTED_COPY = ('uint64_t policy;\n  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n"'
-               ' : "=l"(policy));\n'
-               '  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, 16, %2;\\n"'
-               ' ::"r"(smem_u32(smem)),\n               "l"(gmem), "l"(policy)')
-STAGES = "constexpr int kIdStages = 3;"
-ROWS = "constexpr int kIdRows = 8;"
-BLOCKS = "constexpr int kIdBlocks = 2;"
+ROW_LOAD = "          v[r] = load_pack<S, VW>(u + static_cast<long long>(s_row[j + r]) * ld + col);"
+HINTED_LOAD = (
+    "          {\n            uint64_t pol;\n"
+    "            asm volatile(\"createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\" : \"=l\"(pol));\n"
+    "            asm volatile(\"ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\"\n"
+    "                         : \"=r\"(v[r].raw.x), \"=r\"(v[r].raw.y), \"=r\"(v[r].raw.z),\n"
+    "                           \"=r\"(v[r].raw.w)\n"
+    "                         : \"l\"(u + static_cast<long long>(s_row[j + r]) * ld + col), \"l\"(pol));\n"
+    "          }")
+ROWS = "constexpr int kIdRows = 4;"
+BLOCKS = "constexpr int kIdBlocks = 18;"
+THREADS = "constexpr int kIdThreads = 64;"
 EDITS = {
     "shipped": [],
-    "evict_first": [(PLAIN_COPY, HINTED_COPY)],
-    "s4r6": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 6;")],
-    "s4r4": [(STAGES, "constexpr int kIdStages = 4;"), (ROWS, "constexpr int kIdRows = 4;")],
-    "b1s6": [(BLOCKS, "constexpr int kIdBlocks = 1;"), (STAGES, "constexpr int kIdStages = 6;")],
-    "grab1": [("const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;", "const int grab = 1;")],
+    "evict_first": [(ROW_LOAD, HINTED_LOAD)],
+    "r8": [(ROWS, "constexpr int kIdRows = 8;")],
+    "w8": [(THREADS, "constexpr int kIdThreads = 256;"), (BLOCKS, "constexpr int kIdBlocks = 4;")],
+    "b12": [(BLOCKS, "constexpr int kIdBlocks = 12;")],
 }
-_NP = [("constexpr int kIdStaged = 128;", "constexpr int kIdStaged = 64;"),
-       # one tile a warp, its own, no counter: the card schedules the blocks
-       ("const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;",
-        "const int grab = 1;\n  bool np_first_ = true;"),
-       ("      if (lane == 0) c = atomicAdd(work, 1ull);\n      c = __shfl_sync(0xffffffffu, c, 0);",
-        "      c = np_first_ ? static_cast<unsigned long long>(blockIdx.x) * kIdWarps + warp\n"
-        "                    : (1ull << 60);\n      np_first_ = false;")]
-EDITS["np64r4"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
-                         (BLOCKS, "constexpr int kIdBlocks = 16;"),
-                         (ROWS, "constexpr int kIdRows = 4;")]
-EDITS["np64r2"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
-                         (BLOCKS, "constexpr int kIdBlocks = 16;"),
-                         (ROWS, "constexpr int kIdRows = 2;")]
-EDITS["np64r2b20"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
-                            (BLOCKS, "constexpr int kIdBlocks = 20;"),
-                            (ROWS, "constexpr int kIdRows = 2;")]
-EDITS["np64r3b18"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 64;"),
-                            (BLOCKS, "constexpr int kIdBlocks = 18;"),
-                            (ROWS, "constexpr int kIdRows = 3;")]
-_LDG = [("        cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(rows[r]) * ld + col);",
-         "        (void)rows;"),
-        ("        if (r < nr) v[r].raw = sm.ring[slot][r][tid];",
-         "        if (r < nr)\n          v[r].raw = *reinterpret_cast<const uint4*>(\n"
-         "              u + static_cast<long long>(s_row[q * kIdRows + r]) * ld + col);")]
-EDITS["np64r4_ldg"] = EDITS["np64r4"] + _LDG
-EDITS["np64r4_ldg_b18"] = [e if e[0] != BLOCKS else (BLOCKS, "constexpr int kIdBlocks = 18;")
-                           for e in EDITS["np64r4_ldg"]]
-EDITS["np128r4"] = _NP + [("constexpr int kIdThreads = 256;", "constexpr int kIdThreads = 128;"),
-                          (BLOCKS, "constexpr int kIdBlocks = 8;"),
-                          (ROWS, "constexpr int kIdRows = 4;")]
-_MARK = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tm_[{}]));'
-EDITS["timed"] = [
-    ("// Shared memory of identity_kernel",
-     "constexpr int kProbeWarps = 1 << 16;\n"
-     "__device__ unsigned long long g_probe[kProbeWarps * 5];\n\n"
-     "// Shared memory of identity_kernel"),
-    ("  long long* s_tile = sm.tile[warp];",
-     "  long long* s_tile = sm.tile[warp];\n  unsigned long long tm_[4] = {0, 0, 0, 0}, "
-     "ntiles_ = 0;\n  " + _MARK.format(0)),
-    ("  if (n <= kIdStaged) {\n    // Every tile",
-     "  " + _MARK.format(1) + "\n  if (n <= kIdStaged) {\n    // Every tile"),
-    ("      if (q == per - 1) store(t);",
-     "      if (q == per - 1) {\n        store(t);\n        ++ntiles_;\n"
-     "        if (tm_[2] == 0) " + _MARK.format(2) + "\n      }"),
-    ("  cp_async_wait<0>();\n}\n\n// ------------------------------------------------------------ sketch",
-     "  cp_async_wait<0>();\n  " + _MARK.format(3) + "\n"
-     "  const long long gw_ = static_cast<long long>(blockIdx.x) * kIdWarps + warp;\n"
-     "  if (lane == 0 && gw_ < kProbeWarps) {\n"
-     "    for (int x = 0; x < 4; ++x) g_probe[gw_ * 5 + x] = tm_[x];\n"
-     "    g_probe[gw_ * 5 + 4] = ntiles_;\n  }\n}\n\n"
-     "// ------------------------------------------------------------ sketch"),
-    ("const char* fedagg_error_string(int err) {",
-     "int fedagg_probe_times(void* dst, unsigned long long n) {\n"
-     "  return cudaMemcpyFromSymbol(dst, g_probe, n * 8);\n}\n\n"
-     "const char* fedagg_error_string(int err) {"),
-]
-# what identity_grid plans with (not persistent: a block for every 2 or 4
-# warp tiles)
-PY_PLAN = {"b1s6": dict(IDENTITY_BLOCKS=1),
-           "np64r4": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
-           "np64r2": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
-           "np128r4": dict(IDENTITY_WARPS=4, IDENTITY_BLOCKS=10 ** 9),
-           "np64r2b20": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
-           "np64r4_ldg": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
-           "np64r4_ldg_b18": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9),
-           "np64r3b18": dict(IDENTITY_WARPS=2, IDENTITY_BLOCKS=10 ** 9)}
-
-
-def marks(lib, updates, w, g, ops):
-    """One more call of the timed variant; quantiles (0, 10, 50, 90, 100%)
-    over the warps of each mark, in us from the first start, and of the
-    tiles each warp took."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import fedagg as fk
-    fk.fedagg(updates, w, g, **ops)
-    torch.cuda.synchronize()
-    M = updates.shape[1]
-    vw = 16 // updates.element_size()
-    nw = min(fk.identity_grid(M, vw, fk._sm_count(0)) * fk.IDENTITY_WARPS, 1 << 16)
-    buf = np.zeros(nw * 5, dtype=np.uint64)
-    lib.fedagg_probe_times.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
-    lib.fedagg_probe_times.restype = ctypes.c_int
-    if lib.fedagg_probe_times(buf.ctypes.data, nw * 5) != 0:
-        raise RuntimeError("probe: reading the marks failed")
-    rec = buf.reshape(nw, 5).astype(np.float64)
-    t0 = rec[:, 0].min()
-    q = lambda x: [round(float(v), 3) for v in np.percentile(x, [0, 10, 50, 90, 100])]  # noqa: E731
-    return dict(warps=int(rec.shape[0]), start=q((rec[:, 0] - t0) / 1e3),
-                staged=q((rec[:, 1] - rec[:, 0]) / 1e3),
-                end=q((rec[:, 3] - t0) / 1e3), tiles=q(rec[:, 4]))
+PY_PLAN = {"w8": dict(IDENTITY_WARPS=8)}   # what identity_grid plans with
 
 
 def build_variants(parent: Path | None, names) -> dict[str, Path]:
@@ -207,8 +109,7 @@ def build_variants(parent: Path | None, names) -> dict[str, Path]:
 def bind(lib_path: Path, name: str):
     """Point the fedagg wrapper at one variant's library."""
     from repro_torch.kernels import fedagg as fk
-    for key, value in dict(dict(IDENTITY_WARPS=8, IDENTITY_BLOCKS=2),
-                           **PY_PLAN.get(name, {})).items():
+    for key, value in dict(dict(IDENTITY_WARPS=2), **PY_PLAN.get(name, {})).items():
         setattr(fk, key, value)
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
@@ -268,8 +169,6 @@ def main() -> int:
                 ref[label, red, dtype] = bits.clone()
             times = cs.fedagg_times(fk, updates, w, g, ops)
             row = dict(variant=name, shape=label, reducer=red, dtype=dtype, **times)
-            if name.startswith("timed"):
-                row["marks"] = marks(fk._bind(), updates, w, g, ops)
             rows.append(row)
             print("probe:", json.dumps(row), flush=True)
         for name in order:        # bit for bit against the shipped source

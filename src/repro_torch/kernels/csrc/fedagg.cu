@@ -28,31 +28,32 @@
 //
 // * identity_kernel (mean, dp; identity rows on 16-byte boundaries: f32
 //   with vw 4, bf16 with vw 8, which the fused aggregation always gives).
-//   Bound: bytes, C_inc x M x 4 (or 2) read once. A persistent grid, one
-//   block an SM, walking tiles of up to 256 x vw columns grid-stride (the
-//   tile width cut in Python, fedagg.identity_plan, so that every block
-//   takes as many tiles as the others, or one fewer): no SM idles through
-//   a partial last wave (bf16's 283 blocks of the stream kernel on 132
-//   SMs), the LM round's 453,000 short-lived blocks are 132, and
-//   neighbouring blocks read neighbouring columns, as the stream kernel's
-//   grid does. One producer
-//   warp fills a ring of kIdStages stages, each [kIdRows rows x one
-//   tile], with TMA 1-D bulk copies (cp.async.bulk, up to 4 KB a row,
-//   completing on the stage's mbarrier), so the bytes in flight (up to 128
-//   KB an SM) no longer depend on registers. No L2 cache hint: an
-//   evict_first policy on the copies cost ~17% at the LM round's shape.
-//   The producer scans the gates 32 rows a ballot for every tile (w and g
-//   stay in L1) and writes each staged row's index and weight beside its
-//   slot, so C is unbounded and nothing is staged per block. 8 consumer
-//   warps own 16 bytes of a tile row each: they add a stage's rows from
-//   shared memory, release the slot (one arrival a warp), and after the
-//   tile's last stage store their columns, while the producer already
-//   loads the next tile. The sum keeps the first version's order to the
-//   bit: each column adds its included rows in ascending order, one fmaf a
-//   row, from 0, then finish() (den the same 32-row tree sums in row
-//   order); a thread never shares a column's rows with another, which
-//   would change the order. The few columns of a ragged M past the last
-//   16-byte group are read from global memory by their thread.
+//   Bound: bytes, C_inc x M x 4 (or 2) read once; in practice each SM's
+//   outstanding loads, ~20-24 GB/s an SM (3.1 TB/s over 132 SMs, 93-94% of
+//   the 3.35 TB/s bound, which the stream kernel already reached at the LM
+//   round's 8 x 464 M). A warp owns a tile of 32 x 16 bytes of every row
+//   (lane l the vw columns at c0 + l vw), 2 warps a block, so that all of
+//   cell (b)'s 4,527 f32 tiles (60 x 579,402) are resident from the start,
+//   18 blocks an SM, with SMs holding 17 or 18 of them (the stream
+//   kernel's 256-thread blocks gave SMs 4 or 5, and bf16's 283 blocks 2
+//   or 3), while the LM round's 3.6 M tiles stream through short blocks
+//   that the card hands to whichever SM is free: SMs stream at unequal
+//   rates (warps of equal work ended ~30% apart under a fixed split).
+//   Each warp stages its included rows (index and weight) in its own
+//   shared memory, kIdStaged at a time, with no block barrier, so C is
+//   unbounded; each lane then keeps kIdRows rows' 16-byte loads in flight
+//   before adding them. Measured and not kept (scripts/
+//   fedagg_identity_probe.py, each variant bit-identical): a ring of TMA
+//   bulk copies fed by a producer warp, rings of per-lane cp.async copies,
+//   persistent grids (fixed or handed out by an atomic), more rows in
+//   flight, an L2 evict_first policy on the rows: none moved more bytes an
+//   SM, and the persistent grids left the slowest SMs' tail. The sum keeps
+//   the first version's order to the bit: each column adds its included
+//   rows in ascending order, one fmaf a row, from 0, then finish() (den
+//   the same 32-row tree sums in row order); a lane never shares a
+//   column's rows with another, which would change the order. The few
+//   columns of a ragged M past the last 16-byte group are read element by
+//   element by their lane.
 // * stream_kernel (mean, dp; int8; the identity wire with narrower rows,
 //   as aggregate_clients(fused=False) sends per leaf, off the timed paths;
 //   the sketch where sketch_kernel does not take it). Bound: bytes. Each
@@ -142,12 +143,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kIdThreads = 256;    // identity_kernel: threads a block, 16 B of a row each
+constexpr int kIdThreads = 64;     // identity_kernel: threads a block, a warp a tile
 constexpr int kIdWarps = kIdThreads / 32;
-constexpr int kIdBlocks = 2;       // ... blocks an SM
-constexpr int kIdStages = 3;       // ... the ring's stages
-constexpr int kIdRows = 8;         // ... rows a stage
-constexpr int kIdStaged = 128;     // ... included rows a warp stages at once
+constexpr int kIdBlocks = 18;      // ... blocks an SM it is compiled to hold (36 warps)
+constexpr int kIdRows = 4;         // ... rows' loads in flight a lane
+constexpr int kIdStaged = 64;      // ... included rows a warp stages at once
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTopkCols = 2048;    // columns per block of topk_sum_kernel
@@ -589,26 +589,6 @@ __global__ void __launch_bounds__(kThreads, 5) stream_kernel_5(STREAM_PARAMS) {
 #undef STREAM_PARAMS
 
 // ---------------------------------------------------------- identity kernel
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A thread's 16-byte copies into its own slots of the ring, and the wait
-// for all but the newest N groups: no other thread reads them, so no
-// barrier stands between the copies and the reads
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Stage the included rows of ranks [first, first + kIdStaged) in the
 // ascending order of [0, C), for one warp: their indices in s_row, their
 // weights in s_wr (dp: times the clip scale, read only for an included
@@ -636,29 +616,25 @@ __device__ __forceinline__ int stage_warp_rows(const float* w, const float* g,
   return staged < kIdStaged ? staged : kIdStaged;
 }
 
-// Shared memory of identity_kernel (dynamic, ~104 KB: two blocks an SM)
-struct IdSmem {
-  uint4 ring[kIdStages][kIdRows][kIdThreads];  // each thread's own slots
-  int row[kIdWarps][kIdStaged];                // a warp's staged rows
-  float wr[kIdWarps][kIdStaged];               // ... and their weights
-  long long tile[kIdWarps][kIdStages];         // the tile of each slot's stage
-};
-
 template <typename S, bool kDP>
 __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
     identity_kernel(const S* __restrict__ u, long long ld, const float* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ rs,
                     const float* __restrict__ noise, float noise_scale,
-                    S* __restrict__ out, int C, long long M,
-                    unsigned long long* __restrict__ work) {
+                    S* __restrict__ out, int C, long long M) {
   constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  constexpr int kWidth = 32 * VW;  // a tile: 16 bytes of each row a lane
-  extern __shared__ __align__(16) unsigned char id_smem[];
-  IdSmem& sm = *reinterpret_cast<IdSmem*>(id_smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int* s_row = sm.row[warp];
-  float* s_wr = sm.wr[warp];
-  long long* s_tile = sm.tile[warp];
+  __shared__ int s_rows[kIdWarps][kIdStaged];
+  __shared__ float s_wrs[kIdWarps][kIdStaged];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this warp's tile: 32 x 16 bytes of every row, lane l's at col
+  const long long c0 =
+      (static_cast<long long>(blockIdx.x) * kIdWarps + warp) * (32 * VW);
+  if (c0 >= M) return;  // the last block's spare warp
+  const long long col = c0 + static_cast<long long>(lane) * VW;
+  const bool live = col < M;
+  const bool full = col + VW <= M;  // else the ragged tail, element by element
+  int* s_row = s_rows[warp];
+  float* s_wr = s_wrs[warp];
 
   // den and the included count, as stage_rows sums den: the tree sum of
   // each 32 rows' wg, added in row order (a chunk's zero sums past C leave
@@ -676,156 +652,54 @@ __global__ void __launch_bounds__(kIdThreads, kIdBlocks)
     den += __shfl_sync(0xffffffffu, part, 0);
   }
 
-  // Tiles are handed out at run time: SMs stream at unequal rates, so a
-  // split fixed at launch leaves the slowest SMs' tail. A warp takes grab
-  // tiles an atomic (about 64 rows' worth), in the order they come, so the
-  // tiles in flight stay neighbours.
-  const long long tiles = (M + kWidth - 1) / kWidth;
-  const int grab = n < 64 ? 64 / (n > 0 ? n : 1) : 1;
-  long long got = 0, got_end = 0;  // the warp's tiles not yet started
-  auto next_tile = [&]() -> long long {
-    if (got == got_end) {
-      unsigned long long c = 0;
-      if (lane == 0) c = atomicAdd(work, 1ull);
-      c = __shfl_sync(0xffffffffu, c, 0);
-      got = static_cast<long long>(c) * grab;
-      got_end = got + grab < tiles ? got + grab : tiles;
-      if (got >= tiles) {
-        got = got_end;
-        return -1;
-      }
-    }
-    return got++;
-  };
-  auto cols = [&](long long t, long long& col, long long& c1) {
-    const long long c0 = t * kWidth;
-    c1 = c0 + kWidth < M ? c0 + kWidth : M;
-    col = c0 + static_cast<long long>(lane) * VW;
-  };
-
-  // stage q of tile t: lane's 16 bytes of the staged rows q kIdRows ..
-  // into its slots (the ragged tail is read from global when summed)
-  auto copy_stage = [&](long long t, int q, int slot, int staged) {
-    long long col, c1;
-    cols(t, col, c1);
-    if (kDP && q == 0 && col < c1)
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(noise + col));
-    if (col + VW > c1) return;
-    const int* rows = s_row + q * kIdRows;
-    const int nr = staged - q * kIdRows;
-#pragma unroll
-    for (int r = 0; r < kIdRows; ++r)
-      if (r < nr)
-        cp_async16(&sm.ring[slot][r][tid], u + static_cast<long long>(rows[r]) * ld + col);
-  };
+  // the included rows, kIdStaged at a time, each added in ascending order
+  // with one fmaf: kIdRows rows' 16-byte loads in flight before any is
+  // added, the rest of a chunk row by row
   float acc[VW];
-  auto sum_stage = [&](long long t, int q, int slot, int staged) {
-    long long col, c1;
-    cols(t, col, c1);
-    const int nr = staged - q * kIdRows;
-    const float* wts = s_wr + q * kIdRows;
-    if (col + VW <= c1) {
-      Pack<S, VW> v[kIdRows];
 #pragma unroll
-      for (int r = 0; r < kIdRows; ++r)
-        if (r < nr) v[r].raw = sm.ring[slot][r][tid];
+  for (int e = 0; e < VW; ++e) acc[e] = 0.f;
+  for (int first = 0; first < n; first += kIdStaged) {
+    __syncwarp();  // every lane is done with the rows staged before
+    const int staged = stage_warp_rows<kDP>(w, g, rs, C, first, s_row, s_wr);
+    if (full) {
+      int j = 0;
+      for (; j + kIdRows <= staged; j += kIdRows) {
+        Pack<S, VW> v[kIdRows];
 #pragma unroll
-      for (int r = 0; r < kIdRows; ++r) {
-        if (r < nr) {
+        for (int r = 0; r < kIdRows; ++r)
+          v[r] = load_pack<S, VW>(u + static_cast<long long>(s_row[j + r]) * ld + col);
 #pragma unroll
-          for (int e = 0; e < VW; ++e) acc[e] = fmaf(wts[r], to_f32(v[r].v[e]), acc[e]);
+        for (int r = 0; r < kIdRows; ++r) {
+          const float wt = s_wr[j + r];
+#pragma unroll
+          for (int e = 0; e < VW; ++e) acc[e] = fmaf(wt, to_f32(v[r].v[e]), acc[e]);
         }
       }
-    } else if (col < c1) {  // the ragged tail
-      const int* rows = s_row + q * kIdRows;
-      for (int r = 0; r < kIdRows && r < nr; ++r) {
-        const S* src = u + static_cast<long long>(rows[r]) * ld;
+      for (; j < staged; ++j) {
+        const Pack<S, VW> v = load_pack<S, VW>(u + static_cast<long long>(s_row[j]) * ld + col);
+        const float wt = s_wr[j];
+#pragma unroll
+        for (int e = 0; e < VW; ++e) acc[e] = fmaf(wt, to_f32(v.v[e]), acc[e]);
+      }
+    } else if (live) {
+      for (int j = 0; j < staged; ++j) {
+        const S* src = u + static_cast<long long>(s_row[j]) * ld;
         for (int e = 0; e < VW && col + e < M; ++e)
-          acc[e] = fmaf(wts[r], to_f32(src[col + e]), acc[e]);
+          acc[e] = fmaf(s_wr[j], to_f32(src[col + e]), acc[e]);
       }
-    }
-  };
-  auto store = [&](long long t) {
-    long long col, c1;
-    cols(t, col, c1);
-    if (col >= c1) return;
-    float o[VW];
-#pragma unroll
-    for (int e = 0; e < VW; ++e)
-      o[e] = finish<kDP>(acc[e], den, noise, noise_scale, col + e < M ? col + e : col);
-    if (col + VW <= c1) {
-      store_vec<S, VW>(out + col, o);
-    } else {
-      for (int e = 0; e < VW && col + e < M; ++e) out[col + e] = from_f32<S>(o[e]);
-    }
-  };
-  auto zero = [&]() {
-#pragma unroll
-    for (int e = 0; e < VW; ++e) acc[e] = 0.f;
-  };
-
-  if (n <= kIdStaged) {
-    // Every tile sums the same rows: stage them once; the copies run
-    // kIdStages - 1 stages ahead of the sums, across tiles, each slot's
-    // tile noted beside it (-1: none left).
-    const int staged = stage_warp_rows<kDP>(w, g, rs, C, 0, s_row, s_wr);
-    const int per = staged > 0 ? (staged + kIdRows - 1) / kIdRows : 1;  // stages a tile
-    long long it = -1;  // the tile copied next
-    int iq = 0, issued = 0;
-    auto issue = [&]() {
-      const int slot = issued++ % kIdStages;
-      if (iq == 0 && it != -2) it = next_tile();
-      if (it < 0) {
-        it = -2;  // no tile left: take none again
-        if (lane == 0) s_tile[slot] = -1;
-      } else {
-        copy_stage(it, iq, slot, staged);
-        if (lane == 0) s_tile[slot] = it;
-        if (++iq == per) iq = 0;
-      }
-      cp_async_commit();  // one group a stage, empty past the end
-    };
-#pragma unroll
-    for (int s = 0; s < kIdStages - 1; ++s) issue();
-    for (int j = 0;; ++j) {
-      __syncwarp();  // every lane is done with the slot issue() overwrites
-      issue();
-      cp_async_wait<kIdStages - 1>();  // this thread's copies of stage j landed
-      __syncwarp();                    // ... and lane 0's tile of it is seen
-      const int slot = j % kIdStages, q = j % per;
-      const long long t = s_tile[slot];
-      if (t < 0) break;
-      if (q == 0) zero();
-      sum_stage(t, q, slot, staged);
-      if (q == per - 1) store(t);
-    }
-  } else {
-    // More included rows than a warp stages: tile by tile, kIdStaged rows
-    // at a time, each chunk's copies kIdStages - 1 stages ahead, the sum
-    // carried on in acc.
-    for (long long t = next_tile(); t >= 0; t = next_tile()) {
-      zero();
-      for (int first = 0; first < n; first += kIdStaged) {
-        __syncwarp();  // every lane is done with the rows staged before
-        const int staged = stage_warp_rows<kDP>(w, g, rs, C, first, s_row, s_wr);
-        const int per = (staged + kIdRows - 1) / kIdRows;
-#pragma unroll
-        for (int s = 0; s < kIdStages - 1; ++s) {
-          if (s < per) copy_stage(t, s, s, staged);
-          cp_async_commit();
-        }
-        for (int q = 0; q < per; ++q) {
-          if (q + kIdStages - 1 < per)
-            copy_stage(t, q + kIdStages - 1, (q + kIdStages - 1) % kIdStages, staged);
-          cp_async_commit();
-          cp_async_wait<kIdStages - 1>();
-          sum_stage(t, q, q % kIdStages, staged);
-        }
-      }
-      store(t);
     }
   }
-  cp_async_wait<0>();
+
+  if (!live) return;
+  float o[VW];
+#pragma unroll
+  for (int e = 0; e < VW; ++e)
+    o[e] = finish<kDP>(acc[e], den, noise, noise_scale, col + e < M ? col + e : col);
+  if (full) {
+    store_vec<S, VW>(out + col, o);
+  } else {
+    for (int e = 0; e < VW && col + e < M; ++e) out[col + e] = from_f32<S>(o[e]);
+  }
 }
 
 // ------------------------------------------------------------ sketch kernel
@@ -1356,8 +1230,7 @@ struct FedaggArgs {
   int vw;                     // stream_kernel columns per thread
   int C;
   int sort_cols;              // sorted_kernel threads (= columns) per block
-  void* work;                 // identity_kernel: 8 bytes of scratch (its tile counter)
-  int grid;                   // ... and its blocks (fedagg.identity_grid)
+  long long grid;             // identity_kernel: blocks (fedagg.identity_grid)
 };
 
 }  // extern "C"
@@ -1423,22 +1296,12 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
 // identity rows whose pitch and base are 16-byte multiples
 template <typename S, bool kDP>
 cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
-  if (a.grid < 1 || a.work == nullptr) return cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {  // the whole carveout shared, so that kIdBlocks blocks fit an SM
-    const cudaError_t c = cudaFuncSetAttribute(
-        identity_kernel<S, kDP>, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (c != cudaSuccess) return c;
-  }
-  const cudaError_t e = allow_smem(identity_kernel<S, kDP>, sizeof(IdSmem), &attr_set);
-  if (e != cudaSuccess) return e;
-  auto* work = static_cast<unsigned long long*>(a.work);
-  const cudaError_t z = cudaMemsetAsync(work, 0, sizeof(*work), s);
-  if (z != cudaSuccess) return z;
-  identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, sizeof(IdSmem), s>>>(
+  constexpr long long kTile = 32 * (16 / static_cast<long long>(sizeof(S)));
+  if (a.grid != ((a.M + kTile - 1) / kTile + kIdWarps - 1) / kIdWarps || a.grid > INT_MAX)
+    return cudaErrorInvalidValue;
+  identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, 0, s>>>(
       static_cast<const S*>(a.u), a.ld, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
-      static_cast<S*>(a.out), a.C, a.M, work);
+      static_cast<S*>(a.out), a.C, a.M);
   return cudaGetLastError();
 }
 

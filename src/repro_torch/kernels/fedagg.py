@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 
 import torch
 
@@ -57,9 +56,8 @@ MAX_SORT_ROWS = 1024          # the sorted reducers hold C <= 1024 rows a column
 MAX_SKETCH_DIM = 57344
 INT8_WIDTHS = (4, 1)          # int8 columns a thread of the stream kernel
 # mean / dp over identity rows on 16-byte boundaries (identity_kernel):
-# warps a block and blocks an SM
-IDENTITY_WARPS = 8
-IDENTITY_BLOCKS = 2
+# warps a block, each a tile of 32 x 16 bytes of every row
+IDENTITY_WARPS = 2
 
 
 def _next_pow2(n: int) -> int:
@@ -197,8 +195,7 @@ class FedaggArgs(ctypes.Structure):
         ("noise_scale", ctypes.c_float), ("trim_frac", ctypes.c_float),
         ("reducer", ctypes.c_int), ("codec", ctypes.c_int),
         ("dtype", ctypes.c_int), ("vw", ctypes.c_int), ("C", ctypes.c_int),
-        ("sort_cols", ctypes.c_int), ("work", ctypes.c_void_p),
-        ("grid", ctypes.c_int)]
+        ("sort_cols", ctypes.c_int), ("grid", ctypes.c_longlong)]
 
 
 def _bind():
@@ -223,17 +220,11 @@ def _vector_width(widths, ld: int, *tensors) -> int:
     return 1
 
 
-def identity_grid(M: int, vw: int, sms: int) -> int:
-    """Blocks of identity_kernel: IDENTITY_BLOCKS on each of ``sms`` SMs,
-    or fewer where the columns' warp tiles (32 vw columns each) do not
-    give each warp one."""
+def identity_grid(M: int, vw: int) -> int:
+    """Blocks of identity_kernel: a warp for each tile of 32 vw columns,
+    IDENTITY_WARPS warps a block."""
     tiles = -(-M // (32 * vw))
-    return max(1, min(sms * IDENTITY_BLOCKS, -(-tiles // IDENTITY_WARPS)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return -(-tiles // IDENTITY_WARPS)
 
 
 def _sort_cols(C: int) -> int:
@@ -320,10 +311,7 @@ def fedagg(updates: torch.Tensor, weights: torch.Tensor, gates: torch.Tensor,
                                 args.ld, updates, out)
         if (aggregator in ("mean", "dp") and M
                 and args.vw * updates.element_size() == 16):
-            args.grid = identity_grid(M, args.vw, _sm_count(
-                dev.index if dev.index is not None else torch.cuda.current_device()))
-            work = torch.empty(1, dtype=torch.int64, device=dev)  # the tile counter
-            args.work = work.data_ptr()
+            args.grid = identity_grid(M, args.vw)
     else:
         if out_m is None and codec != "int8":
             raise ValueError(f"fedagg: codec={codec!r} needs out_m")

@@ -2,22 +2,14 @@
 on 16-byte boundaries: ``identity_kernel`` in ``csrc/fedagg.cu``), emulated
 on the CPU, against the first version's order bit for bit.
 
-The kernel: ``identity_grid`` gives a persistent grid of at most kIdBlocks
-blocks an SM; the columns are cut into warp tiles of 32 vw (lane l the vw
-columns at c0 + l vw), handed out at run time: a warp takes the next
-``grab`` tiles from an atomic counter (64 // n of them below 64 included
-rows, else one), in whatever order the warps come. Each warp stages its
-included rows (index and weight, in ascending order, the gates read 32 a
-ballot) in shared memory, up to kIdStaged at once; the staged rows are
-summed kIdRows a stage (a chunk's last stage may hold fewer): each lane
-copies its 16 bytes of each row into its own slot of a ring of kIdStages
-stages (cp.async), kIdStages - 1 stages ahead of the sums, across tiles
-while all included rows fit one staging (each slot's tile noted beside
-it, -1 once none is left), else tile by tile, chunk by chunk, the sum
-carried on. Each lane adds the rows in order (one fmaf a row, from 0) and
-finishes its columns; the columns of a ragged M past the last 16-byte
-group are read from global memory by their lane. den is the tree sum of
-each 32 rows' w g, added in row order.
+The kernel: a warp for each tile of 32 vw columns (lane l the vw columns
+at c0 + l vw), kIdWarps warps a block (``identity_grid``). Each warp stages
+its included rows (index and weight, in ascending order, the gates read 32
+a ballot) in shared memory, kIdStaged at a time; each lane adds them in
+order, one fmaf a row from 0: kIdRows rows' loads in flight at a time, the
+rest of a chunk row by row; then finishes its columns. The columns of a
+ragged M past the last 16-byte group are read element by element by their
+lane. den is the tree sum of each 32 rows' w g, added in row order.
 
 The first version (``stream_kernel``): per column one fmaf an included row
 in ascending order from 0, den from ``stage_rows`` (chunks of 256 rows,
@@ -49,7 +41,6 @@ def _const(name):
 THREADS = _const("kIdThreads")
 WARPS = THREADS // 32
 BLOCKS = _const("kIdBlocks")
-STAGES = _const("kIdStages")
 ROWS = _const("kIdRows")
 STAGED = _const("kIdStaged")
 PARENT_THREADS = _const("kThreads")      # stage_rows' chunk of rows
@@ -157,38 +148,16 @@ def staged_rows(wg, inc, wr, first):
     return rows
 
 
-def grabs(tiles, n, W, seed):
-    """The tiles each of W warps takes from the counter, the warps coming
-    in a random order (any order the card may give): [tiles of warp v]."""
-    grab = 64 // max(n, 1) if n < 64 else 1
-    rng = np.random.default_rng(seed)
-    taken, counter = [[] for _ in range(W)], 0
-    live = list(range(W))
-    while live:                                 # each warp until one grab fails
-        v = live[int(rng.integers(len(live)))]
-        got = range(counter * grab, min(counter * grab + grab, tiles))
-        counter += 1
-        if len(got) == 0:
-            live.remove(v)
-        taken[v].extend(got)
-    return taken
-
-
-def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms, seed=0):
-    """The kernel's schedule on the CPU, its rings mirrored, for one order
-    of the warps' grabs: (out, the number of lanes that store each column,
-    the number of ring stages summed, the columns read from global
-    memory). Checks the ring as it goes: every stage is in its slot,
-    copied for its tile, when it is summed, and a warp stops at the first
-    slot that holds no tile."""
+def identity_walk(u, w, g, rs, noise, noise_scale, dp):
+    """The kernel's schedule on the CPU: (out, the number of lanes that
+    store each column, the row loads it issues in groups of ROWS and one by
+    one, the columns read element by element)."""
     C, M = u.shape
     vw = 16 // u.element_size()
     width = 32 * vw
-    grid = fk.identity_grid(M, vw, sms)
+    grid = fk.identity_grid(M, vw)
     tiles = -(-M // width)
-    assert 1 <= grid <= sms * BLOCKS and (grid - 1) * WARPS < tiles
-    W = grid * WARPS
-    m_vec = M - M % vw
+    assert (grid - 1) * WARPS < tiles <= grid * WARPS   # no block without a tile
     wg, inc, wr = _weights(w, g, rs, dp)
     n = int(inc.sum())
     den = den_identity(wg)
@@ -196,75 +165,42 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp, sms, seed=0):
     out = torch.full((M,), float("nan"))
     owners = torch.zeros(M, dtype=torch.int64)
     from_global = torch.zeros(M, dtype=torch.bool)
-    consumed = 0
-    acc = {}
-
-    def ring_walk(order, rows):
-        """Stages ``order`` (tile, q) or None (no tile left), copied
-        STAGES - 1 ahead of the sums; returns the stages summed."""
-        ring, issued = {}, 0
-
-        def issue():
-            nonlocal issued
-            stage = order[issued] if issued < len(order) else None
-            if stage is not None:
-                t, q = stage
-                ring[issued % STAGES] = (issued, t, rows[q * ROWS:q * ROWS + ROWS])
-            else:
-                ring[issued % STAGES] = (issued, -1, [])
-            issued += 1
-
-        for _ in range(STAGES - 1):
-            issue()
-        j = 0
-        while True:
-            issue()
-            stage, t, stage_rows = ring[j % STAGES]
-            assert stage == j
-            if t < 0:
-                return j
-            c0, c1 = t * width, min(t * width + width, M)
-            for k, weight in stage_rows:
-                acc[t] = _fma(weight, uf[k, c0:c1], acc[t])
-            j += 1
-
-    for v, mine in enumerate(grabs(tiles, n, W, seed + 1)):
-        for t in mine:
-            c0, c1 = t * width, min(t * width + width, M)
-            acc[t] = torch.zeros(c1 - c0, dtype=torch.float32)
-            for lane in range(32):
-                col = c0 + lane * vw
-                if col >= c1:
-                    continue                    # not live
-                owned = slice(col, min(col + vw, M))
-                owners[owned] += 1
-                if col + vw > M:                # the ragged tail, from global
-                    from_global[owned] = True
-                else:                           # in the lane's copies
-                    assert col + vw <= min(c1, m_vec)
-        if n <= STAGED:                         # staged once, across tiles
-            rows = staged_rows(wg, inc, wr, 0)
-            per = max(1, -(-len(rows) // ROWS))
-            consumed += ring_walk([(t, q) for t in mine for q in range(per)], rows)
-        else:                                   # tile by tile, chunk by chunk
-            for t in mine:
-                for first in range(0, n, STAGED):
-                    chunk = staged_rows(wg, inc, wr, first)
-                    assert len(chunk) == min(STAGED, n - first)
-                    per = -(-len(chunk) // ROWS)
-                    consumed += ring_walk([(t, q) for q in range(per)], chunk)
-        for t in mine:
-            c0, c1 = t * width, min(t * width + width, M)
-            out[c0:c1] = _finish(acc[t], den, noise[c0:c1], noise_scale, dp)
-    return out.to(u.dtype), owners, consumed, from_global
+    groups = singles = 0
+    for t in range(grid * WARPS):
+        c0 = t * width
+        if c0 >= M:
+            continue                            # the last block's spare warp
+        c1 = min(c0 + width, M)
+        for lane in range(32):
+            col = c0 + lane * vw
+            if col >= M:
+                continue                        # not live
+            owned = slice(col, min(col + vw, M))
+            owners[owned] += 1
+            if col + vw > M:
+                from_global[owned] = True
+        acc = torch.zeros(c1 - c0, dtype=torch.float32)
+        for first in range(0, n, STAGED):
+            chunk = staged_rows(wg, inc, wr, first)
+            assert len(chunk) == min(STAGED, n - first)
+            j = 0
+            while j + ROWS <= len(chunk):       # ROWS loads, then their adds
+                for k, weight in chunk[j:j + ROWS]:
+                    acc = _fma(weight, uf[k, c0:c1], acc)
+                j += ROWS
+                groups += 1
+            for k, weight in chunk[j:]:
+                acc = _fma(weight, uf[k, c0:c1], acc)
+                singles += 1
+        out[c0:c1] = _finish(acc, den, noise[c0:c1], noise_scale, dp)
+    return out.to(u.dtype), owners, (groups, singles), from_global
 
 
-def stages_a_tile(n):
-    """The ring stages one tile takes for n included rows (one, empty, at
-    none: its columns are stored as zeros)."""
-    if n == 0:
-        return 1
-    return sum(-(-min(STAGED, n - first) // ROWS) for first in range(0, n, STAGED))
+def loads_a_tile(n):
+    """(groups of ROWS, single rows) one tile's lanes load for n included
+    rows, chunk by chunk."""
+    chunks = [min(STAGED, n - first) for first in range(0, n, STAGED)]
+    return sum(c // ROWS for c in chunks), sum(c % ROWS for c in chunks)
 
 
 def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
@@ -294,47 +230,37 @@ def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
 
 # ------------------------------------------------------------------ geometry
 def test_constants_match_the_wrapper_and_fit_the_sm():
-    """The wrapper plans with the kernel's warps and blocks an SM; the
-    ring (a thread's own kIdStages x kIdRows slots of 16 bytes) and each
-    warp's staged rows fit kIdBlocks blocks into an SM's shared memory."""
-    assert fk.IDENTITY_WARPS == WARPS and fk.IDENTITY_BLOCKS == BLOCKS
+    """The wrapper plans with the kernel's warps a block; the blocks an SM
+    that the kernel is compiled to hold give every warp tile of cell (b)
+    (60 x 579,402 f32: 4,527 tiles) a place on 132 SMs at once, within the
+    register file (65,536 a SM) and shared memory (staged rows a warp)."""
+    assert fk.IDENTITY_WARPS == WARPS
     assert "constexpr int kIdWarps = kIdThreads / 32;" in SRC
-    smem = STAGES * ROWS * THREADS * 16 + WARPS * STAGED * 8
-    assert BLOCKS * (smem + 1024) <= SMEM_LIMIT + 1024
-    assert STAGES >= 3
+    assert BLOCKS * WARPS * H100_SMS >= -(-579402 // 128)
+    assert BLOCKS * THREADS * 32 <= 65536            # >= 32 registers a thread
+    assert BLOCKS * (WARPS * STAGED * 8 + 1024) <= SMEM_LIMIT
+    assert ROWS >= 4
 
 
 @pytest.mark.parametrize("vw", [4, 8])
 @pytest.mark.parametrize("M", [1, 3, 7, 8, 100, 610, 1023, 1024, 1025, 2048,
                                4099, 8195, 579402, 10 ** 7 + 3, F2_M])
-@pytest.mark.parametrize("sms", [1, 3, 132])
-def test_identity_grid(M, vw, sms):
-    """launch_identity's check, and every block at least one warp tile:
-    kIdBlocks blocks an SM, fewer where the tiles run out."""
-    grid = fk.identity_grid(M, vw, sms)
+def test_identity_grid(M, vw):
+    """launch_identity's check: a warp for each tile, no block without one,
+    the grid within the launch's limit."""
+    grid = fk.identity_grid(M, vw)
     tiles = -(-M // (32 * vw))
-    assert 1 <= grid <= sms * BLOCKS and (grid - 1) * WARPS < tiles
-    assert grid == sms * BLOCKS or grid == -(-tiles // WARPS)
+    assert (grid - 1) * WARPS < tiles <= grid * WARPS and grid < 2 ** 31
 
 
 def test_identity_grid_at_the_timed_shapes():
-    """Cell (b)'s 579,402 columns and the LM round's 463,987,712 fill 132
-    SMs; 20 x 610 is one block; the LM round's last row starts past 2^31
-    elements (64-bit offsets)."""
-    for M, vw in ((579402, 4), (579402, 8), (F2_M, 4)):
-        assert fk.identity_grid(M, vw, H100_SMS) == H100_SMS * BLOCKS
-    assert fk.identity_grid(610, 4, H100_SMS) == 1
+    """Cell (b)'s 579,402 columns, the LM round's 463,987,712 (whose last
+    row starts past 2^31 elements: 64-bit offsets) and 20 x 610."""
+    assert fk.identity_grid(579402, 4) == 2264
+    assert fk.identity_grid(579402, 8) == 1132
+    assert fk.identity_grid(F2_M, 4) == 1812452
+    assert fk.identity_grid(610, 4) == 3
     assert 7 * F2_M > 2 ** 31
-
-
-@pytest.mark.parametrize("n", [0, 1, 8, 60, 63, 64, 200])
-def test_grabs_hand_out_every_tile_once(n):
-    """Whatever order the warps come in, the counter hands out every tile
-    once, in runs of 64 // n (one at 64 or more included rows)."""
-    for tiles, W in ((1, 8), (37, 8), (1000, 16), (4527, 64)):
-        for seed in range(3):
-            taken = grabs(tiles, n, W, seed)
-            assert sorted(t for mine in taken for t in mine) == list(range(tiles))
 
 
 # ------------------------------------------------------------------ den order
@@ -366,26 +292,27 @@ def test_den_is_the_parents_sum_bit_for_bit(C):
 
 
 # ------------------------------------------------------------------ the walk
-WALKS = [  # (C, M, sms): one block and many; a tile and less; ragged M
-    (1, 7, 132), (1, 1000, 132), (3, 100, 132), (8, 1027, 132),
-    (8, 8195, 3), (20, 610, 132), (60, 5003, 2), (257, 2051, 2),
-    (1000, 1029, 1)]
+WALKS = [  # (C, M): one tile and many; less than a tile; ragged M; C past
+    # one staging (64 included rows) and one 256-row chunk of stage_rows
+    (1, 7), (1, 1000), (3, 100), (8, 1027), (8, 8195), (20, 610),
+    (60, 5003), (257, 2051), (1000, 1029)]
 
 
 @pytest.mark.parametrize("dp", [False, True], ids=["mean", "dp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("C,M,sms", WALKS)
-def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
-    """Every column stored by one consumer thread, the ragged tail (and only
-    it) read from global memory, the stage count the consumers derive, and
-    the output bit for bit the first version's."""
+@pytest.mark.parametrize("C,M", WALKS)
+def test_walk_is_the_parents_order_bit_for_bit(C, M, dtype, dp):
+    """Every column stored by one lane, the ragged tail (and only it) read
+    element by element, every included row loaded once a tile, and the
+    output bit for bit the first version's."""
     u, w, g, rs, noise = _case(C, M, dtype, seed=C + M)
-    out, owners, consumed, from_global = identity_walk(u, w, g, rs, noise, 0.3,
-                                                       dp, sms)
+    out, owners, loads, from_global = identity_walk(u, w, g, rs, noise, 0.3, dp)
     assert torch.equal(owners, torch.ones(M, dtype=torch.int64))
     vw = 16 // u.element_size()
     assert int(from_global.sum()) == M % vw
-    assert consumed == -(-M // (32 * vw)) * stages_a_tile(int((w * g > 0).sum()))
+    tiles = -(-M // (32 * vw))
+    groups, singles = loads_a_tile(int((w * g > 0).sum()))
+    assert loads == (tiles * groups, tiles * singles)
     _same_bits(out, parent_order(u, w, g, rs, noise, 0.3, dp))
 
 
@@ -393,8 +320,8 @@ def test_walk_is_the_parents_order_bit_for_bit(C, M, sms, dtype, dp):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_zero_inclusion_gives_exact_zeros(dtype, dp):
     u, w, g, rs, noise = _case(6, 2053, dtype, gates="none")
-    out, _, consumed, _ = identity_walk(u, w, g, rs, noise, 0.3, dp, 2)
-    assert consumed == -(-2053 // (512 // u.element_size()))  # one empty stage a tile
+    out, _, loads, _ = identity_walk(u, w, g, rs, noise, 0.3, dp)
+    assert loads == (0, 0)
     assert bool(torch.all(out == 0)) and not bool(torch.signbit(out.float()).any())
 
 
@@ -404,7 +331,7 @@ def test_nan_behind_a_zero_gate_never_read(dtype, dp):
     """A NaN row and its NaN clip scale behind a zero gate: finite, and the
     same bits as with the row cleaned."""
     u, w, g, rs, noise = _case(40, 1031, dtype, nan_row=33)
-    out, *_ = identity_walk(u, w, g, rs, noise, 0.3, dp, 132)
+    out, *_ = identity_walk(u, w, g, rs, noise, 0.3, dp)
     assert bool(torch.isfinite(out.float()).all())
     clean_u, clean_rs = u.clone(), rs.clone()
     clean_u[33], clean_rs[33] = 0.0, 1.0
@@ -429,8 +356,8 @@ def _close(got, want, u, w, g, rs, dp):
 
 @pytest.mark.parametrize("dp", [False, True], ids=["mean", "dp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("C,M,sms", [(20, 610, 132), (257, 2051, 2), (8, 1027, 3)])
-def test_walk_within_tolerance_of_plain_and_the_jnp_lowering(C, M, sms, dtype, dp):
+@pytest.mark.parametrize("C,M", [(20, 610), (257, 2051), (8, 1027)])
+def test_walk_within_tolerance_of_plain_and_the_jnp_lowering(C, M, dtype, dp):
     """The emulated kernel against fedagg_plain and the reference's jnp
     lowering (repro.kernels.ops.fedagg, use_pallas off), on a pitched view
     as flatten_stacked hands it over."""
@@ -439,7 +366,7 @@ def test_walk_within_tolerance_of_plain_and_the_jnp_lowering(C, M, sms, dtype, d
     pitch = -(-M // 8) * 8 + 8
     u, w, g, rs, noise = _case(C, M, dtype, seed=7, pitch=pitch)
     noise = noise.clamp(-4.0, 4.0)
-    out, *_ = identity_walk(u, w, g, rs, noise, 0.3, dp, sms)
+    out, *_ = identity_walk(u, w, g, rs, noise, 0.3, dp)
     kw = dict(aggregator="dp", row_scale=rs, noise=noise, noise_scale=0.3) if dp else {}
     _close(out, fk.fedagg_plain(u, w, g, **kw), u, w, g, rs, dp)
     jkw = {k: (jnp.asarray(v.numpy()) if torch.is_tensor(v) else v) for k, v in kw.items()}
