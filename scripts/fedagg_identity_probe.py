@@ -60,7 +60,6 @@ EDITS = {
     "w8": [(THREADS, "constexpr int kIdThreads = 256;"), (BLOCKS, "constexpr int kIdBlocks = 4;")],
     "b12": [(BLOCKS, "constexpr int kIdBlocks = 12;")],
 }
-PY_PLAN = {"w8": dict(IDENTITY_WARPS=8)}   # what identity_grid plans with
 
 
 def build_variants(parent: Path | None, names) -> dict[str, Path]:
@@ -106,11 +105,9 @@ def build_variants(parent: Path | None, names) -> dict[str, Path]:
     return libs
 
 
-def bind(lib_path: Path, name: str):
+def bind(lib_path: Path):
     """Point the fedagg wrapper at one variant's library."""
     from repro_torch.kernels import fedagg as fk
-    for key, value in dict(dict(IDENTITY_WARPS=2), **PY_PLAN.get(name, {})).items():
-        setattr(fk, key, value)
     lib = ctypes.CDLL(str(lib_path))
     lib.fedagg_launch.argtypes = [ctypes.POINTER(fk.FedaggArgs), ctypes.c_void_p]
     lib.fedagg_launch.restype = ctypes.c_int
@@ -162,7 +159,7 @@ def main() -> int:
         updates, w, g, ops = make()
         ops = dict(ops, aggregator=red)
         for name in order:
-            bind(libs[name], name)
+            bind(libs[name])
             out = fk.fedagg(updates, w, g, **ops)
             bits = out.view(torch.int32 if out.dtype == torch.float32 else torch.int16)
             if name == "shipped":
@@ -172,7 +169,7 @@ def main() -> int:
             rows.append(row)
             print("probe:", json.dumps(row), flush=True)
         for name in order:        # bit for bit against the shipped source
-            bind(libs[name], name)
+            bind(libs[name])
             bits = fk.fedagg(updates, w, g, **ops)
             bits = bits.view(torch.int32 if bits.dtype == torch.float32 else torch.int16)
             same = bool(torch.equal(bits, ref[label, red, dtype]))

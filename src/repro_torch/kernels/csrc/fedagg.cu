@@ -1230,7 +1230,6 @@ struct FedaggArgs {
   int vw;                     // stream_kernel columns per thread
   int C;
   int sort_cols;              // sorted_kernel threads (= columns) per block
-  long long grid;             // identity_kernel: blocks (fedagg.identity_grid)
 };
 
 }  // extern "C"
@@ -1297,9 +1296,9 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
 template <typename S, bool kDP>
 cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
   constexpr long long kTile = 32 * (16 / static_cast<long long>(sizeof(S)));
-  if (a.grid != ((a.M + kTile - 1) / kTile + kIdWarps - 1) / kIdWarps || a.grid > INT_MAX)
-    return cudaErrorInvalidValue;
-  identity_kernel<S, kDP><<<static_cast<unsigned>(a.grid), kIdThreads, 0, s>>>(
+  const long long grid = ((a.M + kTile - 1) / kTile + kIdWarps - 1) / kIdWarps;  // a warp a tile
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  identity_kernel<S, kDP><<<static_cast<unsigned>(grid), kIdThreads, 0, s>>>(
       static_cast<const S*>(a.u), a.ld, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
       static_cast<S*>(a.out), a.C, a.M);
   return cudaGetLastError();

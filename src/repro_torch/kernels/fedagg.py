@@ -55,9 +55,6 @@ MAX_SORT_ROWS = 1024          # the sorted reducers hold C <= 1024 rows a column
 # gathers every row's bucket from L2 (stream_kernel)
 MAX_SKETCH_DIM = 57344
 INT8_WIDTHS = (4, 1)          # int8 columns a thread of the stream kernel
-# mean / dp over identity rows on 16-byte boundaries (identity_kernel):
-# warps a block, each a tile of 32 x 16 bytes of every row
-IDENTITY_WARPS = 2
 
 
 def _next_pow2(n: int) -> int:
@@ -195,7 +192,7 @@ class FedaggArgs(ctypes.Structure):
         ("noise_scale", ctypes.c_float), ("trim_frac", ctypes.c_float),
         ("reducer", ctypes.c_int), ("codec", ctypes.c_int),
         ("dtype", ctypes.c_int), ("vw", ctypes.c_int), ("C", ctypes.c_int),
-        ("sort_cols", ctypes.c_int), ("grid", ctypes.c_longlong)]
+        ("sort_cols", ctypes.c_int)]
 
 
 def _bind():
@@ -218,13 +215,6 @@ def _vector_width(widths, ld: int, *tensors) -> int:
                                    for t in tensors):
             return vw
     return 1
-
-
-def identity_grid(M: int, vw: int) -> int:
-    """Blocks of identity_kernel: a warp for each tile of 32 vw columns,
-    IDENTITY_WARPS warps a block."""
-    tiles = -(-M // (32 * vw))
-    return -(-tiles // IDENTITY_WARPS)
 
 
 def _sort_cols(C: int) -> int:
@@ -309,9 +299,6 @@ def fedagg(updates: torch.Tensor, weights: torch.Tensor, gates: torch.Tensor,
         out = torch.empty(M, dtype=updates.dtype, device=dev)
         args.vw = _vector_width((4, 2, 1) if args.dtype == 0 else (8, 4, 2, 1),
                                 args.ld, updates, out)
-        if (aggregator in ("mean", "dp") and M
-                and args.vw * updates.element_size() == 16):
-            args.grid = identity_grid(M, args.vw)
     else:
         if out_m is None and codec != "int8":
             raise ValueError(f"fedagg: codec={codec!r} needs out_m")

@@ -3,7 +3,7 @@ on 16-byte boundaries: ``identity_kernel`` in ``csrc/fedagg.cu``), emulated
 on the CPU, against the first version's order bit for bit.
 
 The kernel: a warp for each tile of 32 vw columns (lane l the vw columns
-at c0 + l vw), kIdWarps warps a block (``identity_grid``). Each warp stages
+at c0 + l vw), kIdWarps warps a block (``launch_identity``). Each warp stages
 its included rows (index and weight, in ascending order, the gates read 32
 a ballot) in shared memory, kIdStaged at a time; each lane adds them in
 order, one fmaf a row from 0: kIdRows rows' loads in flight at a time, the
@@ -47,6 +47,16 @@ PARENT_THREADS = _const("kThreads")      # stage_rows' chunk of rows
 H100_SMS = 132
 F2_M = 463987712                         # qwen1.5-0.5b's parameter count
 SMEM_LIMIT = 227 * 1024
+
+
+GRID_LINE = ("const long long grid = ((a.M + kTile - 1) / kTile + kIdWarps - 1) / "
+             "kIdWarps;  // a warp a tile")
+
+
+def identity_grid(M, vw):
+    """launch_identity's blocks: a warp for each tile of 32 vw columns."""
+    tiles = -(-M // (32 * vw))
+    return -(-tiles // WARPS)
 
 
 def _fma(a, b, c):
@@ -155,7 +165,7 @@ def identity_walk(u, w, g, rs, noise, noise_scale, dp):
     C, M = u.shape
     vw = 16 // u.element_size()
     width = 32 * vw
-    grid = fk.identity_grid(M, vw)
+    grid = identity_grid(M, vw)
     tiles = -(-M // width)
     assert (grid - 1) * WARPS < tiles <= grid * WARPS   # no block without a tile
     wg, inc, wr = _weights(w, g, rs, dp)
@@ -230,11 +240,12 @@ def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
 
 # ------------------------------------------------------------------ geometry
 def test_constants_match_the_wrapper_and_fit_the_sm():
-    """The wrapper plans with the kernel's warps a block; the blocks an SM
-    that the kernel is compiled to hold give every warp tile of cell (b)
-    (60 x 579,402 f32: 4,527 tiles) a place on 132 SMs at once, within the
-    register file (65,536 a SM) and shared memory (staged rows a warp)."""
-    assert fk.IDENTITY_WARPS == WARPS
+    """The launch gives a warp a tile (the grid this file mirrors); the
+    blocks an SM that the kernel is compiled to hold give every warp tile
+    of cell (b) (60 x 579,402 f32: 4,527 tiles) a place on 132 SMs at once,
+    within the register file (65,536 a SM) and shared memory (staged rows
+    a warp)."""
+    assert GRID_LINE in SRC
     assert "constexpr int kIdWarps = kIdThreads / 32;" in SRC
     assert BLOCKS * WARPS * H100_SMS >= -(-579402 // 128)
     assert BLOCKS * THREADS * 32 <= 65536            # >= 32 registers a thread
@@ -248,7 +259,7 @@ def test_constants_match_the_wrapper_and_fit_the_sm():
 def test_identity_grid(M, vw):
     """launch_identity's check: a warp for each tile, no block without one,
     the grid within the launch's limit."""
-    grid = fk.identity_grid(M, vw)
+    grid = identity_grid(M, vw)
     tiles = -(-M // (32 * vw))
     assert (grid - 1) * WARPS < tiles <= grid * WARPS and grid < 2 ** 31
 
@@ -256,10 +267,10 @@ def test_identity_grid(M, vw):
 def test_identity_grid_at_the_timed_shapes():
     """Cell (b)'s 579,402 columns, the LM round's 463,987,712 (whose last
     row starts past 2^31 elements: 64-bit offsets) and 20 x 610."""
-    assert fk.identity_grid(579402, 4) == 2264
-    assert fk.identity_grid(579402, 8) == 1132
-    assert fk.identity_grid(F2_M, 4) == 1812452
-    assert fk.identity_grid(610, 4) == 3
+    assert identity_grid(579402, 4) == 2264
+    assert identity_grid(579402, 8) == 1132
+    assert identity_grid(F2_M, 4) == 1812452
+    assert identity_grid(610, 4) == 3
     assert 7 * F2_M > 2 ** 31
 
 
