@@ -26,7 +26,9 @@ if a check fails:
    block and past one stage, ragged pitched int8); then each timed by
    CUDA-graph replay, warm and cold, beside the eager call, the plain
    version, a library yardstick (timed here only) and the bound, the
-   sorted reducers (K3) also at C = 65;
+   sorted reducers (K3) also at C = 65, K1 and K2 also at the LM round's
+   8 x 463,987,712 f32 (slice f2's aggregation; there C x ld > 2^31, and
+   K1 is held against its plain version);
 3. LM kernel phase: flash-attention forward (K5, with its LSE), decode
    attention (K7) and RMSNorm (K9) against their plain versions on the
    card over causal / windowed / ragged / grouped cases in f32 and bf16
