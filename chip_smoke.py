@@ -26,9 +26,9 @@ if a check fails:
    block and past one stage, ragged pitched int8); then each timed by
    CUDA-graph replay, warm and cold, beside the eager call, the plain
    version, a library yardstick (timed here only) and the bound, the
-   sorted reducers (K3) also at C = 65, K1 and K2 also at the LM round's
-   8 x 463,987,712 f32 (slice f2's aggregation; there C x ld > 2^31, and
-   K1 is held against its plain version);
+   sorted reducers (K3) also at C = 65; K1 is also held against its plain
+   version at the LM round's 8 x 463,987,712 f32 (slice f2's aggregation:
+   C x ld > 2^31), where ``--fedagg-timing`` also times K1 and K2;
 3. LM kernel phase: flash-attention forward (K5, with its LSE), decode
    attention (K7) and RMSNorm (K9) against their plain versions on the
    card over causal / windowed / ragged / grouped cases in f32 and bf16
@@ -132,11 +132,10 @@ def ptxas_entries(log):
 
 
 # (library, the substrings of the kernel's symbol, whether its frame must
-# have no stack): K3's register route, K8, K1 / K2's identity kernel, and
-# K4's int8 stream, sketch and topk kernels
+# have no stack): K3's register route, K8, and K4's int8 stream, sketch and
+# topk kernels
 PTXAS_KERNELS = (("fedagg", ("sorted_reg_kernel",), True),
                  ("ssm_scan", ("ssm_scan_kernel",), False),
-                 ("fedagg", ("identity_kernel",), False),
                  ("fedagg", ("stream_kernel", "DecInt8"), False),
                  ("fedagg", ("sketch_kernel",), False),
                  ("fedagg", ("topk_sum_kernel",), False))
@@ -144,8 +143,8 @@ PTXAS_KERNELS = (("fedagg", ("sorted_reg_kernel",), True),
 
 def ptxas_check(check: Check, reports):
     """K3's register route (sorted_reg_kernel) compiles to no stack and no
-    spills (no register array indexed at run time); K8, K1 / K2's identity
-    kernel and K4's kernels to no spills. Prints their registers."""
+    spills (no register array indexed at run time); K8 and K4's kernels to
+    no spills. Prints their registers."""
     summary = {}
     for name, parts, stack_ok in PTXAS_KERNELS:
         found = False
@@ -159,7 +158,7 @@ def ptxas_check(check: Check, reports):
             if stack_ok:
                 check(stack == 0, f"ptxas: {sym} has a {stack}-byte stack frame")
         check(found, f"ptxas: no report of {' / '.join(parts)}")
-    print("ptxas K1-K4 / K8:", json.dumps(summary), flush=True)
+    print("ptxas K3 / K4 / K8:", json.dumps(summary), flush=True)
     return summary
 
 
@@ -615,13 +614,13 @@ def f2_check(check, out, want, updates):
     return err
 
 
-def timing_phase(check: Check, device="cuda"):
+def timing_phase(check: Check, device="cuda", f2=False):
     """K1 (mean + identity) at the slice's shapes, all gates 1 as in the
     bound: the kernel (fedagg_times), the plain version (eager) and the
-    torch.mv yardstick (graph replay, library_ms); and at the LM round's
-    shape (f2_case: C x ld > 2^31 elements, so the kernel is also held
-    against its plain version there, f2_check). Returns rows for PERF.md
-    and the line."""
+    torch.mv yardstick (graph replay, library_ms). At the LM round's shape
+    (f2_case: C x ld > 2^31 elements) the kernel is held against its plain
+    version (f2_check), and with ``f2`` also timed there. Returns rows for
+    PERF.md and the line."""
     import torch
     from repro_torch.core.aggregation import flatten_stacked
     from repro_torch.kernels import fedagg as fk
@@ -645,14 +644,17 @@ def timing_phase(check: Check, device="cuda"):
     up, w, g, _ = f2_case("mean")
     C, M = up.shape
     err = f2_check(check, fk.fedagg(up, w, g), fk.fedagg_plain(up, w, g), up)
-    times = fedagg_times(fk, up, w, g, {})
-    plain = time_ms(lambda: fk.fedagg_plain(up, w, g), iters=3, warmup=1)
-    library = graph_ms(lambda: torch.mv(up.t(), w * g))   # every row included
-    bound, by = fedagg_bound(C, M, 4, 4, C)
-    rows.append(dict(shape=f"{C}x{M}", dtype="float32", label="f2", **times,
-                     plain_ms=plain, library_ms=library, bound_ms=bound,
-                     bound_by=by, max_abs_err=err))
-    print("timing:", json.dumps(rows[-1]), flush=True)
+    print("fedagg f2 check:", json.dumps(dict(shape=f"{C}x{M}", ld=up.stride(0),
+                                              max_abs_err=err)), flush=True)
+    if f2:
+        times = fedagg_times(fk, up, w, g, {})
+        plain = time_ms(lambda: fk.fedagg_plain(up, w, g), iters=3, warmup=1)
+        library = graph_ms(lambda: torch.mv(up.t(), w * g))   # every row included
+        bound, by = fedagg_bound(C, M, 4, 4, C)
+        rows.append(dict(shape=f"{C}x{M}", dtype="float32", label="f2", **times,
+                         plain_ms=plain, library_ms=library, bound_ms=bound,
+                         bound_by=by, max_abs_err=err))
+        print("timing:", json.dumps(rows[-1]), flush=True)
     del up
     torch.cuda.empty_cache()
     return rows
@@ -696,7 +698,7 @@ def variant_bound(red, wire, ops, C_inc, C, M):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def variant_timing_phase(device="cuda", C=60, M=579402):
+def variant_timing_phase(device="cuda", C=60, M=579402, f2=False):
     """Every reducer x wire but K1's mean + identity at the cell-(b) shape,
     all gates 1: the kernel (fedagg_times: device time warm and cold by
     graph replay, and the eager call's), the plain version (eager), the
@@ -707,16 +709,17 @@ def variant_timing_phase(device="cuda", C=60, M=579402):
     torch.quantile(rows, 0.5, dim=0, interpolation="midpoint"),
     jnp.median's function in one call (eager), with torch.sort beside it
     (sort_ms). The sorted reducers also at C = 65 (label c65: P = 128, the
-    shared-memory route) with f32 rows; K2 over f32 rows also at the LM
-    round's shape (label f2, f2_case), where every row is included and
-    torch.mv reads the rows in place."""
+    shared-memory route) with f32 rows; with ``f2``, K2 over f32 rows also
+    at the LM round's shape (label f2, f2_case), where every row is
+    included and torch.mv reads the rows in place."""
     import torch
     from repro_torch.kernels import fedagg as fk
     rows = []
     cases = [(red, wire, C, "slice_b") for red in REDUCERS for wire in WIRES
              if (red, wire) != ("mean", "identity_f32")]   # K1, timed above
     cases += [(red, "identity_f32", 65, "c65") for red in ("trimmed_mean", "median")]
-    cases += [("dp", "identity_f32", F2_CLIENTS, "f2")]
+    if f2:
+        cases += [("dp", "identity_f32", F2_CLIENTS, "f2")]
     for red, wire, rows_c, label in cases:
         if label == "f2":
             updates, w, g, ops = f2_case(red)
@@ -2601,8 +2604,8 @@ def fedagg_main(argv) -> int:
         python3 chip_smoke.py --compare A.pt B.pt
 
     ``--fedagg-timing`` builds fedagg and writes timing_phase's and
-    variant_timing_phase's rows (with the card's name and power limit and
-    ptxas's report of K4's kernels); ``--src`` picks the ``src`` directory
+    variant_timing_phase's rows, the LM round's (label f2) included (with
+    the card's name and power limit and ptxas's report of K4's kernels); ``--src`` picks the ``src`` directory
     whose ``repro_torch`` is timed (default: this checkout's), built into
     that checkout's ``build/``; ``--outputs`` saves fedagg_outputs.
     ``--compare`` prints compare_outputs of two saved runs."""
@@ -2628,10 +2631,10 @@ def fedagg_main(argv) -> int:
     smi = smi_line()
     print(smi, flush=True)
     ptxas = {sym: v for sym, v in ptxas_entries(reports["fedagg"]).items()
-             if any(k in sym for k in ("stream_kernel", "identity_kernel",
-                                       "sketch_kernel", "topk_sum_kernel"))}
+             if any(k in sym for k in ("stream_kernel", "sketch_kernel",
+                                       "topk_sum_kernel"))}
     check = Check()
-    rows = timing_phase(check) + variant_timing_phase()
+    rows = timing_phase(check, f2=True) + variant_timing_phase(f2=True)
     if args.outputs:
         fedagg_outputs(args.outputs)
     Path(args.fedagg_timing).write_text(json.dumps(dict(

@@ -24,45 +24,28 @@
 // registers (or, for the sorted reducers and the sparse topk wire, in its
 // block's shared memory) what it reduces.
 //
-// Six kernels:
+// Five kernels:
 //
-// * identity_kernel (mean, dp; identity rows on 16-byte boundaries: f32
-//   with vw 4, bf16 with vw 8, which the fused aggregation always gives).
-//   Bound: bytes, C_inc x M x 4 (or 2) read once; in practice each SM's
-//   outstanding loads, ~20-24 GB/s an SM (3.1 TB/s over 132 SMs, 93-94% of
-//   the 3.35 TB/s bound, which the stream kernel already reached at the LM
-//   round's 8 x 464 M). A warp owns a tile of 32 x 16 bytes of every row
-//   (lane l the vw columns at c0 + l vw), 2 warps a block, so that all of
-//   cell (b)'s 4,527 f32 tiles (60 x 579,402) are resident from the start,
-//   18 blocks an SM, with SMs holding 17 or 18 of them (the stream
-//   kernel's 256-thread blocks gave SMs 4 or 5, and bf16's 283 blocks 2
-//   or 3), while the LM round's 3.6 M tiles stream through short blocks
-//   that the card hands to whichever SM is free: SMs stream at unequal
-//   rates (warps of equal work ended ~30% apart under a fixed split).
-//   Each warp stages its included rows (index and weight) in its own
-//   shared memory, kIdStaged at a time, with no block barrier, so C is
-//   unbounded; each lane then keeps kIdRows rows' 16-byte loads in flight
-//   before adding them. Measured and not kept (scripts/
-//   fedagg_identity_probe.py, each variant bit-identical): a ring of TMA
-//   bulk copies fed by a producer warp, rings of per-lane cp.async copies,
-//   persistent grids (fixed or handed out by an atomic), more rows in
-//   flight, an L2 evict_first policy on the rows: none moved more bytes an
-//   SM, and the persistent grids left the slowest SMs' tail. The sum keeps
-//   the first version's order to the bit: each column adds its included
-//   rows in ascending order, one fmaf a row, from 0, then finish() (den
-//   the same 32-row tree sums in row order); a lane never shares a
-//   column's rows with another, which would change the order. The few
-//   columns of a ragged M past the last 16-byte group are read element by
-//   element by their lane.
-// * stream_kernel (mean, dp; int8; the identity wire with narrower rows,
-//   as aggregate_clients(fused=False) sends per leaf, off the timed paths;
-//   the sketch where sketch_kernel does not take it). Bound: bytes. Each
-//   thread owns VW adjacent columns and walks down the included rows, the
-//   sums in registers, kUnroll rows' loads (one wide load each) in flight
-//   before it adds any of them. The block compacts
+// * stream_kernel (mean, dp; identity, int8; the sketch where
+//   sketch_kernel does not take it). Bound: bytes. Each thread owns VW
+//   adjacent columns and walks down the included rows, the sums in
+//   registers, kUnroll rows' loads (one wide load each) in flight before
+//   it adds any of them. The block compacts
 //   the included row indices into shared memory first (one ballot per
-//   warp), with int8's per-row scales beside them. identity: 4 rows in
-//   flight. int8: 4 columns a thread, 8 rows in flight,
+//   warp), with int8's per-row scales beside them. identity: 16-byte
+//   loads, 4 rows in flight; every vw the wrapper picks runs this one
+//   route. At the LM round's 8 x 464 M f32 it reads 93.6% of the byte
+//   bound (3.1 TB/s); at 60 x 579,402, 77% (f32) and under half (bf16),
+//   held by the first and last blocks' latency, not by the bytes in flight.
+//   Redesigns measured and not kept, each bit-identical and none faster
+//   on the f32 rows the rounds run: a TMA bulk-copy ring fed by a producer
+//   warp, per-lane cp.async rings, persistent grids (fixed, or tiles
+//   handed out by an atomic), a warp a tile with every tile resident, an
+//   L2 evict_first hint (faster warm, slower cold and at the LM round).
+//   The order is what the outputs' bits rest on: each column adds its
+//   included rows in ascending order, one fmaf a row, from 0; a design
+//   that splits a column's rows over threads would change it.
+//   int8: 4 columns a thread, 8 rows in flight,
 //   the last group of a ragged row count predicated, at most 48 registers
 //   so that 5 blocks share an SM (the 566 blocks of 256 at 60 x 579,402 in
 //   one wave); each int8 turned into f32 as the float bits 0x4B000080 + q
@@ -143,11 +126,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kIdThreads = 64;     // identity_kernel: threads a block, a warp a tile
-constexpr int kIdWarps = kIdThreads / 32;
-constexpr int kIdBlocks = 18;      // ... blocks an SM it is compiled to hold (36 warps)
-constexpr int kIdRows = 4;         // ... rows' loads in flight a lane
-constexpr int kIdStaged = 64;      // ... included rows a warp stages at once
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTopkCols = 2048;    // columns per block of topk_sum_kernel
@@ -587,120 +565,6 @@ __global__ void __launch_bounds__(kThreads, 5) stream_kernel_5(STREAM_PARAMS) {
   stream_body<Dec, kDP, O>(dec, w, g, rs, noise, noise_scale, out, C, M);
 }
 #undef STREAM_PARAMS
-
-// ---------------------------------------------------------- identity kernel
-// Stage the included rows of ranks [first, first + kIdStaged) in the
-// ascending order of [0, C), for one warp: their indices in s_row, their
-// weights in s_wr (dp: times the clip scale, read only for an included
-// row); the gates read 32 a ballot. Returns how many were staged.
-template <bool kDP>
-__device__ __forceinline__ int stage_warp_rows(const float* w, const float* g,
-                                               const float* rs, int C, int first,
-                                               int* s_row, float* s_wr) {
-  const int lane = threadIdx.x & 31;
-  int rank = 0;
-  for (int k0 = 0; k0 < C && rank < first + kIdStaged; k0 += 32) {
-    const int k = k0 + lane;
-    const float wg = k < C ? w[k] * g[k] : 0.f;
-    const bool inc = wg > 0.f;
-    const unsigned bits = __ballot_sync(0xffffffffu, inc);
-    const int pos = rank + __popc(bits & ((1u << lane) - 1u)) - first;
-    if (inc && pos >= 0 && pos < kIdStaged) {
-      s_row[pos] = k;
-      s_wr[pos] = kDP ? wg * rs[k] : wg;
-    }
-    rank += __popc(bits);
-  }
-  __syncwarp();
-  const int staged = rank - first;
-  return staged < kIdStaged ? staged : kIdStaged;
-}
-
-template <typename S, bool kDP>
-__global__ void __launch_bounds__(kIdThreads, kIdBlocks)
-    identity_kernel(const S* __restrict__ u, long long ld, const float* __restrict__ w,
-                    const float* __restrict__ g, const float* __restrict__ rs,
-                    const float* __restrict__ noise, float noise_scale,
-                    S* __restrict__ out, int C, long long M) {
-  constexpr int VW = 16 / static_cast<int>(sizeof(S));
-  __shared__ int s_rows[kIdWarps][kIdStaged];
-  __shared__ float s_wrs[kIdWarps][kIdStaged];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // this warp's tile: 32 x 16 bytes of every row, lane l's at col
-  const long long c0 =
-      (static_cast<long long>(blockIdx.x) * kIdWarps + warp) * (32 * VW);
-  if (c0 >= M) return;  // the last block's spare warp
-  const long long col = c0 + static_cast<long long>(lane) * VW;
-  const bool live = col < M;
-  const bool full = col + VW <= M;  // else the ragged tail, element by element
-  int* s_row = s_rows[warp];
-  float* s_wr = s_wrs[warp];
-
-  // den and the included count, as stage_rows sums den: the tree sum of
-  // each 32 rows' wg, added in row order (a chunk's zero sums past C leave
-  // den unchanged: it starts at +0, so it is never -0)
-  float den = 0.f;
-  int n = 0;
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    const int k = k0 + lane;
-    const float wg = k < C ? w[k] * g[k] : 0.f;
-    n += __popc(__ballot_sync(0xffffffffu, wg > 0.f));
-    float part = wg;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_down_sync(0xffffffffu, part, off);
-    den += __shfl_sync(0xffffffffu, part, 0);
-  }
-
-  // the included rows, kIdStaged at a time, each added in ascending order
-  // with one fmaf: kIdRows rows' 16-byte loads in flight before any is
-  // added, the rest of a chunk row by row
-  float acc[VW];
-#pragma unroll
-  for (int e = 0; e < VW; ++e) acc[e] = 0.f;
-  for (int first = 0; first < n; first += kIdStaged) {
-    __syncwarp();  // every lane is done with the rows staged before
-    const int staged = stage_warp_rows<kDP>(w, g, rs, C, first, s_row, s_wr);
-    if (full) {
-      int j = 0;
-      for (; j + kIdRows <= staged; j += kIdRows) {
-        Pack<S, VW> v[kIdRows];
-#pragma unroll
-        for (int r = 0; r < kIdRows; ++r)
-          v[r] = load_pack<S, VW>(u + static_cast<long long>(s_row[j + r]) * ld + col);
-#pragma unroll
-        for (int r = 0; r < kIdRows; ++r) {
-          const float wt = s_wr[j + r];
-#pragma unroll
-          for (int e = 0; e < VW; ++e) acc[e] = fmaf(wt, to_f32(v[r].v[e]), acc[e]);
-        }
-      }
-      for (; j < staged; ++j) {
-        const Pack<S, VW> v = load_pack<S, VW>(u + static_cast<long long>(s_row[j]) * ld + col);
-        const float wt = s_wr[j];
-#pragma unroll
-        for (int e = 0; e < VW; ++e) acc[e] = fmaf(wt, to_f32(v.v[e]), acc[e]);
-      }
-    } else if (live) {
-      for (int j = 0; j < staged; ++j) {
-        const S* src = u + static_cast<long long>(s_row[j]) * ld;
-        for (int e = 0; e < VW && col + e < M; ++e)
-          acc[e] = fmaf(s_wr[j], to_f32(src[col + e]), acc[e]);
-      }
-    }
-  }
-
-  if (!live) return;
-  float o[VW];
-#pragma unroll
-  for (int e = 0; e < VW; ++e)
-    o[e] = finish<kDP>(acc[e], den, noise, noise_scale, col + e < M ? col + e : col);
-  if (full) {
-    store_vec<S, VW>(out + col, o);
-  } else {
-    for (int e = 0; e < VW && col + e < M; ++e) out[col + e] = from_f32<S>(o[e]);
-  }
-}
 
 // ------------------------------------------------------------ sketch kernel
 // A thread's column vectors of VW = 4 (16-byte loads of h and sign): the
@@ -1292,29 +1156,15 @@ cudaError_t launch_sketch(const FedaggArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// identity rows whose pitch and base are 16-byte multiples
-template <typename S, bool kDP>
-cudaError_t launch_identity(const FedaggArgs& a, cudaStream_t s) {
-  constexpr long long kTile = 32 * (16 / static_cast<long long>(sizeof(S)));
-  const long long grid = ((a.M + kTile - 1) / kTile + kIdWarps - 1) / kIdWarps;  // a warp a tile
-  if (grid > INT_MAX) return cudaErrorInvalidValue;
-  identity_kernel<S, kDP><<<static_cast<unsigned>(grid), kIdThreads, 0, s>>>(
-      static_cast<const S*>(a.u), a.ld, a.w, a.g, a.row_scale, a.noise, a.noise_scale,
-      static_cast<S*>(a.out), a.C, a.M);
-  return cudaGetLastError();
-}
-
 template <bool kDP>
 cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
   switch (a.codec) {
     case kIdentity:
-      // 16-byte rows take identity_kernel; narrower ones (per-leaf rows of
-      // an odd pitch) the stream kernel
       if (a.dtype == 0) {
         using F = float;
         const auto* u = static_cast<const F*>(a.u);
         switch (a.vw) {
-          case 4: return launch_identity<F, kDP>(a, s);
+          case 4: return launch_stream<DecIdentity<F, 4>, kDP, F>(a, {u, a.ld}, s);
           case 2: return launch_stream<DecIdentity<F, 2>, kDP, F>(a, {u, a.ld}, s);
           case 1: return launch_stream<DecIdentity<F, 1>, kDP, F>(a, {u, a.ld}, s);
         }
@@ -1322,7 +1172,7 @@ cudaError_t launch_mean_or_dp(const FedaggArgs& a, cudaStream_t s) {
         using B = uint16_t;
         const auto* u = static_cast<const B*>(a.u);
         switch (a.vw) {
-          case 8: return launch_identity<B, kDP>(a, s);
+          case 8: return launch_stream<DecIdentity<B, 8>, kDP, B>(a, {u, a.ld}, s);
           case 4: return launch_stream<DecIdentity<B, 4>, kDP, B>(a, {u, a.ld}, s);
           case 2: return launch_stream<DecIdentity<B, 2>, kDP, B>(a, {u, a.ld}, s);
           case 1: return launch_stream<DecIdentity<B, 1>, kDP, B>(a, {u, a.ld}, s);

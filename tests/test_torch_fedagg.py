@@ -451,7 +451,7 @@ def test_cuda_int8_ragged_pitched(cuda_device, reducer, M):
     assert updates.stride(0) > M and M % 4
 
 
-# ------------------------------- K1 / K2's identity kernel: geometry and order
+# ------------------------- K1 / K2 over identity rows: every vw, and the order
 def _rows_with_vw(u, vw, device):
     """u's rows in a buffer whose pitch allows loads of exactly vw elements
     (the widest _vector_width picks): a multiple of vw, not of 2 vw (vw 1:
@@ -467,9 +467,9 @@ def _rows_with_vw(u, vw, device):
 
 def _stream_route(u):
     """The same rows 1 element off a 16-byte boundary with an odd pitch:
-    the wrapper picks vw 1, the first version's stream kernel, whose order
-    (one fmaf an included row, ascending, from 0; stage_rows' den) the
-    identity kernel keeps."""
+    the wrapper picks vw 1, the stream kernel's scalar loads, whose order
+    (one fmaf an included row, ascending, from 0; stage_rows' den) every
+    wider vw keeps."""
     C, M = u.shape
     flat = torch.empty(C * (M + 1) + 1, dtype=u.dtype, device=u.device)
     rows = flat[1:].view(C, M + 1)[:, :M]
@@ -492,7 +492,7 @@ def test_cuda_identity_routes_match_plain_and_the_stream_order(
     """Every row width the wrapper can pick, under mean and dp, C past one
     256-row chunk, M below one tile and ragged: within the file's bounds of
     fedagg_plain, and bit for bit the stream kernel's order (the output of
-    the same rows through the vw-1 route)."""
+    the same rows through the vw-1 loads)."""
     tdtype = getattr(torch, dtype)
     updates, w, g, kw = _variant(aggregator, "identity_f32", C, M, cuda_device,
                                  seed=C + M)

@@ -1,23 +1,25 @@
-"""The walk of fedagg's identity kernel (K1 mean and K2 dp over identity rows
-on 16-byte boundaries: ``identity_kernel`` in ``csrc/fedagg.cu``), emulated
-on the CPU, against the first version's order bit for bit.
+"""The walk of fedagg's stream kernel over identity rows (K1 mean and K2 dp:
+``stream_kernel`` with ``DecIdentity`` in ``csrc/fedagg.cu``), emulated on
+the CPU, against the order the outputs' bits rest on.
 
-The kernel: a warp for each tile of 32 vw columns (lane l the vw columns
-at c0 + l vw), kIdWarps warps a block (``launch_identity``). Each warp stages
-its included rows (index and weight, in ascending order, the gates read 32
-a ballot) in shared memory, kIdStaged at a time; each lane adds them in
-order, one fmaf a row from 0: kIdRows rows' loads in flight at a time, the
-rest of a chunk row by row; then finishes its columns. The columns of a
-ragged M past the last 16-byte group are read element by element by their
-lane. den is the tree sum of each 32 rows' w g, added in row order.
+The kernel (``launch_stream``): a block of kThreads threads for each
+kThreads x vw columns, thread t of block b the vw columns at (b kThreads +
+t) vw, vw the widest load (4, 2, 1 f32; 8, 4, 2, 1 bf16) that the row pitch
+and the pointers allow (``_vector_width``). The block stages the included
+rows kThreads at a time (``stage_rows``: their indices and weights
+compacted in ascending order by a ballot a warp, den += each warp's 32-row
+tree sum, the warps in order); each thread adds the staged rows to its
+columns, kUnroll rows' loads in flight, then the rest of the chunk row by
+row; the thread whose columns run past M (a ragged M) reads them element
+by element. Then ``finish``.
 
-The first version (``stream_kernel``): per column one fmaf an included row
-in ascending order from 0, den from ``stage_rows`` (chunks of 256 rows,
-each warp's 32-row tree sum, the 8 warps in order), then the same finish.
+The order: per column one fmaf an included row, ascending, from 0; den the
+32-row tree sums in row order; then finish. Every vw, chunking and grid
+gives it, so the output does not depend on the launch's geometry.
 
 An f32 fma is emulated in f64 (the product of two f32 values is exact
 there) and rounded to f32, as in ``test_torch_fedagg_decode_numerics.py``;
-both orders use the same emulation, so bit equality is about the order.
+both sides use the same emulation, so bit equality is about the order.
 """
 import math
 import re
@@ -28,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.aggregation import pitched_empty  # noqa: E402
 from repro_torch.kernels import fedagg as fk  # noqa: E402
 
 SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
@@ -38,25 +41,20 @@ def _const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
 
 
-THREADS = _const("kIdThreads")
+THREADS = _const("kThreads")             # threads a block; stage_rows' chunk
 WARPS = THREADS // 32
-BLOCKS = _const("kIdBlocks")
-ROWS = _const("kIdRows")
-STAGED = _const("kIdStaged")
-PARENT_THREADS = _const("kThreads")      # stage_rows' chunk of rows
-H100_SMS = 132
+UNROLL = int(re.search(r"struct DecIdentity \{.*?kUnroll = (\d+);", SRC,
+                       re.S).group(1))
 F2_M = 463987712                         # qwen1.5-0.5b's parameter count
-SMEM_LIMIT = 227 * 1024
+WIDTHS = {torch.float32: (4, 2, 1), torch.bfloat16: (8, 4, 2, 1)}
+
+GRID_LINES = ("const long long per_block = static_cast<long long>(kThreads) * Dec::kVW;",
+              "const long long blocks = (a.M + per_block - 1) / per_block;")
 
 
-GRID_LINE = ("const long long grid = ((a.M + kTile - 1) / kTile + kIdWarps - 1) / "
-             "kIdWarps;  // a warp a tile")
-
-
-def identity_grid(M, vw):
-    """launch_identity's blocks: a warp for each tile of 32 vw columns."""
-    tiles = -(-M // (32 * vw))
-    return -(-tiles // WARPS)
+def stream_grid(M, vw):
+    """launch_stream's blocks: one for each kThreads x vw columns."""
+    return -(-M // (THREADS * vw))
 
 
 def _fma(a, b, c):
@@ -94,18 +92,18 @@ def _lanes(wg, k0):
     return part
 
 
-def den_parent(wg):
-    """stage_rows: per chunk of PARENT_THREADS rows, each warp's tree sum,
-    the warps in order (zero sums for rows past C)."""
+def den_staged(wg):
+    """stage_rows: per chunk of kThreads rows, each warp's tree sum, the
+    warps in order (zero sums for rows past C)."""
     den = torch.tensor(0.0)
-    for c0 in range(0, wg.shape[0], PARENT_THREADS):
-        for k0 in range(c0, c0 + PARENT_THREADS, 32):
+    for c0 in range(0, wg.shape[0], THREADS):
+        for k0 in range(c0, c0 + THREADS, 32):
             den = den + _tree32(_lanes(wg, k0))
     return den
 
 
-def den_identity(wg):
-    """identity_kernel: each 32 rows' tree sum, in row order, up to C."""
+def den_in_row_order(wg):
+    """Each 32 rows' tree sum, in row order, up to C."""
     den = torch.tensor(0.0)
     for k0 in range(0, wg.shape[0], 32):
         den = den + _tree32(_lanes(wg, k0))
@@ -130,87 +128,84 @@ def _weights(w, g, rs, dp):
     return wg, inc, wr
 
 
-def parent_order(u, w, g, rs, noise, noise_scale, dp):
-    """The first version: per column an fmaf chain over the included rows in
-    ascending order, den from stage_rows, then finish."""
+def column_order(u, w, g, rs, noise, noise_scale, dp):
+    """Per column an fmaf chain over the included rows in ascending order,
+    den in row order, then finish."""
     wg, inc, wr = _weights(w, g, rs, dp)
     acc = torch.zeros(u.shape[1], dtype=torch.float32)
     for k in range(u.shape[0]):
         if inc[k]:
             acc = _fma(wr[k], u[k].float(), acc)
-    return _finish(acc, den_parent(wg), noise, noise_scale, dp).to(u.dtype)
+    return _finish(acc, den_in_row_order(wg), noise, noise_scale, dp).to(u.dtype)
 
 
-def staged_rows(wg, inc, wr, first):
-    """stage_warp_rows: the included rows of ranks [first, first + STAGED),
-    in ascending order, each (row, weight), scanning 32 gates a ballot."""
-    rows, rank = [], 0
-    C = wg.shape[0]
-    for k0 in range(0, C, 32):
-        if rank >= first + STAGED:
-            break
-        for lane in range(32):                  # ballot + popc: ascending
-            k = k0 + lane
-            if k < C and inc[k]:
-                if first <= rank < first + STAGED:
-                    rows.append((k, wr[k]))
-                rank += 1
+def staged_chunk(inc, wr, c0):
+    """stage_rows over rows [c0, c0 + kThreads): the included ones in
+    ascending order (each warp's ballot, the warps in order), each (row,
+    weight)."""
+    rows = []
+    for warp in range(WARPS):
+        for lane in range(32):
+            k = c0 + 32 * warp + lane
+            if k < inc.shape[0] and inc[k]:
+                rows.append((k, wr[k]))
     return rows
 
 
-def identity_walk(u, w, g, rs, noise, noise_scale, dp):
-    """The kernel's schedule on the CPU: (out, the number of lanes that
-    store each column, the row loads it issues in groups of ROWS and one by
-    one, the columns read element by element)."""
+def stream_walk(u, w, g, rs, noise, noise_scale, dp, vw):
+    """The kernel's schedule on the CPU at load width vw: (out, the number
+    of threads that store each column, the row loads a full thread issues
+    in groups of kUnroll and one by one, the columns read element by
+    element)."""
     C, M = u.shape
-    vw = 16 // u.element_size()
-    width = 32 * vw
-    grid = identity_grid(M, vw)
-    tiles = -(-M // width)
-    assert (grid - 1) * WARPS < tiles <= grid * WARPS   # no block without a tile
+    grid = stream_grid(M, vw)
+    width = THREADS * vw
+    assert (grid - 1) * width < M <= grid * width        # no block without a column
     wg, inc, wr = _weights(w, g, rs, dp)
-    n = int(inc.sum())
-    den = den_identity(wg)
     uf = u.float()
     out = torch.full((M,), float("nan"))
     owners = torch.zeros(M, dtype=torch.int64)
-    from_global = torch.zeros(M, dtype=torch.bool)
-    groups = singles = 0
-    for t in range(grid * WARPS):
-        c0 = t * width
-        if c0 >= M:
-            continue                            # the last block's spare warp
-        c1 = min(c0 + width, M)
-        for lane in range(32):
-            col = c0 + lane * vw
-            if col >= M:
-                continue                        # not live
-            owned = slice(col, min(col + vw, M))
-            owners[owned] += 1
-            if col + vw > M:
-                from_global[owned] = True
-        acc = torch.zeros(c1 - c0, dtype=torch.float32)
-        for first in range(0, n, STAGED):
-            chunk = staged_rows(wg, inc, wr, first)
-            assert len(chunk) == min(STAGED, n - first)
+    scalar = torch.zeros(M, dtype=torch.bool)
+    loads = None
+    for b in range(grid):
+        b0, b1 = b * width, min((b + 1) * width, M)
+        full = b0 + (b1 - b0) // vw * vw                 # the full threads' end
+        for t in range(THREADS):
+            col = (b * THREADS + t) * vw
+            if col < M:                                  # live
+                owners[col:min(col + vw, M)] += 1
+                if col + vw > M:
+                    scalar[col:M] = True
+        acc = torch.zeros(b1 - b0, dtype=torch.float32)
+        den = torch.tensor(0.0)
+        groups = singles = 0
+        for c0 in range(0, C, THREADS):
+            for k0 in range(c0, c0 + THREADS, 32):       # s_warp_den, in order
+                den = den + _tree32(_lanes(wg, k0))
+            chunk = staged_chunk(inc, wr, c0)
             j = 0
-            while j + ROWS <= len(chunk):       # ROWS loads, then their adds
-                for k, weight in chunk[j:j + ROWS]:
-                    acc = _fma(weight, uf[k, c0:c1], acc)
-                j += ROWS
+            while j + UNROLL <= len(chunk):              # UNROLL loads, then adds
+                for k, weight in chunk[j:j + UNROLL]:
+                    acc[:full - b0] = _fma(weight, uf[k, b0:full], acc[:full - b0])
+                j += UNROLL
                 groups += 1
             for k, weight in chunk[j:]:
-                acc = _fma(weight, uf[k, c0:c1], acc)
+                acc[:full - b0] = _fma(weight, uf[k, b0:full], acc[:full - b0])
                 singles += 1
-        out[c0:c1] = _finish(acc, den, noise[c0:c1], noise_scale, dp)
-    return out.to(u.dtype), owners, (groups, singles), from_global
+            for k, weight in chunk:                      # the ragged tail's thread
+                for m in range(full, b1):
+                    acc[m - b0] = _fma(weight, uf[k, m:m + 1], acc[m - b0:m - b0 + 1])[0]
+        out[b0:b1] = _finish(acc, den, noise[b0:b1], noise_scale, dp)
+        assert loads in (None, (groups, singles))        # the same in every block
+        loads = (groups, singles)
+    return out.to(u.dtype), owners, loads, scalar
 
 
-def loads_a_tile(n):
-    """(groups of ROWS, single rows) one tile's lanes load for n included
-    rows, chunk by chunk."""
-    chunks = [min(STAGED, n - first) for first in range(0, n, STAGED)]
-    return sum(c // ROWS for c in chunks), sum(c % ROWS for c in chunks)
+def loads_a_thread(C, n_of):
+    """(groups of kUnroll, single rows) a full thread loads, chunk by chunk
+    of kThreads rows; n_of(c0) the included rows of a chunk."""
+    chunks = [n_of(c0) for c0 in range(0, C, THREADS)]
+    return sum(c // UNROLL for c in chunks), sum(c % UNROLL for c in chunks)
 
 
 def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
@@ -239,99 +234,116 @@ def _case(C, M, dtype, *, seed=0, gates="mixed", nan_row=None, pitch=None):
 
 
 # ------------------------------------------------------------------ geometry
-def test_constants_match_the_wrapper_and_fit_the_sm():
-    """The launch gives a warp a tile (the grid this file mirrors); the
-    blocks an SM that the kernel is compiled to hold give every warp tile
-    of cell (b) (60 x 579,402 f32: 4,527 tiles) a place on 132 SMs at once,
-    within the register file (65,536 a SM) and shared memory (staged rows
-    a warp)."""
-    assert GRID_LINE in SRC
-    assert "constexpr int kIdWarps = kIdThreads / 32;" in SRC
-    assert BLOCKS * WARPS * H100_SMS >= -(-579402 // 128)
-    assert BLOCKS * THREADS * 32 <= 65536            # >= 32 registers a thread
-    assert BLOCKS * (WARPS * STAGED * 8 + 1024) <= SMEM_LIMIT
-    assert ROWS >= 4
+def test_constants_match_the_source():
+    """The launch gives a block kThreads x vw columns (the grid this file
+    mirrors), the identity decoder keeps kUnroll rows' loads in flight, the
+    widest vw is a 16-byte load, and every identity vw runs the stream
+    kernel."""
+    for line in GRID_LINES:
+        assert line in SRC
+    assert THREADS % 32 == 0 and UNROLL >= 4
+    assert all(vw * torch.empty((), dtype=dt).element_size() <= 16
+               for dt, widths in WIDTHS.items() for vw in widths)
+    for vw in (4, 2, 1):
+        assert f"launch_stream<DecIdentity<F, {vw}>, kDP, F>" in SRC
+    for vw in (8, 4, 2, 1):
+        assert f"launch_stream<DecIdentity<B, {vw}>, kDP, B>" in SRC
 
 
-@pytest.mark.parametrize("vw", [4, 8])
+@pytest.mark.parametrize("vw", [1, 2, 4, 8])
 @pytest.mark.parametrize("M", [1, 3, 7, 8, 100, 610, 1023, 1024, 1025, 2048,
                                4099, 8195, 579402, 10 ** 7 + 3, F2_M])
-def test_identity_grid(M, vw):
-    """launch_identity's check: a warp for each tile, no block without one,
-    the grid within the launch's limit."""
-    grid = identity_grid(M, vw)
-    tiles = -(-M // (32 * vw))
-    assert (grid - 1) * WARPS < tiles <= grid * WARPS and grid < 2 ** 31
+def test_stream_grid(M, vw):
+    """launch_stream's check: a block for each kThreads x vw columns, no
+    block without one, the grid within the launch's limit."""
+    grid = stream_grid(M, vw)
+    width = THREADS * vw
+    assert (grid - 1) * width < M <= grid * width and grid < 2 ** 31
 
 
-def test_identity_grid_at_the_timed_shapes():
+def test_stream_grid_at_the_timed_shapes():
     """Cell (b)'s 579,402 columns, the LM round's 463,987,712 (whose last
     row starts past 2^31 elements: 64-bit offsets) and 20 x 610."""
-    assert identity_grid(579402, 4) == 2264
-    assert identity_grid(579402, 8) == 1132
-    assert identity_grid(F2_M, 4) == 1812452
-    assert identity_grid(610, 4) == 3
+    assert stream_grid(579402, 4) == 566
+    assert stream_grid(579402, 8) == 283
+    assert stream_grid(F2_M, 4) == 453113
+    assert stream_grid(610, 4) == 1
     assert 7 * F2_M > 2 ** 31
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [1, 7, 610, 1027, 579402])
+def test_vector_width_of_the_fused_rows_is_16_bytes(M, dtype):
+    """flatten_stacked's rows (pitched_empty) and the output take the
+    widest load; rows at an odd pitch (per-leaf rows) take narrower ones."""
+    rows = pitched_empty(3, M, dtype, "cpu")
+    out = torch.empty(M, dtype=dtype)
+    widths = WIDTHS[dtype]
+    assert fk._vector_width(widths, rows.stride(0), rows, out) == widths[0]
+    odd = torch.empty(3, 2 * M + 1, dtype=dtype)[:, :M]
+    assert fk._vector_width(widths, odd.stride(0), odd, out) == 1
 
 
 # ------------------------------------------------------------------ den order
 def test_staged_chunks_are_the_included_rows_in_order():
-    """stage_warp_rows' chunks, concatenated, are the included rows in
-    ascending order, each at most kIdStaged."""
+    """stage_rows' chunks, concatenated, are the included rows in
+    ascending order, each at most kThreads."""
     rng = np.random.default_rng(3)
     for C in (1, 40, 129, 300, 1000):
         g = torch.from_numpy((rng.random(C) > 0.3).astype(np.float32))
         wg, inc, wr = _weights(torch.ones(C), g, torch.ones(C), False)
-        n = int(inc.sum())
-        chunks = [staged_rows(wg, inc, wr, f) for f in range(0, max(n, 1), STAGED)]
-        assert all(len(c) <= STAGED for c in chunks)
+        chunks = [staged_chunk(inc, wr, c0) for c0 in range(0, C, THREADS)]
+        assert all(len(c) <= THREADS for c in chunks)
         assert [k for c in chunks for k, _ in c] == torch.nonzero(inc).flatten().tolist()
 
 
 @pytest.mark.parametrize("C", [1, 5, 31, 32, 33, 60, 255, 256, 257, 300, 1000, 1025])
-def test_den_is_the_parents_sum_bit_for_bit(C):
-    """The kernel's den (32-row tree sums in row order, up to C) and
-    stage_rows' (the same sums by chunks of 256, zero sums past C) are the
-    same bits: den starts at +0 and adding +0 changes no value."""
+def test_den_by_chunks_is_the_row_order_sum_bit_for_bit(C):
+    """stage_rows' den (the 32-row tree sums by chunks of kThreads, zero
+    sums past C) and the same sums in row order up to C are the same bits:
+    den starts at +0 and adding +0 changes no value."""
     rng = np.random.default_rng(C)
     w = (rng.random(C) * 10.0 ** rng.integers(-6, 6, C)).astype(np.float32)
     g = (rng.random(C) > 0.3).astype(np.float32)
     wg = torch.from_numpy(w * g)
-    _same_bits(den_identity(wg), den_parent(wg))
+    _same_bits(den_staged(wg), den_in_row_order(wg))
     zeros = torch.zeros(C)
-    assert not bool(torch.signbit(den_identity(zeros)))
+    assert not bool(torch.signbit(den_staged(zeros)))
 
 
 # ------------------------------------------------------------------ the walk
-WALKS = [  # (C, M): one tile and many; less than a tile; ragged M; C past
-    # one staging (64 included rows) and one 256-row chunk of stage_rows
+WALKS = [  # (C, M): one block and many; less than a block; ragged M; C past
+    # one 256-row chunk of stage_rows
     (1, 7), (1, 1000), (3, 100), (8, 1027), (8, 8195), (20, 610),
     (60, 5003), (257, 2051), (1000, 1029)]
+ROUTES = [(torch.float32, 4), (torch.float32, 2), (torch.float32, 1),
+          (torch.bfloat16, 8), (torch.bfloat16, 4), (torch.bfloat16, 2),
+          (torch.bfloat16, 1)]
 
 
 @pytest.mark.parametrize("dp", [False, True], ids=["mean", "dp"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype,vw", ROUTES,
+                         ids=[f"{'f32' if d == torch.float32 else 'bf16'}-vw{v}"
+                              for d, v in ROUTES])
 @pytest.mark.parametrize("C,M", WALKS)
-def test_walk_is_the_parents_order_bit_for_bit(C, M, dtype, dp):
-    """Every column stored by one lane, the ragged tail (and only it) read
-    element by element, every included row loaded once a tile, and the
-    output bit for bit the first version's."""
+def test_walk_is_the_column_order_bit_for_bit(C, M, dtype, vw, dp):
+    """Every column stored by one thread, the ragged tail (and only it)
+    read element by element, every included row loaded once a thread, and
+    the output bit for bit the column order's, at every vw."""
     u, w, g, rs, noise = _case(C, M, dtype, seed=C + M)
-    out, owners, loads, from_global = identity_walk(u, w, g, rs, noise, 0.3, dp)
+    out, owners, loads, scalar = stream_walk(u, w, g, rs, noise, 0.3, dp, vw)
     assert torch.equal(owners, torch.ones(M, dtype=torch.int64))
-    vw = 16 // u.element_size()
-    assert int(from_global.sum()) == M % vw
-    tiles = -(-M // (32 * vw))
-    groups, singles = loads_a_tile(int((w * g > 0).sum()))
-    assert loads == (tiles * groups, tiles * singles)
-    _same_bits(out, parent_order(u, w, g, rs, noise, 0.3, dp))
+    assert int(scalar.sum()) == M % vw
+    inc = (w * g) > 0
+    assert loads == loads_a_thread(C, lambda c0: int(inc[c0:c0 + THREADS].sum()))
+    _same_bits(out, column_order(u, w, g, rs, noise, 0.3, dp))
 
 
 @pytest.mark.parametrize("dp", [False, True], ids=["mean", "dp"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_zero_inclusion_gives_exact_zeros(dtype, dp):
     u, w, g, rs, noise = _case(6, 2053, dtype, gates="none")
-    out, _, loads, _ = identity_walk(u, w, g, rs, noise, 0.3, dp)
+    out, _, loads, _ = stream_walk(u, w, g, rs, noise, 0.3, dp, WIDTHS[dtype][0])
     assert loads == (0, 0)
     assert bool(torch.all(out == 0)) and not bool(torch.signbit(out.float()).any())
 
@@ -341,12 +353,12 @@ def test_zero_inclusion_gives_exact_zeros(dtype, dp):
 def test_nan_behind_a_zero_gate_never_read(dtype, dp):
     """A NaN row and its NaN clip scale behind a zero gate: finite, and the
     same bits as with the row cleaned."""
-    u, w, g, rs, noise = _case(40, 1031, dtype, nan_row=33)
-    out, *_ = identity_walk(u, w, g, rs, noise, 0.3, dp)
+    u, w, g, rs, noise = _case(300, 1031, dtype, nan_row=257)
+    out, *_ = stream_walk(u, w, g, rs, noise, 0.3, dp, WIDTHS[dtype][0])
     assert bool(torch.isfinite(out.float()).all())
     clean_u, clean_rs = u.clone(), rs.clone()
-    clean_u[33], clean_rs[33] = 0.0, 1.0
-    _same_bits(out, parent_order(clean_u, w, g, clean_rs, noise, 0.3, dp))
+    clean_u[257], clean_rs[257] = 0.0, 1.0
+    _same_bits(out, column_order(clean_u, w, g, clean_rs, noise, 0.3, dp))
 
 
 def _close(got, want, u, w, g, rs, dp):
@@ -377,7 +389,7 @@ def test_walk_within_tolerance_of_plain_and_the_jnp_lowering(C, M, dtype, dp):
     pitch = -(-M // 8) * 8 + 8
     u, w, g, rs, noise = _case(C, M, dtype, seed=7, pitch=pitch)
     noise = noise.clamp(-4.0, 4.0)
-    out, *_ = identity_walk(u, w, g, rs, noise, 0.3, dp)
+    out, *_ = stream_walk(u, w, g, rs, noise, 0.3, dp, WIDTHS[dtype][0])
     kw = dict(aggregator="dp", row_scale=rs, noise=noise, noise_scale=0.3) if dp else {}
     _close(out, fk.fedagg_plain(u, w, g, **kw), u, w, g, rs, dp)
     jkw = {k: (jnp.asarray(v.numpy()) if torch.is_tensor(v) else v) for k, v in kw.items()}
