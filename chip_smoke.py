@@ -52,7 +52,13 @@ if a check fails:
    few rounds on both backends, held against the same run on the CPU; and
    its shortened parity config under cosine_filter, slice (c)'s three
    aggregator + codec pairs and dp + sketch, each held against the CPU
-   run;
+   run; then the selection layer against the CPU: paper Fig. 5 cut to 3
+   rounds and 200 samples a client (the FMNIST stand-in, ``logreg``,
+   C=60, 18 priority, participation 0.3) on both backends, the parity config under an
+   overflowing training cohort with a backlog boost and each of momentum,
+   adam and yogi, and under topk_align, welfare, grad_sim and grad_sim
+   on CountSketches (participation masks, cohorts, backlog and gates
+   exactly);
 5. slice (b): the paper's CIFAR ``cnn`` at full width, C=60, E=5, for 3
    rounds through ``run_federation``;
 6. slice (c): the same config for 2 rounds each under median + int8 +
@@ -79,7 +85,10 @@ if a check fails:
    gates, losses, params, and one loss_fn gradient leaf for leaf;
 11. slice (f2): full-width qwen1.5-0.5b federated training (8 clients,
    8 x 512 tokens each, E = 2, remat, 1 + 2 rounds) and an f32 gradient
-   of the kernels against the plain versions on the card. Not run:
+   of the kernels against the plain versions on the card; slice (f3):
+   the same round under a training cohort (2 priority, K = 4, FedAdam):
+   8 clients evaluated, 4 trained into a 4-row client stack, the rest
+   dropped with a backlog, s/round and peak GB beside (f2)'s. Not run:
    qwen2.5-3b federated training at full width: its f32 client copies are
    12.4 GB each, and the stacked copies, their delta tree and the copying
    [C, M_total] flatten exceed the card (the temporal round, ROADMAP A17).
@@ -1007,6 +1016,162 @@ def slice_a_aggregators(check: Check, device="cuda"):
                 launches=launches, included=dev.included,
                 global_loss_rtol_vs_cpu=loss_rel, params_abs_err_vs_cpu=errs)
             print(f"{name}:", json.dumps(out[f"{label}/{backend}"]), flush=True)
+    return out
+
+
+# slice (a), selection: (label, backend, knobs) on the shortened quickstart.
+# The cohort runs gate on losses with an eps that admits every client, so
+# K = 6 of 8 overflows each round and the boosted backlog rotates the last
+# two slots; the backends alternate
+SELECT_COHORT = dict(max_cohort=6, backlog_boost=0.2, epsilon=1.0,
+                     align_stat="loss")
+SELECTION_RUNS = [
+    ("cohort_momentum", "vmap_spatial",
+     dict(SELECT_COHORT, server_opt="momentum", server_lr=0.2)),
+    ("cohort_adam", "scan_temporal",
+     dict(SELECT_COHORT, server_opt="adam", server_lr=0.05)),
+    ("cohort_yogi", "vmap_spatial",
+     dict(SELECT_COHORT, server_opt="yogi", server_lr=0.05)),
+    ("topk_align", "scan_temporal", dict(selection="topk_align", topk=2)),
+    ("welfare", "vmap_spatial", dict(selection="welfare", welfare_floor=0.3)),
+    ("grad_sim", "scan_temporal", dict(selection="grad_sim")),
+    ("grad_sim_sketch", "vmap_spatial",
+     dict(selection="grad_sim", grad_sim_sketch=True, sketch_dim=64)),
+]
+FIG5_ROUNDS = 3
+# of each client's 1,000: the scan backend's client loop is host-bound
+# (16.5 s for 3 rounds at 1,000 on the H100's host)
+FIG5_SAMPLES = 200
+
+
+def fig5_config(backend):
+    """Paper App. C.3 / Fig. 5 (``repro/configs/paper.py`` FIG5) cut to
+    FIG5_ROUNDS rounds: 60 clients, 18 priority, 30% sampled a round."""
+    from repro_torch.configs.base import FedConfig
+    return FedConfig(num_clients=60, num_priority=18, rounds=FIG5_ROUNDS,
+                     local_epochs=5, epsilon=0.2, lr=0.1, warmup_frac=0.1,
+                     participation=0.3, backend=backend)
+
+
+@contextmanager
+def selection_records():
+    """Record every participation mask and cohort the engine draws (the
+    cohort's indices, gates, effective gates and the backlog going in)."""
+    from repro_torch.fl import engine
+    rec = {"part": [], "cohort": []}
+    part, cohort = engine.participation_mask, engine.cohort_select
+
+    def recording_part(*a, **k):
+        out = part(*a, **k)
+        rec["part"].append([out.cpu()])
+        return out
+
+    def recording_cohort(*a, **k):
+        out = cohort(*a, **k)
+        rec["cohort"].append([x.cpu() for x in out] + [k["backlog"].cpu()])
+        return out
+
+    engine.participation_mask, engine.cohort_select = (recording_part,
+                                                       recording_cohort)
+    try:
+        yield rec
+    finally:
+        engine.participation_mask, engine.cohort_select = part, cohort
+
+
+def same_records(a, b) -> bool:
+    import torch
+    flat_a, flat_b = ([t for k in sorted(r) for call in r[k] for t in call]
+                      for r in (a, b))
+    return len(flat_a) == len(flat_b) and all(
+        torch.equal(x, y) for x, y in zip(flat_a, flat_b))
+
+
+def run_pair(check, name, loss_fn, p0, fed, fedn, device, rounds):
+    """One run_federation on the CPU and one on ``device`` from the same
+    params: gates, participation masks and cohorts exactly; global loss
+    within rtol 1e-5 and params within 1e-4 max|p| of the CPU run; adam's
+    and yogi's step count exactly; one fedagg launch a round."""
+    import numpy as np
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    with selection_records() as rec_cpu:
+        cpu = run_federation(loss_fn, p0, fed, fedn, eval_every=2,
+                             device="cpu")
+    before = fk.fedagg.launches
+    t0 = time.perf_counter()
+    with selection_records() as rec_dev:
+        dev = run_federation(loss_fn, p0, fed, fedn, eval_every=2,
+                             device=device)
+    secs = time.perf_counter() - t0
+    launches = fk.fedagg.launches - before
+    check(np.array_equal(np.array(dev.gates), np.array(cpu.gates)),
+          f"{name}: gates differ from the CPU run")
+    check(same_records(rec_dev, rec_cpu), f"{name}: participation masks or "
+          "cohorts (indices, gates, backlog) differ from the CPU run")
+    loss_rel = float(np.max(np.abs(np.array(dev.global_loss)
+                                   / np.array(cpu.global_loss) - 1.0)))
+    check(loss_rel <= 1e-5, f"{name}: global loss off the CPU run by rtol "
+          f"{loss_rel}")
+    rel = max(float((dev.params[k].cpu() - cpu.params[k]).abs().max()
+                    / cpu.params[k].abs().max()) for k in cpu.params)
+    check(rel <= 1e-4, f"{name}: params off the CPU run by {rel} x max|p|")
+    steps = None
+    if isinstance(dev.state.opt_state, dict) and "t" in dev.state.opt_state:
+        steps = int(dev.state.opt_state["t"])
+        check(steps == int(cpu.state.opt_state["t"]) == rounds,
+              f"{name}: server optimizer step count {steps}, expected "
+              f"{rounds}")
+    if device != "cpu":
+        check(launches == rounds, f"{name}: {launches} fedagg launches in "
+              f"{rounds} rounds")
+    backlog = [c[3].tolist() for c in rec_cpu["cohort"]]
+    return dict(seconds=secs, launches=launches, included=dev.included,
+                global_loss_rtol_vs_cpu=loss_rel, params_rel_err_vs_cpu=rel,
+                server_steps=steps, masks=len(rec_cpu["part"]),
+                cohort_backlog_in=backlog)
+
+
+def slice_a_selection(check: Check, device="cuda"):
+    """The selection layer on the card against the CPU: paper Fig. 5 cut
+    to FIG5_ROUNDS rounds and FIG5_SAMPLES samples a client (the FMNIST
+    stand-in, ``logreg``, C = 60, 18 priority, participation 0.3, E = 5)
+    on both backends; then the
+    shortened quickstart (C = 8, E = 2, 6 rounds) under a training cohort
+    that overflows with a backlog boost, once with each of momentum, adam
+    and yogi, and under topk_align, welfare, grad_sim and grad_sim on
+    CountSketches (``run_pair``'s checks)."""
+    import torch
+    from repro_torch.data.shards import make_benchmark_federation
+    from repro_torch.data.synth import make_synth_federation
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    out = {}
+    init_fn, apply_fn = SMALL_MODELS["logreg"]
+    fmnist = make_benchmark_federation("fmnist", seed=0, n_priority=18,
+                                       samples_per_client=FIG5_SAMPLES)
+    for backend in ("vmap_spatial", "scan_temporal"):
+        name = f"slice (a) fig5 {backend}"
+        row = run_pair(check, name, make_loss_fn(apply_fn), init_fn(0, "cpu"),
+                       fig5_config(backend), fmnist, device, FIG5_ROUNDS)
+        check(row["masks"] == FIG5_ROUNDS, f"{name}: {row['masks']} masks")
+        out[f"fig5/{backend}"] = row
+        print(f"{name}:", json.dumps(row), flush=True)
+    loss_fn = make_loss_fn(SMALL_MODELS["synth_logreg"][1])
+    small = make_synth_federation(seed=0, n_priority=4, n_nonpriority=4,
+                                  samples_per_client=40, test_samples=200)
+    gen = torch.Generator().manual_seed(42)
+    p0 = {"b": 0.05 * torch.randn(10, generator=gen),
+          "w": 0.05 * torch.randn(60, 10, generator=gen)}
+    for label, backend, knobs in SELECTION_RUNS:
+        name = f"slice (a) {label} {backend}"
+        fed = parity_config().replace(backend=backend, **knobs)
+        row = run_pair(check, name, loss_fn, p0, fed, small, device,
+                       fed.rounds)
+        if fed.max_cohort:
+            check(any(max(b) > 0 for b in row["cohort_backlog_in"]),
+                  f"{name}: the cohort never overflowed")
+        out[f"{label}/{backend}"] = row
+        print(f"{name}:", json.dumps(row), flush=True)
     return out
 
 
@@ -2166,12 +2331,14 @@ class TrainExpected(dict):
         self["flash_attention_bwd"] += L * n
         self["rmsnorm"] += (4 * L + 1) * n
 
-    def add_rounds(self, cfg, C, E, rounds):
+    def add_rounds(self, cfg, C, E, rounds, trained=None):
+        """``trained``: the clients that take their E steps (a cohort's K;
+        default all C)."""
         L = cfg.num_layers
         self["flash_attention"] += L * (1 + C) * rounds
         self["rmsnorm"] += (2 * L + 1) * (1 + C) * rounds
         self["fedagg"] += rounds
-        self.add_grad(cfg, C * E * rounds)
+        self.add_grad(cfg, (C if trained is None else trained) * E * rounds)
 
 
 # slice (f1): (arch, model knobs, eps), the settings of
@@ -2368,6 +2535,105 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     return dict(row, f32_gradient=grad_row)
 
 
+# slice (f3): the LM round under a training cohort at full width
+F3 = dict(clients=8, n_priority=2, per_client=8, seq=512, local_epochs=2,
+          lr=0.05, epsilon=1.0, max_cohort=4, server_opt="adam",
+          server_lr=1e-3, selection="fedalign")
+F3_ROUNDS = 3
+
+
+@contextmanager
+def lm_round_records():
+    """Record, for each LM round ``launch.train.run`` makes, the client
+    rows the aggregation receives, and after it the backlog, adam's step
+    count and whether the round had inclusion mass."""
+    from repro_torch.fl import engine, sharded
+    rec = {"rows": [], "backlog": [], "t": [], "mass": []}
+    make, delta = sharded.make_round_step, engine.server_delta
+
+    def recording_delta(fed, gp, cp, w, g, **k):
+        rec["rows"].append(int(next(iter(cp.values())).shape[0]))
+        rec["mass"].append(bool((w * g).sum() > 0))
+        return delta(fed, gp, cp, w, g, **k)
+
+    def recording_make(*a, **k):
+        step = make(*a, **k)
+
+        def recording_step(state, batch, round_idx=0):
+            new, stats = step(state, batch, round_idx)
+            rec["backlog"].append(new.backlog.cpu().tolist())
+            rec["t"].append(int(new.opt_state["t"]))
+            return new, stats
+        return recording_step
+
+    sharded.make_round_step, engine.server_delta = recording_make, recording_delta
+    try:
+        yield rec
+    finally:
+        sharded.make_round_step, engine.server_delta = make, delta
+
+
+def slice_f3(check: Check, expected: TrainExpected, f2_row, device="cuda"):
+    """Full width under a training cohort: qwen1.5-0.5b (random init, f32
+    params, bf16 compute, remat) through launch.train.run, 8 clients (2
+    priority), 8 x 512 tokens each, E = 2, max_cohort = 4, FedAdam
+    (server lr 1e-3), fedalign with an eps that admits every client: the
+    round evaluates 8 clients, trains the 4 of its cohort (the 2 priority
+    and the 2 best-matched) into a 4-row client stack, and drops the rest
+    with a backlog. 1 + 2 rounds. Checks: the cohort overflowed (some
+    backlog above 0 after round 0), every aggregation got 4 client rows,
+    adam's t equals the rounds with inclusion mass, finite params and
+    losses, one fedagg launch a round; s/round and peak GB beside (f2)'s."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.utils import param_count, tree_leaves
+    cfg = get_config("qwen1.5-0.5b")
+    K = F3["max_cohort"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = train_counts()
+    with lm_round_records() as rec:
+        params, hist = train.run(arch="qwen1.5-0.5b", smoke=False,
+                                 rounds=F3_ROUNDS, device=device, **F3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected.add_rounds(cfg, F3["clients"], F3["local_epochs"], F3_ROUNDS,
+                        trained=K)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, F3["clients"], F3["local_epochs"], F3_ROUNDS,
+                    trained=K)
+    check(launches == want, f"slice (f3): launches {launches}, expected {want}")
+    check(len(rec["backlog"]) == F3_ROUNDS and max(rec["backlog"][0]) > 0,
+          f"slice (f3): no overflow after round 0 (backlog {rec['backlog']})")
+    check(rec["rows"] == [K] * F3_ROUNDS,
+          f"slice (f3): client stacks of {rec['rows']} rows, expected {K}")
+    check(rec["t"][-1] == sum(rec["mass"]),
+          f"slice (f3): adam's t {rec['t']}, rounds with mass {rec['mass']}")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    check(finite and all(math.isfinite(h["server_loss"]) for h in hist),
+          "slice (f3): non-finite params or server loss")
+    check(all(sum(h["gates"]) == K for h in hist),
+          "slice (f3): a round's effective gates do not fill the cohort")
+    timed = [h["sec"] for h in hist[1:]]
+    row = dict(params=param_count(params), clients=F3["clients"],
+               priority=F3["n_priority"], cohort=K,
+               per_client=F3["per_client"], seq=F3["seq"],
+               local_epochs=F3["local_epochs"], warmup_round_s=hist[0]["sec"],
+               round_s=timed, s_per_round=sum(timed) / len(timed),
+               peak_gb=peak, f2_s_per_round=f2_row["s_per_round"],
+               f2_peak_gb=f2_row["peak_gb"],
+               server_loss=[h["server_loss"] for h in hist],
+               gates=[h["gates"] for h in hist], backlog=rec["backlog"],
+               adam_t=rec["t"], client_rows=rec["rows"], launches=launches)
+    print("slice (f3) qwen1.5-0.5b training cohort:", json.dumps(row),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2415,6 +2681,7 @@ def main() -> int:
     fk.fedagg.variant_launches.clear()
     a = slice_a(check)
     a_agg = slice_a_aggregators(check)
+    a_sel = slice_a_selection(check)
     b, fedn = slice_b(check)
     c = slice_c(check, fedn)
     launches = fk.fedagg.launches
@@ -2452,8 +2719,10 @@ def main() -> int:
             for r in (timings if not listed else vtimings)
             if not listed or (r["reducer"], r["wire"]) in listed]
     # (a): 4 rounds x 2 backends + 6; its aggregators: 4 configs x 2
-    # backends x 6; (b): 1 + 3; (c): 3 configs x (1 + 2)
-    expected = 2 * 4 + 6 + len(PARITY_AGG) * 2 * 6 + 1 + 3 + len(SLICE_C) * 3
+    # backends x 6; its selection runs: Fig. 5 on 2 backends, 7 x 6; (b):
+    # 1 + 3; (c): 3 configs x (1 + 2)
+    expected = (2 * 4 + 6 + len(PARITY_AGG) * 2 * 6 + 2 * FIG5_ROUNDS
+                + len(SELECTION_RUNS) * 6 + 1 + 3 + len(SLICE_C) * 3)
     check(launches == expected, f"main path: {launches} fedagg launches, "
           f"expected {expected}")
 
@@ -2502,6 +2771,7 @@ def main() -> int:
     train_expected = TrainExpected()
     f1 = slice_f1(check, train_expected)
     f2 = slice_f2(check, train_expected)
+    f3 = slice_f3(check, train_expected, f2)
     train_launches = train_counts()
     print("training path launches:", json.dumps(train_launches), "expected:",
           json.dumps(train_expected), flush=True)
@@ -2530,10 +2800,12 @@ def main() -> int:
         return 1
     print("slices:", json.dumps({
         "a": a, "a_aggregators": {k: v["launches"] for k, v in a_agg.items()},
+        "a_selection": {k: {f: v[f] for f in ("seconds", "launches")}
+                        for k, v in a_sel.items()},
         "b": {k: b[k] for k in ("seconds_per_round", "launches", "M")},
         "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
               for k, v in c.items()},
-        "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2}))
+        "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -165,15 +165,15 @@ class FedConfig:
     lr_schedule: str = "constant"     # constant | paper_decay (2/(mu(t+gamma)))
     mu_strong: float = 1.0            # mu for paper_decay
     gamma_decay: float = 10.0         # gamma for paper_decay
-    participation: float = 1.0        # fraction sampled per round (<1: not ported)
+    participation: float = 1.0        # fraction sampled per round (<1 = partial)
     straggler_period: int = 0         # >0: non-priority client k shows up every
                                       # (2 + k % period) rounds (App. A.4)
     candidate_pool: int = 0           # candidate-pool sampling (not ported)
     pool_weighting: str = "uniform"   # candidate-pool weights (not ported)
     algorithm: str = "fedavg"         # local solver: fedavg | fedprox
     prox_mu: float = 1.0              # FedProx proximal coefficient
-    selection: str = "fedalign"       # fedalign | all | priority_only (ported);
-                                      # topk_align | grad_sim | welfare (not yet)
+    selection: str = "fedalign"       # fedalign | all | priority_only |
+                                      # topk_align | grad_sim | welfare
     topk: int = 4
     sim_threshold: float = 0.0
     grad_sim_sketch: bool = False
@@ -201,11 +201,11 @@ class FedConfig:
     divergence_guard: bool = False
     max_nonfinite_skips: int = 0
     adaptive_staleness: bool = False
-    max_cohort: int = 0               # training-cohort budget (not ported)
+    max_cohort: int = 0               # training-cohort budget K (0: off)
     backlog_boost: float = 0.0
     align_stat: str = "accuracy"      # accuracy (paper experiments) | loss (theory)
-    server_opt: str = "none"          # sgd (= "none") ported; momentum | adam |
-                                      # yogi not yet
+    server_opt: str = "none"          # sgd (= "none") | momentum | adam |
+                                      # yogi
     server_lr: float = 1.0
     server_momentum: float = 0.9
     aggregator: str = "mean"          # mean | trimmed_mean | median | dp |

@@ -21,9 +21,11 @@ Three registries, as in the reference:
   the fused buffer (``int8``, ``topk``, ``sketch``), decoded inside the same
   fedagg launch, with per-client error-feedback rows re-injecting the
   compression residual next round.
-- **server optimizers**: the aggregated delta feeds ``apply_server_opt``.
-  Only ``sgd`` is ported; the reference's other names raise
-  ``NotImplementedError``, names it does not know ``ValueError``.
+- **server optimizers** (``FedConfig.server_opt``): the aggregated delta
+  feeds ``apply_server_opt`` as a pseudo-gradient: ``sgd`` (FedAvg),
+  ``momentum`` (FedAvgM), ``adam`` (FedAdam) and ``yogi`` (FedYogi),
+  reading ``server_momentum``, ``server_b1``, ``server_b2`` and
+  ``server_eps``.
 """
 from __future__ import annotations
 
@@ -42,7 +44,6 @@ from repro_torch.utils import (Registry, fold_in_name, round_up, tree_leaves,
                                tree_map, tree_unflatten_like)
 
 _AGG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_UNPORTED_SERVER_OPTS = ("momentum", "adam", "yogi")
 
 
 def check_client_weights(weights, *, where="client weights"):
@@ -262,8 +263,9 @@ def inclusion_mass(fed, weights, gates):
 @register_validator("aggregator")
 def check_aggregator_config(fed):
     """The aggregator knobs whose bad values would corrupt the aggregate
-    silently, as the reference checks them; and the port's refusal of the
-    server optimizers and wire dtypes it lacks."""
+    silently, as the reference checks them; the server optimizer's name
+    (unknown names raise ValueError); and the port's refusal of the wire
+    dtypes it lacks."""
     name = resolve_aggregator(fed.aggregator)
     get_aggregator(name)
     if name == "trimmed_mean" and not 0.0 <= fed.trim_frac < 0.5:
@@ -594,13 +596,6 @@ def resolve_server_opt(name) -> str:
 
 
 def get_server_optimizer(name: str) -> Callable:
-    """The sgd factory; the reference's other server optimizers raise
-    NotImplementedError, unknown names ValueError."""
-    canonical = SERVER_OPTIMIZERS.resolve(name)
-    if canonical in _UNPORTED_SERVER_OPTS:
-        raise NotImplementedError(
-            f"server optimizer {canonical!r} is not ported yet; ported: "
-            f"{SERVER_OPTIMIZERS.names()}")
     return SERVER_OPTIMIZERS.lookup(name)
 
 
@@ -613,6 +608,22 @@ def server_optimizer(fed):
 def _server_sgd(fed):
     # w <- w + server_lr * agg_delta: FedAvg at server_lr=1 (the paper rule)
     return _opt.sgd(0.0)
+
+
+@SERVER_OPTIMIZERS.register("momentum", opt_name="momentum")
+def _server_momentum(fed):
+    # FedAvgM: momentum over aggregated deltas
+    return _opt.sgd(momentum=fed.server_momentum)
+
+
+@SERVER_OPTIMIZERS.register("adam", opt_name="adam")
+def _server_adam(fed):
+    return _opt.adam(fed.server_b1, fed.server_b2, fed.server_eps)
+
+
+@SERVER_OPTIMIZERS.register("yogi", opt_name="yogi")
+def _server_yogi(fed):
+    return _opt.yogi(fed.server_b1, fed.server_b2, fed.server_eps)
 
 
 def apply_server_opt(fed, global_params, opt_state, agg_delta, *, scale=1.0):

@@ -1,19 +1,30 @@
 """Federation round engine: client selection + execution backends.
 
-Counterpart of ``repro/fl/engine.py``, synchronous dense slice. A round
-runs, in order:
+Counterpart of ``repro/fl/engine.py``, synchronous slice. A round runs, in
+order:
 
 1. the eval pre-pass: each client's loss and accuracy of the received w_t;
-2. the eps-band inclusion gates of the configured SelectionStrategy
-   (``fedalign``, ``all``, ``priority_only``), warm-up and the straggler
-   cadence applied on top;
-3. E epochs of minibatch SGD (or FedProx) per client;
-4. one fused gated aggregation of the client deltas (one ``fedagg`` kernel
+2. participation sampling (a Bernoulli draw of ``fed.participation``, the
+   priority set never empty) and the straggler cadence;
+3. the inclusion gates of the configured SelectionStrategy (``fedalign``,
+   ``all``, ``priority_only``, ``topk_align``, ``welfare``, ``grad_sim``),
+   warm-up and participation applied on top;
+4. E epochs of minibatch SGD (or FedProx) per client;
+5. one fused gated aggregation of the client deltas (one ``fedagg`` kernel
    launch on the card) under the configured aggregator (mean,
    trimmed_mean, median, dp, cosine_filter) and wire codec (identity,
    int8, topk, sketch, with error-feedback rows);
-5. the server optimizer step (sgd), skipped bit-exactly on a round with
-   zero inclusion mass (the aggregator's own mass).
+6. the server optimizer step (sgd, momentum, adam, yogi), skipped
+   bit-exactly on a round with zero inclusion mass (the aggregator's own
+   mass): params and optimizer moments stay as they were.
+
+The order of (3) and (4) depends on the strategy, as in the reference.
+Strategies that gate from the eval pre-pass gate first; with
+``fed.max_cohort = K > 0`` only the K clients ``cohort_select`` gathers
+train (backlog-aware overflow), their rows aggregated in cohort space.
+``grad_sim`` (``needs_deltas``) trains every client first and gates on
+the cosine of each client delta to the priority mean delta (exact, or on
+CountSketches under ``fed.grad_sim_sketch``); it ignores ``max_cohort``.
 
 Two backends execute the client axis:
 
@@ -29,9 +40,9 @@ client trains on the same minibatches as in the JAX package; the
 ``[C, E, steps, bs]`` minibatch permutations are computed up front on the
 data's device and handed to the solver.
 
-Knobs outside this slice (the other strategies, ``scan_async``, partial
-participation, cohorts, candidate pools, failure models, the latency clock
-and the divergence guard) raise ``NotImplementedError`` naming the knob.
+Knobs outside this slice (``scan_async``, candidate pools, failure models,
+the latency clock and the divergence guard) raise ``NotImplementedError``
+naming the knob.
 """
 from __future__ import annotations
 
@@ -45,8 +56,9 @@ from torch.func import grad, vmap
 from repro_torch import prng
 from repro_torch.configs.base import register_validator, validate_config
 from repro_torch.core.aggregation import (aggregate_delta, aggregator_key,
-                                          apply_server_opt, get_aggregator,
-                                          inclusion_mass, resolve_wire_codec,
+                                          apply_server_opt, flatten_stacked,
+                                          get_aggregator, inclusion_mass,
+                                          resolve_wire_codec,
                                           server_optimizer)
 from repro_torch.core.alignment import epsilon_at, global_loss_from_locals
 from repro_torch.optim.schedules import make_schedule
@@ -62,8 +74,8 @@ class FederationState:
 
     * ``params`` — global model parameters w_t (dict of tensors).
     * ``opt_state`` — server-optimizer moments (``()`` for sgd).
-    * ``backlog`` — [C] int32 rounds each client was dropped by cohort
-      overflow (always 0 here: cohorts are not ported).
+    * ``backlog`` — [C] int32 rounds each client was dropped by
+      ``max_cohort`` overflow since it last aggregated; wins cohort ties.
     * ``util_ema`` — [C] f32 EMA of the alignment gap |F_k - F|.
     * ``incl_ema`` — [C] f32 EMA of the effective inclusion gates.
     * ``ef_accum`` — the wire codec's per-client error-feedback rows
@@ -123,12 +135,10 @@ def check_clock_config(fed):
 
 @register_validator("selection")
 def check_selection_config(fed):
-    """Strategy names, partial participation and the training cohort."""
+    """Strategy and algorithm names. ``participation`` and ``max_cohort``
+    take any value, as in the reference: a rate >= 1 samples everyone and
+    a budget <= 0 disables the cohort."""
     get_strategy(fed.selection)
-    if fed.participation < 1.0:
-        _not_ported("participation", fed.participation, "use 1.0")
-    if fed.max_cohort > 0:
-        _not_ported("max_cohort", fed.max_cohort, "use 0")
     if fed.algorithm not in ("fedavg", "fedprox"):
         raise ValueError(f"unknown FedConfig.algorithm {fed.algorithm!r}")
 
@@ -164,8 +174,10 @@ def init_state(params, fed, num_clients: Optional[int] = None) -> FederationStat
 @dataclass
 class SelectionContext:
     """Everything a SelectionStrategy may look at for one round (fields as
-    in the reference; ``delta_cos`` and the welfare fields are unused by
-    the ported strategies)."""
+    in the reference). ``delta_cos`` is filled only for a ``needs_deltas``
+    strategy; ``util_ema`` is the bias-corrected smoothed gap with this
+    round's observation folded in, ``incl_ema`` and ``backlog`` describe
+    the previous rounds."""
     align_vals: Any                    # [C] F_k(w_t) (or acc_k(w_t))
     global_align: Any                  # scalar F(w_t)
     eps: Any                           # scalar eps_t
@@ -173,7 +185,7 @@ class SelectionContext:
     weights: Any = None                # [C] data fractions p_k
     participation: Any = None          # [C] bool availability, or None
     warmup: Any = False                # bool: inside warm-up rounds
-    delta_cos: Any = None
+    delta_cos: Any = None              # [C] cosine(delta_k, delta_P)
     topk: int = 4
     sim_threshold: float = 0.0
     backlog: Any = None
@@ -183,7 +195,6 @@ class SelectionContext:
 
 
 STRATEGIES = Registry("selection strategy")
-_UNPORTED_STRATEGIES = ("topk_align", "grad_sim", "welfare")
 
 
 def register_strategy(name: str, *, needs_deltas: bool = False,
@@ -195,8 +206,6 @@ def register_strategy(name: str, *, needs_deltas: bool = False,
 
 
 def get_strategy(name: str) -> Callable:
-    if name in _UNPORTED_STRATEGIES:
-        _not_ported("selection", name, f"ported: {STRATEGIES.names()}")
     return STRATEGIES.lookup(name)
 
 
@@ -217,6 +226,48 @@ def _priority_only(ctx):
                        device=ctx.priority_mask.device)
 
 
+@register_strategy("topk_align")
+def _topk_align(ctx):
+    """The k best-matched available non-priority clients, each also inside
+    the eps band (ties at the k-th gap all get in)."""
+    C = ctx.align_vals.shape[0]
+    k = int(ctx.topk)
+    if k <= 0:
+        return torch.zeros(C, dtype=torch.float32,
+                           device=ctx.align_vals.device)
+    diff = torch.abs(ctx.align_vals - ctx.global_align)
+    cand = ~ctx.priority_mask.bool()
+    if ctx.participation is not None:
+        cand = cand & ctx.participation.bool()
+    ranked = torch.where(cand, diff, torch.full_like(diff, float("inf")))
+    kth = torch.sort(ranked).values[min(k, C) - 1]
+    return ((ranked <= kth) & (ranked < ctx.eps)).float()
+
+
+@register_strategy("grad_sim", needs_deltas=True)
+def _grad_sim(ctx):
+    if ctx.delta_cos is None:
+        raise ValueError("grad_sim needs ctx.delta_cos (client-update cosine "
+                         "similarities); this backend did not provide deltas")
+    return (ctx.delta_cos >= ctx.sim_threshold).float()
+
+
+@register_strategy("welfare")
+def _welfare(ctx):
+    """Welfare / fairness-aware selection (Travadi et al.,
+    arXiv:2302.08976): a non-priority client is in when its smoothed
+    alignment gap is inside the eps band, or when its inclusion EMA has
+    starved below the fairness floor."""
+    if ctx.util_ema is None or ctx.incl_ema is None:
+        raise ValueError(
+            "welfare needs ctx.util_ema/ctx.incl_ema (cross-round client "
+            "utility EMAs from FederationState); this caller is stateless — "
+            "thread a FederationState through the round")
+    aligned = ctx.util_ema < ctx.eps
+    starved = ctx.incl_ema < ctx.welfare_floor
+    return (aligned | starved).float()
+
+
 def compute_gates(ctx: SelectionContext, selection: str = "fedalign"):
     """I_{k,t} per client: priority clients always in, the strategy decides
     the rest; warm-up (strategy-dependent) and participation on top."""
@@ -229,6 +280,57 @@ def compute_gates(ctx: SelectionContext, selection: str = "fedalign"):
     if ctx.participation is not None:
         gates = gates * ctx.participation.float()
     return gates
+
+
+def cosine_to_priority(flat_deltas, weights, priority_mask):
+    """[C, M] client deltas -> [C] cosine to the priority-weighted mean
+    delta (the grad_sim statistic), accumulated in f32."""
+    f = flat_deltas.float()
+    wp = weights.float() * priority_mask.float()
+    d_pri = torch.einsum("c,cm->m", wp, f) / torch.clamp(torch.sum(wp),
+                                                         min=1e-30)
+    dots = f @ d_pri
+    norms = (torch.sqrt(torch.sum(f * f, dim=1))
+             * torch.sqrt(torch.sum(d_pri * d_pri)))
+    return dots / torch.clamp(norms, min=1e-12)
+
+
+def cohort_select(gates, align_vals, global_align, priority_mask, k: int,
+                  backlog=None, backlog_boost=0.0):
+    """The gate-before-train cohort's gather order.
+
+    Returns (cohort_idx [K], cohort_gates [K], effective_gates [C]). Slots
+    fill priority clients first, then the included non-priority clients by
+    alignment gap |F_k - F| (with ``backlog_boost`` > 0, by the gap minus
+    ``backlog_boost * backlog``), then gated-out clients as zero-gate
+    padding; ties go to the longer backlog, then the lower index. When
+    more than K clients gate in, the worst-matched non-priority ones drop
+    this round. The reference's ``lexsort((arange(C), -backlog, key))`` is
+    two stable argsorts, least significant key first."""
+    pri = priority_mask.bool()
+    C = gates.shape[0]
+    dev = gates.device
+    diff = torch.abs(align_vals - global_align).float()
+    bl = (torch.zeros(C, dtype=torch.float32, device=dev) if backlog is None
+          else backlog.float())
+    cap = torch.tensor(1e30, dtype=torch.float32, device=dev)
+    boost = float(backlog_boost)
+    if boost != 0.0:
+        # priority pins to -inf: no boosted rank can displace it
+        rank = torch.where(pri, torch.tensor(float("-inf"), device=dev),
+                           torch.minimum(diff, cap)
+                           - torch.tensor(boost, dtype=torch.float32) * bl)
+    else:
+        rank = torch.where(pri, torch.tensor(-1.0, device=dev),
+                           torch.minimum(diff, cap))
+    key = torch.where(gates > 0, rank, torch.tensor(float("inf"), device=dev))
+    order = torch.argsort(-bl, stable=True)
+    order = order[torch.argsort(key[order], stable=True)]
+    cohort_idx = order[:k]
+    cohort_gates = gates[cohort_idx]
+    eff_gates = torch.zeros_like(gates)
+    eff_gates[cohort_idx] = cohort_gates
+    return cohort_idx, cohort_gates, eff_gates
 
 
 def backlog_update(backlog, gates, eff_gates):
@@ -269,21 +371,49 @@ def server_delta(fed, global_params, client_params, weights, gates, *,
 
 
 def participation_mask(fed, key, priority_mask, round_idx, client_ids=None):
-    """Paper App. A.4 straggler cadence: non-priority client k joins every
-    2 + k % period rounds. Bernoulli sampling (``participation < 1``) and
-    pool identities are not ported."""
-    if fed.participation < 1.0:
-        _not_ported("participation", fed.participation, "use 1.0")
+    """Paper App. C.3 / A.4: Bernoulli participation sampling at rate
+    ``fed.participation`` (the priority set never empty: if the draw
+    misses every priority client, all of them join), plus the straggler
+    cadence (non-priority client k joins every 2 + k % period rounds).
+    The draw is ``jax.random.bernoulli(key, rate, (C,))`` bit for bit.
+    Pool identities (``client_ids``) are not ported."""
     if client_ids is not None:
         _not_ported("candidate_pool", fed.candidate_pool, "use 0")
     C = priority_mask.shape[0]
-    part = torch.ones(C, dtype=torch.bool, device=priority_mask.device)
+    dev = priority_mask.device
+    pm = priority_mask.bool()
+    if fed.participation < 1.0:
+        part = prng.bernoulli(key, fed.participation, (C,)).to(dev)
+        part = part | ((torch.sum(part & pm) == 0) & pm)
+    else:
+        part = torch.ones(C, dtype=torch.bool, device=dev)
     if fed.straggler_period > 0:
-        ids = torch.arange(C, device=priority_mask.device)
+        ids = torch.arange(C, device=dev)
         cadence = 2 + ids % fed.straggler_period
         available = (round_idx % cadence) == 0
-        part = part & (available | priority_mask)
+        part = part & (available | pm)
     return part
+
+
+def sketch_key(fed, round_idx):
+    """grad_sim's per-round CountSketch projection key, shared by every
+    client and both backends."""
+    return prng.fold_in(prng.PRNGKey(fed.seed ^ 0x5E7C), round_idx)
+
+
+def apply_if_mass(fed, params, opt_state, agg_delta, mass):
+    """The synchronous server step, ``apply_server_opt``, kept only where
+    the round's inclusion mass is positive: on a zero-mass round params
+    and every optimizer moment (adam's ``t`` too) stay bit-identical
+    instead of momentum decaying on an all-zero delta. A ``torch.where``
+    per leaf, so the host never waits on the mass. Returns (new_params,
+    new_opt_state)."""
+    applied, new_opt = apply_server_opt(fed, params, opt_state, agg_delta)
+    has_mass = mass > 0
+
+    def keep(a, b):
+        return torch.where(has_mass, a, b)
+    return tree_map(keep, applied, params), tree_map(keep, new_opt, opt_state)
 
 
 def delta_sketch(deltas, key, dim: int):
@@ -401,8 +531,9 @@ def make_round_fn(loss_fn: Callable, fed, *,
     -> (new_state, stats), with ``state`` a FederationState (``init_state``),
     ``data`` leaves [C, n, ...] on the round's device, ``rng`` a
     ``repro_torch.prng`` key and ``round_idx`` a python int. The stats keys
-    are the reference's. The reference's ``delta_transform`` seam (attack
-    injection for benchmarks) is not ported."""
+    are the reference's; ``gates`` are the effective gates the aggregation
+    honoured. The reference's ``delta_transform`` seam (attack injection
+    for benchmarks) is not ported."""
     backend = backend or fed.backend
     if backend == "scan_async":
         _not_ported("backend", backend, "use vmap_spatial or scan_temporal")
@@ -415,6 +546,7 @@ def make_round_fn(loss_fn: Callable, fed, *,
     ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
              and bool(fed.error_feedback))
     eval_clients, train_clients = _BACKENDS[backend]
+    gate_before_train = not get_strategy(fed.selection).needs_deltas
     solver = local_solver(loss_fn, fed)
     sched = make_schedule(fed)
     warmup_rounds = int(fed.warmup_frac * fed.rounds)
@@ -441,47 +573,94 @@ def make_round_fn(loss_fn: Callable, fed, *,
         g_align = global_loss_from_locals(align_vals, priority_mask, weights)
         util_ema = utility_update(fed, state.util_ema, align_vals, g_align)
 
-        # the reference's key chain: participation key, then local keys
+        # (2) the reference's key chain: participation key, then local keys
         rng, pkey = prng.split(rng)
         part = participation_mask(fed, pkey, priority_mask, round_idx)
         warm = round_idx < warmup_rounds
         rng, lkey = prng.split(rng)
         lkeys = prng.split(lkey, C).to(dev)
-
-        # (2) gates first: every ported strategy gates from the eval pre-pass
-        ctx = SelectionContext(
-            align_vals=align_vals, global_align=g_align, eps=eps,
-            priority_mask=priority_mask, weights=weights, participation=part,
-            warmup=warm, topk=fed.topk, sim_threshold=fed.sim_threshold,
-            backlog=state.backlog,
-            util_ema=utility_estimate(fed, util_ema, round_idx),
-            incl_ema=state.incl_ema, welfare_floor=fed.welfare_floor)
-        gates = compute_gates(ctx, fed.selection)
-
-        # (3) local training; the scan backend skips gated-out clients
         order = minibatch_order(fed, lkeys, n)
-        client_params = train_clients(solver, global_params, data, order, lr,
-                                      gates=gates)
-
-        # (4) one fused fedagg launch (the error-feedback rows advance with
-        # it); (5) the server step, skipped on a round where the
-        # aggregator's inclusion mass is zero, so params stay bit-identical
         akey = aggregator_key(fed, round_idx) if agg_needs_key else None
-        ef_accum = state.ef_accum
-        if ef_on:
-            agg_delta, ef_accum = server_delta(
-                fed, global_params, client_params, weights, gates, key=akey,
-                ef_accum=state.ef_accum)
-        else:
-            agg_delta = server_delta(fed, global_params, client_params,
-                                     weights, gates, key=akey)
-        applied, opt_state = apply_server_opt(fed, global_params,
-                                              state.opt_state, agg_delta)
-        has_mass = inclusion_mass(fed, weights, gates) > 0
-        new_global = tree_map(lambda a, b: torch.where(has_mass, a, b),
-                              applied, global_params)
 
-        backlog = backlog_update(state.backlog, gates, gates)
+        def make_ctx(delta_cos=None):
+            return SelectionContext(
+                align_vals=align_vals, global_align=g_align, eps=eps,
+                priority_mask=priority_mask, weights=weights,
+                participation=part, warmup=warm, delta_cos=delta_cos,
+                topk=fed.topk, sim_threshold=fed.sim_threshold,
+                backlog=state.backlog,
+                util_ema=utility_estimate(fed, util_ema, round_idx),
+                incl_ema=state.incl_ema, welfare_floor=fed.welfare_floor)
+
+        def aggregate(client_params, agg_w, agg_g, ef_rows):
+            # (5) one fused fedagg launch; the error-feedback rows advance
+            # with it
+            if ef_on:
+                return server_delta(fed, global_params, client_params, agg_w,
+                                    agg_g, key=akey, ef_accum=ef_rows)
+            return server_delta(fed, global_params, client_params, agg_w,
+                                agg_g, key=akey), ef_rows
+
+        k = min(int(fed.max_cohort), C) if fed.max_cohort > 0 else 0
+        ef_accum = state.ef_accum
+        if gate_before_train:
+            # (3) gates from the eval pre-pass, then (4) training; the scan
+            # backend skips gated-out clients
+            sel_gates = compute_gates(make_ctx(), fed.selection)
+            if k > 0:
+                # gather-train-scatter: only the K cohort slots train, their
+                # error-feedback rows gather with them and scatter back
+                cohort_idx, cohort_gates, gates = cohort_select(
+                    sel_gates, align_vals, g_align, priority_mask, k,
+                    backlog=state.backlog,
+                    backlog_boost=float(fed.backlog_boost))
+                client_params = train_clients(
+                    solver, global_params,
+                    {key: v[cohort_idx] for key, v in data.items()},
+                    order[cohort_idx], lr, gates=cohort_gates)
+                agg_w, agg_g = weights[cohort_idx], cohort_gates
+                agg_delta, cohort_ef = aggregate(
+                    client_params, agg_w, agg_g,
+                    tree_map(lambda a: a[cohort_idx], ef_accum))
+                if ef_on:
+                    ef_accum = tree_map(
+                        lambda full, sub: full.index_copy(0, cohort_idx, sub),
+                        ef_accum, cohort_ef)
+            else:
+                gates = sel_gates
+                client_params = train_clients(solver, global_params, data,
+                                              order, lr, gates=gates)
+                agg_w, agg_g = weights, gates
+                agg_delta, ef_accum = aggregate(client_params, agg_w, agg_g,
+                                                ef_accum)
+        else:
+            # (4) train first: the statistic needs the client updates
+            client_params = train_clients(solver, global_params, data, order,
+                                          lr)
+            deltas = tree_map(lambda ck, g: ck - g[None], client_params,
+                              global_params)
+            if fed.grad_sim_sketch:
+                flat = delta_sketch(deltas, sketch_key(fed, round_idx),
+                                    int(fed.sketch_dim))
+            else:
+                flat = flatten_stacked(deltas)
+            del deltas
+            gates = sel_gates = compute_gates(
+                make_ctx(cosine_to_priority(flat, weights, priority_mask)),
+                fed.selection)
+            del flat
+            agg_w, agg_g = weights, gates
+            agg_delta, ef_accum = aggregate(client_params, agg_w, agg_g,
+                                            ef_accum)
+
+        # (6) the server step, skipped on a zero-mass round
+        new_global, opt_state = apply_if_mass(
+            fed, global_params, state.opt_state, agg_delta,
+            inclusion_mass(fed, agg_w, agg_g))
+
+        # the backlog ledger and the inclusion EMA follow the effective
+        # gates the aggregation honoured
+        backlog = backlog_update(state.backlog, sel_gates, gates)
         incl_ema = inclusion_update(fed, state.incl_ema, gates)
         new_state = state.replace(params=new_global, opt_state=opt_state,
                                   backlog=backlog, util_ema=util_ema,

@@ -1,9 +1,8 @@
 """FedALIGN rounds over the LM zoo on one card: the spatial round.
 
 Counterpart of ``repro/fl/sharded.py``, its single-card part:
-``make_spatial_round`` (without ``max_cohort``) and
-``make_round_step(..., fsdp=False)``. A round has the engine's
-persistent-state signature
+``make_spatial_round`` and ``make_round_step(..., fsdp=False)``. A round
+has the engine's persistent-state signature
 
     round_step(state: engine.FederationState, batch, round_idx=0)
         -> (new_state, stats)
@@ -14,35 +13,43 @@ and runs, in the reference's order:
 2. per client, its loss at the received model (the matching statistic)
    and E full-batch local SGD steps, ``p <- -lr * grad + p``
    (``tree_axpy(-lr, g, p)``, the reference's order of operations);
-3. the utility EMA and the eps gates of the configured strategy;
+3. the utility EMA and the gates of the configured strategy (``grad_sim``
+   from the cosine of each client delta to the priority mean delta, exact
+   or on CountSketches under ``fed.grad_sim_sketch``);
 4. the gated aggregation of the client deltas (one fedagg launch on the
    card) under the configured aggregator and wire codec, the
    error-feedback rows advancing through ``engine.server_delta``;
-5. the server step (sgd), skipped bit-exactly on a zero-mass round.
+5. the server step (sgd, momentum, adam, yogi), skipped on a zero-mass
+   round with params and optimizer moments bit-identical.
+
+With ``fed.max_cohort = K > 0`` and a strategy that gates from losses
+(not ``grad_sim``), the round gates before it trains: a no-grad eval pass
+over the C clients, the gates, ``engine.cohort_select``, and only the K
+gathered clients run their E steps, into a K-row client stack. As in the
+reference, the LM round reads no ``fed.participation``: everyone is
+available.
 
 The reference ``vmap``s the clients; the port loops over them, because
 ``torch.func.vmap`` cannot batch through the ctypes kernels and one
 client's params are 1.86 GB at qwen1.5-0.5b's full width. The math is per
 client, so the result is the same. Each client's trained leaves are
-written into preallocated ``[C, ...]`` stacked leaves (the round holds the
-stack once); the loss at the received model runs under ``torch.no_grad``
+written into preallocated ``[C, ...]`` (cohort: ``[K, ...]``) stacked
+leaves (the round holds the stack once); the loss at the received model runs under ``torch.no_grad``
 and each local step takes ``torch.autograd.grad`` of a ``requires_grad``
 view of the client's slot, then updates the slot in place.
 
 Out of this slice, each raising ``NotImplementedError`` with its ROADMAP
-item: ``max_cohort`` and the non-sgd server optimizers (A6b), the delta
-strategies and the other rank strategies (A8), ``async_depth`` (A11),
-failure models, the event clock and the divergence guard (A12),
-``candidate_pool`` (A13) and the temporal FSDP round (A17).
+item: ``async_depth`` (A11), failure models, the event clock and the
+divergence guard (A12), ``candidate_pool`` (A13) and the temporal FSDP
+round (A17).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import validate_config
-from repro_torch.core.aggregation import (aggregator_key, apply_server_opt,
+from repro_torch.core.aggregation import (aggregator_key, flatten_stacked,
                                           get_aggregator, inclusion_mass,
-                                          resolve_server_opt,
                                           resolve_wire_codec)
 from repro_torch.core.alignment import epsilon_at
 from repro_torch.fl import engine
@@ -52,10 +59,6 @@ from repro_torch.utils import (resolve_device, tree_leaves, tree_map,
 # (knob, test, ROADMAP item) for every FedConfig knob the spatial round of
 # this slice does not run
 _OUT_OF_SLICE = (
-    ("max_cohort", lambda f: f.max_cohort > 0, "A6b"),
-    ("server_opt", lambda f: resolve_server_opt(f.server_opt) != "sgd", "A6b"),
-    ("selection", lambda f: f.selection in ("grad_sim", "topk_align",
-                                            "welfare"), "A8"),
     ("async_depth", lambda f: f.async_depth > 0 or f.backend == "scan_async",
      "A11"),
     ("failure_model", lambda f: f.failure_model not in (None, "", "none"),
@@ -98,51 +101,31 @@ def _train_steps(model, params, batch, lr, n_steps, out):
     return out
 
 
-def _local_steps(model, params, batch, lr, n_steps, out):
-    """Local training plus F_k(w_t) of the *received* model (the paper's
-    matching statistic). Returns (params', loss0)."""
-    with torch.no_grad():
-        loss0, _ = model.loss_fn(params, batch)
-    return _train_steps(model, params, batch, lr, n_steps, out), loss0
-
-
 def _gate_ctx(fed, state, util_ema, local_losses, server_loss, pm, w,
-              round_idx=0):
+              delta_cos=None, round_idx=0):
     """SelectionContext for one pod-scale round: eps_t of ``round_idx``,
     the bias-corrected utility EMA, backlog and inclusion EMA from the
     state; no warm-up and full participation, as the reference's."""
     return engine.SelectionContext(
         align_vals=local_losses, global_align=server_loss,
         eps=epsilon_at(fed, round_idx), priority_mask=pm, weights=w,
-        topk=fed.topk, sim_threshold=fed.sim_threshold,
+        delta_cos=delta_cos, topk=fed.topk, sim_threshold=fed.sim_threshold,
         backlog=state.backlog,
         util_ema=engine.utility_estimate(fed, util_ema, round_idx),
         incl_ema=state.incl_ema, welfare_floor=fed.welfare_floor)
 
 
-def _next_state(fed, state, new_params, opt_state, gates, util_ema,
-                ef_accum=None):
-    """Advance the cross-round carry with the engine's update rules (the
-    selection and the effective gates are one here: no cohort overflow and
-    no lost clients in this slice)."""
+def _next_state(fed, state, new_params, opt_state, sel_gates, eff_gates,
+                util_ema, ef_accum=None):
+    """Advance the cross-round carry with the engine's update rules: the
+    backlog from the selection and the effective gates (they differ when
+    the cohort overflowed), the inclusion EMA from the effective ones."""
     return state.replace(
         params=new_params, opt_state=opt_state,
-        backlog=engine.backlog_update(state.backlog, gates, gates),
+        backlog=engine.backlog_update(state.backlog, sel_gates, eff_gates),
         util_ema=util_ema,
-        incl_ema=engine.inclusion_update(fed, state.incl_ema, gates),
+        incl_ema=engine.inclusion_update(fed, state.incl_ema, eff_gates),
         ef_accum=state.ef_accum if ef_accum is None else ef_accum)
-
-
-def _apply_delta(fed, state, params, agg_delta, mass):
-    """The synchronous server step: ``apply_server_opt`` unless the
-    round's inclusion mass is zero, where params and moments stay
-    bit-identical. Returns (new_params, opt_state)."""
-    applied, opt_state = apply_server_opt(fed, params, state.opt_state,
-                                          agg_delta)
-    has_mass = mass > 0
-    new_params = tree_map(lambda a, p: torch.where(has_mass, a, p),
-                          applied, params)
-    return new_params, opt_state
 
 
 def make_spatial_round(model, fed, num_clients: int, device="cuda"):
@@ -150,9 +133,11 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
 
     batch: ``clients`` (tokens / labels / mask, [C, b, S]), ``server``
     ([b, S]), ``priority_mask`` and ``weights`` ([C]); state and batch on
-    ``device`` (asking for a missing card raises). Every client trains
-    (train-first, as the reference's dense spatial round); the gates drop
-    the excluded ones from the aggregation."""
+    ``device`` (asking for a missing card raises). Without a cohort every
+    client trains (train-first, as the reference's dense spatial round)
+    and the gates drop the excluded ones from the aggregation; with
+    ``fed.max_cohort = K`` (and a strategy that gates from losses) only
+    the K gathered clients train."""
     E = fed.local_epochs
     lr = fed.lr
     check_round_config(fed)
@@ -160,6 +145,19 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
     ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
              and bool(fed.error_feedback))
+    strategy = engine.get_strategy(fed.selection)
+    use_cohort = fed.max_cohort > 0 and not strategy.needs_deltas
+
+    def train_into(params, client_batch, rows):
+        """E local steps for each client of ``rows``, into row j of a
+        fresh [len(rows), ...] stack."""
+        stacked = tree_map(
+            lambda p: p.new_empty((len(rows),) + tuple(p.shape)), params)
+        for j, c in enumerate(rows):
+            _train_steps(model, params, {k: v[c] for k, v in
+                                         client_batch.items()},
+                         lr, E, out=tree_map(lambda s: s[j], stacked))
+        return stacked
 
     def round_step(state, batch, round_idx=0):
         round_idx = int(round_idx)
@@ -172,39 +170,77 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
         w = batch["weights"]
         C = pm.shape[0]
 
+        # the server statistic F(w_t) and each client's F_k(w_t) at the
+        # received model (the paper's matching statistic)
         with torch.no_grad():
             server_loss, _ = model.loss_fn(params, batch["server"])
-        akey = aggregator_key(fed, round_idx) if agg_needs_key else None
-
-        stacked = tree_map(lambda p: p.new_empty((C,) + tuple(p.shape)),
-                           params)
-        losses = []
-        for c in range(C):
-            cb = {k: v[c] for k, v in client_batch.items()}
-            _, loss0 = _local_steps(model, params, cb, lr, E,
-                                    out=tree_map(lambda s: s[c], stacked))
-            losses.append(loss0)
-        local_losses = torch.stack(losses)
-
-        with torch.no_grad():
+            local_losses = torch.stack([
+                model.loss_fn(params, {k: v[c] for k, v in
+                                       client_batch.items()})[0]
+                for c in range(C)])
             util_ema = engine.utility_update(fed, state.util_ema,
                                              local_losses, server_loss)
-            gates = engine.compute_gates(
-                _gate_ctx(fed, state, util_ema, local_losses, server_loss,
-                          pm, w, round_idx=round_idx), fed.selection)
+        akey = aggregator_key(fed, round_idx) if agg_needs_key else None
+        ef_rows = state.ef_accum
+
+        if use_cohort:
+            # gates -> gather-train: only the K cohort rows train
+            with torch.no_grad():
+                sel_gates = engine.compute_gates(
+                    _gate_ctx(fed, state, util_ema, local_losses,
+                              server_loss, pm, w, round_idx=round_idx),
+                    fed.selection)
+                idx, agg_g, gates = engine.cohort_select(
+                    sel_gates, local_losses, server_loss, pm,
+                    min(fed.max_cohort, C), backlog=state.backlog,
+                    backlog_boost=float(fed.backlog_boost))
+            stacked = train_into(params, client_batch, idx.tolist())
+            agg_w = w[idx]
+            if ef_on:
+                ef_rows = tree_map(lambda a: a[idx], state.ef_accum)
+        else:
+            # train first: every client, then the gates
+            stacked = train_into(params, client_batch, range(C))
+            with torch.no_grad():
+                delta_cos = None
+                if strategy.needs_deltas:
+                    deltas = tree_map(lambda ck, g: ck - g[None], stacked,
+                                      params)
+                    if fed.grad_sim_sketch:
+                        flat = engine.delta_sketch(
+                            deltas, engine.sketch_key(fed, round_idx),
+                            int(fed.sketch_dim))
+                    else:
+                        flat = flatten_stacked(deltas)
+                    del deltas
+                    delta_cos = engine.cosine_to_priority(flat, w, pm)
+                    del flat
+                sel_gates = gates = engine.compute_gates(
+                    _gate_ctx(fed, state, util_ema, local_losses,
+                              server_loss, pm, w, delta_cos,
+                              round_idx=round_idx), fed.selection)
+            agg_w, agg_g = w, gates
+
+        with torch.no_grad():
             ef_accum = None
             if ef_on:
-                agg_delta, ef_accum = engine.server_delta(
-                    fed, params, stacked, w, gates, key=akey,
-                    ef_accum=state.ef_accum)
+                agg_delta, ef_rows = engine.server_delta(
+                    fed, params, stacked, agg_w, agg_g, key=akey,
+                    ef_accum=ef_rows)
+                ef_accum = (tree_map(
+                    lambda full, sub: full.index_copy(0, idx, sub),
+                    state.ef_accum, ef_rows) if use_cohort else ef_rows)
             else:
-                agg_delta = engine.server_delta(fed, params, stacked, w,
-                                                gates, key=akey)
+                agg_delta = engine.server_delta(fed, params, stacked, agg_w,
+                                                agg_g, key=akey)
             del stacked
-            new_params, opt_state = _apply_delta(
-                fed, state, params, agg_delta, inclusion_mass(fed, w, gates))
-            new_state = _next_state(fed, state, new_params, opt_state, gates,
-                                    util_ema, ef_accum=ef_accum)
+            new_params, opt_state = engine.apply_if_mass(
+                fed, params, state.opt_state, agg_delta,
+                inclusion_mass(fed, agg_w, agg_g))
+            del agg_delta
+            new_state = _next_state(fed, state, new_params, opt_state,
+                                    sel_gates, gates, util_ema,
+                                    ef_accum=ef_accum)
             npri = 1.0 - pm.float()
             stats = {
                 "server_loss": server_loss,

@@ -72,7 +72,8 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
         misalign_max=1.0, log_every=1, seed=0, verbose=True, device="cuda",
         **fed_kw):
     """``fed_kw`` passes any further FedConfig knob straight through (the
-    aggregators and wire codecs; knobs the port has not reached raise).
+    aggregators, wire codecs, server optimizers, strategies and the
+    training cohort; knobs the port has not reached raise).
     Returns (params, history): the final global params, detached, and one
     record per round with the reference's keys plus the round's ``gates``
     and ``local_losses``."""

@@ -221,10 +221,13 @@ def test_train_main_runs_on_the_cpu_when_asked(capsys):
 
 
 # ------------------------------------------------------------ out of slice
+# (knobs, ROADMAP item): the knobs once outside the LM round. The ones
+# still refused raise naming their item; the selection knobs the port has
+# since reached (item None) build the round and train.run runs it
 OUT_OF_SLICE = [
-    (dict(max_cohort=2), "A6b"), (dict(server_opt="momentum"), "A6b"),
-    (dict(server_opt="adam"), "A6b"), (dict(selection="grad_sim"), "A8"),
-    (dict(selection="topk_align"), "A8"), (dict(selection="welfare"), "A8"),
+    (dict(max_cohort=2), None), (dict(server_opt="momentum"), None),
+    (dict(server_opt="adam"), None), (dict(selection="grad_sim"), None),
+    (dict(selection="topk_align"), None), (dict(selection="welfare"), None),
     (dict(async_depth=2, backend="scan_async"), "A11"),
     (dict(failure_model="crash", crash_rate=0.1), "A12"),
     (dict(latency_mode="lognormal"), "A12"),
@@ -238,6 +241,15 @@ OUT_OF_SLICE = [
 def test_out_of_slice_round_knob_raises(kw, item):
     model = get_model(get_smoke("qwen1.5-0.5b"))
     fed = FedConfig(num_clients=4, num_priority=2, **kw)
+    if item is None:
+        assert callable(sharded.make_round_step(model, fed, 4, fsdp=False,
+                                                device="cpu"))
+        params, hist = train.run(rounds=1, clients=4, n_priority=2,
+                                 per_client=2, seq=32, device="cpu",
+                                 verbose=False, **kw)
+        assert len(hist) == 1 and np.isfinite(hist[0]["server_loss"])
+        assert all(torch.isfinite(p).all() for p in tree_leaves(params))
+        return
     with pytest.raises(NotImplementedError, match=item):
         sharded.make_round_step(model, fed, 4, fsdp=False, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
