@@ -3,9 +3,10 @@
 end through the hand-written fedagg kernel, under every aggregator and wire
 codec; LM serving (prefill + decode of the dense GQA models and of jamba)
 through the hand-written flash-attention, decode-attention, RMSNorm and
-selective-scan kernels; and federated LM training (the spatial round over
-the dense GQA models) through the flash-attention forward and backward,
-RMSNorm and fedagg kernels.
+selective-scan kernels; and federated LM training (the spatial and the
+temporal round over the dense GQA models and jamba) through the
+flash-attention forward and backward, RMSNorm, selective-scan and fedagg
+kernels.
 
     python3 chip_smoke.py
 
@@ -47,7 +48,10 @@ if a check fails:
    {4, 8, 16}, ragged S and Di, Bt 1 and 3, output and final state), and
    checked and timed at jamba's full-width prefill (Bt 2) and at one prompt
    (Bt 1) beside the plain version and its bound (no single PyTorch call
-   computes a selective scan);
+   computes a selective scan); then K8 under autograd (its forward, the
+   plain-torch chunked backward) against autograd through the plain
+   version on the card at Bt 2, S 512, jamba's 16384 channels, N 16, x
+   f32 and bf16, the backward timed (slice g3's part ii);
 4. slice (a): the quickstart config (SYNTH, ``synth_logreg``, C=20) for a
    few rounds on both backends, held against the same run on the CPU; and
    its shortened parity config under cosine_filter, slice (c)'s three
@@ -88,15 +92,28 @@ if a check fails:
    of the kernels against the plain versions on the card; slice (f3):
    the same round under a training cohort (2 priority, K = 4, FedAdam):
    8 clients evaluated, 4 trained into a 4-row client stack, the rest
-   dropped with a backlog, s/round and peak GB beside (f2)'s. Not run:
-   qwen2.5-3b federated training at full width: its f32 client copies are
-   12.4 GB each, and the stacked copies, their delta tree and the copying
-   [C, M_total] flatten exceed the card (the temporal round, ROADMAP A17).
+   dropped with a backlog, s/round and peak GB beside (f2)'s;
+12. slice (f4): (f2)'s config and batches through the temporal round
+   (clients streamed one at a time through one client buffer and an f32
+   running sum, no fedagg launch): gates equal to (f2)'s, the params
+   after the first round within PARITY_ATOL of (f2)'s, s/round and peak
+   GB beside (f2)'s; slice (f5): qwen2.5-3b at full width (3.09 B params)
+   through the temporal round, 4 clients x 8 x 512, E = 2, 1 + 1 rounds,
+   peak GB under 80 (the spatial round's C + 3 f32 copies of 12.34 GB
+   would not fit);
+13. slice (g3): jamba federated training: (i) the smoke jamba through
+   ``launch.train.run`` on the card against the CPU, as (f1); (iii) one
+   temporal round over jamba-1.5-large-398b cut to one period at d_model
+   4096, d_ff 8192 and 4 experts (the published head_dim, ssm_state,
+   conv, expand and top-2; 3.33 B params), with the sizing table beside
+   the published widths' (16.25 B a period with 4 experts, 11.42 B with
+   2: four f32 copies would not fit).
 
-The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e)
-and (g) and the training launches of slice (f) are each counted from zero just
-before their slices and must equal what the slices' rounds, forwards,
-gradients and decode steps imply.
+The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
+(g1) and (g2) and the training launches of slices (f) and (g3) (K5, K6,
+K8, K9, fedagg) are each counted from zero just before their slices and
+must equal what the slices' rounds, forwards, gradients and decode steps
+imply (a remat gradient runs each period's forward twice).
 
 It ends with a JSON line of the kernels (launch counts from the slice
 phases, errors and times from this run) and, last, the ok line. It needs
@@ -2293,16 +2310,19 @@ def lm_bwd_timing(device="cuda"):
     return rows
 
 
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "fedagg")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "ssm_scan", "fedagg")
 
 
 def train_counts():
     from repro_torch.kernels import fedagg as fa
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssm_scan as sk
     return {"flash_attention": fk.flash_attention_fwd.launches,
             "flash_attention_bwd": fk.flash_attention_bwd.launches,
-            "rmsnorm": rk.rmsnorm_fwd.launches, "fedagg": fa.fedagg.launches}
+            "rmsnorm": rk.rmsnorm_fwd.launches,
+            "ssm_scan": sk.ssm_scan.launches, "fedagg": fa.fedagg.launches}
 
 
 def reset_train_counts():
@@ -2314,30 +2334,46 @@ def reset_train_counts():
     fa.fedagg.variant_launches.clear()
 
 
+def mixer_counts(cfg):
+    """(attention layers, Mamba layers) of a config, over all periods."""
+    mixers = [k["mixer"] for k in cfg.layer_kinds()] * cfg.n_periods
+    return mixers.count("attn"), mixers.count("mamba")
+
+
 class TrainExpected(dict):
-    """The launches the training path should make. One loss_fn gradient
-    with remat (every shipped config's): L forward launches of K5, L more
-    when the backward re-runs each period, L of K6, and 2L + 1 + 2L of K9
-    (the final norm is outside the periods). A round of C clients and E
-    local steps: the server loss and each client's loss at the received
-    model (no graph: L K5, 2L + 1 K9 each), C * E gradients, one fedagg."""
+    """The launches the training path should make, with A attention and M
+    Mamba layers of L (the dense family: A = L, M = 0; jamba: A = 1, M = 7
+    a period). A no-grad forward: A of K5, M of K8, 2L + 1 of K9 (the
+    final norm is outside the periods). One loss_fn gradient with remat
+    (every shipped config's): the forward's and, as the backward re-runs
+    each period, again A of K5 and M of K8, A of K6, and 2L + 1 + 2L of
+    K9. A round of C clients and E local steps: the server loss and each
+    client's loss at the received model (no graph), E gradients for each
+    client that trains, and one fedagg launch (none on the temporal
+    round's mean stream)."""
 
     def __init__(self):
         super().__init__({k: 0 for k in TRAIN_KERNELS})
 
-    def add_grad(self, cfg, n=1):
-        L = cfg.num_layers
-        self["flash_attention"] += 2 * L * n
-        self["flash_attention_bwd"] += L * n
-        self["rmsnorm"] += (4 * L + 1) * n
+    def add_forwards(self, cfg, n):
+        A, M = mixer_counts(cfg)
+        self["flash_attention"] += A * n
+        self["ssm_scan"] += M * n
+        self["rmsnorm"] += (2 * cfg.num_layers + 1) * n
 
-    def add_rounds(self, cfg, C, E, rounds, trained=None):
-        """``trained``: the clients that take their E steps (a cohort's K;
-        default all C)."""
-        L = cfg.num_layers
-        self["flash_attention"] += L * (1 + C) * rounds
-        self["rmsnorm"] += (2 * L + 1) * (1 + C) * rounds
-        self["fedagg"] += rounds
+    def add_grad(self, cfg, n=1):
+        A, M = mixer_counts(cfg)
+        self["flash_attention"] += 2 * A * n
+        self["flash_attention_bwd"] += A * n
+        self["ssm_scan"] += 2 * M * n
+        self["rmsnorm"] += (4 * cfg.num_layers + 1) * n
+
+    def add_rounds(self, cfg, C, E, rounds, trained=None, fedagg=True):
+        """``trained``: the clients that take their E steps a round (a
+        cohort's K, or the temporal round's gated-in count; default all
+        C); ``fedagg``: whether the round aggregates through the kernel."""
+        self.add_forwards(cfg, (1 + C) * rounds)
+        self["fedagg"] += rounds if fedagg else 0
         self.add_grad(cfg, (C if trained is None else trained) * E * rounds)
 
 
@@ -2385,76 +2421,86 @@ def token_batch(cfg, B, S, device, seed=0):
             "mask": torch.ones(B, S, device=device)}
 
 
-def slice_f1(check: Check, expected: TrainExpected, device="cuda"):
-    """Smoke-size federated training on the card against the same port code
-    on the CPU (f32, 4 clients of which 2 priority, 2 sequences of 64
-    tokens each, E = 2, 3 rounds): gates and included counts equal, after
-    checking every gate decision is more than GATE_MARGIN from eps; server
-    and client losses and the final params within PARITY_ATOL of the
-    largest magnitude (at least 1); and a gradient-completeness check: one
-    loss_fn gradient at the CPU run's final params, on the card and on the
-    CPU, leaf for leaf within PARITY_ATOL of the leaf's largest magnitude,
-    no leaf zero on the card where the CPU's is not."""
+def train_parity(check: Check, expected: TrainExpected, name, arch, knobs,
+                 eps, device="cuda", tol=PARITY_ATOL, run=TRAIN_RUN):
+    """One smoke config through launch.train.run on the card against the
+    same port code on the CPU (``run``: f32, 4 clients of which 2
+    priority, 2 sequences of 64 tokens each, E = 2, 3 rounds): gates and
+    included counts equal, after checking every gate decision is more
+    than GATE_MARGIN from eps; server and client losses and the final
+    params within ``tol`` of the largest magnitude (at least 1); and a
+    gradient-completeness check: one loss_fn gradient at the CPU run's
+    final params, on the card and on the CPU, leaf for leaf within
+    ``tol`` of the leaf's largest magnitude, no leaf zero on the card
+    where the CPU's is not."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.launch import train
     from repro_torch.models import get_model
     from repro_torch.utils import tree_leaves, tree_map
+    cfg = get_smoke(arch).replace(**knobs)
+    with smoke_knobs(**knobs):
+        p_cpu, h_cpu = train.run(arch=arch, epsilon=eps, device="cpu",
+                                 verbose=False, **run)
+        p_dev, h_dev = train.run(arch=arch, epsilon=eps, device=device,
+                                 verbose=False, **run)
+    expected.add_rounds(cfg, run["clients"], run["local_epochs"],
+                        run["rounds"])
+    npri = run["n_priority"]
+    margin = min(abs(abs(l - h["server_loss"]) - eps)
+                 for h in h_cpu for l in h["local_losses"][npri:])
+    check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
+    included = [h["included"] for h in h_cpu]
+    check(0 < sum(included) < (run["clients"] - npri) * len(h_cpu),
+          f"{name}: eps {eps} gates every client in or every one out")
+    same = all(a["gates"] == b["gates"] and a["included"] == b["included"]
+               for a, b in zip(h_dev, h_cpu))
+    check(same, f"{name}: gates differ from the CPU run")
+    loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+                   for a, b in zip(h_dev, h_cpu) for k in ("server_loss",))
+    local_err = max(float(np.max(np.abs(np.subtract(a["local_losses"], b["local_losses"]))))
+                    / max(1.0, float(np.max(np.abs(b["local_losses"]))))
+                    for a, b in zip(h_dev, h_cpu))
+    check(max(loss_err, local_err) <= tol,
+          f"{name}: losses off the CPU run by {loss_err}, {local_err}")
+    param_err = max(float(torch.max(torch.abs(a.cpu() - b)))
+                    / max(1.0, float(torch.max(torch.abs(b))))
+                    for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)))
+    check(param_err <= tol, f"{name}: params off the CPU run by {param_err}")
+    # gradient completeness: the same loss_fn gradient on both devices
+    model = get_model(cfg)
+    batch = token_batch(cfg, 2, 64, "cpu", seed=5)
+    l_cpu, g_cpu = loss_grads(model, p_cpu, batch)
+    l_dev, g_dev = loss_grads(model, tree_map(lambda t: t.to(device), p_cpu),
+                              {k: t.to(device) for k, t in batch.items()})
+    expected.add_grad(cfg)
+    grad_err, complete = 0.0, len(g_dev) == len(g_cpu)
+    for a, b in zip(g_dev, g_cpu):
+        a = a.cpu()
+        scale = float(torch.max(torch.abs(b)))
+        complete &= a is not None and (scale == 0.0 or float(torch.max(torch.abs(a))) > 0.0)
+        grad_err = max(grad_err, float(torch.max(torch.abs(a - b))) / max(scale, 1e-30))
+    check(complete, f"{name}: a gradient leaf is missing or zero on the card")
+    check(grad_err <= tol, f"{name}: loss_fn gradient off the CPU's by "
+          f"{grad_err} (relative to each leaf's largest)")
+    row = dict(eps=eps, gate_margin=margin, included=included,
+               gates_equal=same, max_loss_rel_err=max(loss_err, local_err),
+               max_param_rel_err=param_err, grad_leaves=len(g_dev),
+               max_grad_rel_err=grad_err,
+               loss_grad_err=abs(float(l_dev) - float(l_cpu)))
+    print(f"{name}:", json.dumps(row), flush=True)
+    return row
+
+
+def slice_f1(check: Check, expected: TrainExpected, device="cuda"):
+    """Smoke-size federated training of the dense configs on the card
+    against the same port code on the CPU (``train_parity``)."""
     out = {}
     for arch, knobs, eps in TRAIN_PARITY:
         name = f"slice (f1) {arch}" + (f" window {knobs['sliding_window']}" if knobs else "")
-        cfg = get_smoke(arch).replace(**knobs)
-        with smoke_knobs(**knobs):
-            p_cpu, h_cpu = train.run(arch=arch, epsilon=eps, device="cpu",
-                                     verbose=False, **TRAIN_RUN)
-            p_dev, h_dev = train.run(arch=arch, epsilon=eps, device=device,
-                                     verbose=False, **TRAIN_RUN)
-        expected.add_rounds(cfg, TRAIN_RUN["clients"], TRAIN_RUN["local_epochs"],
-                            TRAIN_RUN["rounds"])
-        npri = TRAIN_RUN["n_priority"]
-        margin = min(abs(abs(l - h["server_loss"]) - eps)
-                     for h in h_cpu for l in h["local_losses"][npri:])
-        check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
-        included = [h["included"] for h in h_cpu]
-        check(0 < sum(included) < (TRAIN_RUN["clients"] - npri) * len(h_cpu),
-              f"{name}: eps {eps} gates every client in or every one out")
-        same = all(a["gates"] == b["gates"] and a["included"] == b["included"]
-                   for a, b in zip(h_dev, h_cpu))
-        check(same, f"{name}: gates differ from the CPU run")
-        loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
-                       for a, b in zip(h_dev, h_cpu) for k in ("server_loss",))
-        local_err = max(float(np.max(np.abs(np.subtract(a["local_losses"], b["local_losses"]))))
-                        / max(1.0, float(np.max(np.abs(b["local_losses"]))))
-                        for a, b in zip(h_dev, h_cpu))
-        check(max(loss_err, local_err) <= PARITY_ATOL,
-              f"{name}: losses off the CPU run by {loss_err}, {local_err}")
-        param_err = max(float(torch.max(torch.abs(a.cpu() - b)))
-                        / max(1.0, float(torch.max(torch.abs(b))))
-                        for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)))
-        check(param_err <= PARITY_ATOL, f"{name}: params off the CPU run by {param_err}")
-        # gradient completeness: the same loss_fn gradient on both devices
-        model = get_model(cfg)
-        batch = token_batch(cfg, 2, 64, "cpu", seed=5)
-        l_cpu, g_cpu = loss_grads(model, p_cpu, batch)
-        l_dev, g_dev = loss_grads(model, tree_map(lambda t: t.to(device), p_cpu),
-                                  {k: t.to(device) for k, t in batch.items()})
-        expected.add_grad(cfg)
-        grad_err, complete = 0.0, len(g_dev) == len(g_cpu)
-        for a, b in zip(g_dev, g_cpu):
-            a = a.cpu()
-            scale = float(torch.max(torch.abs(b)))
-            complete &= a is not None and (scale == 0.0 or float(torch.max(torch.abs(a))) > 0.0)
-            grad_err = max(grad_err, float(torch.max(torch.abs(a - b))) / max(scale, 1e-30))
-        check(complete, f"{name}: a gradient leaf is missing or zero on the card")
-        check(grad_err <= PARITY_ATOL, f"{name}: loss_fn gradient off the CPU's by "
-              f"{grad_err} (relative to each leaf's largest)")
-        out[name] = dict(eps=eps, gate_margin=margin, included=included,
-                         gates_equal=same, max_loss_rel_err=max(loss_err, local_err),
-                         max_param_rel_err=param_err, grad_leaves=len(g_dev),
-                         max_grad_rel_err=grad_err,
-                         loss_grad_err=abs(float(l_dev) - float(l_cpu)))
-        print(f"{name}:", json.dumps(out[name]), flush=True)
+        out[name] = train_parity(check, expected, name, arch, knobs, eps,
+                                 device)
     return out
 
 
@@ -2462,7 +2508,8 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     """Full width: qwen1.5-0.5b (random init on the card, f32 params, bf16
     compute, remat on) in federated training through launch.train.run: 8
     clients (4 priority), 8 sequences of 512 tokens each, E = 2, lr 0.05,
-    1 warm-up round and 2 timed rounds. Then the f32 full-width gradient
+    1 warm-up round and 2 timed rounds (the params after the first kept on
+    the host for slice f4). Then the f32 full-width gradient
     check: one client's loss_fn gradient (8 x 512, compute_dtype float32)
     through the kernels against the same gradient through the plain
     versions (flash_attention_plain and rmsnorm_plain, differentiated by
@@ -2484,9 +2531,11 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = train_counts()
-    params, hist = train.run(arch="qwen1.5-0.5b", smoke=False, rounds=rounds,
-                             clients=C, n_priority=P, per_client=8, seq=512,
-                             local_epochs=E, lr=0.05, device=device)
+    with first_round_params() as first:
+        params, hist = train.run(arch="qwen1.5-0.5b", smoke=False,
+                                 rounds=rounds, clients=C, n_priority=P,
+                                 per_client=8, seq=512, local_epochs=E,
+                                 lr=0.05, device=device)
     peak = torch.cuda.max_memory_allocated() / 1e9
     expected.add_rounds(cfg, C, E, rounds)
     # this run's own launches: per round L (1 + C (1 + 2E)) of K5, L C E of
@@ -2503,7 +2552,8 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
                seq=512, local_epochs=E, warmup_round_s=hist[0]["sec"],
                round_s=timed, s_per_round=sum(timed) / len(timed), peak_gb=peak,
                server_loss=[h["server_loss"] for h in hist],
-               included=[h["included"] for h in hist], launches=launches)
+               included=[h["included"] for h in hist],
+               gates=[h["gates"] for h in hist], launches=launches)
     print("slice (f2) qwen1.5-0.5b federated training:", json.dumps(row), flush=True)
     del params
     torch.cuda.empty_cache()
@@ -2532,7 +2582,34 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     print("slice (f2) f32 gradient, kernels vs plain:", json.dumps(grad_row), flush=True)
     del params, g_k, g_p
     torch.cuda.empty_cache()
-    return dict(row, f32_gradient=grad_row)
+    return dict(row, f32_gradient=grad_row), first
+
+
+@contextmanager
+def first_round_params():
+    """Keep, on the host, the global params after the first round of each
+    LM run ``launch.train.run`` makes inside the block (a list of leaves;
+    the last run's)."""
+    from repro_torch.fl import sharded
+    from repro_torch.utils import tree_leaves
+    kept = []
+    make = sharded.make_round_step
+
+    def keeping_make(*a, **k):
+        step = make(*a, **k)
+
+        def keeping_step(state, batch, round_idx=0):
+            new, stats = step(state, batch, round_idx)
+            if int(round_idx) == 0:
+                kept[:] = [t.detach().cpu() for t in tree_leaves(new.params)]
+            return new, stats
+        return keeping_step
+
+    sharded.make_round_step = keeping_make
+    try:
+        yield kept
+    finally:
+        sharded.make_round_step = make
 
 
 # slice (f3): the LM round under a training cohort at full width
@@ -2634,6 +2711,389 @@ def slice_f3(check: Check, expected: TrainExpected, f2_row, device="cuda"):
     return row
 
 
+# ------------------------------- the temporal round (f4, f5), jamba training (g3)
+def temporal_run(cfg, *, rounds, clients, n_priority, per_client, seq,
+                 local_epochs, lr, epsilon, device="cuda", seed=0,
+                 keep_first=False, **fed_kw):
+    """``launch.train.run``'s loop (its token federation, per-round
+    batches, init and state, from ``seed``) through
+    ``sharded.make_round_step(..., fsdp=True)``: the temporal round, as a
+    user drives it. Each round is timed on the host clock between device
+    syncs, and its peak device GB read with the counter reset just before
+    it. Returns (params, history, the first round's params on the host if
+    ``keep_first``)."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.tokens import make_token_federation
+    from repro_torch.fl import engine, sharded
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_leaves
+    model = get_model(cfg)
+    fed = FedConfig(num_clients=clients, num_priority=n_priority,
+                    local_epochs=local_epochs, epsilon=epsilon, lr=lr,
+                    **fed_kw)
+    fed_data = make_token_federation(
+        seed=seed, vocab=cfg.vocab_size, n_clients=clients,
+        n_priority=n_priority, seq_len=seq, misalign_max=1.0,
+        tokens_per_client=max(8192, per_client * (seq + 1) * 4))
+    step = sharded.make_round_step(model, fed, clients, fsdp=True,
+                                   device=device)
+    state = engine.init_state(model.init(prng.PRNGKey(seed), device=device),
+                              fed, clients)
+    rng = np.random.default_rng(seed)
+    hist, first = [], None
+    for r in range(rounds):
+        batch = train.build_batches(cfg, fed_data, clients=clients,
+                                    per_client=per_client, seq=seq, rng=rng,
+                                    device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, stats = step(state, batch, r)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        hist.append(dict(round=r, server_loss=float(stats["server_loss"]),
+                         gates=stats["gates"].cpu().tolist(),
+                         local_losses=stats["local_losses"].cpu().tolist(),
+                         sec=sec,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        if keep_first and r == 0:
+            first = [t.cpu() for t in tree_leaves(state.params)]
+        del batch, stats
+    return state.params, hist, first
+
+
+def lm_param_count(cfg) -> int:
+    """The params of a dense-GQA or jamba config from its widths (the
+    shapes ``models/transformer.py:init`` draws), so that a sizing table
+    needs no init; checked against an init in slice (g3)."""
+    d, V, hd = cfg.d_model, cfg.vocab_size, cfg.head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    attn = 2 * d * H * hd + 2 * d * KV * hd
+    if cfg.qkv_bias:
+        attn += (H + 2 * KV) * hd
+    di, N, K, r = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_dim, cfg.ssm_dt_rank
+    mamba = 2 * d * di + K * di + di + di * (r + 2 * N) + r * di + di + di * N + di + di * d
+    dense = 3 * d * cfg.d_ff
+    moe = d * cfg.num_experts + 3 * cfg.num_experts * d * cfg.moe_d_ff \
+        + 3 * d * cfg.num_shared_experts * cfg.moe_d_ff
+    period = sum(2 * d + (attn if k["mixer"] == "attn" else mamba)
+                 + (dense if k["ffn"] == "dense" else moe)
+                 for k in cfg.layer_kinds())
+    return V * d + d + (0 if cfg.tie_embeddings else d * V) + cfg.n_periods * period
+
+
+def gate_margin(hist, eps, n_priority):
+    return min(abs(abs(l - h["server_loss"]) - eps)
+               for h in hist for l in h["local_losses"][n_priority:])
+
+
+def repeat_equal(cfg, params, batch, lr, E):
+    """Whether one client's E local steps (``sharded._train_steps``), run
+    twice from the same params on the same batch, give the same bits: the
+    temporal round's grad_sim re-trains a client in its second pass."""
+    import torch
+    from repro_torch.fl import sharded
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_leaves, tree_map
+    model = get_model(cfg)
+    a = sharded._train_steps(model, params, batch, lr, E,
+                             out=tree_map(torch.empty_like, params))
+    b = sharded._train_steps(model, params, batch, lr, E,
+                             out=tree_map(torch.empty_like, params))
+    same = all(bool(torch.equal(x, y)) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    del a, b
+    return same
+
+
+# slice (f4): slice (f2)'s config and batches through the temporal round
+F4 = dict(clients=8, n_priority=4, per_client=8, seq=512, local_epochs=2,
+          lr=0.05, epsilon=0.5)
+F4_ROUNDS = 3
+
+
+def slice_f4(check: Check, expected: TrainExpected, f2_row, f2_first,
+             device="cuda"):
+    """(f2)'s round (qwen1.5-0.5b full width, random init, f32 params, bf16
+    compute, remat, sgd; 8 clients of which 4 priority, 8 x 512 tokens
+    each, E = 2, eps 0.5; the same federation, batches and init) through
+    the temporal round: the clients stream through one client buffer and
+    an f32 running sum, no fedagg launch. 1 + 2 rounds. Checks: gates
+    equal to (f2)'s in every round (each decision > GATE_MARGIN from eps);
+    the params after the first round within PARITY_ATOL x max(1, max|p|)
+    of (f2)'s, leaf for leaf (the running sum against K1's mean of the
+    deltas, in another order); finite params; launches equal to the count
+    from 9 no-grad forwards a round and E steps for each gated-in client.
+    Also whether one client's E steps, run twice, give the same bits."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.utils import param_count, tree_leaves
+    name = "slice (f4) qwen1.5-0.5b temporal round"
+    cfg = get_config("qwen1.5-0.5b")
+    C, P, E = F4["clients"], F4["n_priority"], F4["local_epochs"]
+    torch.cuda.empty_cache()
+    before = train_counts()
+    params, hist, first = temporal_run(cfg, rounds=F4_ROUNDS, device=device,
+                                       keep_first=True, **F4)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    for h in hist:
+        want.add_rounds(cfg, C, E, 1, trained=sum(g > 0 for g in h["gates"]),
+                        fedagg=False)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    margin = gate_margin(hist, F4["epsilon"], P)
+    check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
+    gates = [h["gates"] for h in hist]
+    check(gates == f2_row["gates"], f"{name}: gates {gates}, (f2)'s "
+          f"{f2_row['gates']}")
+    err = max(float(torch.max(torch.abs(a - b))) / max(1.0, float(torch.max(torch.abs(b))))
+              for a, b in zip(first, f2_first)) if len(first) == len(f2_first) else math.inf
+    check(err <= PARITY_ATOL, f"{name}: first-round params off (f2)'s by {err}")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    check(finite and all(math.isfinite(h["server_loss"]) for h in hist),
+          f"{name}: non-finite params or server loss")
+    batch = token_batch(cfg, 8, 512, device, seed=9)
+    same = repeat_equal(cfg, params, batch, F4["lr"], E)
+    expected.add_grad(cfg, 2 * E)
+    timed = hist[1:]
+    row = dict(params=param_count(params), clients=C, priority=P,
+               per_client=F4["per_client"], seq=F4["seq"], local_epochs=E,
+               warmup_round_s=hist[0]["sec"],
+               round_s=[h["sec"] for h in timed],
+               s_per_round=sum(h["sec"] for h in timed) / len(timed),
+               peak_gb=max(h["peak_gb"] for h in timed),
+               round_peak_gb=[h["peak_gb"] for h in hist],
+               f2_s_per_round=f2_row["s_per_round"], f2_peak_gb=f2_row["peak_gb"],
+               gates=gates, gate_margin=margin,
+               first_round_param_rel_err_vs_f2=err,
+               server_loss=[h["server_loss"] for h in hist],
+               repeat_bit_equal=same, launches=launches)
+    print(f"{name}:", json.dumps(row), flush=True)
+    del params, first
+    torch.cuda.empty_cache()
+    return row
+
+
+# slice (f5): qwen2.5-3b at full width through the temporal round; eps
+# 1e3 gates every client in (at lr 0.05 the second round's gaps reach ~2)
+F5 = dict(clients=4, n_priority=2, per_client=8, seq=512, local_epochs=2,
+          lr=0.05, epsilon=1e3)
+F5_ROUNDS = 2
+
+
+def slice_f5(check: Check, expected: TrainExpected, device="cuda"):
+    """qwen2.5-3b (3.09 B params, random init on the card, f32 params,
+    bf16 compute, remat, sgd) through the temporal round: 4 clients of
+    which 2 priority, 8 x 512 tokens each, E = 2, 1 + 1 rounds. The round
+    holds params, one client copy, its gradients and the f32 accumulator
+    (4 x 12.34 GB) plus activations. Checks: every client gated in (8
+    local steps a round), finite losses and params, launches equal to the
+    count from 5 no-grad forwards and 8 steps a round, peak GB under 80."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.utils import param_bytes, param_count, tree_leaves
+    name = "slice (f5) qwen2.5-3b temporal round"
+    cfg = get_config("qwen2.5-3b")
+    C, E = F5["clients"], F5["local_epochs"]
+    torch.cuda.empty_cache()
+    before = train_counts()
+    params, hist, _ = temporal_run(cfg, rounds=F5_ROUNDS, device=device, **F5)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, C, E, F5_ROUNDS, fedagg=False)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check(all(h["gates"] == [1.0] * C for h in hist),
+          f"{name}: a client was gated out ({[h['gates'] for h in hist]})")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    losses_ok = all(math.isfinite(h["server_loss"])
+                    and all(math.isfinite(l) for l in h["local_losses"])
+                    for h in hist)
+    check(finite and losses_ok, f"{name}: non-finite params or losses")
+    peak = max(h["peak_gb"] for h in hist)
+    check(peak < 80.0, f"{name}: peak {peak} GB")
+    row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+               clients=C, priority=F5["n_priority"],
+               per_client=F5["per_client"], seq=F5["seq"], local_epochs=E,
+               warmup_round_s=hist[0]["sec"],
+               round_s=[h["sec"] for h in hist[1:]],
+               s_per_round=sum(h["sec"] for h in hist[1:]) / (len(hist) - 1),
+               peak_gb=peak, round_peak_gb=[h["peak_gb"] for h in hist],
+               server_loss=[h["server_loss"] for h in hist],
+               local_losses=[h["local_losses"] for h in hist],
+               launches=launches)
+    print(f"{name}:", json.dumps(row), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+# (g3)(ii): K8's gradient at jamba's published channel count
+SSM_GRAD = (2, 512, 16384, 16)
+SSM_GRAD_TOL = 1e-5
+
+
+def ssm_grad_phase(check: Check, device="cuda"):
+    """Slice (g3)(ii): K8 under autograd (the SSMScan Function: the kernel
+    forward, ``ssm_scan_bwd``'s chunked reverse scans) against autograd
+    through ``ssm_scan_plain`` on the card (the sequential recurrence,
+    differentiated step by step), on the same inputs and output gradient,
+    at Bt 2, S 512, Di 16384 (jamba's d_inner), N 16, x f32 and bf16:
+    every input's gradient within SSM_GRAD_TOL x max(1, max|want|) (the
+    two routes sum in another order; ~4e-7 relative on the CPU), dx of a
+    bf16 x within one bf16 ulp more (both round one f32 value). The
+    backward alone is timed (CUDA events, eager: plain torch, about
+    S / 64 chunks of ~40 launches). Launches here are outside every
+    path's count."""
+    import torch
+    from repro_torch.kernels import ssm_scan as sk
+    Bt, S, Di, N = SSM_GRAD
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        args = ssm_inputs(Bt, S, Di, N, dtype, device, 600)
+        gen = torch.Generator().manual_seed(601)
+        dy = torch.randn(Bt, S, Di, generator=gen).to(device=device, dtype=dtype)
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        got = torch.autograd.grad(sk.ssm_scan(*leaves), leaves, dy)
+        want = torch.autograd.grad(sk.ssm_scan_plain(*leaves), leaves, dy)
+        errs = {}
+        for nm, g, w in zip(("x", "dt", "A", "B", "C", "D"), got, want):
+            gf, wf = g.float(), w.float()
+            bound = SSM_GRAD_TOL * max(1.0, float(torch.max(torch.abs(wf))))
+            if nm == "x" and dtype == torch.bfloat16:
+                bound = bound + torch.exp2(torch.floor(torch.log2(
+                    torch.clamp(torch.abs(wf), min=2.0 ** -126))) - 7)
+            err = torch.abs(gf - wf)
+            ok = bool(torch.isfinite(gf).all()) and bool(torch.all(err <= bound))
+            check(ok and g.dtype == w.dtype,
+                  f"slice (g3)(ii) K8 gradient {nm}/{dn}: max_abs_err {float(err.max())}")
+            errs[nm] = float(err.max()) / max(1.0, float(torch.max(torch.abs(wf))))
+        del got, want, leaves
+        plain = [a.detach() for a in args]
+        bwd_ms = time_ms(lambda: sk.ssm_scan_bwd(*plain, dy), iters=5, warmup=1)
+        out[dn] = dict(shape=list(SSM_GRAD), max_rel_err=errs, bwd_ms=bwd_ms)
+        print("slice (g3)(ii) K8 gradient:", dn, json.dumps(out[dn]), flush=True)
+        del args, plain, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+# slice (g3)(i): (f1)'s run cut to 2 rounds, the smoke jamba's eps (gates
+# every client in in round 0, both non-priority out in round 1; every
+# decision > 0.04 from eps on the CPU), and its bound: tests/test_torch_jamba*.py's 1e-4
+# for jamba's gradient and params. K8's exponential (ex2.approx, 2 ulp a
+# step) against the CPU's exp, through seven scans a period and the MoE's
+# routing, carries jamba's params past the dense configs' 2e-5 in 3 rounds
+JAMBA_TRAIN_EPS = 0.1
+JAMBA_PARITY_ATOL = 1e-4
+JAMBA_TRAIN_RUN = dict(TRAIN_RUN, rounds=2)
+G3 = dict(clients=4, n_priority=2, per_client=4, seq=512, local_epochs=2,
+          lr=0.05, epsilon=1.0)
+
+
+def jamba_train_config():
+    """jamba-1.5-large-398b cut to train on one card: one period (8 of 72
+    layers: attention + 7 Mamba, 4 dense and 4 MoE FFNs), the published
+    head_dim 128 with 8 kv heads, ssm_state 16, conv 4, expand 2 and top-2,
+    with d_model 8192 -> 4096 (32 heads, d_inner 8192, dt rank 256),
+    d_ff and the experts' 24576 -> 8192, and 16 -> 4 experts; f32
+    params, bf16 compute (sizing table: slice_g3)."""
+    from repro_torch.configs import get_config
+    return get_config("jamba-1.5-large-398b").replace(
+        num_layers=8, d_model=4096, num_heads=32, d_ff=8192, moe_d_ff=8192,
+        num_experts=4, ssm_dt_rank=256, param_dtype="float32",
+        compute_dtype="bfloat16")
+
+
+def slice_g3(check: Check, expected: TrainExpected, device="cuda"):
+    """Jamba federated training. (i) The smoke jamba through
+    launch.train.run (the spatial round, as the reference's run) on the
+    card against the same code on the CPU (``train_parity``, 2 rounds).
+    (iii) One
+    temporal round over ``jamba_train_config`` (4 clients of which 2
+    priority, 4 x 512 tokens each, E = 2, eps admitting every client):
+    finite losses and params, launches equal to the count from 5 no-grad
+    forwards and 8 steps (each remat step runs a period's 7 scans twice),
+    s/round and peak GB, the sizing table (params and GB of one f32 copy
+    at the published widths with 4 and with 2 experts, and at the cut),
+    and whether one client's E steps, run twice, give the same bits (the
+    MoE's index_put dispatch is plain torch). (ii) is ``ssm_grad_phase``."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.utils import param_count, tree_leaves
+    out = {"i": train_parity(check, expected,
+                             "slice (g3)(i) jamba-1.5-large-398b",
+                             "jamba-1.5-large-398b", {}, JAMBA_TRAIN_EPS,
+                             device, tol=JAMBA_PARITY_ATOL,
+                             run=JAMBA_TRAIN_RUN)}
+    name = "slice (g3)(iii) jamba temporal round"
+    cfg = jamba_train_config()
+    pub = get_config("jamba-1.5-large-398b").replace(num_layers=8)
+    sizing = {label: dict(params=n, f32_copy_gb=4 * n / 1e9,
+                          four_f32_copies_gb=16 * n / 1e9)
+              for label, n in (
+                  ("published_one_period_16_experts", lm_param_count(pub)),
+                  ("published_one_period_4_experts",
+                   lm_param_count(pub.replace(num_experts=4))),
+                  ("published_one_period_2_experts",
+                   lm_param_count(pub.replace(num_experts=2))),
+                  ("cut", lm_param_count(cfg)))}
+    print(f"{name} sizing:", json.dumps(sizing), flush=True)
+    C, E = G3["clients"], G3["local_epochs"]
+    torch.cuda.empty_cache()
+    before = train_counts()
+    params, hist, _ = temporal_run(cfg, rounds=1, device=device, **G3)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, C, E, 1, fedagg=False)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check(param_count(params) == sizing["cut"]["params"],
+          f"{name}: {param_count(params)} params, the sizing table's "
+          f"{sizing['cut']['params']}")
+    check(all(h["gates"] == [1.0] * C for h in hist),
+          f"{name}: a client was gated out")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    losses_ok = all(math.isfinite(h["server_loss"])
+                    and all(math.isfinite(l) for l in h["local_losses"])
+                    for h in hist)
+    check(finite and losses_ok, f"{name}: non-finite params or losses")
+    peak = hist[0]["peak_gb"]
+    check(peak < 80.0, f"{name}: peak {peak} GB")
+    batch = token_batch(cfg, G3["per_client"], G3["seq"], device, seed=9)
+    same = repeat_equal(cfg, params, batch, G3["lr"], E)
+    expected.add_grad(cfg, 2 * E)
+    out["iii"] = dict(params=param_count(params), clients=C,
+                      priority=G3["n_priority"], per_client=G3["per_client"],
+                      seq=G3["seq"], local_epochs=E, round_s=hist[0]["sec"],
+                      peak_gb=peak, server_loss=hist[0]["server_loss"],
+                      local_losses=hist[0]["local_losses"],
+                      repeat_bit_equal=same, launches=launches, sizing=sizing)
+    print(f"{name}:", json.dumps(out["iii"]), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase(fn, *args, **kw):
+    """fn(*args, **kw), its host-clock time printed under its name."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2662,28 +3122,29 @@ def main() -> int:
         print(f"ptxas[{name}]:", log.strip().replace("\n", " | ")[:4000])
     ptxas_check(check, reports)
 
-    errs = kernel_phase(check)
-    verrs = variant_phase(check)
-    timings = timing_phase(check)
-    vtimings = variant_timing_phase()
-    lm_errs = lm_kernel_phase(check)
-    lm_times = lm_timing_phase()
-    lm_errs["ssm_scan"] = ssm_kernel_phase(check)
-    ssm_times = ssm_timing_phase(check)
+    errs = phase(kernel_phase, check)
+    verrs = phase(variant_phase, check)
+    timings = phase(timing_phase, check)
+    vtimings = phase(variant_timing_phase)
+    lm_errs = phase(lm_kernel_phase, check)
+    lm_times = phase(lm_timing_phase)
+    lm_errs["ssm_scan"] = phase(ssm_kernel_phase, check)
+    ssm_times = phase(ssm_timing_phase, check)
     lm_times.update(ssm_times)
     lm_errs["ssm_scan"] = max([lm_errs["ssm_scan"]]
                               + [r["max_abs_err"] for r in ssm_times.values()])
-    bwd_err = lm_bwd_phase(check)
-    bwd_times = lm_bwd_timing()
+    ssm_grad = phase(ssm_grad_phase, check)
+    bwd_err = phase(lm_bwd_phase, check)
+    bwd_times = phase(lm_bwd_timing)
 
     # count only the main path from here: slices (a), (b) and (c)
     fk.fedagg.launches = 0
     fk.fedagg.variant_launches.clear()
-    a = slice_a(check)
-    a_agg = slice_a_aggregators(check)
-    a_sel = slice_a_selection(check)
-    b, fedn = slice_b(check)
-    c = slice_c(check, fedn)
+    a = phase(slice_a, check)
+    a_agg = phase(slice_a_aggregators, check)
+    a_sel = phase(slice_a_selection, check)
+    b, fedn = phase(slice_b, check)
+    c = phase(slice_c, check, fedn)
     launches = fk.fedagg.launches
     counts = dict(fk.fedagg.variant_launches)
     print("main path launches per (aggregator, codec):",
@@ -2729,10 +3190,10 @@ def main() -> int:
     # the LM serving path: slices (d), (e) and (g), counted on their own
     reset_lm_counts()
     lm_expected = Expected()
-    d = slice_d(check, lm_expected)
-    e = slice_e(check, lm_expected)
-    g1 = slice_g1(check, lm_expected)
-    g2 = slice_g2(check, lm_expected)
+    d = phase(slice_d, check, lm_expected)
+    e = phase(slice_e, check, lm_expected)
+    g1 = phase(slice_g1, check, lm_expected)
+    g2 = phase(slice_g2, check, lm_expected)
     lm_launches = lm_counts()
     print("LM main path launches:", json.dumps(lm_launches), "expected:",
           json.dumps(lm_expected), flush=True)
@@ -2766,12 +3227,16 @@ def main() -> int:
                 {k: lm_times[lab].get(k) for k in SHAPE_KEYS}, shape=lab)
                 for lab in timed]
 
-    # the training path: slices (f1) and (f2), counted on their own
+    # the training path: slices (f1)-(f5) and (g3), counted on their own
     reset_train_counts()
     train_expected = TrainExpected()
-    f1 = slice_f1(check, train_expected)
-    f2 = slice_f2(check, train_expected)
-    f3 = slice_f3(check, train_expected, f2)
+    f1 = phase(slice_f1, check, train_expected)
+    f2, f2_first = phase(slice_f2, check, train_expected)
+    f3 = phase(slice_f3, check, train_expected, f2)
+    f4 = phase(slice_f4, check, train_expected, f2, f2_first)
+    del f2_first
+    f5 = phase(slice_f5, check, train_expected)
+    g3 = phase(slice_g3, check, train_expected)
     train_launches = train_counts()
     print("training path launches:", json.dumps(train_launches), "expected:",
           json.dumps(train_expected), flush=True)
@@ -2783,6 +3248,10 @@ def main() -> int:
         key = "fedagg" if entry["source"].endswith("fedagg.cu") else entry["name"]
         if key in train_launches and (key != "fedagg" or entry["name"] == KERNELS[0][0]):
             entry["train_path_launches"] = train_launches[key]
+        if key == "ssm_scan":
+            entry["bwd_ms"] = ssm_grad["bfloat16"]["bwd_ms"]
+    check(train_launches["ssm_scan"] > 0,
+          "training path: kernel ssm_scan was never launched")
     n = train_launches["flash_attention_bwd"]
     check(n > 0, "training path: kernel flash_attention_bwd was never launched")
     t = bwd_times["qwen1.5_train"]
@@ -2805,7 +3274,8 @@ def main() -> int:
         "b": {k: b[k] for k in ("seconds_per_round", "launches", "M")},
         "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
               for k, v in c.items()},
-        "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3}))
+        "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3,
+        "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
-"""FedALIGN rounds over the LM zoo on one card: the spatial round.
+"""FedALIGN rounds over the LM zoo on one card: the spatial round and the
+temporal (streamed-client) round.
 
 Counterpart of ``repro/fl/sharded.py``, its single-card part:
-``make_spatial_round`` and ``make_round_step(..., fsdp=False)``. A round
-has the engine's persistent-state signature
+``make_spatial_round``, ``make_temporal_round``, ``make_round_step`` and
+``needs_fsdp``. A round has the engine's persistent-state signature
 
     round_step(state: engine.FederationState, batch, round_idx=0)
         -> (new_state, stats)
 
-and runs, in the reference's order:
+**The spatial round** runs, in the reference's order:
 
 1. the server statistic F(w_t): the loss on the server-held batch;
 2. per client, its loss at the received model (the matching statistic)
@@ -38,10 +39,31 @@ leaves (the round holds the stack once); the loss at the received model runs und
 and each local step takes ``torch.autograd.grad`` of a ``requires_grad``
 view of the client's slot, then updates the slot in place.
 
+**The temporal round** (the reference's FSDP round, which ``needs_fsdp``
+picks for jamba) fixes every gate before any client trains: a no-grad
+eval pass (the server loss, each client's loss at the received model),
+the utility EMA and the gates, read on the host once a round. Then the
+clients stream one at a time, ascending, through one reused client
+buffer; a client with gate 0 skips its E steps. Under the gated ``mean``
+with the identity wire, an f32 running ``num += (w_k g_k) p_k``, ``den +=
+w_k g_k`` (the reference's order) gives the delta ``num / den - p`` in
+place in ``num``, an exact zero on a zero-mass round; no fedagg kernel
+runs. The round then holds params, one client copy, its gradients and the
+accumulator: four copies, where the spatial round holds C + 3. Any other
+aggregator or wire gathers the trained params into ``[C, ...]`` (a gated-
+out row holds the received params, as the reference's cond) and goes
+through ``engine.server_delta`` (fedagg) as the spatial round does.
+``grad_sim`` needs ``fed.grad_sim_sketch``: a first pass trains every
+client and keeps only the CountSketch of its delta, the cosines fix the
+gates, and a second pass re-trains the included clients. ``max_cohort``
+is not read, as in the reference.
+
 Out of this slice, each raising ``NotImplementedError`` with its ROADMAP
-item: ``async_depth`` (A11), failure models, the event clock and the
-divergence guard (A12), ``candidate_pool`` (A13) and the temporal FSDP
-round (A17).
+item, in both rounds: ``async_depth`` (A11), failure models, the event
+clock and the divergence guard (A12) and ``candidate_pool`` (A13). The
+temporal round raises the reference's ``ValueError`` first for a
+``corrupt`` / ``chaos`` failure model with ``corrupt_rate > 0``, and for
+``grad_sim`` without sketches.
 """
 from __future__ import annotations
 
@@ -50,14 +72,23 @@ import torch
 from repro_torch.configs.base import validate_config
 from repro_torch.core.aggregation import (aggregator_key, flatten_stacked,
                                           get_aggregator, inclusion_mass,
+                                          resolve_aggregator,
                                           resolve_wire_codec)
 from repro_torch.core.alignment import epsilon_at
 from repro_torch.fl import engine
 from repro_torch.utils import (resolve_device, tree_leaves, tree_map,
                                tree_unflatten_like)
 
-# (knob, test, ROADMAP item) for every FedConfig knob the spatial round of
-# this slice does not run
+FSDP_ARCHS = {"jamba-1.5-large-398b", "llava-next-34b"}
+
+
+def needs_fsdp(cfg) -> bool:
+    """The archs the reference runs through the temporal round."""
+    return cfg.name in FSDP_ARCHS
+
+
+# (knob, test, ROADMAP item) for every FedConfig knob the LM rounds of
+# this slice do not run
 _OUT_OF_SLICE = (
     ("async_depth", lambda f: f.async_depth > 0 or f.backend == "scan_async",
      "A11"),
@@ -128,6 +159,60 @@ def _next_state(fed, state, new_params, opt_state, sel_gates, eff_gates,
         ef_accum=state.ef_accum if ef_accum is None else ef_accum)
 
 
+def _client(client_batch, c):
+    return {k: v[c] for k, v in client_batch.items()}
+
+
+def _train_stack(model, params, client_batch, rows, lr, E, trains=None):
+    """E local steps for each client c of ``rows``, into row j of a fresh
+    [len(rows), ...] stack; a client with ``trains[c]`` false gets the
+    received params in its row instead."""
+    stacked = tree_map(lambda p: p.new_empty((len(rows),) + tuple(p.shape)),
+                       params)
+    for j, c in enumerate(rows):
+        row = tree_map(lambda s: s[j], stacked)
+        if trains is None or trains[c]:
+            _train_steps(model, params, _client(client_batch, c), lr, E,
+                         out=row)
+        else:
+            with torch.no_grad():
+                tree_map(lambda o, p: o.copy_(p), row, params)
+    return stacked
+
+
+def _check_params_device(params, dev):
+    have = tree_leaves(params)[0].device
+    if have.type != dev.type:
+        raise ValueError(f"params lie on {have}, the round runs on {dev}")
+
+
+def _eval_pass(model, fed, state, batch):
+    """No grad: the server statistic F(w_t), each client's F_k(w_t) at the
+    received model (the paper's matching statistic) and the utility EMA
+    updated with them."""
+    params, client_batch = state.params, batch["clients"]
+    C = batch["priority_mask"].shape[0]
+    with torch.no_grad():
+        server_loss, _ = model.loss_fn(params, batch["server"])
+        local_losses = torch.stack([
+            model.loss_fn(params, _client(client_batch, c))[0]
+            for c in range(C)])
+        util_ema = engine.utility_update(fed, state.util_ema, local_losses,
+                                         server_loss)
+    return server_loss, local_losses, util_ema
+
+
+def _round_stats(server_loss, local_losses, gates, new_state, pm, w):
+    npri = 1.0 - pm.float()
+    return {
+        "server_loss": server_loss,
+        "local_losses": local_losses,
+        "gates": gates,
+        "backlog": new_state.backlog,
+        "theta_round": 1.0 / (1.0 + torch.sum(npri * w * gates)),
+    }
+
+
 def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     """Returns round_step(state, batch, round_idx=0) -> (new_state, stats).
 
@@ -148,38 +233,16 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     strategy = engine.get_strategy(fed.selection)
     use_cohort = fed.max_cohort > 0 and not strategy.needs_deltas
 
-    def train_into(params, client_batch, rows):
-        """E local steps for each client of ``rows``, into row j of a
-        fresh [len(rows), ...] stack."""
-        stacked = tree_map(
-            lambda p: p.new_empty((len(rows),) + tuple(p.shape)), params)
-        for j, c in enumerate(rows):
-            _train_steps(model, params, {k: v[c] for k, v in
-                                         client_batch.items()},
-                         lr, E, out=tree_map(lambda s: s[j], stacked))
-        return stacked
-
     def round_step(state, batch, round_idx=0):
         round_idx = int(round_idx)
         params = state.params
-        have = tree_leaves(params)[0].device
-        if have.type != dev.type:
-            raise ValueError(f"params lie on {have}, the round runs on {dev}")
+        _check_params_device(params, dev)
         client_batch = batch["clients"]
         pm = batch["priority_mask"]
         w = batch["weights"]
         C = pm.shape[0]
-
-        # the server statistic F(w_t) and each client's F_k(w_t) at the
-        # received model (the paper's matching statistic)
-        with torch.no_grad():
-            server_loss, _ = model.loss_fn(params, batch["server"])
-            local_losses = torch.stack([
-                model.loss_fn(params, {k: v[c] for k, v in
-                                       client_batch.items()})[0]
-                for c in range(C)])
-            util_ema = engine.utility_update(fed, state.util_ema,
-                                             local_losses, server_loss)
+        server_loss, local_losses, util_ema = _eval_pass(model, fed, state,
+                                                         batch)
         akey = aggregator_key(fed, round_idx) if agg_needs_key else None
         ef_rows = state.ef_accum
 
@@ -194,13 +257,15 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                     sel_gates, local_losses, server_loss, pm,
                     min(fed.max_cohort, C), backlog=state.backlog,
                     backlog_boost=float(fed.backlog_boost))
-            stacked = train_into(params, client_batch, idx.tolist())
+            stacked = _train_stack(model, params, client_batch, idx.tolist(),
+                                   lr, E)
             agg_w = w[idx]
             if ef_on:
                 ef_rows = tree_map(lambda a: a[idx], state.ef_accum)
         else:
             # train first: every client, then the gates
-            stacked = train_into(params, client_batch, range(C))
+            stacked = _train_stack(model, params, client_batch, range(C), lr,
+                                   E)
             with torch.no_grad():
                 delta_cos = None
                 if strategy.needs_deltas:
@@ -241,23 +306,138 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
             new_state = _next_state(fed, state, new_params, opt_state,
                                     sel_gates, gates, util_ema,
                                     ef_accum=ef_accum)
-            npri = 1.0 - pm.float()
-            stats = {
-                "server_loss": server_loss,
-                "local_losses": local_losses,
-                "gates": gates,
-                "backlog": new_state.backlog,
-                "theta_round": 1.0 / (1.0 + torch.sum(npri * w * gates)),
-            }
-        return new_state, stats
+        return new_state, _round_stats(server_loss, local_losses, gates,
+                                       new_state, pm, w)
+
+    return round_step
+
+
+def make_temporal_round(model, fed, cohort: int, device="cuda"):
+    """Returns round_step(state, batch, round_idx=0) -> (new_state, stats),
+    the batch and stats as ``make_spatial_round``'s: the clients stream
+    one at a time (see the module note). ``cohort`` is the client count,
+    the reference's argument; the round reads C from the batch."""
+    E = fed.local_epochs
+    lr = fed.lr
+    if fed.failure_model in ("corrupt", "chaos") and fed.corrupt_rate > 0:
+        raise ValueError(
+            f"failure model {fed.failure_model!r} with corrupt_rate="
+            f"{fed.corrupt_rate} poisons trained params in transit, but the "
+            "temporal (FSDP) round streams clients through a scan carry and "
+            "has no per-client materialization to corrupt on the linear "
+            "path — use the spatial round for corruption faults, or set "
+            "corrupt_rate=0 (crash/drop-out faults stream fine)")
+    check_round_config(fed)
+    strategy = engine.get_strategy(fed.selection)
+    if strategy.needs_deltas and not fed.grad_sim_sketch:
+        raise ValueError(
+            f"selection {fed.selection!r} needs client deltas; the temporal "
+            "(FSDP) round streams clients and can only score them on a "
+            "CountSketch of their delta — set FedConfig.grad_sim_sketch=True "
+            "(and size sketch_dim) to opt in to the JL-approximate statistic "
+            "(the spatial round then sketches too, keeping the modes "
+            "identical), or use the spatial round for exact cosines")
+    dev = resolve_device(device)
+    codec_on = resolve_wire_codec(fed.wire_codec) != "identity"
+    ef_on = codec_on and bool(fed.error_feedback)
+    # order statistics, whole-delta norms, direction cosines and coded
+    # rows need every client's delta at once: gather [C, ...]
+    robust_gather = resolve_aggregator(fed.aggregator) != "mean" or codec_on
+    agg_needs_key = get_aggregator(fed.aggregator).needs_key
+
+    def sketches(params, client_batch, C, buf, round_idx):
+        """grad_sim's pass 1: [C, sketch_dim], each client trained into
+        ``buf`` and sketched from its delta, made in place in ``buf``."""
+        one = tree_map(lambda d: d[None], buf)
+        dim = int(fed.sketch_dim)
+        streams = engine.sketch_streams(one, engine.sketch_key(fed, round_idx),
+                                        dim)
+        rows = []
+        for c in range(C):
+            _train_steps(model, params, _client(client_batch, c), lr, E,
+                         out=buf)
+            with torch.no_grad():
+                tree_map(torch.Tensor.sub_, buf, params)
+                rows.append(engine.delta_sketch(one, None, dim, streams)[0])
+        return torch.stack(rows)
+
+    def round_step(state, batch, round_idx=0):
+        round_idx = int(round_idx)
+        params = state.params
+        _check_params_device(params, dev)
+        client_batch = batch["clients"]
+        pm = batch["priority_mask"]
+        w = batch["weights"]
+        C = pm.shape[0]
+        server_loss, local_losses, util_ema = _eval_pass(model, fed, state,
+                                                         batch)
+        buf = None                          # the one streamed client copy
+        delta_cos = None
+        if strategy.needs_deltas:
+            buf = tree_map(torch.empty_like, params)
+            flat = sketches(params, client_batch, C, buf, round_idx)
+            with torch.no_grad():
+                delta_cos = engine.cosine_to_priority(flat, w, pm)
+        with torch.no_grad():
+            gates = engine.compute_gates(
+                _gate_ctx(fed, state, util_ema, local_losses, server_loss, pm,
+                          w, delta_cos, round_idx=round_idx), fed.selection)
+        trains = (gates > 0).tolist()       # the host's one read a round
+
+        ef_accum = None
+        if robust_gather:
+            del buf
+            stacked = _train_stack(model, params, client_batch, range(C), lr,
+                                   E, trains)
+            with torch.no_grad():
+                akey = (aggregator_key(fed, round_idx) if agg_needs_key
+                        else None)
+                if ef_on:
+                    agg_delta, ef_accum = engine.server_delta(
+                        fed, params, stacked, w, gates, key=akey,
+                        ef_accum=state.ef_accum)
+                else:
+                    agg_delta = engine.server_delta(fed, params, stacked, w,
+                                                    gates, key=akey)
+                del stacked
+                mass = inclusion_mass(fed, w, gates)
+        else:
+            if buf is None:
+                buf = tree_map(torch.empty_like, params)
+            with torch.no_grad():
+                num = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                den = torch.zeros((), dtype=torch.float32, device=dev)
+            for c in range(C):
+                if not trains[c]:           # adds w_k * 0 * p: nothing
+                    continue
+                _train_steps(model, params, _client(client_batch, c), lr, E,
+                             out=buf)
+                with torch.no_grad():
+                    wg = w[c] * gates[c]
+                    tree_map(lambda n, pk: n.add_(wg * pk.float()), num, buf)
+                    den = den + wg
+            del buf
+            with torch.no_grad():
+                # where(den > 0, num / max(den, 1e-30) - p, 0), in place
+                safe, empty = torch.clamp(den, min=1e-30), den <= 0
+                for n, p in zip(tree_leaves(num), tree_leaves(params)):
+                    n.div_(safe).sub_(p.float()).masked_fill_(empty, 0.0)
+            agg_delta, mass = num, den
+
+        with torch.no_grad():
+            new_params, opt_state = engine.apply_if_mass(
+                fed, params, state.opt_state, agg_delta, mass)
+            del agg_delta
+            new_state = _next_state(fed, state, new_params, opt_state, gates,
+                                    gates, util_ema, ef_accum=ef_accum)
+        return new_state, _round_stats(server_loss, local_losses, gates,
+                                       new_state, pm, w)
 
     return round_step
 
 
 def make_round_step(model, fed, num_clients: int, *, fsdp: bool,
                     device="cuda"):
-    if fsdp:
-        raise NotImplementedError(
-            "the temporal (FSDP) round is not ported yet (ROADMAP A17); use "
-            "fsdp=False")
-    return make_spatial_round(model, fed, num_clients, device)
+    return (make_temporal_round(model, fed, num_clients, device) if fsdp
+            else make_spatial_round(model, fed, num_clients, device))

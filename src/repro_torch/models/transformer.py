@@ -32,8 +32,9 @@ Training: ``forward(mode="train")`` with grad enabled and ``cfg.remat``
 checkpoints each period (``torch.utils.checkpoint``, non-reentrant: the
 period's forward runs again in the backward), the reference's "full"
 policy; ``remat_policy="save_mixer"`` is not ported (ROADMAP A16d). The
-Mamba mixer's scan has no backward yet (ROADMAP A16f): a gradient through
-it raises.
+Mamba mixer differentiates through ``kernels/ssm_scan.py:SSMScan`` (the
+scan kernel forward, a plain-torch backward); under remat a period's scan
+runs twice a gradient, once in the forward and once in the backward.
 
 Out of the port so far, and refused with ``NotImplementedError`` by
 ``check_model_config``: MLA, the xlstm pattern, ``first_dense`` > 0,

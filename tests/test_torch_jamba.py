@@ -201,12 +201,25 @@ def test_dense_moe_loss_gradient_matches_reference():
 
 
 def test_jamba_gradient_is_refused():
-    _, _, tm, tp = _setup()
-    from repro_torch.utils import tree_map
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), tp)
-    toks = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A16f"):
-        tm.loss_fn(params, {"tokens": toks, "labels": toks, "mask": torch.ones(1, 8)})
+    """Once a refusal (ROADMAP A16f), now the gradient: the smoke jamba's
+    loss_fn gradient (remat on, the Mamba mixers through the SSMScan
+    Function, the MoE on the dense pattern) against jax.grad of the
+    reference's, leaf for leaf within 1e-4 x max(1, max|want|), as the
+    dense MoE test above."""
+    jm, jp, tm, tp = _setup()
+    toks = np.random.default_rng(5).integers(0, tm.cfg.vocab_size, size=(2, 9))
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
+             "mask": np.ones(toks.shape, np.float32)}
+    jg = jax.grad(lambda p: jm.loss_fn(p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(jp)
+    from repro_torch.utils import tree_leaves, tree_unflatten_like
+    assert tm.cfg.remat
+    leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(tp)]
+    loss = tm.loss_fn(tree_unflatten_like(tp, leaves),
+                      {k: torch.from_numpy(v) for k, v in batch.items()})[0]
+    grads = torch.autograd.grad(loss, leaves)
+    assert len(grads) == len(jax.tree.leaves(jg))
+    for g, want in zip(grads, jax.tree.leaves(jg)):
+        _parity(g, want, tol=1e-4)
 
 
 # ------------------------------------------------------------------ serving

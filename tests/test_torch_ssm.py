@@ -12,7 +12,8 @@ its plain version.
 * ``mamba_block`` in train, prefill (output and cache) and decode, and
   ``moe_apply`` at a capacity that drops tokens and at one that drops none,
   with the smoke jamba's params carried across;
-* the wrapper's refusal under grad (ROADMAP A16f), on the CPU and the card;
+* the wrapper under grad (the SSMScan Function; once ROADMAP A16f's
+  refusal), on the CPU and the card;
 * on the card only: the kernel against ``ssm_scan_plain``, f32 and bf16 x,
   N in {4, 8, 16}, ragged S and Di, Bt 1 and 3, with its final state.
 
@@ -155,13 +156,24 @@ def test_ssm_step_matches_reference_and_replays_the_scan():
     np.testing.assert_allclose(h.numpy(), h_scan.numpy(), **SCAN_TOL)
 
 
-# -------------------------------------------------------------- refusals
+# -------------------------------------------------------------- gradients
 @pytest.mark.parametrize("which", [0, 1, 2, 5])
 def test_scan_refuses_grad(which):
+    """Once a refusal (ROADMAP A16f), now the gradient: with one input
+    requiring grad, ``ssm_scan`` builds a graph through the SSMScan
+    Function whose gradient for that input is autograd's through the
+    plain recurrence (f32, PARITY of the largest magnitude); under
+    no_grad it builds none (tests/test_torch_ssm_grad.py has the rest)."""
     t = _t(scan_inputs(1, 8, 4, 4))
     t[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A16f"):
-        sk.ssm_scan(*t)
+    y = sk.ssm_scan(*t)
+    assert y.grad_fn is not None
+    dy = torch.from_numpy(np.random.default_rng(1).normal(
+        size=y.shape).astype(np.float32))
+    got = torch.autograd.grad(y, t[which], dy)[0]
+    want = torch.autograd.grad(sk.ssm_scan_plain(*t), t[which], dy)[0]
+    assert float((got - want).abs().max()) <= PARITY * max(
+        1.0, float(want.abs().max()))
     with torch.no_grad():
         y, h = sk.ssm_scan(*t, return_state=True)
     assert y.grad_fn is None and h.shape == (1, 4, 4)
@@ -333,5 +345,7 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda_device):
         sk.ssm_scan(x, dt.double(), A, B, C, D)
     with pytest.raises(ValueError, match="contiguous"):
         sk.ssm_scan(x, dt, A, B.transpose(1, 2).contiguous().transpose(1, 2), C, D)
-    with pytest.raises(NotImplementedError, match="A16f"):
-        sk.ssm_scan(x.requires_grad_(True), dt, A, B, C, D)
+    # under grad the kernel still runs (one launch), now with a backward
+    before = sk.ssm_scan.launches
+    y = sk.ssm_scan(x.requires_grad_(True), dt, A, B, C, D)
+    assert y.grad_fn is not None and sk.ssm_scan.launches == before + 1

@@ -258,10 +258,20 @@ def test_out_of_slice_round_knob_raises(kw, item):
 
 
 def test_fsdp_round_is_not_ported():
+    """Once a refusal (ROADMAP A17), now the temporal round: fsdp=True
+    builds it, and it refuses the knobs the spatial round refuses, naming
+    the same items (tests/test_torch_temporal.py holds the round)."""
     model = get_model(get_smoke("qwen1.5-0.5b"))
-    with pytest.raises(NotImplementedError, match="A17"):
-        sharded.make_round_step(model, FedConfig(num_clients=4), 4, fsdp=True,
-                                device="cpu")
+    assert callable(sharded.make_round_step(model, FedConfig(num_clients=4),
+                                            4, fsdp=True, device="cpu"))
+    refused = [(kw, item) for kw, item in OUT_OF_SLICE if item is not None]
+    assert {item for _, item in refused} == {"A11", "A12", "A13"}
+    for kw, item in refused:
+        fed = FedConfig(num_clients=4, num_priority=2, **kw)
+        for fsdp in (True, False):
+            with pytest.raises(NotImplementedError, match=item):
+                sharded.make_round_step(model, fed, 4, fsdp=fsdp,
+                                        device="cpu")
 
 
 def test_cli_parses_out_of_slice_knobs_and_run_refuses_them():
