@@ -2809,6 +2809,49 @@ def repeat_equal(cfg, params, batch, lr, E):
     return same
 
 
+def temporal_cell(check: Check, expected: TrainExpected, name, cfg, rounds,
+                  kw, device="cuda", keep_first=False):
+    """``temporal_run`` with the checks every temporal cell makes: the
+    launches equal the count from 1 + C no-grad forwards a round and E
+    steps for each gated-in client, with no fedagg launch; finite params
+    and losses; peak under 80 GB. Returns (params, history, first-round
+    params, launches)."""
+    import math
+    import torch
+    from repro_torch.utils import tree_leaves
+    torch.cuda.empty_cache()
+    before = train_counts()
+    params, hist, first = temporal_run(cfg, rounds=rounds, device=device,
+                                       keep_first=keep_first, **kw)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    for h in hist:
+        want.add_rounds(cfg, kw["clients"], kw["local_epochs"], 1,
+                        trained=sum(g > 0 for g in h["gates"]), fedagg=False)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    losses_ok = all(math.isfinite(h["server_loss"])
+                    and all(math.isfinite(l) for l in h["local_losses"])
+                    for h in hist)
+    check(finite and losses_ok, f"{name}: non-finite params or losses")
+    peak = max(h["peak_gb"] for h in hist)
+    check(peak < 80.0, f"{name}: peak {peak} GB")
+    return params, hist, first, launches
+
+
+def round_times(hist):
+    """The rounds after the first (warm-up) one: their seconds and peak."""
+    timed = hist[1:]
+    return dict(warmup_round_s=hist[0]["sec"],
+                round_s=[h["sec"] for h in timed],
+                s_per_round=sum(h["sec"] for h in timed) / len(timed),
+                peak_gb=max(h["peak_gb"] for h in timed),
+                round_peak_gb=[h["peak_gb"] for h in hist],
+                server_loss=[h["server_loss"] for h in hist])
+
+
 # slice (f4): slice (f2)'s config and batches through the temporal round
 F4 = dict(clients=8, n_priority=4, per_client=8, seq=512, local_epochs=2,
           lr=0.05, epsilon=0.5)
@@ -2831,23 +2874,12 @@ def slice_f4(check: Check, expected: TrainExpected, f2_row, f2_first,
     import math
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.utils import param_count, tree_leaves
+    from repro_torch.utils import param_count
     name = "slice (f4) qwen1.5-0.5b temporal round"
     cfg = get_config("qwen1.5-0.5b")
-    C, P, E = F4["clients"], F4["n_priority"], F4["local_epochs"]
-    torch.cuda.empty_cache()
-    before = train_counts()
-    params, hist, first = temporal_run(cfg, rounds=F4_ROUNDS, device=device,
-                                       keep_first=True, **F4)
-    launches = {k: v - before[k] for k, v in train_counts().items()}
-    want = TrainExpected()
-    for h in hist:
-        want.add_rounds(cfg, C, E, 1, trained=sum(g > 0 for g in h["gates"]),
-                        fedagg=False)
-    for k, v in want.items():
-        expected[k] += v
-    check(launches == want, f"{name}: launches {launches}, expected {want}")
-    margin = gate_margin(hist, F4["epsilon"], P)
+    params, hist, first, launches = temporal_cell(
+        check, expected, name, cfg, F4_ROUNDS, F4, device, keep_first=True)
+    margin = gate_margin(hist, F4["epsilon"], F4["n_priority"])
     check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
     gates = [h["gates"] for h in hist]
     check(gates == f2_row["gates"], f"{name}: gates {gates}, (f2)'s "
@@ -2855,25 +2887,14 @@ def slice_f4(check: Check, expected: TrainExpected, f2_row, f2_first,
     err = max(float(torch.max(torch.abs(a - b))) / max(1.0, float(torch.max(torch.abs(b))))
               for a, b in zip(first, f2_first)) if len(first) == len(f2_first) else math.inf
     check(err <= PARITY_ATOL, f"{name}: first-round params off (f2)'s by {err}")
-    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
-    check(finite and all(math.isfinite(h["server_loss"]) for h in hist),
-          f"{name}: non-finite params or server loss")
-    batch = token_batch(cfg, 8, 512, device, seed=9)
-    same = repeat_equal(cfg, params, batch, F4["lr"], E)
-    expected.add_grad(cfg, 2 * E)
-    timed = hist[1:]
-    row = dict(params=param_count(params), clients=C, priority=P,
-               per_client=F4["per_client"], seq=F4["seq"], local_epochs=E,
-               warmup_round_s=hist[0]["sec"],
-               round_s=[h["sec"] for h in timed],
-               s_per_round=sum(h["sec"] for h in timed) / len(timed),
-               peak_gb=max(h["peak_gb"] for h in timed),
-               round_peak_gb=[h["peak_gb"] for h in hist],
+    batch = token_batch(cfg, F4["per_client"], F4["seq"], device, seed=9)
+    same = repeat_equal(cfg, params, batch, F4["lr"], F4["local_epochs"])
+    expected.add_grad(cfg, 2 * F4["local_epochs"])
+    row = dict(params=param_count(params), **F4, **round_times(hist),
                f2_s_per_round=f2_row["s_per_round"], f2_peak_gb=f2_row["peak_gb"],
                gates=gates, gate_margin=margin,
-               first_round_param_rel_err_vs_f2=err,
-               server_loss=[h["server_loss"] for h in hist],
-               repeat_bit_equal=same, launches=launches)
+               first_round_param_rel_err_vs_f2=err, repeat_bit_equal=same,
+               launches=launches)
     print(f"{name}:", json.dumps(row), flush=True)
     del params, first
     torch.cuda.empty_cache()
@@ -2895,39 +2916,17 @@ def slice_f5(check: Check, expected: TrainExpected, device="cuda"):
     (4 x 12.34 GB) plus activations. Checks: every client gated in (8
     local steps a round), finite losses and params, launches equal to the
     count from 5 no-grad forwards and 8 steps a round, peak GB under 80."""
-    import math
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.utils import param_bytes, param_count, tree_leaves
+    from repro_torch.utils import param_bytes, param_count
     name = "slice (f5) qwen2.5-3b temporal round"
     cfg = get_config("qwen2.5-3b")
-    C, E = F5["clients"], F5["local_epochs"]
-    torch.cuda.empty_cache()
-    before = train_counts()
-    params, hist, _ = temporal_run(cfg, rounds=F5_ROUNDS, device=device, **F5)
-    launches = {k: v - before[k] for k, v in train_counts().items()}
-    want = TrainExpected()
-    want.add_rounds(cfg, C, E, F5_ROUNDS, fedagg=False)
-    for k, v in want.items():
-        expected[k] += v
-    check(launches == want, f"{name}: launches {launches}, expected {want}")
-    check(all(h["gates"] == [1.0] * C for h in hist),
+    params, hist, _, launches = temporal_cell(check, expected, name, cfg,
+                                              F5_ROUNDS, F5, device)
+    check(all(h["gates"] == [1.0] * F5["clients"] for h in hist),
           f"{name}: a client was gated out ({[h['gates'] for h in hist]})")
-    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
-    losses_ok = all(math.isfinite(h["server_loss"])
-                    and all(math.isfinite(l) for l in h["local_losses"])
-                    for h in hist)
-    check(finite and losses_ok, f"{name}: non-finite params or losses")
-    peak = max(h["peak_gb"] for h in hist)
-    check(peak < 80.0, f"{name}: peak {peak} GB")
     row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
-               clients=C, priority=F5["n_priority"],
-               per_client=F5["per_client"], seq=F5["seq"], local_epochs=E,
-               warmup_round_s=hist[0]["sec"],
-               round_s=[h["sec"] for h in hist[1:]],
-               s_per_round=sum(h["sec"] for h in hist[1:]) / (len(hist) - 1),
-               peak_gb=peak, round_peak_gb=[h["peak_gb"] for h in hist],
-               server_loss=[h["server_loss"] for h in hist],
+               **F5, **round_times(hist),
                local_losses=[h["local_losses"] for h in hist],
                launches=launches)
     print(f"{name}:", json.dumps(row), flush=True)
@@ -2987,12 +2986,13 @@ def ssm_grad_phase(check: Check, device="cuda"):
     return out
 
 
-# slice (g3)(i): (f1)'s run cut to 2 rounds, the smoke jamba's eps (gates
-# every client in in round 0, both non-priority out in round 1; every
-# decision > 0.04 from eps on the CPU), and its bound: tests/test_torch_jamba*.py's 1e-4
-# for jamba's gradient and params. K8's exponential (ex2.approx, 2 ulp a
-# step) against the CPU's exp, through seven scans a period and the MoE's
-# routing, carries jamba's params past the dense configs' 2e-5 in 3 rounds
+# slice (g3)(i): (f1)'s run cut to 2 rounds (the CPU half of the run is
+# the slice's time), the smoke jamba's eps (every client gated in in
+# round 0, both non-priority out in round 1; every decision > 0.04 from
+# eps on the CPU), and tests/test_torch_jamba*.py's bound for jamba's
+# gradient and params: K8's exponential (ex2.approx, 2 ulp a step)
+# against the CPU's exp, through seven scans a period and the MoE's
+# routing, moves jamba further than the dense configs
 JAMBA_TRAIN_EPS = 0.1
 JAMBA_PARITY_ATOL = 1e-4
 JAMBA_TRAIN_RUN = dict(TRAIN_RUN, rounds=2)
@@ -3018,19 +3018,17 @@ def slice_g3(check: Check, expected: TrainExpected, device="cuda"):
     """Jamba federated training. (i) The smoke jamba through
     launch.train.run (the spatial round, as the reference's run) on the
     card against the same code on the CPU (``train_parity``, 2 rounds).
-    (iii) One
-    temporal round over ``jamba_train_config`` (4 clients of which 2
-    priority, 4 x 512 tokens each, E = 2, eps admitting every client):
-    finite losses and params, launches equal to the count from 5 no-grad
-    forwards and 8 steps (each remat step runs a period's 7 scans twice),
-    s/round and peak GB, the sizing table (params and GB of one f32 copy
-    at the published widths with 4 and with 2 experts, and at the cut),
-    and whether one client's E steps, run twice, give the same bits (the
-    MoE's index_put dispatch is plain torch). (ii) is ``ssm_grad_phase``."""
-    import math
+    (iii) One temporal round over ``jamba_train_config`` (4 clients of
+    which 2 priority, 4 x 512 tokens each, E = 2, eps admitting every
+    client): ``temporal_cell``'s checks (each remat step runs a period's 7
+    scans twice), s/round and peak GB, the sizing table (params and GB of
+    one f32 copy at the published widths with 16, 4 and 2 experts, and at
+    the cut, whose count must equal the init's), and whether one client's
+    E steps, run twice, give the same bits (the MoE's index_put dispatch
+    is plain torch). (ii) is ``ssm_grad_phase``."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.utils import param_count, tree_leaves
+    from repro_torch.utils import param_count
     out = {"i": train_parity(check, expected,
                              "slice (g3)(i) jamba-1.5-large-398b",
                              "jamba-1.5-large-398b", {}, JAMBA_TRAIN_EPS,
@@ -3049,35 +3047,19 @@ def slice_g3(check: Check, expected: TrainExpected, device="cuda"):
                    lm_param_count(pub.replace(num_experts=2))),
                   ("cut", lm_param_count(cfg)))}
     print(f"{name} sizing:", json.dumps(sizing), flush=True)
-    C, E = G3["clients"], G3["local_epochs"]
-    torch.cuda.empty_cache()
-    before = train_counts()
-    params, hist, _ = temporal_run(cfg, rounds=1, device=device, **G3)
-    launches = {k: v - before[k] for k, v in train_counts().items()}
-    want = TrainExpected()
-    want.add_rounds(cfg, C, E, 1, fedagg=False)
-    for k, v in want.items():
-        expected[k] += v
-    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    params, hist, _, launches = temporal_cell(check, expected, name, cfg, 1,
+                                              G3, device)
     check(param_count(params) == sizing["cut"]["params"],
           f"{name}: {param_count(params)} params, the sizing table's "
           f"{sizing['cut']['params']}")
-    check(all(h["gates"] == [1.0] * C for h in hist),
+    check(hist[0]["gates"] == [1.0] * G3["clients"],
           f"{name}: a client was gated out")
-    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
-    losses_ok = all(math.isfinite(h["server_loss"])
-                    and all(math.isfinite(l) for l in h["local_losses"])
-                    for h in hist)
-    check(finite and losses_ok, f"{name}: non-finite params or losses")
-    peak = hist[0]["peak_gb"]
-    check(peak < 80.0, f"{name}: peak {peak} GB")
     batch = token_batch(cfg, G3["per_client"], G3["seq"], device, seed=9)
-    same = repeat_equal(cfg, params, batch, G3["lr"], E)
-    expected.add_grad(cfg, 2 * E)
-    out["iii"] = dict(params=param_count(params), clients=C,
-                      priority=G3["n_priority"], per_client=G3["per_client"],
-                      seq=G3["seq"], local_epochs=E, round_s=hist[0]["sec"],
-                      peak_gb=peak, server_loss=hist[0]["server_loss"],
+    same = repeat_equal(cfg, params, batch, G3["lr"], G3["local_epochs"])
+    expected.add_grad(cfg, 2 * G3["local_epochs"])
+    out["iii"] = dict(params=param_count(params), **G3, round_s=hist[0]["sec"],
+                      peak_gb=hist[0]["peak_gb"],
+                      server_loss=hist[0]["server_loss"],
                       local_losses=hist[0]["local_losses"],
                       repeat_bit_equal=same, launches=launches, sizing=sizing)
     print(f"{name}:", json.dumps(out["iii"]), flush=True)
