@@ -2509,7 +2509,8 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     compute, remat on) in federated training through launch.train.run: 8
     clients (4 priority), 8 sequences of 512 tokens each, E = 2, lr 0.05,
     1 warm-up round and 2 timed rounds (the params after the first kept on
-    the host for slice f4). Then the f32 full-width gradient
+    the host for slice f4; peak GB the largest round's, as ``lm_rounds``
+    reads it for the temporal cells). Then the f32 full-width gradient
     check: one client's loss_fn gradient (8 x 512, compute_dtype float32)
     through the kernels against the same gradient through the plain
     versions (flash_attention_plain and rmsnorm_plain, differentiated by
@@ -2529,14 +2530,13 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     C, P, E, rounds = 8, 4, 2, 3
     cfg = get_config("qwen1.5-0.5b")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     before = train_counts()
-    with first_round_params() as first:
+    with lm_rounds(keep_first=True) as rec:
         params, hist = train.run(arch="qwen1.5-0.5b", smoke=False,
                                  rounds=rounds, clients=C, n_priority=P,
                                  per_client=8, seq=512, local_epochs=E,
                                  lr=0.05, device=device)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = max(rec["peak_gb"])
     expected.add_rounds(cfg, C, E, rounds)
     # this run's own launches: per round L (1 + C (1 + 2E)) of K5, L C E of
     # K6, (2L + 1)(1 + C) + C E (4L + 1) of K9 and one fedagg
@@ -2551,6 +2551,7 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     row = dict(params=param_count(params), clients=C, priority=P, per_client=8,
                seq=512, local_epochs=E, warmup_round_s=hist[0]["sec"],
                round_s=timed, s_per_round=sum(timed) / len(timed), peak_gb=peak,
+               round_peak_gb=rec["peak_gb"],
                server_loss=[h["server_loss"] for h in hist],
                included=[h["included"] for h in hist],
                gates=[h["gates"] for h in hist], launches=launches)
@@ -2582,34 +2583,46 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     print("slice (f2) f32 gradient, kernels vs plain:", json.dumps(grad_row), flush=True)
     del params, g_k, g_p
     torch.cuda.empty_cache()
-    return dict(row, f32_gradient=grad_row), first
+    return dict(row, f32_gradient=grad_row), rec["first"]
 
 
 @contextmanager
-def first_round_params():
-    """Keep, on the host, the global params after the first round of each
-    LM run ``launch.train.run`` makes inside the block (a list of leaves;
-    the last run's)."""
+def lm_rounds(temporal=False, cfg=None, keep_first=False):
+    """Record, for each LM round ``launch.train.run`` makes inside the
+    block, its peak device GB (the counter reset as the round starts) and,
+    with ``keep_first``, keep on the host the global params after round 0
+    (a list of leaves, the last run's; the copy falls in round 0's time).
+    With ``temporal`` the run's rounds are the temporal
+    round's (``make_round_step(..., fsdp=True)``); with ``cfg`` the run
+    trains ``cfg`` in place of its arch's full-size config. Yields
+    {"peak_gb": [...], "first": [...]}."""
+    import torch
     from repro_torch.fl import sharded
+    from repro_torch.launch import train
     from repro_torch.utils import tree_leaves
-    kept = []
-    make = sharded.make_round_step
+    rec = {"peak_gb": [], "first": []}
+    make, get = sharded.make_round_step, train.get_config
 
-    def keeping_make(*a, **k):
-        step = make(*a, **k)
+    def recording_make(model, fed, num_clients, *, fsdp, device="cuda"):
+        step = make(model, fed, num_clients, fsdp=fsdp or temporal,
+                    device=device)
 
-        def keeping_step(state, batch, round_idx=0):
+        def recording_step(state, batch, round_idx=0):
+            torch.cuda.reset_peak_memory_stats()
             new, stats = step(state, batch, round_idx)
-            if int(round_idx) == 0:
-                kept[:] = [t.detach().cpu() for t in tree_leaves(new.params)]
+            rec["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+            if keep_first and int(round_idx) == 0:
+                rec["first"][:] = [t.detach().cpu() for t in tree_leaves(new.params)]
             return new, stats
-        return keeping_step
+        return recording_step
 
-    sharded.make_round_step = keeping_make
+    sharded.make_round_step = recording_make
+    if cfg is not None:
+        train.get_config = lambda arch: cfg
     try:
-        yield kept
+        yield rec
     finally:
-        sharded.make_round_step = make
+        sharded.make_round_step, train.get_config = make, get
 
 
 # slice (f3): the LM round under a training cohort at full width
@@ -2712,60 +2725,6 @@ def slice_f3(check: Check, expected: TrainExpected, f2_row, device="cuda"):
 
 
 # ------------------------------- the temporal round (f4, f5), jamba training (g3)
-def temporal_run(cfg, *, rounds, clients, n_priority, per_client, seq,
-                 local_epochs, lr, epsilon, device="cuda", seed=0,
-                 keep_first=False, **fed_kw):
-    """``launch.train.run``'s loop (its token federation, per-round
-    batches, init and state, from ``seed``) through
-    ``sharded.make_round_step(..., fsdp=True)``: the temporal round, as a
-    user drives it. Each round is timed on the host clock between device
-    syncs, and its peak device GB read with the counter reset just before
-    it. Returns (params, history, the first round's params on the host if
-    ``keep_first``)."""
-    import numpy as np
-    import torch
-    from repro_torch import prng
-    from repro_torch.configs.base import FedConfig
-    from repro_torch.data.tokens import make_token_federation
-    from repro_torch.fl import engine, sharded
-    from repro_torch.launch import train
-    from repro_torch.models import get_model
-    from repro_torch.utils import tree_leaves
-    model = get_model(cfg)
-    fed = FedConfig(num_clients=clients, num_priority=n_priority,
-                    local_epochs=local_epochs, epsilon=epsilon, lr=lr,
-                    **fed_kw)
-    fed_data = make_token_federation(
-        seed=seed, vocab=cfg.vocab_size, n_clients=clients,
-        n_priority=n_priority, seq_len=seq, misalign_max=1.0,
-        tokens_per_client=max(8192, per_client * (seq + 1) * 4))
-    step = sharded.make_round_step(model, fed, clients, fsdp=True,
-                                   device=device)
-    state = engine.init_state(model.init(prng.PRNGKey(seed), device=device),
-                              fed, clients)
-    rng = np.random.default_rng(seed)
-    hist, first = [], None
-    for r in range(rounds):
-        batch = train.build_batches(cfg, fed_data, clients=clients,
-                                    per_client=per_client, seq=seq, rng=rng,
-                                    device=device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, stats = step(state, batch, r)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        hist.append(dict(round=r, server_loss=float(stats["server_loss"]),
-                         gates=stats["gates"].cpu().tolist(),
-                         local_losses=stats["local_losses"].cpu().tolist(),
-                         sec=sec,
-                         peak_gb=torch.cuda.max_memory_allocated() / 1e9))
-        if keep_first and r == 0:
-            first = [t.cpu() for t in tree_leaves(state.params)]
-        del batch, stats
-    return state.params, hist, first
-
-
 def lm_param_count(cfg) -> int:
     """The params of a dense-GQA or jamba config from its widths (the
     shapes ``models/transformer.py:init`` draws), so that a sizing table
@@ -2809,20 +2768,29 @@ def repeat_equal(cfg, params, batch, lr, E):
     return same
 
 
-def temporal_cell(check: Check, expected: TrainExpected, name, cfg, rounds,
-                  kw, device="cuda", keep_first=False):
-    """``temporal_run`` with the checks every temporal cell makes: the
-    launches equal the count from 1 + C no-grad forwards a round and E
-    steps for each gated-in client, with no fedagg launch; finite params
-    and losses; peak under 80 GB. Returns (params, history, first-round
-    params, launches)."""
+def temporal_cell(check: Check, expected: TrainExpected, name, arch, rounds,
+                  kw, device="cuda", cfg=None, keep_first=False):
+    """``launch.train.run(arch, smoke=False, **kw)`` through the temporal
+    round (``lm_rounds``, on ``cfg`` if given, keeping round 0's params if
+    ``keep_first``), with the checks every
+    temporal cell makes: the launches equal the count from 1 + C no-grad
+    forwards a round and E steps for each gated-in client, with no fedagg
+    launch; finite params and losses; peak under 80 GB. Returns (params,
+    history with each round's ``peak_gb``, first-round params,
+    launches)."""
     import math
     import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
     from repro_torch.utils import tree_leaves
+    cfg = cfg or get_config(arch)
     torch.cuda.empty_cache()
     before = train_counts()
-    params, hist, first = temporal_run(cfg, rounds=rounds, device=device,
-                                       keep_first=keep_first, **kw)
+    with lm_rounds(temporal=True, cfg=cfg, keep_first=keep_first) as rec:
+        params, hist = train.run(arch=arch, smoke=False, rounds=rounds,
+                                 device=device, verbose=False, **kw)
+    for h, peak in zip(hist, rec["peak_gb"], strict=True):
+        h["peak_gb"] = peak
     launches = {k: v - before[k] for k, v in train_counts().items()}
     want = TrainExpected()
     for h in hist:
@@ -2838,7 +2806,7 @@ def temporal_cell(check: Check, expected: TrainExpected, name, cfg, rounds,
     check(finite and losses_ok, f"{name}: non-finite params or losses")
     peak = max(h["peak_gb"] for h in hist)
     check(peak < 80.0, f"{name}: peak {peak} GB")
-    return params, hist, first, launches
+    return params, hist, rec["first"], launches
 
 
 def round_times(hist):
@@ -2862,8 +2830,8 @@ def slice_f4(check: Check, expected: TrainExpected, f2_row, f2_first,
              device="cuda"):
     """(f2)'s round (qwen1.5-0.5b full width, random init, f32 params, bf16
     compute, remat, sgd; 8 clients of which 4 priority, 8 x 512 tokens
-    each, E = 2, eps 0.5; the same federation, batches and init) through
-    the temporal round: the clients stream through one client buffer and
+    each, E = 2, eps 0.5: the same ``launch.train.run`` call, so the same
+    federation, batches and init) through the temporal round: the clients stream through one client buffer and
     an f32 running sum, no fedagg launch. 1 + 2 rounds. Checks: gates
     equal to (f2)'s in every round (each decision > GATE_MARGIN from eps);
     the params after the first round within PARITY_ATOL x max(1, max|p|)
@@ -2878,7 +2846,8 @@ def slice_f4(check: Check, expected: TrainExpected, f2_row, f2_first,
     name = "slice (f4) qwen1.5-0.5b temporal round"
     cfg = get_config("qwen1.5-0.5b")
     params, hist, first, launches = temporal_cell(
-        check, expected, name, cfg, F4_ROUNDS, F4, device, keep_first=True)
+        check, expected, name, "qwen1.5-0.5b", F4_ROUNDS, F4, device,
+        keep_first=True)
     margin = gate_margin(hist, F4["epsilon"], F4["n_priority"])
     check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
     gates = [h["gates"] for h in hist]
@@ -2917,12 +2886,11 @@ def slice_f5(check: Check, expected: TrainExpected, device="cuda"):
     local steps a round), finite losses and params, launches equal to the
     count from 5 no-grad forwards and 8 steps a round, peak GB under 80."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.utils import param_bytes, param_count
     name = "slice (f5) qwen2.5-3b temporal round"
-    cfg = get_config("qwen2.5-3b")
-    params, hist, _, launches = temporal_cell(check, expected, name, cfg,
-                                              F5_ROUNDS, F5, device)
+    params, hist, _, launches = temporal_cell(check, expected, name,
+                                              "qwen2.5-3b", F5_ROUNDS, F5,
+                                              device)
     check(all(h["gates"] == [1.0] * F5["clients"] for h in hist),
           f"{name}: a client was gated out ({[h['gates'] for h in hist]})")
     row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
@@ -2986,15 +2954,11 @@ def ssm_grad_phase(check: Check, device="cuda"):
     return out
 
 
-# slice (g3)(i): (f1)'s run cut to 2 rounds (the CPU half of the run is
-# the slice's time), the smoke jamba's eps (every client gated in in
-# round 0, both non-priority out in round 1; every decision > 0.04 from
-# eps on the CPU), and tests/test_torch_jamba*.py's bound for jamba's
-# gradient and params: K8's exponential (ex2.approx, 2 ulp a step)
-# against the CPU's exp, through seven scans a period and the MoE's
-# routing, moves jamba further than the dense configs
+# slice (g3)(i): (f1)'s run and bound cut to 2 rounds (the CPU half of
+# the run is the slice's time) at the smoke jamba's eps (every client gated
+# in in round 0, both non-priority out in round 1; every decision > 0.04
+# from eps on the CPU)
 JAMBA_TRAIN_EPS = 0.1
-JAMBA_PARITY_ATOL = 1e-4
 JAMBA_TRAIN_RUN = dict(TRAIN_RUN, rounds=2)
 G3 = dict(clients=4, n_priority=2, per_client=4, seq=512, local_epochs=2,
           lr=0.05, epsilon=1.0)
@@ -3032,8 +2996,7 @@ def slice_g3(check: Check, expected: TrainExpected, device="cuda"):
     out = {"i": train_parity(check, expected,
                              "slice (g3)(i) jamba-1.5-large-398b",
                              "jamba-1.5-large-398b", {}, JAMBA_TRAIN_EPS,
-                             device, tol=JAMBA_PARITY_ATOL,
-                             run=JAMBA_TRAIN_RUN)}
+                             device, run=JAMBA_TRAIN_RUN)}
     name = "slice (g3)(iii) jamba temporal round"
     cfg = jamba_train_config()
     pub = get_config("jamba-1.5-large-398b").replace(num_layers=8)
@@ -3047,8 +3010,9 @@ def slice_g3(check: Check, expected: TrainExpected, device="cuda"):
                    lm_param_count(pub.replace(num_experts=2))),
                   ("cut", lm_param_count(cfg)))}
     print(f"{name} sizing:", json.dumps(sizing), flush=True)
-    params, hist, _, launches = temporal_cell(check, expected, name, cfg, 1,
-                                              G3, device)
+    params, hist, _, launches = temporal_cell(check, expected, name,
+                                              "jamba-1.5-large-398b", 1, G3,
+                                              device, cfg=cfg)
     check(param_count(params) == sizing["cut"]["params"],
           f"{name}: {param_count(params)} params, the sizing table's "
           f"{sizing['cut']['params']}")

@@ -416,33 +416,23 @@ def apply_if_mass(fed, params, opt_state, agg_delta, mass):
     return tree_map(keep, applied, params), tree_map(keep, new_opt, opt_state)
 
 
-def sketch_streams(deltas, key, dim: int):
-    """The CountSketch's (bucket, sign) per leaf of client-stacked
-    ``deltas`` (only the leaves' sizes and device are read): leaf i's from
-    ``split(fold_in(key, i))``, the reference's streams."""
-    key = torch.as_tensor(key).to(tree_leaves(deltas)[0].device)
-    streams = []
-    for i, leaf in enumerate(tree_leaves(deltas)):
-        n = leaf[0].numel()
-        kh, ks = prng.split(prng.fold_in(key, i))
-        streams.append((prng.randint(kh, (n,), 0, dim).long(),
-                        prng.rademacher(ks, (n,))))
-    return streams
-
-
-def delta_sketch(deltas, key, dim: int, streams=None):
+def delta_sketch(deltas, key, dim: int):
     """[C, dim] CountSketches of client-stacked parameter deltas ([C, ...]
     leaves): every coordinate lands in one random bucket with a random
-    sign (``sketch_streams``, or the ``streams`` given, drawn once for
-    clients sketched one at a time), so every client is projected
-    identically and sketched cosines estimate the true delta cosines."""
+    sign, the hash and sign of leaf i drawn from ``split(fold_in(key, i))``
+    (the reference's streams), so every client is projected identically
+    and sketched cosines estimate the true delta cosines."""
     leaves = tree_leaves(deltas)
+    dev = leaves[0].device
     C = leaves[0].shape[0]
-    if streams is None:
-        streams = sketch_streams(deltas, key, dim)
-    out = torch.zeros(C, dim, dtype=torch.float32, device=leaves[0].device)
-    for leaf, (h, s) in zip(leaves, streams):
-        out.index_add_(1, h, s * leaf.reshape(C, -1).float())
+    out = torch.zeros(C, dim, dtype=torch.float32, device=dev)
+    key = torch.as_tensor(key).to(dev)
+    for i, leaf in enumerate(leaves):
+        x = leaf.reshape(C, -1).float()
+        kh, ks = prng.split(prng.fold_in(key, i))
+        h = prng.randint(kh, (x.shape[1],), 0, dim)
+        s = prng.rademacher(ks, (x.shape[1],))
+        out.index_add_(1, h.long(), s * x)
     return out
 
 

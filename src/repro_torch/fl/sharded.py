@@ -349,16 +349,15 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
         """grad_sim's pass 1: [C, sketch_dim], each client trained into
         ``buf`` and sketched from its delta, made in place in ``buf``."""
         one = tree_map(lambda d: d[None], buf)
-        dim = int(fed.sketch_dim)
-        streams = engine.sketch_streams(one, engine.sketch_key(fed, round_idx),
-                                        dim)
+        key = engine.sketch_key(fed, round_idx)
         rows = []
         for c in range(C):
             _train_steps(model, params, _client(client_batch, c), lr, E,
                          out=buf)
             with torch.no_grad():
                 tree_map(torch.Tensor.sub_, buf, params)
-                rows.append(engine.delta_sketch(one, None, dim, streams)[0])
+                rows.append(engine.delta_sketch(one, key,
+                                                int(fed.sketch_dim))[0])
         return torch.stack(rows)
 
     def round_step(state, batch, round_idx=0):

@@ -91,10 +91,12 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
 
     round_step = sharded.make_round_step(model, fed, clients, fsdp=False,
                                          device=dev)
-    params = model.init(prng.PRNGKey(seed), device=dev)
-    state = engine.init_state(params, fed, clients)
+    # the state holds the only reference to the params: a round replaces
+    # them, and no copy of the initial ones outlives round 0
+    state = engine.init_state(model.init(prng.PRNGKey(seed), device=dev),
+                              fed, clients)
     if verbose:
-        print(f"[train] {cfg.name} params={param_count(params):,} "
+        print(f"[train] {cfg.name} params={param_count(state.params):,} "
               f"clients={clients} device={dev}")
     rng = np.random.default_rng(seed)
     history = []

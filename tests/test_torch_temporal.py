@@ -52,13 +52,13 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def jax_rounds(fed_kw, rounds=ROUNDS):
+def jax_rounds(fed_kw, rounds=ROUNDS, arch="qwen1_5_0_5b"):
     """The reference's temporal round, jitted, as tests/test_sharded.py
     builds it (its smoke config and batches)."""
     from repro.data.tokens import make_token_federation as jax_tokens
     from repro.fl import engine as jengine, sharded as jsharded
     from repro.launch.train import build_batches as jax_batches
-    cfg = jax_get_smoke("qwen1_5_0_5b").replace(remat=False)
+    cfg = jax_get_smoke(arch).replace(remat=False)
     model = jax_get_model(cfg)
     fed = JaxFedConfig(**BASE, **fed_kw)
     data = jax_tokens(seed=0, vocab=cfg.vocab_size, n_clients=C, n_priority=2,
