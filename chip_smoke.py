@@ -107,13 +107,26 @@ if a check fails:
    4096, d_ff 8192 and 4 experts (the published head_dim, ssm_state,
    conv, expand and top-2; 3.33 B params), with the sizing table beside
    the published widths' (16.25 B a period with 4 experts, 11.42 B with
-   2: four f32 copies would not fit).
+   2: four f32 copies would not fit);
+14. slice (h): the asynchronous round and the fault layer. (h1) slice
+   (a)'s parity config on the card against the CPU under the fifo pipe,
+   the variable-lag buffer with adaptive staleness and momentum, the
+   event clock with chaos faults, the guard and a drain, and under
+   crashes with NaN corruption on the temporal backend, dp,
+   trimmed_mean and int8 + error feedback (discrete stats exactly; a
+   NaN row included is skipped by the guard, NaN rows lost or gated out
+   leave the aggregate finite); (h2) cell (b) under the buffer, the
+   clock, crash and drop-out, then one guarded NaN round (params bit
+   for bit); (h3) (f2)'s full-width round under the buffer, the clock,
+   crashes and the guard (peak GB a round); (h4) the temporal round at
+   smoke size, fifo D = 1 with crash and drop-out, against the CPU.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
-(g1) and (g2) and the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) are each counted from zero just before their slices and
-must equal what the slices' rounds, forwards, gradients and decode steps
-imply (a remat gradient runs each period's forward twice).
+(g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
+K8, K9, fedagg) and those of slice (h) are each counted from zero just
+before their slices and must equal what the slices' rounds, forwards,
+gradients and decode steps imply (a remat gradient runs each period's
+forward twice).
 
 It ends with a JSON line of the kernels (launch counts from the slice
 phases, errors and times from this run) and, last, the ok line. It needs
@@ -3032,6 +3045,421 @@ def slice_g3(check: Check, expected: TrainExpected, device="cuda"):
     return out
 
 
+# ------------------------- the asynchronous round and the fault layer (h)
+# (h1): (label, backend, knobs, drain) on slice (a)'s parity config. NaN
+# corruption (corrupt_scale 0) with crashes runs under the guard: an
+# included NaN row reaches K1 / K2 / K3 and the round is skipped; NaN rows
+# that are all lost or gated out must leave the aggregate finite (seed 3:
+# rounds 0, 2, 4 and 5 have an included NaN row, rounds 1 and 3 only
+# excluded ones). The int8 wire maps a NaN row to zeros before the kernel
+# (its row scale falls back to 1 and NaN converts to the integer 0, in the
+# reference as here): no skip, and the error-feedback rows must not take
+# the NaN residual
+H1_NAN = dict(failure_model="chaos", crash_rate=0.3, corrupt_rate=0.2,
+              corrupt_scale=0.0, divergence_guard=True, seed=3)
+H1_RUNS = [
+    ("fifo_d2", "scan_async", dict(async_depth=2, staleness_decay=0.7),
+     False),
+    ("ready_d3_adaptive_momentum", "scan_async",
+     dict(async_depth=3, async_mode="ready", min_lag=1, staleness_decay=0.9,
+          adaptive_staleness=True, sketch_dim=64, server_opt="momentum",
+          server_lr=0.5), False),
+    ("clock_chaos_guard_drain", "scan_async",
+     dict(async_depth=2, async_mode="ready", latency_mode="lognormal",
+          round_deadline=2.0, failure_model="chaos", crash_rate=0.2,
+          dropout_rate=0.2, dropout_len=2, corrupt_rate=0.1,
+          corrupt_scale=0.0, divergence_guard=True), True),
+    ("temporal_crash_nan_guard", "scan_temporal", H1_NAN, False),
+    ("dp_crash_nan", "vmap_spatial",
+     dict(H1_NAN, aggregator="dp", dp_clip=1.0, dp_noise=0.1), False),
+    ("trimmed_nan", "vmap_spatial",
+     dict(H1_NAN, aggregator="trimmed_mean", trim_frac=0.2), False),
+    ("int8_ef_nan", "vmap_spatial",
+     dict(H1_NAN, wire_codec="int8", error_feedback=True), False),
+]
+# the stats a buffer or the fault layer adds, held exactly against the CPU
+H_DISCRETE = ("gates", "backlog", "staleness", "applied_valid",
+              "inflight_occupancy", "lost_clients", "skipped_nonfinite")
+LATENCY_MARGIN = 1e-4
+
+
+@contextmanager
+def round_stats():
+    """Record every round's stats dict (as numpy) of the run_federation
+    calls inside the block: the simulator's History.log sees them all."""
+    import numpy as np
+    from repro_torch.core.metrics import History
+    from repro_torch.fl import simulator
+    rec = []
+
+    class Recording(History):
+        def log(self, stats, **kw):
+            rec.append({k: np.asarray(v) for k, v in stats.items()})
+            return super().log(stats, **kw)
+
+    simulator.History = Recording
+    try:
+        yield rec
+    finally:
+        simulator.History = History
+
+
+def latency_margin(fed, C):
+    """The completion times' least distance to an integer up to
+    ceil(deadline) or to the deadline, where a ceiling or a comparison
+    would flip."""
+    import math
+    from repro_torch.fl import engine
+    lat = engine.client_latency(engine.init_latency(fed, C)).tolist()
+    d = float(fed.round_deadline)
+    marks = list(range(1, math.ceil(d) + 1)) + [d]
+    return min(abs(x - m) for x in lat for m in marks)
+
+
+def nan_rows(fed, stats, C):
+    """(rounds where a corrupted NaN row was included, rounds where NaN
+    rows were all lost or gated out) by the recorded effective gates."""
+    import numpy as np
+    from repro_torch.fl import engine
+    inc, masked = [], []
+    for r, st in enumerate(stats):
+        plan = engine.failure_plan(fed, r, C)
+        if plan is None or plan.corrupt is None:
+            continue
+        bad = plan.corrupt.numpy()
+        g = np.asarray(st["gates"]) > 0
+        if (bad & g).any():
+            inc.append(r)
+        elif bad.any():
+            masked.append(r)
+    return inc, masked
+
+
+def slice_h1(check: Check, expected: TrainExpected, device="cuda"):
+    """The asynchronous round and the fault layer on the card against the
+    CPU, on slice (a)'s parity config (the shortened quickstart: SYNTH,
+    4 + 4 clients, ``synth_logreg``, E = 2, 6 rounds), under each of
+    H1_RUNS: the discrete stats (H_DISCRETE) exactly, global loss within
+    rtol 1e-5 and params within 1e-4 max|p| of the CPU run (no int8 run
+    is held to that bound: a one-quantum flip of its wire moves them), one
+    fedagg launch a round (the drain makes none). NaN rows: every round
+    with an included corrupted client is skipped by the guard, every round
+    whose corrupted clients were all lost or gated out is not (K1, K2, K3
+    keep the aggregate finite), and the int8 run's error-feedback rows
+    stay finite. The latency margins of the clocked run are checked."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synth import make_synth_federation
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    from repro_torch.utils import tree_leaves
+    loss_fn = make_loss_fn(SMALL_MODELS["synth_logreg"][1])
+    small = make_synth_federation(seed=0, n_priority=4, n_nonpriority=4,
+                                  samples_per_client=40, test_samples=200)
+    gen = torch.Generator().manual_seed(42)
+    p0 = {"b": 0.05 * torch.randn(10, generator=gen),
+          "w": 0.05 * torch.randn(60, 10, generator=gen)}
+    C = 8
+    out, masked_rounds = {}, 0
+    before_v = dict(fk.fedagg.variant_launches)
+    for label, backend, knobs, drain in H1_RUNS:
+        name = f"slice (h1) {label}"
+        fed = parity_config().replace(backend=backend, **knobs)
+        if fed.latency_mode != "none":
+            margin = latency_margin(fed, C)
+            check(margin > LATENCY_MARGIN, f"{name}: latency margin {margin}")
+        with round_stats() as rec_cpu:
+            cpu = run_federation(loss_fn, p0, fed, small, eval_every=2,
+                                 drain_inflight=drain, device="cpu")
+        before = fk.fedagg.launches
+        t0 = time.perf_counter()
+        with round_stats() as rec_dev:
+            dev = run_federation(loss_fn, p0, fed, small, eval_every=2,
+                                 drain_inflight=drain, device=device)
+        secs = time.perf_counter() - t0
+        launches = fk.fedagg.launches - before
+        same = len(rec_dev) == len(rec_cpu) and all(
+            sorted(a) == sorted(b) and all(
+                np.array_equal(a[k], b[k]) for k in H_DISCRETE if k in b)
+            for a, b in zip(rec_dev, rec_cpu))
+        check(same, f"{name}: discrete stats differ from the CPU run")
+        loss_rel = float(np.max(np.abs(np.array(dev.global_loss)
+                                       / np.array(cpu.global_loss) - 1.0)))
+        rel = max(float((dev.params[k].cpu() - cpu.params[k]).abs().max()
+                        / cpu.params[k].abs().max()) for k in cpu.params)
+        if fed.wire_codec != "int8":
+            check(loss_rel <= 1e-5, f"{name}: global loss off the CPU run "
+                  f"by rtol {loss_rel}")
+            check(rel <= 1e-4, f"{name}: params off the CPU run by {rel} x "
+                  "max|p|")
+        check(all(bool(torch.isfinite(v).all()) for v in dev.params.values()),
+              f"{name}: non-finite params")
+        if device != "cpu":
+            check(launches == fed.rounds, f"{name}: {launches} fedagg "
+                  f"launches in {fed.rounds} rounds")
+        expected["fedagg"] += fed.rounds
+        row = dict(seconds=secs, launches=launches,
+                   global_loss_rtol_vs_cpu=loss_rel,
+                   params_rel_err_vs_cpu=rel, included=dev.included)
+        for k in H_DISCRETE[2:]:
+            if k in rec_dev[0]:
+                row[k] = [float(st[k]) for st in rec_dev]
+        if fed.failure_model in ("corrupt", "chaos") and fed.corrupt_rate > 0:
+            inc, masked = nan_rows(fed, rec_dev, C)
+            skipped = [r for r, st in enumerate(rec_dev)
+                       if int(st["skipped_nonfinite"]) > 0]
+            want = [] if fed.wire_codec == "int8" else inc
+            check(skipped == want and len(inc) > 0, f"{name}: guard skipped "
+                  f"rounds {skipped}, included NaN rows in rounds {inc}")
+            if fed.wire_codec != "int8":
+                masked_rounds += len(masked)
+            row.update(nan_included_rounds=inc, nan_masked_rounds=masked)
+        if fed.error_feedback and fed.wire_codec != "identity":
+            check(all(bool(torch.isfinite(t).all())
+                      for t in tree_leaves(dev.state.ef_accum)),
+                  f"{name}: non-finite error-feedback rows")
+        if drain:
+            check(float(dev.state.inflight["valid"].sum()) == 0.0,
+                  f"{name}: the buffer is not empty after the drain")
+        out[label] = row
+        print(f"{name}:", json.dumps(row), flush=True)
+    check(masked_rounds > 0, "slice (h1): no round had a NaN row that was "
+          "lost or gated out")
+    variants = {f"{k[0]}/{k[1]}": v - before_v.get(k, 0)
+                for k, v in sorted(fk.fedagg.variant_launches.items())
+                if v - before_v.get(k, 0)}
+    print("slice (h1) fedagg launches per (aggregator, codec):",
+          json.dumps(variants), flush=True)
+    out["launches_by_variant"] = variants
+    return out
+
+
+def h2_config(rounds):
+    """Cell (b) through the asynchronous round with the event clock and
+    crash + drop-out faults."""
+    return cifar_config(rounds).replace(
+        backend="scan_async", async_depth=2, async_mode="ready", min_lag=1,
+        staleness_decay=0.8, latency_mode="lognormal", round_deadline=2.0,
+        failure_model="chaos", crash_rate=0.1, dropout_rate=0.1,
+        corrupt_rate=0.0)
+
+
+H2_ROUNDS = 3
+H2_NAN = dict(failure_model="corrupt", corrupt_rate=0.1, corrupt_scale=0.0,
+              divergence_guard=True)
+
+
+def slice_h2(check: Check, expected: TrainExpected, fedn, b_row,
+             device="cuda"):
+    """Cell (b) (the full-width cnn on the CIFAR stand-in, C = 60, E = 5)
+    under ``h2_config``: H2_ROUNDS rounds and a drain through
+    run_federation, s/round beside slice (b)'s, the per-round lost
+    clients, staleness, pops and occupancy; checks that a client was lost,
+    the buffer is empty after the drain, and fedagg made one launch a
+    round (none in the drain). Then one synchronous round of cell (b)
+    under NaN corruption (priority client 1 is hit) and the guard: one
+    launch, one skip, params bit-identical to the initial ones."""
+    import torch
+    from repro_torch.fl import engine
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS["cnn"]
+    loss_fn = make_loss_fn(apply_fn)
+    p0 = init_fn(0, device)
+    fed = h2_config(H2_ROUNDS)
+    before = fk.fedagg.launches
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with round_stats() as rec:
+        h = run_federation(loss_fn, p0, fed, fedn, eval_every=1,
+                           drain_inflight=True, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fk.fedagg.launches - before
+    lost = [float(st["lost_clients"]) for st in rec]
+    check(sum(lost) > 0, "slice (h2): no client was lost")
+    check(float(h.state.inflight["valid"].sum()) == 0.0,
+          "slice (h2): the buffer is not empty after the drain")
+    check(all(bool(torch.isfinite(v).all()) for v in h.params.values()),
+          "slice (h2): non-finite params")
+    if device != "cpu":
+        check(launches == H2_ROUNDS, f"slice (h2): {launches} fedagg "
+              f"launches in {H2_ROUNDS} rounds and a drain")
+    expected["fedagg"] += H2_ROUNDS
+    row = dict(rounds=H2_ROUNDS, seconds_per_round=secs / H2_ROUNDS,
+               b_seconds_per_round=b_row["seconds_per_round"],
+               launches=launches, lost_clients=lost,
+               staleness=[int(st["staleness"]) for st in rec],
+               applied_valid=[float(st["applied_valid"]) for st in rec],
+               inflight_occupancy=[float(st["inflight_occupancy"])
+                                   for st in rec],
+               included_nonpriority=h.included, test_acc=h.test_acc)
+    nan_fed = cifar_config(1).replace(**H2_NAN)
+    check(bool(engine.failure_plan(nan_fed, 0, fedn.x.shape[0]).corrupt[
+        :nan_fed.num_priority].any()), "slice (h2): no priority client is "
+        "corrupted in the guarded round")
+    before = fk.fedagg.launches
+    with round_stats() as rec:
+        g = run_federation(loss_fn, p0, nan_fed, fedn, device=device)
+    launches = fk.fedagg.launches - before
+    same = all(torch.equal(g.params[k], p0[k]) for k in p0)
+    check(same, "slice (h2): the guarded round moved the params")
+    check(int(rec[0]["skipped_nonfinite"]) == 1,
+          "slice (h2): the guard did not skip the NaN round")
+    if device != "cpu":
+        check(launches == 1, f"slice (h2): {launches} fedagg launches in "
+              "the guarded round")
+    expected["fedagg"] += 1
+    row["guarded_round"] = dict(launches=launches, params_bit_identical=same,
+                                skipped_nonfinite=int(rec[0]["skipped_nonfinite"]))
+    if device != "cpu":
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("slice (h2) cnn async + faults:", json.dumps(row), flush=True)
+    return row
+
+
+# (h3): (f2)'s round through scan_async with the clock, crashes and guard
+H3 = dict(clients=8, n_priority=4, per_client=8, seq=512, local_epochs=2,
+          lr=0.05, backend="scan_async", async_depth=2, async_mode="ready",
+          latency_mode="lognormal", round_deadline=2.0, failure_model="crash",
+          crash_rate=0.25, divergence_guard=True)
+H3_ROUNDS = 3
+
+
+def slice_h3(check: Check, expected: TrainExpected, f2_row, device="cuda"):
+    """Full width: qwen1.5-0.5b (random init, f32 params, bf16 compute,
+    remat) through launch.train.run's spatial round under H3: the
+    variable-lag buffer (D = 2 slots of 1.86 GB), the lognormal clock with
+    deadline 2.0, crash 0.25, the guard; 3 rounds. Lost clients still
+    train in the spatial round, so K5 / K6 / K9 launch as (f2)'s rounds
+    and fedagg once a round. s/round, each round's peak GB (beside
+    (f2)'s), the lost clients a round."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.utils import param_count, tree_leaves
+    cfg = get_config("qwen1.5-0.5b")
+    torch.cuda.empty_cache()
+    before = train_counts()
+    with lm_rounds() as rec:
+        params, hist = train.run(arch="qwen1.5-0.5b", smoke=False,
+                                 rounds=H3_ROUNDS, device=device,
+                                 verbose=False, **H3)
+    expected.add_rounds(cfg, H3["clients"], H3["local_epochs"], H3_ROUNDS)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, H3["clients"], H3["local_epochs"], H3_ROUNDS)
+    check(launches == want, f"slice (h3): launches {launches}, expected {want}")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    check(finite and all(math.isfinite(h["server_loss"]) for h in hist),
+          "slice (h3): non-finite params or server loss")
+    check(sum(h["lost_clients"] for h in hist) > 0,
+          "slice (h3): no client was lost")
+    timed = [h["sec"] for h in hist[1:]]
+    row = dict(params=param_count(params), rounds=H3_ROUNDS,
+               warmup_round_s=hist[0]["sec"], round_s=timed,
+               s_per_round=sum(timed) / len(timed),
+               f2_s_per_round=f2_row["s_per_round"],
+               round_peak_gb=rec["peak_gb"], f2_peak_gb=f2_row["peak_gb"],
+               lost_clients=[h["lost_clients"] for h in hist],
+               skipped_nonfinite=[h["skipped_nonfinite"] for h in hist],
+               server_loss=[h["server_loss"] for h in hist],
+               gates=[h["gates"] for h in hist], launches=launches)
+    print("slice (h3) qwen1.5-0.5b async + faults:", json.dumps(row),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+# (h4): the temporal round at smoke size, fifo D = 1, crash + drop-out
+H4 = dict(local_epochs=2, lr=0.05, epsilon=0.1, async_depth=1,
+          failure_model="chaos", crash_rate=0.3, dropout_rate=0.3,
+          dropout_len=2, corrupt_rate=0.0)
+H4_RUN = dict(clients=4, n_priority=2, per_client=2, seq=32, rounds=2)
+H4_TOL = 2e-5
+
+
+def slice_h4(check: Check, expected: TrainExpected, device="cuda"):
+    """The temporal round (smoke qwen1.5-0.5b, f32) under H4 on the card
+    and on the CPU from the same init and batches: gates, lost clients and
+    backlog exactly, after checking every gate decision lies farther than
+    GATE_MARGIN from eps; params within H4_TOL x max(1, max|p|), leaf for
+    leaf. Launches: 1 + C no-grad forwards a round and E steps for each
+    client that is neither gated out nor lost; no fedagg."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.tokens import make_token_federation
+    from repro_torch.fl import engine, sharded
+    from repro_torch.launch.train import build_batches
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_leaves
+    cfg = get_smoke("qwen1.5-0.5b")
+    model = get_model(cfg)
+    C, P = H4_RUN["clients"], H4_RUN["n_priority"]
+    fed = FedConfig(num_clients=C, num_priority=P, **H4)
+    data = make_token_federation(seed=0, vocab=cfg.vocab_size, n_clients=C,
+                                 n_priority=P, seq_len=H4_RUN["seq"],
+                                 tokens_per_client=(H4_RUN["seq"] + 1) * 8)
+
+    def rounds(dev):
+        step = sharded.make_round_step(model, fed, C, fsdp=True, device=dev)
+        state = engine.init_state(model.init(prng.PRNGKey(0), device=dev),
+                                  fed, C)
+        rng = np.random.default_rng(0)
+        stats = []
+        for r in range(H4_RUN["rounds"]):
+            batch = build_batches(cfg, data, clients=C,
+                                  per_client=H4_RUN["per_client"],
+                                  seq=H4_RUN["seq"], rng=rng, device=dev)
+            state, st = step(state, batch, r)
+            stats.append({k: v.cpu().numpy() for k, v in st.items()})
+        return state, stats
+
+    cpu_state, cpu_stats = rounds("cpu")
+    before = train_counts()
+    dev_state, dev_stats = rounds(device)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    margin = min(abs(abs(float(l) - float(st["server_loss"])) - fed.epsilon)
+                 for st in cpu_stats for l in st["local_losses"][P:])
+    check(margin > GATE_MARGIN, f"slice (h4): gate margin {margin}")
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(dev_stats, cpu_stats)
+               for k in ("gates", "backlog", "lost_clients", "staleness",
+                         "applied_valid", "inflight_occupancy"))
+    check(same, "slice (h4): gates, lost clients, backlog or buffer stats "
+          "differ from the CPU run")
+    err = max(float(torch.max(torch.abs(a.cpu() - b)))
+              / max(1.0, float(torch.max(torch.abs(b))))
+              for a, b in zip(tree_leaves(dev_state.params),
+                              tree_leaves(cpu_state.params)))
+    check(err <= H4_TOL, f"slice (h4): params off the CPU run by {err}")
+    want = TrainExpected()
+    for st in dev_stats:
+        want.add_rounds(cfg, C, fed.local_epochs, 1,
+                        trained=int((st["gates"] > 0).sum()), fedagg=False)
+    for k, v in want.items():
+        expected[k] += v
+    if device != "cpu":
+        check(launches == want, f"slice (h4): launches {launches}, expected "
+              f"{want}")
+    row = dict(gate_margin=margin, params_rel_err_vs_cpu=err,
+               gates=[st["gates"].tolist() for st in dev_stats],
+               lost_clients=[float(st["lost_clients"]) for st in dev_stats],
+               backlog=[st["backlog"].tolist() for st in dev_stats],
+               launches=launches)
+    print("slice (h4) temporal round, fifo D = 1 + faults:", json.dumps(row),
+          flush=True)
+    return row
+
+
 def phase(fn, *args, **kw):
     """fn(*args, **kw), its host-clock time printed under its name."""
     t0 = time.perf_counter()
@@ -3208,6 +3636,34 @@ def main() -> int:
         "max_abs_err": bwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": "qwen1.5_train"})
+    # the asynchronous round and the fault layer: slices (h1)-(h4), counted
+    # on their own
+    reset_train_counts()
+    h_expected = TrainExpected()
+    h1 = phase(slice_h1, check, h_expected)
+    h2 = phase(slice_h2, check, h_expected, fedn, b)
+    del fedn
+    h3 = phase(slice_h3, check, h_expected, f2)
+    h4 = phase(slice_h4, check, h_expected)
+    h_launches = train_counts()
+    h_variants = dict(fk.fedagg.variant_launches)
+    print("async + fault path launches:", json.dumps(h_launches), "expected:",
+          json.dumps(h_expected), flush=True)
+    for name in TRAIN_KERNELS:
+        check(h_launches[name] == h_expected[name], f"async + fault path: "
+              f"{h_launches[name]} {name} launches, expected "
+              f"{h_expected[name]}")
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["fault_path_launches"] = sum(
+                v for k, v in h_variants.items() if pick(*k))
+        elif entry["name"] in h_launches:
+            entry["fault_path_launches"] = h_launches[entry["name"]]
+    for name in ("fedagg", "flash_attention", "flash_attention_bwd",
+                 "rmsnorm"):
+        check(h_launches[name] > 0,
+              f"async + fault path: kernel {name} was never launched")
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -3221,7 +3677,8 @@ def main() -> int:
         "c": {k: {f: v[f] for f in ("seconds_per_round", "launches")}
               for k, v in c.items()},
         "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3,
-        "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad}))
+        "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
+        "h3": h3, "h4": h4}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -180,27 +180,28 @@ class FedConfig:
     sketch_dim: int = 256
     utility_ema: float = 0.9          # decay of the cross-round client EMAs
     welfare_floor: float = 0.0
-    backend: str = "vmap_spatial"     # vmap_spatial | scan_temporal (ported);
-                                      # scan_async (not yet)
-    async_depth: int = 0
-    staleness_decay: float = 1.0
-    async_mode: str = "fifo"
-    min_lag: int = 1
-    latency_mode: str = "none"
-    latency_mu: float = 0.0
+    backend: str = "vmap_spatial"     # vmap_spatial | scan_temporal |
+                                      # scan_async
+    async_depth: int = 0              # in-flight buffer slots D (scan_async)
+    staleness_decay: float = 1.0      # a landed delta's scale: decay ** age
+    async_mode: str = "fifo"          # fifo (D rounds late) | ready
+    min_lag: int = 1                  # ready: the age a slot pops at
+    latency_mode: str = "none"        # none | lognormal (the event clock)
+    latency_mu: float = 0.0           # log-mean of the compute time
     latency_sigma: float = 0.5
-    latency_net_mu: float = -1.0
+    latency_net_mu: float = -1.0      # log-mean of the network time
     latency_net_sigma: float = 0.3
-    round_deadline: float = float("inf")
-    failure_model: str = "none"
+    round_deadline: float = float("inf")  # later clients are lost
+    failure_model: str = "none"       # none | crash | dropout | corrupt |
+                                      # chaos
     crash_rate: float = 0.0
     dropout_rate: float = 0.0
-    dropout_len: int = 1
+    dropout_len: int = 1              # rounds a drop-out window spans
     corrupt_rate: float = 0.0
-    corrupt_scale: float = 0.0
-    divergence_guard: bool = False
-    max_nonfinite_skips: int = 0
-    adaptive_staleness: bool = False
+    corrupt_scale: float = 0.0        # 0: NaN rows, else a scaled delta
+    divergence_guard: bool = False    # skip non-finite aggregates
+    max_nonfinite_skips: int = 0      # consecutive skips that halt (0: never)
+    adaptive_staleness: bool = False  # scale by the drift cosine too
     max_cohort: int = 0               # training-cohort budget K (0: off)
     backlog_boost: float = 0.0
     align_stat: str = "accuracy"      # accuracy (paper experiments) | loss (theory)

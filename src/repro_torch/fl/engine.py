@@ -1,7 +1,7 @@
 """Federation round engine: client selection + execution backends.
 
-Counterpart of ``repro/fl/engine.py``, synchronous slice. A round runs, in
-order:
+Counterpart of ``repro/fl/engine.py``, candidate pools aside. A round
+runs, in order:
 
 1. the eval pre-pass: each client's loss and accuracy of the received w_t;
 2. participation sampling (a Bernoulli draw of ``fed.participation``, the
@@ -16,7 +16,10 @@ order:
    int8, topk, sketch, with error-feedback rows);
 6. the server optimizer step (sgd, momentum, adam, yogi), skipped
    bit-exactly on a round with zero inclusion mass (the aggregator's own
-   mass): params and optimizer moments stay as they were.
+   mass) or, under the divergence guard, a non-finite aggregate: params
+   and optimizer moments stay as they were. Under ``scan_async`` the
+   aggregate enters the in-flight buffer instead, and the slots it pops
+   are applied.
 
 The order of (3) and (4) depends on the strategy, as in the reference.
 Strategies that gate from the eval pre-pass gate first; with
@@ -26,27 +29,45 @@ train (backlog-aware overflow), their rows aggregated in cohort space.
 the cosine of each client delta to the priority mean delta (exact, or on
 CountSketches under ``fed.grad_sim_sketch``); it ignores ``max_cohort``.
 
-Two backends execute the client axis:
+Three backends execute the client axis:
 
 * ``vmap_spatial`` — all clients in parallel: each SGD step is one
   ``torch.func.vmap`` of ``torch.func.grad`` over the client axis, with
   per-client parameters;
 * ``scan_temporal`` — a client loop that skips gated-out clients (their
-  slot returns the unmodified global params, which the aggregation drops).
+  slot returns the unmodified global params, which the aggregation drops);
+* ``scan_async`` — clients scheduled as ``vmap_spatial``, but with
+  ``fed.async_depth = D > 0`` the round's aggregated delta enters the
+  in-flight buffer (``FederationState.inflight``) instead of the params
+  and lands when the ``fed.async_mode`` pop policy says so
+  (``async_apply``: "fifo", exactly D rounds late; "ready", every slot
+  aged ``min_lag`` or more, oldest first; under the event clock, every
+  slot whose countdown expired), scaled by its staleness discount (times
+  the drift cosine under ``adaptive_staleness``). At D = 0 it is
+  ``vmap_spatial``, bit for bit.
 
-Both give the same gates and the same per-round computation. The PRNG
-chain is the reference's, key for key (``repro_torch.prng``), so every
-client trains on the same minibatches as in the JAX package; the
-``[C, E, steps, bs]`` minibatch permutations are computed up front on the
-data's device and handed to the solver.
+The synchronous backends give the same gates and the same per-round
+computation. The PRNG chain is the reference's, key for key
+(``repro_torch.prng``), so every client trains on the same minibatches as
+in the JAX package; the ``[C, E, steps, bs]`` minibatch permutations are
+computed up front on the data's device and handed to the solver.
 
-Knobs outside this slice (``scan_async``, candidate pools, failure models,
-the latency clock and the divergence guard) raise ``NotImplementedError``
-naming the knob.
+The fault layer models real clients. A registered failure model
+(``none``, ``crash``, ``dropout``, ``corrupt``, ``chaos``) draws each
+round's ``FailurePlan`` from its own named PRNG stream: drop-outs fold
+into participation, crashed and deadline-late clients (the lognormal
+event clock, ``fed.latency_mode``) train but lose their aggregation mass
+(``lost_mask``), and corrupted clients' trained params are NaN'd or
+scaled through the ``delta_transform`` seam. The divergence guard
+(``fed.divergence_guard``) keeps a non-finite aggregate off the params
+and the optimizer moments and counts consecutive skips. Candidate pools,
+and the pool-keyed fault draws only they reach, raise
+``NotImplementedError`` naming their ROADMAP item (A13).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -55,14 +76,16 @@ from torch.func import grad, vmap
 
 from repro_torch import prng
 from repro_torch.configs.base import register_validator, validate_config
-from repro_torch.core.aggregation import (aggregate_delta, aggregator_key,
+from repro_torch.core.aggregation import (_AGG_DTYPES, aggregate_delta,
+                                          aggregator_key,
                                           apply_server_opt, flatten_stacked,
                                           get_aggregator, inclusion_mass,
                                           resolve_wire_codec,
                                           server_optimizer)
 from repro_torch.core.alignment import epsilon_at, global_loss_from_locals
 from repro_torch.optim.schedules import make_schedule
-from repro_torch.utils import Registry, tree_axpy, tree_leaves, tree_map
+from repro_torch.utils import (Registry, fold_in_name, tree_axpy,
+                               tree_leaves, tree_map)
 
 BACKENDS = ("vmap_spatial", "scan_temporal", "scan_async")
 
@@ -78,13 +101,24 @@ class FederationState:
       ``max_cohort`` overflow since it last aggregated; wins cohort ties.
     * ``util_ema`` — [C] f32 EMA of the alignment gap |F_k - F|.
     * ``incl_ema`` — [C] f32 EMA of the effective inclusion gates.
+    * ``inflight`` — the ``scan_async`` buffer of D = ``fed.async_depth``
+      slots, or ``()`` at depth 0: ``delta`` (params-shaped leaves with a
+      leading [D] axis in ``fed.agg_dtype``, oldest at 0), ``valid`` ([D]
+      f32, a prefix), ``age`` ([D] int32 rounds waited) and, under the
+      event clock, ``timer`` ([D] int32 countdown, set at push by
+      ``slot_timer``). ``async_apply`` moves the delta slots in place.
+    * ``last_delta`` — [``fed.sketch_dim``] f32 CountSketch of the last
+      delta that landed (``adaptive_staleness``), else ``()``.
+    * ``latency`` — the event clock's ``{"compute", "net"}`` [C] f32
+      completion times in round units, drawn once (``init_latency``), or
+      ``()`` when ``fed.latency_mode == "none"``.
+    * ``nonfinite_skips`` — 0-d int32 count of consecutive rounds the
+      divergence guard skipped, or ``()`` when the guard is off.
     * ``ef_accum`` — the wire codec's per-client error-feedback rows
       (params-shaped f32 leaves with a leading [C] axis), or ``()`` when the
       codec is identity or ``error_feedback`` is off.
 
-    The reference's async buffer, drift sketch, latency and skip counter
-    belong to features not ported yet; they stay ``()``, as they do in the
-    reference when disabled.
+    Disabled features keep their leaves ``()``, as in the reference.
     """
     params: Any
     opt_state: Any
@@ -108,29 +142,76 @@ def _not_ported(knob: str, value, hint: str):
 
 @register_validator("async")
 def check_async_config(fed):
-    """The scan_async pipeline is not ported."""
-    if fed.backend == "scan_async":
-        _not_ported("backend", fed.backend,
-                    "use vmap_spatial or scan_temporal")
-    if fed.async_depth > 0:
-        _not_ported("async_depth", fed.async_depth, "use 0")
+    """The scan_async knobs whose bad values would corrupt the in-flight
+    buffer silently, with the reference's errors."""
+    if fed.async_depth <= 0:
+        return
+    if fed.async_mode not in ("fifo", "ready"):
+        raise ValueError(f"unknown FedConfig.async_mode {fed.async_mode!r}; "
+                         "known: 'fifo' (fixed-lag pipe) | 'ready' "
+                         "(variable-lag readiness buffer)")
+    if fed.async_mode == "ready" and not 1 <= fed.min_lag <= fed.async_depth:
+        raise ValueError(
+            f"FedConfig.min_lag={fed.min_lag} outside [1, async_depth="
+            f"{fed.async_depth}]: a delta can never age past the buffer "
+            "capacity (no slot would ever become ready), and it can never "
+            "pop before its first birthday either — the push happens after "
+            "the pop phase, so min_lag=0 would silently behave as 1")
 
 
 @register_validator("clock")
 def check_clock_config(fed):
-    """The event clock, deadlines, failure models and the divergence guard
-    are not ported."""
-    if fed.latency_mode not in ("none", "lognormal"):
-        raise ValueError(f"unknown FedConfig.latency_mode {fed.latency_mode!r}; "
-                         "known: 'none' | 'lognormal'")
-    if fed.latency_mode != "none":
-        _not_ported("latency_mode", fed.latency_mode, "use 'none'")
-    if float(fed.round_deadline) != float("inf"):
-        _not_ported("round_deadline", fed.round_deadline, "use inf")
-    if fed.failure_model not in (None, "", "none"):
-        _not_ported("failure_model", fed.failure_model, "use 'none'")
-    if fed.divergence_guard:
-        _not_ported("divergence_guard", True, "use False")
+    """The event-clock, deadline, failure-model and guard knobs, with the
+    reference's errors: a non-positive deadline, a deadline without a
+    clock, a clock over the fifo pipe, rates outside [0, 1], windows
+    shorter than a round, a negative skip budget."""
+    lm = fed.latency_mode
+    if lm not in ("none", "lognormal"):
+        raise ValueError(f"unknown FedConfig.latency_mode {lm!r}; known: "
+                         "'none' (no event clock) | 'lognormal' "
+                         "(per-client compute + network time draws)")
+    if lm != "none":
+        if fed.latency_sigma < 0 or fed.latency_net_sigma < 0:
+            raise ValueError(
+                f"FedConfig.latency_sigma={fed.latency_sigma} / "
+                f"latency_net_sigma={fed.latency_net_sigma} must be >= 0 "
+                "(they are lognormal log-stds)")
+        if fed.async_depth > 0 and fed.async_mode != "ready":
+            raise ValueError(
+                "the event-driven clock gives every in-flight slot its OWN "
+                "countdown (variable lag); async_mode='fifo' constant-folds "
+                f"a fixed lag of async_depth={fed.async_depth} rounds and "
+                "would ignore the timers — use async_mode='ready'")
+    deadline = float(fed.round_deadline)
+    if deadline != float("inf"):
+        if not deadline > 0:
+            raise ValueError(
+                f"FedConfig.round_deadline={fed.round_deadline} must be > 0 "
+                "(round units): at a zero or negative deadline EVERY client "
+                "is late, so every slot would force-land with no finished "
+                "members' mass — disable the deadline with float('inf')")
+        if lm == "none":
+            raise ValueError(
+                "FedConfig.round_deadline compares per-client simulated "
+                "completion times against the deadline, but "
+                "latency_mode='none' draws no completion times — set "
+                "latency_mode='lognormal' (or leave round_deadline=inf)")
+    name = resolve_failure_model(fed.failure_model)
+    if name != "none":
+        get_failure_model(name)            # unknown names raise here
+        for knob in ("crash_rate", "dropout_rate", "corrupt_rate"):
+            v = float(getattr(fed, knob))
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"FedConfig.{knob}={v} outside [0, 1] "
+                                 "(a per-client probability)")
+        if int(fed.dropout_len) < 1:
+            raise ValueError(
+                f"FedConfig.dropout_len={fed.dropout_len} must be >= 1 "
+                "(rounds per transient drop-out window)")
+    if int(fed.max_nonfinite_skips) < 0:
+        raise ValueError(
+            f"FedConfig.max_nonfinite_skips={fed.max_nonfinite_skips} must "
+            "be >= 0 (0 = the divergence guard never halts the run)")
 
 
 @register_validator("selection")
@@ -155,18 +236,74 @@ def init_ef_accum(params, fed, num_clients):
                     params)
 
 
+def init_latency(fed, num_clients, device="cpu"):
+    """The event clock's per-client completion times, or ``()`` when
+    ``fed.latency_mode == "none"``: lognormal compute plus lognormal
+    network time in round units, drawn once from
+    ``fold_in_name(PRNGKey(seed), "latency_model")`` (the round's key
+    chain is untouched)."""
+    if fed.latency_mode == "none":
+        return ()
+    key = fold_in_name(prng.PRNGKey(fed.seed), "latency_model")
+    kc, kn = prng.split(key)
+    C = int(num_clients)
+    compute = torch.exp(fed.latency_mu + fed.latency_sigma
+                        * prng.normal(kc, (C,)))
+    net = torch.exp(fed.latency_net_mu + fed.latency_net_sigma
+                    * prng.normal(kn, (C,)))
+    return {"compute": compute.to(device), "net": net.to(device)}
+
+
+def init_inflight(params, fed):
+    """The empty in-flight buffer of ``fed.async_depth`` (D) slots, or
+    ``()`` at depth 0, on the params' device: ``delta`` [D, ...] in
+    ``fed.agg_dtype``, ``valid`` and ``age``, and ``timer`` under the
+    event clock."""
+    D = int(fed.async_depth)
+    if D <= 0:
+        return ()
+    ad = _AGG_DTYPES[fed.agg_dtype]
+    dev = tree_leaves(params)[0].device
+    buf = {
+        "delta": tree_map(lambda p: torch.zeros((D,) + tuple(p.shape),
+                                                dtype=ad, device=p.device),
+                          params),
+        "valid": torch.zeros(D, dtype=torch.float32, device=dev),
+        "age": torch.zeros(D, dtype=torch.int32, device=dev),
+    }
+    if fed.latency_mode != "none":
+        buf["timer"] = torch.zeros(D, dtype=torch.int32, device=dev)
+    return buf
+
+
+def init_last_delta(fed, device="cpu"):
+    """The zero drift-reference sketch under ``adaptive_staleness`` (with a
+    buffer), else ``()``."""
+    if fed.async_depth > 0 and fed.adaptive_staleness:
+        return torch.zeros(int(fed.sketch_dim), dtype=torch.float32,
+                           device=device)
+    return ()
+
+
 def init_state(params, fed, num_clients: Optional[int] = None) -> FederationState:
     """Fresh FederationState for a federation of ``num_clients`` (defaults
-    to ``fed.num_clients``), on the device of ``params``."""
+    to ``fed.num_clients``), on the device of ``params``: zero moments,
+    backlog and EMAs; the in-flight buffer, drift sketch, latency draws,
+    skip counter and error-feedback rows only where their feature is on."""
     validate_config(fed)
     C = int(num_clients if num_clients is not None else fed.num_clients)
-    dev = next(iter(params.values())).device
+    dev = tree_leaves(params)[0].device
     return FederationState(
         params=params,
         opt_state=server_optimizer(fed).init(params),
         backlog=torch.zeros(C, dtype=torch.int32, device=dev),
         util_ema=torch.zeros(C, dtype=torch.float32, device=dev),
         incl_ema=torch.zeros(C, dtype=torch.float32, device=dev),
+        inflight=init_inflight(params, fed),
+        last_delta=init_last_delta(fed, dev),
+        latency=init_latency(fed, C, dev),
+        nonfinite_skips=(torch.zeros((), dtype=torch.int32, device=dev)
+                         if fed.divergence_guard else ()),
         ef_accum=init_ef_accum(params, fed, C))
 
 
@@ -401,15 +538,18 @@ def sketch_key(fed, round_idx):
     return prng.fold_in(prng.PRNGKey(fed.seed ^ 0x5E7C), round_idx)
 
 
-def apply_if_mass(fed, params, opt_state, agg_delta, mass):
+def apply_if_mass(fed, params, opt_state, agg_delta, mass, finite=None):
     """The synchronous server step, ``apply_server_opt``, kept only where
-    the round's inclusion mass is positive: on a zero-mass round params
+    the round's inclusion mass is positive (and, under the divergence
+    guard, ``finite`` holds): on a zero-mass or non-finite round params
     and every optimizer moment (adam's ``t`` too) stay bit-identical
     instead of momentum decaying on an all-zero delta. A ``torch.where``
     per leaf, so the host never waits on the mass. Returns (new_params,
     new_opt_state)."""
     applied, new_opt = apply_server_opt(fed, params, opt_state, agg_delta)
     has_mass = mass > 0
+    if finite is not None:
+        has_mass = has_mass & finite
 
     def keep(a, b):
         return torch.where(has_mass, a, b)
@@ -434,6 +574,372 @@ def delta_sketch(deltas, key, dim: int):
         s = prng.rademacher(ks, (x.shape[1],))
         out.index_add_(1, h.long(), s * x)
     return out
+
+
+# ============================================================ async buffer
+def staleness_discount(fed, age=None):
+    """The scale of a delta that waited in the buffer: under fifo
+    (``age=None``) the python constant ``staleness_decay ** async_depth``,
+    under ready the f32 ``staleness_decay ** age``."""
+    if age is None:
+        return float(fed.staleness_decay) ** int(fed.async_depth)
+    return (torch.tensor(fed.staleness_decay, dtype=torch.float32,
+                         device=age.device) ** age.float())
+
+
+def drift_sketch_key(fed):
+    """The one CountSketch projection of every drift sketch of a run (they
+    are compared across rounds)."""
+    return fold_in_name(prng.PRNGKey(fed.seed), "async_drift_sketch")
+
+
+def drift_factor(sketch, last_sketch):
+    """max(0, cos(delta, last landed delta)) on CountSketches, or 1 while
+    the reference sketch is still zero."""
+    s, last = sketch.float(), last_sketch.float()
+    dot = torch.dot(s, last)
+    n_last = torch.sqrt(torch.sum(last ** 2))
+    n_new = torch.sqrt(torch.sum(s ** 2))
+    cos = dot / torch.clamp(n_new * n_last, min=1e-12)
+    return torch.where(n_last > 0, torch.clamp(cos, min=0.0),
+                       torch.ones_like(cos))
+
+
+def _apply_stale(fed, carry, delta, age):
+    """Apply one popped slot's delta through the server optimizer with its
+    staleness scale; ``carry = (params, opt_state, last_delta)``. Under
+    ``adaptive_staleness`` the scale also takes the drift factor, a slot
+    clamped to scale 0 is dropped with the optimizer untouched (adam's
+    ``t`` too), and the reference sketch advances only on a landed delta:
+    the scale is read on the host for that decision."""
+    params, opt_state, last = carry
+    scale = (staleness_discount(fed) if fed.async_mode == "fifo"
+             else staleness_discount(fed, age))
+    if fed.adaptive_staleness:
+        sk = delta_sketch(tree_map(lambda d: d[None], delta),
+                          drift_sketch_key(fed), int(fed.sketch_dim))[0]
+        scale = scale * drift_factor(sk, last)
+        if not bool(scale > 0):
+            return params, opt_state, last
+        last = sk
+    new_params, new_opt = apply_server_opt(fed, params, opt_state, delta,
+                                           scale=scale)
+    return new_params, new_opt, last
+
+
+def _slot(buf, i):
+    return tree_map(lambda b: b[i], buf)
+
+
+def async_apply(fed, global_params, opt_state, inflight, agg_delta,
+                last_delta=(), push_timer=None):
+    """One tick of the ``scan_async`` state machine, the reference's:
+
+    1. every valid slot ages a round (and under the event clock its
+       countdown ticks down);
+    2. the ready slots pop oldest first, each through ``_apply_stale``:
+       fifo, slot 0 once it aged ``async_depth``; ready, the prefix aged
+       ``min_lag`` or more (a ``cumprod``); clocked, every slot whose
+       countdown expired, in any positions. A full buffer with nothing
+       ready force-pops slot 0;
+    3. the survivors move to the front in push order and this round's
+       ``agg_delta`` is pushed behind them at age 0 (with ``push_timer``,
+       required under the clock).
+
+    The [D] ready mask is read on the host once (the reference's per-slot
+    ``lax.cond``): a slot that does not pop costs nothing, where a
+    ``torch.where`` per slot would run the optimizer D times. The delta
+    slots are updated in place: each survivor is copied to its new
+    position in ascending order (a survivor never moves up the ring, so
+    none is overwritten before it is read), and the fresh delta into its
+    slot, so no second [D, ...] buffer is made. The slots behind the
+    survivors keep stale bytes, as the reference's, and are never read.
+
+    Returns ``(new_params, new_opt_state, new_inflight, new_last_delta,
+    info)``, ``info = {"applied_valid": popped count (f32),
+    "applied_age": oldest applied age (int32, 0 when none landed)}``."""
+    valid = inflight["valid"] > 0
+    D = int(valid.shape[0])
+    dev = valid.device
+    vi = valid.to(torch.int32)
+    age = inflight["age"] + vi
+    occ = torch.sum(vi)
+    clocked = "timer" in inflight
+    ready = torch.zeros(D, dtype=torch.bool, device=dev)
+    if clocked:
+        if push_timer is None:
+            raise ValueError(
+                "this in-flight buffer carries countdown timers "
+                "(latency_mode != 'none') but no push_timer was given — "
+                "compute one with slot_timer(fed, state.latency, gates)")
+        timer = torch.clamp(inflight["timer"] - vi, min=0)
+        ready = valid & (timer <= 0)
+        force = (occ >= D) & (torch.sum(ready.to(torch.int32)) == 0)
+        ready[0] = ready[0] | force
+    elif fed.async_mode == "fifo":
+        ready[0] = valid[0] & ((age[0] >= int(fed.async_depth)) | (occ >= D))
+    else:
+        thr = int(fed.min_lag)
+        ready = torch.cumprod((valid & (age >= thr)).to(torch.int32),
+                              dim=0) > 0
+        force = (occ >= D) & ~ready[0] & valid[0]
+        ready[0] = ready[0] | force
+    valid_h, ready_h = torch.stack([valid, ready]).tolist()
+    carry = (global_params, opt_state, last_delta)
+    for i in range(D):
+        if ready_h[i]:
+            carry = _apply_stale(fed, carry, _slot(inflight["delta"], i),
+                                 age[i])
+    new_params, new_opt, new_last = carry
+
+    k = sum(ready_h)
+    pos = sum(valid_h) - k               # the fresh delta lands behind
+    if clocked:
+        # survivors in push order (the reference's stable permutation)
+        src = [i for i in range(D) if valid_h[i] and not ready_h[i]][:pos]
+    else:
+        src = [j + k for j in range(pos)]    # the reference's roll by -k
+    for leaf, d in zip(tree_leaves(inflight["delta"]),
+                       tree_leaves(agg_delta)):
+        for j, i in enumerate(src):
+            if i != j:
+                leaf[j].copy_(leaf[i])
+        leaf[pos].copy_(d)
+    idx = torch.arange(D, device=dev)
+    src_t = torch.tensor(src + [0] * (D - pos), dtype=torch.long, device=dev)
+    survivor = idx < pos
+    zero = torch.zeros_like(age)
+    new_inflight = {"delta": inflight["delta"],
+                    "valid": (idx <= pos).to(torch.float32),
+                    "age": torch.where(survivor, age[src_t], zero)}
+    if clocked:
+        new_inflight["timer"] = torch.where(
+            idx == pos, torch.as_tensor(push_timer, dtype=torch.int32,
+                                        device=dev),
+            torch.where(survivor, timer[src_t], zero))
+    info = {"applied_valid": torch.tensor(float(k), dtype=torch.float32,
+                                          device=dev),
+            "applied_age": torch.max(torch.where(ready, age, zero))}
+    return new_params, new_opt, new_inflight, new_last, info
+
+
+def drain_inflight(fed, state: FederationState) -> FederationState:
+    """Flush the buffer at the end of a run: apply every valid slot oldest
+    first with the discount it would have had in-stream (its stored age,
+    not aged again), and return the state with an emptied buffer (new
+    zero leaves; the given state's buffer is left as it was). No-op for a
+    synchronous state."""
+    if not isinstance(state.inflight, dict):
+        return state
+    valid_h = (state.inflight["valid"] > 0).tolist()
+    age = state.inflight["age"]
+    carry = (state.params, state.opt_state, state.last_delta)
+    for i, v in enumerate(valid_h):
+        if v:
+            carry = _apply_stale(fed, carry, _slot(state.inflight["delta"], i),
+                                 age[i])
+    params, opt_state, last = carry
+    return state.replace(params=params, opt_state=opt_state,
+                         inflight=tree_map(torch.zeros_like, state.inflight),
+                         last_delta=last)
+
+
+# ============================================================ failure models
+@dataclass
+class FailurePlan:
+    """One round's injected faults; a ``None`` field injects nothing.
+
+    * ``available`` — [C] bool, clients present (folds into participation);
+    * ``crashed`` — [C] bool, clients whose trained delta is lost;
+    * ``corrupt`` — [C] bool, clients whose delta is corrupted in transit.
+    """
+    available: Any = None
+    crashed: Any = None
+    corrupt: Any = None
+
+
+FAILURE_MODELS = Registry("failure model", aliases={None: "none", "": "none"})
+
+
+def register_failure_model(name: str):
+    """Register ``fn(fed, key, round_idx, num_clients, client_ids=None) ->
+    FailurePlan``; a model draws only from ``key`` (the round's failure
+    stream) and the named streams it folds off the seed."""
+    return FAILURE_MODELS.register(name, failure_name=name)
+
+
+def resolve_failure_model(name) -> str:
+    """Canonical failure-model name: None and '' mean 'none'."""
+    return str(FAILURE_MODELS.resolve(name))
+
+
+def get_failure_model(name) -> Callable:
+    return FAILURE_MODELS.lookup(name)
+
+
+def failure_key(fed, round_idx):
+    """The round's fault PRNG: ``fold_in(fold_in_name(PRNGKey(seed),
+    "failure_model"), round_idx)``, off the round's key chain."""
+    base = fold_in_name(prng.PRNGKey(fed.seed), "failure_model")
+    return prng.fold_in(base, round_idx)
+
+
+def failure_plan(fed, round_idx, num_clients, client_ids=None, device="cpu"):
+    """The configured failure model's plan for one round, its masks on
+    ``device``, or None when the model is ``none``."""
+    name = resolve_failure_model(fed.failure_model)
+    if name == "none":
+        return None
+    plan = FAILURE_MODELS[name](fed, failure_key(fed, round_idx),
+                                int(round_idx), int(num_clients),
+                                client_ids=client_ids)
+    return FailurePlan(*(None if m is None else m.to(device)
+                         for m in (plan.available, plan.crashed,
+                                   plan.corrupt)))
+
+
+@register_failure_model("none")
+def _fm_none(fed, key, round_idx, num_clients, client_ids=None):
+    return FailurePlan()
+
+
+def _identity_bernoulli(key, rate, num_clients, client_ids):
+    """[C] Bernoulli draws, the reference's shaped draw. The per-identity
+    draws of a candidate-pool round are not ported."""
+    if client_ids is not None:
+        raise NotImplementedError(
+            "failure draws keyed on client_ids (candidate pools) are not "
+            "ported yet (ROADMAP A13)")
+    return prng.bernoulli(key, rate, (num_clients,))
+
+
+def _crashed_mask(fed, key, num_clients, client_ids=None):
+    return _identity_bernoulli(fold_in_name(key, "crash"), fed.crash_rate,
+                               num_clients, client_ids)
+
+
+def _corrupt_mask(fed, key, num_clients, client_ids=None):
+    return _identity_bernoulli(fold_in_name(key, "corrupt"),
+                               fed.corrupt_rate, num_clients, client_ids)
+
+
+def _dropout_available(fed, round_idx, num_clients, client_ids=None):
+    # one draw per (window, client): the same clients sit out every round
+    # of a dropout_len-round window
+    window = round_idx // max(int(fed.dropout_len), 1)
+    base = fold_in_name(prng.PRNGKey(fed.seed), "failure_dropout")
+    k = prng.fold_in(base, window)
+    return ~_identity_bernoulli(k, fed.dropout_rate, num_clients, client_ids)
+
+
+@register_failure_model("crash")
+def _fm_crash(fed, key, round_idx, num_clients, client_ids=None):
+    """A per-round Bernoulli crash: the client trains, its delta is lost."""
+    return FailurePlan(crashed=_crashed_mask(fed, key, num_clients,
+                                             client_ids))
+
+
+@register_failure_model("dropout")
+def _fm_dropout(fed, key, round_idx, num_clients, client_ids=None):
+    """Transient drop-out for whole ``dropout_len``-round windows."""
+    return FailurePlan(
+        available=_dropout_available(fed, round_idx, num_clients, client_ids))
+
+
+@register_failure_model("corrupt")
+def _fm_corrupt(fed, key, round_idx, num_clients, client_ids=None):
+    """Delta corruption in transit (NaN'd or scaled rows)."""
+    return FailurePlan(corrupt=_corrupt_mask(fed, key, num_clients,
+                                             client_ids))
+
+
+@register_failure_model("chaos")
+def _fm_chaos(fed, key, round_idx, num_clients, client_ids=None):
+    """All three, each on its own named substream."""
+    return FailurePlan(
+        available=_dropout_available(fed, round_idx, num_clients, client_ids),
+        crashed=_crashed_mask(fed, key, num_clients, client_ids),
+        corrupt=_corrupt_mask(fed, key, num_clients, client_ids))
+
+
+def corruption_transform(fed, corrupt_mask):
+    """The ``delta_transform`` that corrupts the masked clients' trained
+    params: ``corrupt_scale == 0`` fills their rows with NaN, any other
+    scale s makes them ``g + s * (p - g)``. It reads the mask on the host
+    and rewrites the corrupted rows of the client stack in place (no
+    stack-sized temporary), then returns the stack."""
+    scale = float(fed.corrupt_scale)
+
+    def tf(client_params, global_params, client_idx):
+        rows = torch.nonzero(corrupt_mask[client_idx]).flatten().tolist()
+        for cp, gp in zip(tree_leaves(client_params),
+                          tree_leaves(global_params)):
+            for j in rows:
+                if scale == 0.0:
+                    cp[j].fill_(float("nan"))
+                else:
+                    cp[j].copy_(gp + scale * (cp[j] - gp))
+        return client_params
+
+    return tf
+
+
+# ============================================================ event clock
+def client_latency(latency):
+    """[C] simulated completion time (round units): compute + network."""
+    return latency["compute"] + latency["net"]
+
+
+def lost_mask(fed, state, plan):
+    """[C] bool of the clients whose trained delta never reaches the
+    server this round (crashed, or slower than a finite
+    ``fed.round_deadline``), or None when nothing can be lost."""
+    lost = None
+    if plan is not None and plan.crashed is not None:
+        lost = plan.crashed
+    if (fed.latency_mode != "none"
+            and float(fed.round_deadline) != float("inf")):
+        lat = client_latency(state.latency)
+        late = lat > torch.tensor(float(fed.round_deadline),
+                                  dtype=torch.float32, device=lat.device)
+        lost = late if lost is None else (lost | late)
+    return lost
+
+
+def aggregate_finite(fed, agg_delta, loss=None):
+    """The divergence guard's predicate (0-d bool on the delta's device):
+    every delta leaf finite and, when given, the eval loss; None when the
+    guard is off."""
+    if not fed.divergence_guard:
+        return None
+    leaves = tree_leaves(agg_delta)
+    finite = (torch.ones((), dtype=torch.bool, device=leaves[0].device)
+              if loss is None else torch.isfinite(loss))
+    for leaf in leaves:
+        finite = finite & torch.all(torch.isfinite(leaf))
+    return finite
+
+
+def skips_update(state, finite):
+    """The consecutive-skip counter: +1 on a guarded skip, 0 on a finite
+    round, passed through when the guard is off."""
+    if finite is None:
+        return state.nonfinite_skips
+    return torch.where(finite, torch.zeros_like(state.nonfinite_skips),
+                       state.nonfinite_skips + 1)
+
+
+def slot_timer(fed, latency, eff_gates):
+    """int32 countdown for the slot pushed this round: the ceiling of its
+    slowest surviving included member's completion time, clamped to
+    [1, ceil(round_deadline)]."""
+    lat = client_latency(latency)
+    t = torch.max(torch.where(eff_gates > 0, lat, torch.zeros_like(lat)))
+    t = torch.ceil(t).to(torch.int32)
+    deadline = float(fed.round_deadline)
+    if deadline != float("inf"):
+        t = torch.clamp(t, max=int(math.ceil(deadline)))
+    return torch.clamp(t, min=1)
 
 
 # ============================================================ local training
@@ -519,12 +1025,15 @@ def _train_scan(solver, global_params, data, order, lr, gates=None):
 _BACKENDS = {
     "vmap_spatial": (_eval_vmap, _train_vmap),
     "scan_temporal": (_eval_scan, _train_scan),
+    # scan_async schedules clients as vmap_spatial: its "scan" is the round
+    # axis, over which cohorts overlap through the in-flight buffer
+    "scan_async": (_eval_vmap, _train_vmap),
 }
 
 
 # ============================================================ the round
-def make_round_fn(loss_fn: Callable, fed, *,
-                  backend: Optional[str] = None) -> Callable:
+def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
+                  delta_transform: Optional[Callable] = None) -> Callable:
     """loss_fn(params, batch) -> (loss, metrics); batch = {'x','y'}.
 
     Returns round_fn(state, data, priority_mask, weights, rng, round_idx)
@@ -532,24 +1041,38 @@ def make_round_fn(loss_fn: Callable, fed, *,
     ``data`` leaves [C, n, ...] on the round's device, ``rng`` a
     ``repro_torch.prng`` key and ``round_idx`` a python int. The stats keys
     are the reference's; ``gates`` are the effective gates the aggregation
-    honoured. The reference's ``delta_transform`` seam (attack injection
-    for benchmarks) is not ported."""
+    honoured. ``staleness``, ``applied_valid`` and ``inflight_occupancy``
+    appear only with an in-flight buffer, ``lost_clients`` only when
+    clients can be lost, ``skipped_nonfinite`` only under the guard.
+
+    ``delta_transform(client_params, global_params, client_idx) ->
+    client_params`` rewrites the trained client params right before the
+    aggregation (``client_idx`` holds the client identities of the rows);
+    the corruption fault composes under it. With ``backend="scan_async"``
+    and ``fed.async_depth > 0`` the aggregate goes through the in-flight
+    buffer (``async_apply``)."""
     backend = backend or fed.backend
-    if backend == "scan_async":
-        _not_ported("backend", backend, "use vmap_spatial or scan_temporal")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if fed.async_depth > 0 and backend != "scan_async":
+        raise ValueError(
+            f"FedConfig.async_depth={fed.async_depth} requires the "
+            f"'scan_async' backend; {backend!r} applies every delta at its "
+            "own round barrier and would silently ignore the in-flight "
+            "buffer (set async_depth=0 or backend='scan_async')")
     validate_config(fed)
     # stochastic aggregators (dp) get a per-round key; the error-feedback
     # rows exist only under a non-identity codec with error_feedback on
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
     ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
              and bool(fed.error_feedback))
+    clock_on = fed.latency_mode != "none"
     eval_clients, train_clients = _BACKENDS[backend]
     gate_before_train = not get_strategy(fed.selection).needs_deltas
     solver = local_solver(loss_fn, fed)
     sched = make_schedule(fed)
     warmup_rounds = int(fed.warmup_frac * fed.rounds)
+    async_depth = int(fed.async_depth) if backend == "scan_async" else 0
 
     @torch.no_grad()
     def round_fn(state: FederationState, data, priority_mask, weights, rng,
@@ -576,6 +1099,22 @@ def make_round_fn(loss_fn: Callable, fed, *,
         # (2) the reference's key chain: participation key, then local keys
         rng, pkey = prng.split(rng)
         part = participation_mask(fed, pkey, priority_mask, round_idx)
+        # the fault plan: drop-outs fold into participation, crashed and
+        # deadline-late clients lose their mass after training, corruption
+        # rides the delta_transform seam
+        plan = failure_plan(fed, round_idx, C, device=dev)
+        if plan is not None and plan.available is not None:
+            part = part & plan.available
+        lost = lost_mask(fed, state, plan)
+        tf = delta_transform
+        if plan is not None and plan.corrupt is not None:
+            ctf = corruption_transform(fed, plan.corrupt)
+            if delta_transform is None:
+                tf = ctf
+            else:
+                def tf(cp, gp, idx, _user=delta_transform, _ctf=ctf):
+                    return _user(_ctf(cp, gp, idx), gp, idx)
+        keep = None if lost is None else 1.0 - lost.float()
         warm = round_idx < warmup_rounds
         rng, lkey = prng.split(rng)
         lkeys = prng.split(lkey, C).to(dev)
@@ -618,7 +1157,15 @@ def make_round_fn(loss_fn: Callable, fed, *,
                     solver, global_params,
                     {key: v[cohort_idx] for key, v in data.items()},
                     order[cohort_idx], lr, gates=cohort_gates)
+                if tf is not None:
+                    client_params = tf(client_params, global_params,
+                                       cohort_idx)
                 agg_w, agg_g = weights[cohort_idx], cohort_gates
+                if keep is not None:
+                    # lost: trained, but the delta never arrives; the
+                    # selection gates stay for the backlog (+1)
+                    agg_g = agg_g * keep[cohort_idx]
+                    gates = gates * keep
                 agg_delta, cohort_ef = aggregate(
                     client_params, agg_w, agg_g,
                     tree_map(lambda a: a[cohort_idx], ef_accum))
@@ -630,6 +1177,11 @@ def make_round_fn(loss_fn: Callable, fed, *,
                 gates = sel_gates
                 client_params = train_clients(solver, global_params, data,
                                               order, lr, gates=gates)
+                if tf is not None:
+                    client_params = tf(client_params, global_params,
+                                       torch.arange(C, device=dev))
+                if keep is not None:
+                    gates = gates * keep
                 agg_w, agg_g = weights, gates
                 agg_delta, ef_accum = aggregate(client_params, agg_w, agg_g,
                                                 ef_accum)
@@ -637,6 +1189,10 @@ def make_round_fn(loss_fn: Callable, fed, *,
             # (4) train first: the statistic needs the client updates
             client_params = train_clients(solver, global_params, data, order,
                                           lr)
+            if tf is not None:
+                # before the statistic: an attacker's delta moves its score
+                client_params = tf(client_params, global_params,
+                                   torch.arange(C, device=dev))
             deltas = tree_map(lambda ck, g: ck - g[None], client_params,
                               global_params)
             if fed.grad_sim_sketch:
@@ -649,14 +1205,34 @@ def make_round_fn(loss_fn: Callable, fed, *,
                 make_ctx(cosine_to_priority(flat, weights, priority_mask)),
                 fed.selection)
             del flat
+            if keep is not None:
+                gates = gates * keep
             agg_w, agg_g = weights, gates
             agg_delta, ef_accum = aggregate(client_params, agg_w, agg_g,
                                             ef_accum)
 
-        # (6) the server step, skipped on a zero-mass round
-        new_global, opt_state = apply_if_mass(
-            fed, global_params, state.opt_state, agg_delta,
-            inclusion_mass(fed, agg_w, agg_g))
+        # the divergence guard: a non-finite aggregate, or a non-finite
+        # eval loss, never touches params or optimizer moments
+        finite = aggregate_finite(fed, agg_delta, g_loss)
+        if async_depth > 0:
+            # (6) through the in-flight buffer; a non-finite aggregate is
+            # zeroed before it enters, so its slot lands as a no-op
+            if finite is not None:
+                for d in tree_leaves(agg_delta):
+                    d.masked_fill_(~finite, 0.0)
+            push_timer = (slot_timer(fed, state.latency, gates) if clock_on
+                          else None)
+            new_global, opt_state, inflight, last_delta, ainfo = async_apply(
+                fed, global_params, state.opt_state, state.inflight,
+                agg_delta, last_delta=state.last_delta,
+                push_timer=push_timer)
+        else:
+            # (6) the server step, skipped on a zero-mass or guarded round
+            new_global, opt_state = apply_if_mass(
+                fed, global_params, state.opt_state, agg_delta,
+                inclusion_mass(fed, agg_w, agg_g), finite=finite)
+            inflight, last_delta = state.inflight, state.last_delta
+        nonfinite_skips = skips_update(state, finite)
 
         # the backlog ledger and the inclusion EMA follow the effective
         # gates the aggregation honoured
@@ -664,7 +1240,10 @@ def make_round_fn(loss_fn: Callable, fed, *,
         incl_ema = inclusion_update(fed, state.incl_ema, gates)
         new_state = state.replace(params=new_global, opt_state=opt_state,
                                   backlog=backlog, util_ema=util_ema,
-                                  incl_ema=incl_ema, ef_accum=ef_accum)
+                                  incl_ema=incl_ema, inflight=inflight,
+                                  last_delta=last_delta,
+                                  nonfinite_skips=nonfinite_skips,
+                                  ef_accum=ef_accum)
 
         npri = 1.0 - priority_mask.float()
         included_mass = torch.sum(npri * weights * gates)
@@ -680,6 +1259,15 @@ def make_round_fn(loss_fn: Callable, fed, *,
             "included_nonpriority": torch.sum(npri * gates),
             "warmup": torch.tensor(int(warm), dtype=torch.int32),
         }
+        if async_depth > 0:
+            # the measured age of the oldest delta that landed (0 when none)
+            stats["staleness"] = ainfo["applied_age"]
+            stats["applied_valid"] = ainfo["applied_valid"]
+            stats["inflight_occupancy"] = torch.sum(inflight["valid"])
+        if lost is not None:
+            stats["lost_clients"] = torch.sum(lost.float())
+        if fed.divergence_guard:
+            stats["skipped_nonfinite"] = nonfinite_skips
         return new_state, stats
 
     return round_fn

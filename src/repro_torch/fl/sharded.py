@@ -58,12 +58,23 @@ client and keeps only the CountSketch of its delta, the cosines fix the
 gates, and a second pass re-trains the included clients. ``max_cohort``
 is not read, as in the reference.
 
-Out of this slice, each raising ``NotImplementedError`` with its ROADMAP
-item, in both rounds: ``async_depth`` (A11), failure models, the event
-clock and the divergence guard (A12) and ``candidate_pool`` (A13). The
-temporal round raises the reference's ``ValueError`` first for a
-``corrupt`` / ``chaos`` failure model with ``corrupt_rate > 0``, and for
-``grad_sim`` without sketches.
+**Overlapped cohorts and faults**, in both rounds as in the reference:
+``fed.async_depth = D > 0`` sends the round's aggregate through the
+engine's in-flight buffer (``engine.async_apply``: the slots that pop are
+applied, the fresh delta is pushed; the buffer holds D params-sized
+slots). A failure model's plan folds drop-outs into the gates'
+participation; crashed and deadline-late clients (the event clock) lose
+their aggregation mass but keep their selection gates for the backlog;
+the spatial round corrupts the trained rows in place
+(``engine.corruption_transform``), the temporal round refuses corruption
+with the reference's ``ValueError`` and skips a lost client's E steps.
+The divergence guard (with the server loss) skips a non-finite aggregate
+bit-exactly, or zeroes it before it enters the buffer.
+
+Out of this slice, raising ``NotImplementedError`` with its ROADMAP item
+in both rounds: ``candidate_pool`` (A13). The temporal round raises the
+reference's ``ValueError`` first for a ``corrupt`` / ``chaos`` failure
+model with ``corrupt_rate > 0``, and for ``grad_sim`` without sketches.
 """
 from __future__ import annotations
 
@@ -90,14 +101,6 @@ def needs_fsdp(cfg) -> bool:
 # (knob, test, ROADMAP item) for every FedConfig knob the LM rounds of
 # this slice do not run
 _OUT_OF_SLICE = (
-    ("async_depth", lambda f: f.async_depth > 0 or f.backend == "scan_async",
-     "A11"),
-    ("failure_model", lambda f: f.failure_model not in (None, "", "none"),
-     "A12"),
-    ("latency_mode", lambda f: f.latency_mode != "none", "A12"),
-    ("round_deadline", lambda f: float(f.round_deadline) != float("inf"),
-     "A12"),
-    ("divergence_guard", lambda f: f.divergence_guard, "A12"),
     ("candidate_pool", lambda f: f.candidate_pool > 0, "A13"),
 )
 
@@ -133,30 +136,67 @@ def _train_steps(model, params, batch, lr, n_steps, out):
 
 
 def _gate_ctx(fed, state, util_ema, local_losses, server_loss, pm, w,
-              delta_cos=None, round_idx=0):
+              delta_cos=None, round_idx=0, participation=None):
     """SelectionContext for one pod-scale round: eps_t of ``round_idx``,
     the bias-corrected utility EMA, backlog and inclusion EMA from the
-    state; no warm-up and full participation, as the reference's."""
+    state; no warm-up, as the reference's. ``participation`` is the
+    failure plan's availability (None: everyone present)."""
     return engine.SelectionContext(
         align_vals=local_losses, global_align=server_loss,
         eps=epsilon_at(fed, round_idx), priority_mask=pm, weights=w,
-        delta_cos=delta_cos, topk=fed.topk, sim_threshold=fed.sim_threshold,
+        participation=participation, delta_cos=delta_cos, topk=fed.topk,
+        sim_threshold=fed.sim_threshold,
         backlog=state.backlog,
         util_ema=engine.utility_estimate(fed, util_ema, round_idx),
         incl_ema=state.incl_ema, welfare_floor=fed.welfare_floor)
 
 
 def _next_state(fed, state, new_params, opt_state, sel_gates, eff_gates,
-                util_ema, ef_accum=None):
+                util_ema, inflight, last_delta, nonfinite_skips,
+                ef_accum=None):
     """Advance the cross-round carry with the engine's update rules: the
     backlog from the selection and the effective gates (they differ when
-    the cohort overflowed), the inclusion EMA from the effective ones."""
+    the cohort overflowed or a client was lost), the inclusion EMA from
+    the effective ones."""
     return state.replace(
         params=new_params, opt_state=opt_state,
         backlog=engine.backlog_update(state.backlog, sel_gates, eff_gates),
         util_ema=util_ema,
         incl_ema=engine.inclusion_update(fed, state.incl_ema, eff_gates),
+        inflight=inflight, last_delta=last_delta,
+        nonfinite_skips=nonfinite_skips,
         ef_accum=state.ef_accum if ef_accum is None else ef_accum)
+
+
+def _apply_delta(fed, state, params, agg_delta, mass, push_timer=None,
+                 finite=None):
+    """Apply the round's aggregate as the engine does: at the round barrier
+    (``engine.apply_if_mass``, skipped bit-exactly on a zero-mass or
+    guarded round) when ``fed.async_depth == 0``, else through the
+    in-flight buffer (``engine.async_apply``, the aggregate zeroed in
+    place first when the guard found it non-finite). Returns (new_params,
+    opt_state, inflight, last_delta, info or None)."""
+    if fed.async_depth > 0:
+        if finite is not None:
+            for d in tree_leaves(agg_delta):
+                d.masked_fill_(~finite, 0.0)
+        return engine.async_apply(fed, params, state.opt_state,
+                                  state.inflight, agg_delta,
+                                  last_delta=state.last_delta,
+                                  push_timer=push_timer)
+    new_params, opt_state = engine.apply_if_mass(
+        fed, params, state.opt_state, agg_delta, mass, finite=finite)
+    return new_params, opt_state, state.inflight, state.last_delta, None
+
+
+def _fault_plan(fed, state, round_idx, C, dev):
+    """(availability or None, lost mask or None, corruption transform or
+    None) of the round's failure plan and event clock."""
+    plan = engine.failure_plan(fed, round_idx, C, device=dev)
+    part = plan.available if plan is not None else None
+    ctf = (engine.corruption_transform(fed, plan.corrupt)
+           if plan is not None and plan.corrupt is not None else None)
+    return part, engine.lost_mask(fed, state, plan), ctf
 
 
 def _client(client_batch, c):
@@ -202,15 +242,28 @@ def _eval_pass(model, fed, state, batch):
     return server_loss, local_losses, util_ema
 
 
-def _round_stats(server_loss, local_losses, gates, new_state, pm, w):
+def _round_stats(fed, server_loss, local_losses, gates, new_state, pm, w,
+                 info, lost):
+    """The round's stats; the async keys only with a buffer, the fault keys
+    only where their feature is on (the reference's ``_async_stats`` and
+    ``_failure_stats``)."""
     npri = 1.0 - pm.float()
-    return {
+    stats = {
         "server_loss": server_loss,
         "local_losses": local_losses,
         "gates": gates,
         "backlog": new_state.backlog,
         "theta_round": 1.0 / (1.0 + torch.sum(npri * w * gates)),
     }
+    if fed.async_depth > 0:
+        stats["staleness"] = info["applied_age"]
+        stats["applied_valid"] = info["applied_valid"]
+        stats["inflight_occupancy"] = torch.sum(new_state.inflight["valid"])
+    if lost is not None:
+        stats["lost_clients"] = torch.sum(lost.float())
+    if fed.divergence_guard:
+        stats["skipped_nonfinite"] = new_state.nonfinite_skips
+    return stats
 
 
 def make_spatial_round(model, fed, num_clients: int, device="cuda"):
@@ -232,6 +285,7 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
              and bool(fed.error_feedback))
     strategy = engine.get_strategy(fed.selection)
     use_cohort = fed.max_cohort > 0 and not strategy.needs_deltas
+    clock_on = fed.latency_mode != "none"
 
     def round_step(state, batch, round_idx=0):
         round_idx = int(round_idx)
@@ -245,13 +299,17 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                                                          batch)
         akey = aggregator_key(fed, round_idx) if agg_needs_key else None
         ef_rows = state.ef_accum
+        # the fault plan: availability gates, lost clients' mass masked
+        # after training, corruption of the trained rows in place
+        part, lost, ctf = _fault_plan(fed, state, round_idx, C, dev)
 
         if use_cohort:
             # gates -> gather-train: only the K cohort rows train
             with torch.no_grad():
                 sel_gates = engine.compute_gates(
                     _gate_ctx(fed, state, util_ema, local_losses,
-                              server_loss, pm, w, round_idx=round_idx),
+                              server_loss, pm, w, round_idx=round_idx,
+                              participation=part),
                     fed.selection)
                 idx, agg_g, gates = engine.cohort_select(
                     sel_gates, local_losses, server_loss, pm,
@@ -259,6 +317,13 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                     backlog_boost=float(fed.backlog_boost))
             stacked = _train_stack(model, params, client_batch, idx.tolist(),
                                    lr, E)
+            with torch.no_grad():
+                if ctf is not None:
+                    stacked = ctf(stacked, params, idx)
+                if lost is not None:
+                    keep = 1.0 - lost.float()
+                    agg_g = agg_g * keep[idx]
+                    gates = gates * keep
             agg_w = w[idx]
             if ef_on:
                 ef_rows = tree_map(lambda a: a[idx], state.ef_accum)
@@ -267,6 +332,10 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
             stacked = _train_stack(model, params, client_batch, range(C), lr,
                                    E)
             with torch.no_grad():
+                if ctf is not None:
+                    # before the delta statistic, as the reference's
+                    stacked = ctf(stacked, params,
+                                  torch.arange(C, device=dev))
                 delta_cos = None
                 if strategy.needs_deltas:
                     deltas = tree_map(lambda ck, g: ck - g[None], stacked,
@@ -283,7 +352,10 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                 sel_gates = gates = engine.compute_gates(
                     _gate_ctx(fed, state, util_ema, local_losses,
                               server_loss, pm, w, delta_cos,
-                              round_idx=round_idx), fed.selection)
+                              round_idx=round_idx, participation=part),
+                    fed.selection)
+                if lost is not None:
+                    gates = gates * (1.0 - lost.float())
             agg_w, agg_g = w, gates
 
         with torch.no_grad():
@@ -299,15 +371,20 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                 agg_delta = engine.server_delta(fed, params, stacked, agg_w,
                                                 agg_g, key=akey)
             del stacked
-            new_params, opt_state = engine.apply_if_mass(
-                fed, params, state.opt_state, agg_delta,
-                inclusion_mass(fed, agg_w, agg_g))
+            finite = engine.aggregate_finite(fed, agg_delta, server_loss)
+            push_timer = (engine.slot_timer(fed, state.latency, gates)
+                          if clock_on and fed.async_depth > 0 else None)
+            new_params, opt_state, inflight, last_delta, info = _apply_delta(
+                fed, state, params, agg_delta,
+                inclusion_mass(fed, agg_w, agg_g), push_timer, finite)
             del agg_delta
             new_state = _next_state(fed, state, new_params, opt_state,
-                                    sel_gates, gates, util_ema,
+                                    sel_gates, gates, util_ema, inflight,
+                                    last_delta,
+                                    engine.skips_update(state, finite),
                                     ef_accum=ef_accum)
-        return new_state, _round_stats(server_loss, local_losses, gates,
-                                       new_state, pm, w)
+        return new_state, _round_stats(fed, server_loss, local_losses, gates,
+                                       new_state, pm, w, info, lost)
 
     return round_step
 
@@ -319,7 +396,8 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
     the reference's argument; the round reads C from the batch."""
     E = fed.local_epochs
     lr = fed.lr
-    if fed.failure_model in ("corrupt", "chaos") and fed.corrupt_rate > 0:
+    if (engine.resolve_failure_model(fed.failure_model) in ("corrupt", "chaos")
+            and fed.corrupt_rate > 0):
         raise ValueError(
             f"failure model {fed.failure_model!r} with corrupt_rate="
             f"{fed.corrupt_rate} poisons trained params in transit, but the "
@@ -344,6 +422,7 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
     # rows need every client's delta at once: gather [C, ...]
     robust_gather = resolve_aggregator(fed.aggregator) != "mean" or codec_on
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
+    clock_on = fed.latency_mode != "none"
 
     def sketches(params, client_batch, C, buf, round_idx):
         """grad_sim's pass 1: [C, sketch_dim], each client trained into
@@ -370,6 +449,7 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
         C = pm.shape[0]
         server_loss, local_losses, util_ema = _eval_pass(model, fed, state,
                                                          batch)
+        part, lost, _ = _fault_plan(fed, state, round_idx, C, dev)
         buf = None                          # the one streamed client copy
         delta_cos = None
         if strategy.needs_deltas:
@@ -378,9 +458,14 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
             with torch.no_grad():
                 delta_cos = engine.cosine_to_priority(flat, w, pm)
         with torch.no_grad():
-            gates = engine.compute_gates(
+            sel_gates = gates = engine.compute_gates(
                 _gate_ctx(fed, state, util_ema, local_losses, server_loss, pm,
-                          w, delta_cos, round_idx=round_idx), fed.selection)
+                          w, delta_cos, round_idx=round_idx,
+                          participation=part), fed.selection)
+            if lost is not None:
+                # a lost client's delta never reaches the sum: it skips its
+                # E steps, and keeps its selection gate for the backlog
+                gates = gates * (1.0 - lost.float())
         trains = (gates > 0).tolist()       # the host's one read a round
 
         ef_accum = None
@@ -425,13 +510,19 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
             agg_delta, mass = num, den
 
         with torch.no_grad():
-            new_params, opt_state = engine.apply_if_mass(
-                fed, params, state.opt_state, agg_delta, mass)
+            finite = engine.aggregate_finite(fed, agg_delta, server_loss)
+            push_timer = (engine.slot_timer(fed, state.latency, gates)
+                          if clock_on and fed.async_depth > 0 else None)
+            new_params, opt_state, inflight, last_delta, info = _apply_delta(
+                fed, state, params, agg_delta, mass, push_timer, finite)
             del agg_delta
-            new_state = _next_state(fed, state, new_params, opt_state, gates,
-                                    gates, util_ema, ef_accum=ef_accum)
-        return new_state, _round_stats(server_loss, local_losses, gates,
-                                       new_state, pm, w)
+            new_state = _next_state(fed, state, new_params, opt_state,
+                                    sel_gates, gates, util_ema, inflight,
+                                    last_delta,
+                                    engine.skips_update(state, finite),
+                                    ef_accum=ef_accum)
+        return new_state, _round_stats(fed, server_loss, local_losses, gates,
+                                       new_state, pm, w, info, lost)
 
     return round_step
 

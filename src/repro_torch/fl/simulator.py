@@ -5,10 +5,12 @@ Counterpart of ``repro/fl/simulator.py``. The reference scans chunks of
 loop of rounds, and the host reads the chunk's stats (one transfer per stat)
 and evaluates the test set at the same boundaries, so the eval cadence and
 the History contents are the reference's. The round key chain is the same:
-``rng, rkey = split(rng)`` once per round.
+``rng, rkey = split(rng)`` once per round. The divergence guard's halt is
+read at the same chunk boundaries, and ``drain_inflight`` flushes a
+``scan_async`` buffer after the last round, as in the reference.
 
-Checkpoint/resume to disk (``checkpoint_path``) and draining an async
-buffer (``drain_inflight``) belong to features not ported yet and raise.
+Checkpoint/resume to disk (``checkpoint_path``, ROADMAP A14) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch import prng
 from repro_torch.core.aggregation import check_client_weights, dp_report
 from repro_torch.core.metrics import History
 from repro_torch.data.synth import Federation
+from repro_torch.fl import engine
 from repro_torch.fl.engine import init_state, make_round_fn
 from repro_torch.utils import resolve_device, tree_map
 
@@ -79,15 +82,17 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
 
     ``init_params`` seeds a fresh FederationState (copied to ``device``);
     pass ``state``/``rng`` plus ``start_round`` to continue a run held in
-    memory. Returns the History, with ``params``, ``state`` and ``rng`` of
-    the last round attached."""
+    memory (its in-flight buffer is copied: the rounds move its slots in
+    place). Under the divergence guard with ``fed.max_nonfinite_skips > 0``
+    the run halts at the first chunk boundary whose rounds reached that
+    many consecutive skips, and ``hist.diverged_at`` names the round.
+    ``drain_inflight=True`` applies the still-buffered deltas after the
+    last round (``engine.drain_inflight``). Returns the History, with
+    ``params``, ``state`` and ``rng`` of the last round attached."""
     if checkpoint_path is not None:
         raise NotImplementedError(
-            "run_federation(checkpoint_path=...) is not ported yet")
-    if drain_inflight:
-        raise NotImplementedError(
-            "run_federation(drain_inflight=True) is not ported yet "
-            "(scan_async is not ported)")
+            "run_federation(checkpoint_path=...) is not ported yet "
+            "(ROADMAP A14)")
     dev = resolve_device(device)
     round_fn = make_round_fn(loss_fn, fed)
     data, pm, w = federation_tensors(federation, dev)
@@ -98,6 +103,8 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
         # private copy: the caller keeps ownership of what it passed in
         state = init_state(tree_map(lambda p: p.to(dev, copy=True), init_params),
                            fed, C)
+    elif isinstance(state.inflight, dict):
+        state = state.replace(inflight=tree_map(torch.clone, state.inflight))
     rng = prng.PRNGKey(fed.seed) if rng is None else torch.as_tensor(rng).cpu()
     hist = History()
 
@@ -105,6 +112,8 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
     # final round), absolute, so a continued run keeps the cadence
     bounds = sorted(b for b in set(range(0, fed.rounds, eval_every))
                     | {fed.rounds - 1} if b >= start_round)
+    halt_skips = (int(fed.max_nonfinite_skips)
+                  if fed.divergence_guard else 0)
     hist.diverged_at = None
     start = start_round
     for b in bounds:
@@ -128,11 +137,26 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
             else:
                 hist.log(s)
         start = b + 1
+        if halt_skips > 0:
+            # the guard already kept every non-finite aggregate off the
+            # params; past the skip budget the run stops, as the reference's
+            skips = stats_np["skipped_nonfinite"]
+            hit = np.flatnonzero(skips >= halt_skips)
+            if hit.size:
+                hist.diverged_at = int(b - n + 1 + hit[0])
+                print(f"run_federation: halting at round {hist.diverged_at} "
+                      f"— {int(skips[hit[0]])} consecutive non-finite "
+                      f"aggregates (>= max_nonfinite_skips={halt_skips}); "
+                      "params are the last finite ones")
+                break
+    if drain_inflight:
+        state = engine.drain_inflight(fed, state)
     hist.params = state.params
     hist.state = state
     hist.rng = rng
     # DP budget spent (None unless aggregator='dp' with noise): one Gaussian
-    # mechanism per executed round since round 0, via the RDP accountant
+    # mechanism per executed round since round 0 (a halted run's last
+    # chunk included), via the RDP accountant
     dp = dp_report(fed, start)
     hist.dp_epsilon, hist.dp_delta = dp if dp is not None else (None, None)
     return hist

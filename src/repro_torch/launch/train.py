@@ -72,11 +72,16 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
         misalign_max=1.0, log_every=1, seed=0, verbose=True, device="cuda",
         **fed_kw):
     """``fed_kw`` passes any further FedConfig knob straight through (the
-    aggregators, wire codecs, server optimizers, strategies and the
-    training cohort; knobs the port has not reached raise).
+    aggregators, wire codecs, server optimizers, strategies, the training
+    cohort, overlapped cohorts (``async_depth``, ``async_mode``, ...) and
+    the fault layer; knobs the port has not reached raise).
     Returns (params, history): the final global params, detached, and one
-    record per round with the reference's keys plus the round's ``gates``
-    and ``local_losses``."""
+    record per round with the reference's keys (``lost_clients`` and
+    ``skipped_nonfinite`` where their feature is on) plus the round's
+    ``gates`` and ``local_losses``. Under the divergence guard the run
+    halts once ``max_nonfinite_skips`` consecutive rounds were skipped
+    (when that is > 0). Like the reference's, it never drains an
+    in-flight buffer."""
     dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     model = get_model(cfg)
@@ -100,6 +105,7 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
               f"clients={clients} device={dev}")
     rng = np.random.default_rng(seed)
     history = []
+    halt_skips = int(fed.max_nonfinite_skips) if fed.divergence_guard else 0
     for r in range(rounds):
         batch = build_batches(cfg, fed_data, clients=clients,
                               per_client=per_client, seq=seq, rng=rng,
@@ -117,10 +123,20 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
                "sec": dt,
                "gates": gates.tolist(),
                "local_losses": stats["local_losses"].cpu().tolist()}
+        if "lost_clients" in stats:
+            rec["lost_clients"] = float(stats["lost_clients"])
+        if "skipped_nonfinite" in stats:
+            rec["skipped_nonfinite"] = int(stats["skipped_nonfinite"])
         history.append(rec)
         if verbose and r % log_every == 0:
             print(f"  round {r:3d} server_loss={rec['server_loss']:.4f} "
                   f"included_nonpri={rec['included']:.0f} ({dt:.2f}s)")
+        if halt_skips > 0 and rec.get("skipped_nonfinite", 0) >= halt_skips:
+            print(f"[train] halting at round {r}: "
+                  f"{rec['skipped_nonfinite']} consecutive non-finite "
+                  f"aggregates (>= max_nonfinite_skips={halt_skips}); "
+                  "params are the last finite ones")
+            break
     dp = dp_report(fed, len(history))
     if dp is not None and verbose:
         eps, delta = dp

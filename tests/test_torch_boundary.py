@@ -92,35 +92,41 @@ def test_default_device_entry_points_refuse_to_run_on_cpu():
         run_federation(loss_fn, params, fed, fedn)
 
 
-# (knob, value, ported): the knobs once outside the slice. The still
-# refused ones raise NotImplementedError naming the knob; the selection
-# knobs the port has since reached (ported=True) validate, build a round
-# and run it on the CPU
+# (knob, value, outcome): the knobs once outside the slice. The still
+# refused ones raise NotImplementedError naming the knob; the knobs the
+# port has since reached ("runs") validate, build a round and run it on
+# the CPU; set alone, async_depth (without the scan_async backend) and
+# round_deadline (without the event clock) raise the reference's
+# ValueError
 OUT_OF_SLICE = [
-    ("selection", "topk_align", True), ("selection", "grad_sim", True),
-    ("selection", "welfare", True), ("backend", "scan_async", False),
-    ("async_depth", 2, False), ("participation", 0.5, True),
-    ("max_cohort", 2, True), ("candidate_pool", 3, False),
-    ("server_opt", "momentum", True), ("server_opt", "adam", True),
-    ("server_opt", "yogi", True), ("failure_model", "crash", False),
-    ("failure_model", "chaos", False), ("latency_mode", "lognormal", False),
-    ("round_deadline", 2.0, False), ("divergence_guard", True, False),
-    ("agg_dtype", "float16", False),
+    ("selection", "topk_align", "runs"), ("selection", "grad_sim", "runs"),
+    ("selection", "welfare", "runs"), ("backend", "scan_async", "runs"),
+    ("async_depth", 2, ValueError), ("participation", 0.5, "runs"),
+    ("max_cohort", 2, "runs"), ("candidate_pool", 3, NotImplementedError),
+    ("server_opt", "momentum", "runs"), ("server_opt", "adam", "runs"),
+    ("server_opt", "yogi", "runs"), ("failure_model", "crash", "runs"),
+    ("failure_model", "chaos", "runs"), ("latency_mode", "lognormal", "runs"),
+    ("round_deadline", 2.0, ValueError), ("divergence_guard", True, "runs"),
+    ("agg_dtype", "float16", NotImplementedError),
 ]
 
 
-@pytest.mark.parametrize("knob,value,ported", OUT_OF_SLICE,
+@pytest.mark.parametrize("knob,value,outcome", OUT_OF_SLICE,
                          ids=[f"{k}={v}" for k, v, _ in OUT_OF_SLICE])
-def test_out_of_slice_knob_raises(knob, value, ported):
+def test_out_of_slice_knob_raises(knob, value, outcome):
     fed = FedConfig(num_clients=4, num_priority=2, rounds=1, local_epochs=1,
                     batch_size=8).replace(**{knob: value})
     fedn, init_fn, loss_fn = _tiny()
-    if ported:
+    if outcome == "runs":
         assert validate_config(fed) is fed
         hist = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
                               device="cpu")
         assert len(hist.gates) == 1 and np.isfinite(hist.global_loss[0])
         assert np.isfinite(hist.params["w"].numpy()).all()
+        return
+    if outcome is ValueError:
+        with pytest.raises(ValueError, match=knob):
+            engine.make_round_fn(loss_fn, fed)
         return
     with pytest.raises(NotImplementedError, match=knob if knob not in (
             "aggregator", "wire_codec", "server_opt") else "not ported"):
@@ -129,14 +135,24 @@ def test_out_of_slice_knob_raises(knob, value, ported):
         engine.make_round_fn(loss_fn, fed)
 
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_path="ckpt"),
-                                dict(drain_inflight=True)],
+# (driver option, whether it still raises): drain_inflight runs (a no-op
+# on a synchronous run); checkpoints (ROADMAP A14) are not ported
+@pytest.mark.parametrize("kw,raises", [(dict(checkpoint_path="ckpt"), True),
+                                       (dict(drain_inflight=True), False)],
                          ids=["checkpoint_path", "drain_inflight"])
-def test_out_of_slice_driver_options_raise(kw):
+def test_out_of_slice_driver_options_raise(kw, raises):
     fedn, init_fn, loss_fn = _tiny()
     fed = FedConfig(num_clients=4, num_priority=2, rounds=1, local_epochs=1,
                     batch_size=8)
-    with pytest.raises(NotImplementedError):
+    if not raises:
+        plain = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
+                               device="cpu")
+        hist = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
+                              device="cpu", **kw)
+        assert all(torch.equal(hist.params[k], plain.params[k])
+                   for k in plain.params)
+        return
+    with pytest.raises(NotImplementedError, match="A14"):
         run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn, device="cpu",
                        **kw)
 

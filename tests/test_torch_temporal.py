@@ -52,9 +52,10 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def jax_rounds(fed_kw, rounds=ROUNDS, arch="qwen1_5_0_5b"):
-    """The reference's temporal round, jitted, as tests/test_sharded.py
-    builds it (its smoke config and batches)."""
+def jax_rounds(fed_kw, rounds=ROUNDS, arch="qwen1_5_0_5b", fsdp=True):
+    """The reference's temporal round (``fsdp=False``: its spatial round),
+    jitted, as tests/test_sharded.py builds it (its smoke config and
+    batches)."""
     from repro.data.tokens import make_token_federation as jax_tokens
     from repro.fl import engine as jengine, sharded as jsharded
     from repro.launch.train import build_batches as jax_batches
@@ -63,7 +64,7 @@ def jax_rounds(fed_kw, rounds=ROUNDS, arch="qwen1_5_0_5b"):
     fed = JaxFedConfig(**BASE, **fed_kw)
     data = jax_tokens(seed=0, vocab=cfg.vocab_size, n_clients=C, n_priority=2,
                       seq_len=S, tokens_per_client=(S + 1) * 8)
-    step = jax.jit(jsharded.make_temporal_round(model, fed, C))
+    step = jax.jit(jsharded.make_round_step(model, fed, C, fsdp=fsdp))
     state = jengine.init_state(model.init(jax.random.PRNGKey(0)), fed, C)
     rng = np.random.default_rng(0)
     stats = []
@@ -210,14 +211,13 @@ def test_value_errors_of_the_reference():
         sharded.make_temporal_round(
             model, FedConfig(failure_model="corrupt", corrupt_rate=0.1), C,
             device="cpu")
-    # the spatial round scores exact cosines, and corruption stays refused
-    # there as a failure model (ROADMAP A12)
+    # the spatial round scores exact cosines, and corrupts the trained
+    # rows it holds (tests/test_torch_async_lm.py runs it)
     assert callable(sharded.make_round_step(
         model, FedConfig(selection="grad_sim"), C, fsdp=False, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        sharded.make_round_step(
-            model, FedConfig(failure_model="corrupt", corrupt_rate=0.1), C,
-            fsdp=False, device="cpu")
+    assert callable(sharded.make_round_step(
+        model, FedConfig(failure_model="corrupt", corrupt_rate=0.1), C,
+        fsdp=False, device="cpu"))
 
 
 def test_needs_fsdp_picks_jamba():

@@ -222,16 +222,17 @@ def test_train_main_runs_on_the_cpu_when_asked(capsys):
 
 # ------------------------------------------------------------ out of slice
 # (knobs, ROADMAP item): the knobs once outside the LM round. The ones
-# still refused raise naming their item; the selection knobs the port has
-# since reached (item None) build the round and train.run runs it
+# still refused raise naming their item; the knobs the port has since
+# reached (item None: selection, overlapped cohorts, the fault layer)
+# build the round and train.run runs it
 OUT_OF_SLICE = [
     (dict(max_cohort=2), None), (dict(server_opt="momentum"), None),
     (dict(server_opt="adam"), None), (dict(selection="grad_sim"), None),
     (dict(selection="topk_align"), None), (dict(selection="welfare"), None),
-    (dict(async_depth=2, backend="scan_async"), "A11"),
-    (dict(failure_model="crash", crash_rate=0.1), "A12"),
-    (dict(latency_mode="lognormal"), "A12"),
-    (dict(divergence_guard=True), "A12"), (dict(candidate_pool=3), "A13"),
+    (dict(async_depth=2, backend="scan_async"), None),
+    (dict(failure_model="crash", crash_rate=0.1), None),
+    (dict(latency_mode="lognormal"), None),
+    (dict(divergence_guard=True), None), (dict(candidate_pool=3), "A13"),
 ]
 
 
@@ -265,7 +266,7 @@ def test_fsdp_round_is_not_ported():
     assert callable(sharded.make_round_step(model, FedConfig(num_clients=4),
                                             4, fsdp=True, device="cpu"))
     refused = [(kw, item) for kw, item in OUT_OF_SLICE if item is not None]
-    assert {item for _, item in refused} == {"A11", "A12", "A13"}
+    assert {item for _, item in refused} == {"A13"}
     for kw, item in refused:
         fed = FedConfig(num_clients=4, num_priority=2, **kw)
         for fsdp in (True, False):
@@ -276,8 +277,9 @@ def test_fsdp_round_is_not_ported():
 
 def test_cli_parses_out_of_slice_knobs_and_run_refuses_them():
     """The parser takes every reference flag; the round refuses the knob."""
-    a = train.build_parser().parse_args(["--async-depth", "2", "--device",
+    a = train.build_parser().parse_args(["--candidate-pool", "3", "--device",
                                          "cpu", "--rounds", "1"])
-    assert isinstance(a, argparse.Namespace) and a.async_depth == 2
-    with pytest.raises(NotImplementedError, match="A11"):
-        train.main(["--async-depth", "2", "--device", "cpu", "--rounds", "1"])
+    assert isinstance(a, argparse.Namespace) and a.candidate_pool == 3
+    with pytest.raises(NotImplementedError, match="A13"):
+        train.main(["--candidate-pool", "3", "--device", "cpu", "--rounds",
+                    "1"])
