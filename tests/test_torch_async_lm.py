@@ -4,9 +4,10 @@ qwen1.5-0.5b of tests/test_torch_temporal.py (f32, 4 clients of which 2
 priority, 2 sequences of 32 tokens, E = 2, lr 0.05) on the batches
 ``launch.train.build_batches`` draws: the fifo pipe at depth 1 with
 crashes (and drop-outs), the variable-lag buffer under the event clock
-with a deadline and the guard, NaN corruption under the guard (spatial
-round only: the temporal round refuses it); and ``launch.train.run``'s
-halt against the reference's.
+with a deadline and the guard, NaN corruption under the guard with the
+fifo pipe (spatial round only: the temporal round refuses it); and
+``launch.train.run``'s halt (synchronous, NaN corruption) against the
+reference's.
 
 Tolerances: tests/test_torch_temporal.py's (gates, backlog and every
 buffer and fault stat exactly; losses 1e-5 relative; params, moments and
@@ -33,16 +34,14 @@ FAULT_STATS = ("staleness", "applied_valid", "inflight_occupancy",
 
 # name: (fsdp, rounds, knobs). eps 0.1 splits the non-priority clients
 CASES = {
-    "spatial_fifo_d1_crash": (False, 2, dict(
-        epsilon=0.1, async_depth=1, failure_model="crash", crash_rate=0.3)),
+    "spatial_fifo_d1_crash_nan_guard": (False, 2, dict(
+        epsilon=0.1, async_depth=1, failure_model="chaos", crash_rate=0.3,
+        corrupt_rate=0.3, divergence_guard=True)),
     "spatial_clock_deadline": (False, 3, dict(
         epsilon=0.1, async_depth=2, async_mode="ready",
         latency_mode="lognormal", round_deadline=2.0, failure_model="crash",
         crash_rate=0.25, divergence_guard=True, server_opt="momentum",
         server_lr=0.5)),
-    "spatial_nan_corrupt_guard": (False, 2, dict(
-        epsilon=0.1, failure_model="corrupt", corrupt_rate=0.3,
-        divergence_guard=True)),
     "temporal_fifo_d1_crash_dropout": (True, 2, dict(
         epsilon=0.1, async_depth=1, failure_model="chaos", crash_rate=0.3,
         dropout_rate=0.3, dropout_len=2)),
@@ -72,10 +71,10 @@ def test_lm_round_matches_reference(case):
                 np.testing.assert_array_equal(
                     tstate.inflight[k].numpy(),
                     np.asarray(jstate.inflight[k]), err_msg=k)
-    if case == "spatial_nan_corrupt_guard":
+    assert sum(float(s["lost_clients"]) for s in tstats) > 0
+    if kw.get("corrupt_rate"):
+        # a NaN aggregate was zeroed before it entered the buffer
         assert max(int(s["skipped_nonfinite"]) for s in tstats) > 0
-    elif "failure_model" in kw:
-        assert sum(float(s["lost_clients"]) for s in tstats) > 0
 
 
 def test_lost_temporal_client_skips_its_steps(monkeypatch):

@@ -180,6 +180,13 @@ GUARDED = {
                                trim_frac=0.2), True),
     "int8_ef_nan_chaos": (dict(NAN_CHAOS, wire_codec="int8",
                                error_feedback=True), False),
+    # a NaN aggregate is zeroed before it enters the in-flight buffer
+    "async_clock_chaos": (dict(backend="scan_async", async_depth=2,
+                               async_mode="ready", latency_mode="lognormal",
+                               round_deadline=2.0, failure_model="chaos",
+                               crash_rate=0.2, dropout_rate=0.2,
+                               dropout_len=2, corrupt_rate=0.1,
+                               divergence_guard=True), True),
 }
 
 
@@ -187,6 +194,9 @@ GUARDED = {
 def test_guarded_run_matches_reference(case, monkeypatch):
     knobs, skips_expected = GUARDED[case]
     cfg = dict(BASE, **knobs)
+    if cfg.get("latency_mode") == "lognormal":
+        assert_latency_margins(engine.init_latency(FedConfig(**cfg), 8),
+                               cfg["round_deadline"])
     hj, ht, jstats, tstats = recorded_runs(cfg, monkeypatch)
     _assert_history_parity(hj, ht, FED_KW["test_samples"])
     assert_stats_equal(jstats, tstats)
