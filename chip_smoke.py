@@ -3272,6 +3272,7 @@ def slice_h2(check: Check, expected: TrainExpected, fedn, b_row,
     before = fk.fedagg.launches
     if device != "cpu":
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()    # (h2)'s own peak
     t0 = time.perf_counter()
     with round_stats() as rec:
         h = run_federation(loss_fn, p0, fed, fedn, eval_every=1,
