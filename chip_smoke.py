@@ -115,7 +115,9 @@ if a check fails:
    crashes with NaN corruption on the temporal backend, dp,
    trimmed_mean and int8 + error feedback (discrete stats exactly; a
    NaN row included is skipped by the guard, NaN rows lost or gated out
-   leave the aggregate finite); (h2) cell (b) under the buffer, the
+   leave the aggregate finite; the int8 run's error-feedback rows held
+   to the CPU's every round, a NaN client's row kept bit for bit); (h2)
+   cell (b) under the buffer, the
    clock, crash and drop-out, then one guarded NaN round (params bit
    for bit); (h3) (f2)'s full-width round under the buffer, the clock,
    crashes and the guard (peak GB a round); (h4) the temporal round at
@@ -141,7 +143,7 @@ import re
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3104,6 +3106,92 @@ def round_stats():
         simulator.History = History
 
 
+@contextmanager
+def ef_rows():
+    """Record the error-feedback rows after every round of the
+    run_federation calls inside the block, copied to the host (one sync a
+    round): wraps the round that the simulator builds."""
+    from repro_torch.fl import simulator
+    from repro_torch.utils import tree_leaves
+    make = simulator.make_round_fn
+    rec = []
+
+    def recording(*args, **kw):
+        round_fn = make(*args, **kw)
+
+        def recorded(*a):
+            state, stats = round_fn(*a)
+            rec.append([t.detach().cpu().clone()
+                        for t in tree_leaves(state.ef_accum)])
+            return state, stats
+        return recorded
+
+    simulator.make_round_fn = recording
+    try:
+        yield rec
+    finally:
+        simulator.make_round_fn = make
+
+
+# the card's error-feedback rows against the CPU's, as a fraction of the
+# row's quantum; at most EF_MAX_FLIPS of the elements may take the other
+# int8 code
+EF_ROW_RTOL = 1e-2
+EF_MAX_FLIPS = 0.01
+
+
+def ef_rows_agree(fed, dev_rows, cpu_rows, stats, C):
+    """The error-feedback rows of the card's run against the CPU run's,
+    round by round. An element agrees within EF_ROW_RTOL of its row's
+    quantum (at least twice the row's largest residual), or is a flip of
+    its int8 code, where a last-bit difference of x / scale crossed a
+    rounding boundary: a residual r near +-q/2 becomes r -+ q, so the two
+    are opposite within the same bound. A flip moves the aggregate, so
+    the two runs go on from different params: the rows are compared up to
+    the first round with a flip. Every corrupted (NaN) client's row must
+    keep its previous value bit for bit, in both runs, every round.
+    Returns (problems, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import engine
+    problems, flips, total, worst, sent = [], 0, 0, 0.0, 0
+    prev_d = prev_c = None
+    compared = 0
+    for r, (dv, cv, st) in enumerate(zip(dev_rows, cpu_rows, stats)):
+        compared += int(flips == 0)
+        if not all(bool(torch.isfinite(t).all()) for t in dv):
+            problems.append(f"round {r}: non-finite rows")
+        for a, b in zip(dv, cv) if flips == 0 else ():
+            a = a.reshape(C, -1).double().numpy()
+            b = b.reshape(C, -1).double().numpy()
+            q = 2 * np.abs(b).max(axis=1, keepdims=True)
+            tol = EF_ROW_RTOL * q
+            same = np.abs(a - b) <= tol
+            flip = ~same & (np.abs(a + b) <= tol)
+            if not (same | flip).all():
+                problems.append(f"round {r}: rows off the CPU's")
+            flips += int(flip.sum())
+            total += a.size
+            ratio = np.abs(a - b) / np.maximum(q, 1e-30)
+            worst = max(worst, float(np.where(same, ratio, 0.0).max()))
+        prev_d = prev_d or [torch.zeros_like(t) for t in dv]
+        prev_c = prev_c or [torch.zeros_like(t) for t in cv]
+        bad = engine.failure_plan(fed, r, C).corrupt.numpy()
+        sent += int((bad & (np.asarray(st["gates"]) > 0)).sum())
+        for c in np.flatnonzero(bad):
+            for new, old in zip(dv + cv, prev_d + prev_c):
+                if not torch.equal(new[c], old[c]):
+                    problems.append(f"round {r}: NaN client {c}'s row moved")
+        prev_d, prev_c = dv, cv
+    if flips > EF_MAX_FLIPS * total:
+        problems.append(f"{flips} of {total} elements flipped")
+    if sent == 0:
+        problems.append("no NaN row was transmitted")
+    return problems, dict(ef_max_rel_to_quantum=worst, ef_flips=flips,
+                          ef_elements=total, ef_rounds_compared=compared,
+                          ef_nan_rows_sent=sent)
+
+
 def latency_margin(fed, C):
     """The completion times' least distance to an integer up to
     ceil(deadline) or to the deadline, where a ceiling or a comparison
@@ -3146,14 +3234,15 @@ def slice_h1(check: Check, expected: TrainExpected, device="cuda"):
     with an included corrupted client is skipped by the guard, every round
     whose corrupted clients were all lost or gated out is not (K1, K2, K3
     keep the aggregate finite), and the int8 run's error-feedback rows
-    stay finite. The latency margins of the clocked run are checked."""
+    agree with the CPU run's every round (``ef_rows_agree``), a NaN
+    client's row unmoved. The latency margins of the clocked run are
+    checked."""
     import numpy as np
     import torch
     from repro_torch.data.synth import make_synth_federation
     from repro_torch.fl.simulator import run_federation
     from repro_torch.kernels import fedagg as fk
     from repro_torch.models.small import SMALL_MODELS, make_loss_fn
-    from repro_torch.utils import tree_leaves
     loss_fn = make_loss_fn(SMALL_MODELS["synth_logreg"][1])
     small = make_synth_federation(seed=0, n_priority=4, n_nonpriority=4,
                                   samples_per_client=40, test_samples=200)
@@ -3169,12 +3258,14 @@ def slice_h1(check: Check, expected: TrainExpected, device="cuda"):
         if fed.latency_mode != "none":
             margin = latency_margin(fed, C)
             check(margin > LATENCY_MARGIN, f"{name}: latency margin {margin}")
-        with round_stats() as rec_cpu:
+        ef_on = fed.error_feedback and fed.wire_codec != "identity"
+        rows = ef_rows if ef_on else nullcontext
+        with round_stats() as rec_cpu, rows() as ef_cpu:
             cpu = run_federation(loss_fn, p0, fed, small, eval_every=2,
                                  drain_inflight=drain, device="cpu")
         before = fk.fedagg.launches
         t0 = time.perf_counter()
-        with round_stats() as rec_dev:
+        with round_stats() as rec_dev, rows() as ef_dev:
             dev = run_federation(loss_fn, p0, fed, small, eval_every=2,
                                  drain_inflight=drain, device=device)
         secs = time.perf_counter() - t0
@@ -3215,10 +3306,12 @@ def slice_h1(check: Check, expected: TrainExpected, device="cuda"):
             if fed.wire_codec != "int8":
                 masked_rounds += len(masked)
             row.update(nan_included_rounds=inc, nan_masked_rounds=masked)
-        if fed.error_feedback and fed.wire_codec != "identity":
-            check(all(bool(torch.isfinite(t).all())
-                      for t in tree_leaves(dev.state.ef_accum)),
-                  f"{name}: non-finite error-feedback rows")
+        if ef_on:
+            problems, summary = ef_rows_agree(fed, ef_dev, ef_cpu, rec_dev,
+                                              C)
+            check(not problems, f"{name}: error-feedback rows: "
+                  + "; ".join(problems[:5]))
+            row.update(summary)
         if drain:
             check(float(dev.state.inflight["valid"].sum()) == 0.0,
                   f"{name}: the buffer is not empty after the drain")

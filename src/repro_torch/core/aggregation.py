@@ -506,6 +506,9 @@ class _IdentityCodec:
 class _Int8Codec:
     """Symmetric per-row int8: q = round(x / scale) clipped to [-127, 127]
     (round half to even), scale = rowmax|x| / 127, 1.0 on an all-zero row.
+    A NaN element encodes to 0, as XLA's float-to-int convert defines it (a
+    C++ cast leaves it undefined), and a row with a NaN falls back to scale
+    1, so a corrupted row reaches the reducer as zeros in both packages.
     The rows are laid out with a 16-byte pitch for the kernel's loads."""
 
     @staticmethod
@@ -513,7 +516,8 @@ class _Int8Codec:
         amax = torch.amax(torch.abs(buf), dim=1)
         scale = torch.where(amax > 0, amax / 127.0, 1.0).float()
         q = pitched_empty(buf.shape[0], buf.shape[1], torch.int8, buf.device)
-        q.copy_(torch.clamp(torch.round(buf / scale[:, None]), -127.0, 127.0))
+        x = torch.nan_to_num(buf / scale[:, None], nan=0.0)
+        q.copy_(torch.clamp(torch.round(x), -127.0, 127.0))
         return q, dict(codec="int8", dequant_scale=scale)
 
     @staticmethod

@@ -106,7 +106,7 @@ class FederationState:
       leading [D] axis in ``fed.agg_dtype``, oldest at 0), ``valid`` ([D]
       f32, a prefix), ``age`` ([D] int32 rounds waited) and, under the
       event clock, ``timer`` ([D] int32 countdown, set at push by
-      ``slot_timer``). ``async_apply`` moves the delta slots in place.
+      ``slot_timer``). ``async_apply`` updates the buffer in place.
     * ``last_delta`` — [``fed.sketch_dim``] f32 CountSketch of the last
       delta that landed (``adaptive_staleness``), else ``()``.
     * ``latency`` — the event clock's ``{"compute", "net"}`` [C] f32
@@ -648,14 +648,16 @@ def async_apply(fed, global_params, opt_state, inflight, agg_delta,
 
     The [D] ready mask is read on the host once (the reference's per-slot
     ``lax.cond``): a slot that does not pop costs nothing, where a
-    ``torch.where`` per slot would run the optimizer D times. The delta
-    slots are updated in place: each survivor is copied to its new
-    position in ascending order (a survivor never moves up the ring, so
-    none is overwritten before it is read), and the fresh delta into its
-    slot, so no second [D, ...] buffer is made. The slots behind the
-    survivors keep stale bytes, as the reference's, and are never read.
+    ``torch.where`` per slot would run the optimizer D times. The buffer
+    is updated in place, every leaf of it, so the ``inflight`` passed in
+    is the new buffer: each surviving delta is copied to its new position
+    in ascending order (a survivor never moves up the ring, so none is
+    overwritten before it is read), the fresh delta into its slot, and
+    ``valid``, ``age`` and ``timer`` are overwritten; no second [D, ...]
+    buffer is made. The slots behind the survivors keep stale bytes, as
+    the reference's, and are never read.
 
-    Returns ``(new_params, new_opt_state, new_inflight, new_last_delta,
+    Returns ``(new_params, new_opt_state, inflight, new_last_delta,
     info)``, ``info = {"applied_valid": popped count (f32),
     "applied_age": oldest applied age (int32, 0 when none landed)}``."""
     valid = inflight["valid"] > 0
@@ -709,18 +711,17 @@ def async_apply(fed, global_params, opt_state, inflight, agg_delta,
     src_t = torch.tensor(src + [0] * (D - pos), dtype=torch.long, device=dev)
     survivor = idx < pos
     zero = torch.zeros_like(age)
-    new_inflight = {"delta": inflight["delta"],
-                    "valid": (idx <= pos).to(torch.float32),
-                    "age": torch.where(survivor, age[src_t], zero)}
-    if clocked:
-        new_inflight["timer"] = torch.where(
-            idx == pos, torch.as_tensor(push_timer, dtype=torch.int32,
-                                        device=dev),
-            torch.where(survivor, timer[src_t], zero))
     info = {"applied_valid": torch.tensor(float(k), dtype=torch.float32,
                                           device=dev),
             "applied_age": torch.max(torch.where(ready, age, zero))}
-    return new_params, new_opt, new_inflight, new_last, info
+    inflight["valid"].copy_(idx <= pos)
+    inflight["age"].copy_(torch.where(survivor, age[src_t], zero))
+    if clocked:
+        inflight["timer"].copy_(torch.where(
+            idx == pos, torch.as_tensor(push_timer, dtype=torch.int32,
+                                        device=dev),
+            torch.where(survivor, timer[src_t], zero)))
+    return new_params, new_opt, inflight, new_last, info
 
 
 def drain_inflight(fed, state: FederationState) -> FederationState:
@@ -943,6 +944,68 @@ def slot_timer(fed, latency, eff_gates):
 
 
 # ============================================================ local training
+def round_faults(fed, state, round_idx, num_clients, device,
+                 delta_transform=None):
+    """The round's fault prologue, shared by ``make_round_fn`` and both LM
+    rounds: ``(available, lost, transform)``. ``available`` is the plan's
+    [C] availability (None: everyone present), to fold into participation;
+    ``lost`` the [C] mask of crashed and deadline-late clients (None when
+    no client can be lost), whose mass the aggregation drops after
+    training; ``transform`` the corruption transform composed under
+    ``delta_transform`` (either alone when the other is None)."""
+    plan = failure_plan(fed, round_idx, num_clients, device=device)
+    available = plan.available if plan is not None else None
+    tf = delta_transform
+    if plan is not None and plan.corrupt is not None:
+        ctf = corruption_transform(fed, plan.corrupt)
+        if delta_transform is None:
+            tf = ctf
+        else:
+            def tf(cp, gp, idx, _user=delta_transform, _ctf=ctf):
+                return _user(_ctf(cp, gp, idx), gp, idx)
+    return available, lost_mask(fed, state, plan), tf
+
+
+def apply_aggregate(fed, state, params, agg_delta, mass, gates, finite=None):
+    """Step (6) of every round: at ``fed.async_depth == 0`` the server step
+    at the round barrier (``apply_if_mass``, skipped bit-exactly on a
+    zero-mass or guarded round); otherwise through the in-flight buffer
+    (``async_apply``): a non-finite aggregate is zeroed in place first, so
+    its slot lands as a no-op, and under the event clock the slot's
+    countdown comes from the effective ``gates`` (``slot_timer``).
+    Returns (new_params, opt_state, inflight, last_delta, info or None)."""
+    if fed.async_depth > 0:
+        if finite is not None:
+            for d in tree_leaves(agg_delta):
+                d.masked_fill_(~finite, 0.0)
+        push_timer = (slot_timer(fed, state.latency, gates)
+                      if fed.latency_mode != "none" else None)
+        return async_apply(fed, params, state.opt_state, state.inflight,
+                           agg_delta, last_delta=state.last_delta,
+                           push_timer=push_timer)
+    new_params, opt_state = apply_if_mass(fed, params, state.opt_state,
+                                          agg_delta, mass, finite=finite)
+    return new_params, opt_state, state.inflight, state.last_delta, None
+
+
+def add_fault_stats(fed, stats, new_state, info, lost):
+    """Add the buffer's and the fault layer's keys to a round's ``stats``,
+    each only where its feature is on (the reference's ``_async_stats``
+    and ``_failure_stats``): ``staleness`` (the oldest landed age, 0 when
+    none landed), ``applied_valid`` and ``inflight_occupancy`` with a
+    buffer, ``lost_clients`` when clients can be lost,
+    ``skipped_nonfinite`` under the guard."""
+    if fed.async_depth > 0:
+        stats["staleness"] = info["applied_age"]
+        stats["applied_valid"] = info["applied_valid"]
+        stats["inflight_occupancy"] = torch.sum(new_state.inflight["valid"])
+    if lost is not None:
+        stats["lost_clients"] = torch.sum(lost.float())
+    if fed.divergence_guard:
+        stats["skipped_nonfinite"] = new_state.nonfinite_skips
+    return stats
+
+
 def minibatch_order(fed, keys, n: int) -> torch.Tensor:
     """The local solver's minibatch indices for a batch of client keys:
     ``[K, 2]`` -> ``[K, E, steps, bs]`` int64, on the keys' device.
@@ -1066,13 +1129,11 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
     ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
              and bool(fed.error_feedback))
-    clock_on = fed.latency_mode != "none"
     eval_clients, train_clients = _BACKENDS[backend]
     gate_before_train = not get_strategy(fed.selection).needs_deltas
     solver = local_solver(loss_fn, fed)
     sched = make_schedule(fed)
     warmup_rounds = int(fed.warmup_frac * fed.rounds)
-    async_depth = int(fed.async_depth) if backend == "scan_async" else 0
 
     @torch.no_grad()
     def round_fn(state: FederationState, data, priority_mask, weights, rng,
@@ -1102,18 +1163,10 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
         # the fault plan: drop-outs fold into participation, crashed and
         # deadline-late clients lose their mass after training, corruption
         # rides the delta_transform seam
-        plan = failure_plan(fed, round_idx, C, device=dev)
-        if plan is not None and plan.available is not None:
-            part = part & plan.available
-        lost = lost_mask(fed, state, plan)
-        tf = delta_transform
-        if plan is not None and plan.corrupt is not None:
-            ctf = corruption_transform(fed, plan.corrupt)
-            if delta_transform is None:
-                tf = ctf
-            else:
-                def tf(cp, gp, idx, _user=delta_transform, _ctf=ctf):
-                    return _user(_ctf(cp, gp, idx), gp, idx)
+        available, lost, tf = round_faults(fed, state, round_idx, C, dev,
+                                           delta_transform)
+        if available is not None:
+            part = part & available
         keep = None if lost is None else 1.0 - lost.float()
         warm = round_idx < warmup_rounds
         rng, lkey = prng.split(rng)
@@ -1214,24 +1267,10 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
         # the divergence guard: a non-finite aggregate, or a non-finite
         # eval loss, never touches params or optimizer moments
         finite = aggregate_finite(fed, agg_delta, g_loss)
-        if async_depth > 0:
-            # (6) through the in-flight buffer; a non-finite aggregate is
-            # zeroed before it enters, so its slot lands as a no-op
-            if finite is not None:
-                for d in tree_leaves(agg_delta):
-                    d.masked_fill_(~finite, 0.0)
-            push_timer = (slot_timer(fed, state.latency, gates) if clock_on
-                          else None)
-            new_global, opt_state, inflight, last_delta, ainfo = async_apply(
-                fed, global_params, state.opt_state, state.inflight,
-                agg_delta, last_delta=state.last_delta,
-                push_timer=push_timer)
-        else:
-            # (6) the server step, skipped on a zero-mass or guarded round
-            new_global, opt_state = apply_if_mass(
-                fed, global_params, state.opt_state, agg_delta,
-                inclusion_mass(fed, agg_w, agg_g), finite=finite)
-            inflight, last_delta = state.inflight, state.last_delta
+        # (6) the server step, or the push through the in-flight buffer
+        new_global, opt_state, inflight, last_delta, ainfo = apply_aggregate(
+            fed, state, global_params, agg_delta,
+            inclusion_mass(fed, agg_w, agg_g), gates, finite)
         nonfinite_skips = skips_update(state, finite)
 
         # the backlog ledger and the inclusion EMA follow the effective
@@ -1259,15 +1298,6 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
             "included_nonpriority": torch.sum(npri * gates),
             "warmup": torch.tensor(int(warm), dtype=torch.int32),
         }
-        if async_depth > 0:
-            # the measured age of the oldest delta that landed (0 when none)
-            stats["staleness"] = ainfo["applied_age"]
-            stats["applied_valid"] = ainfo["applied_valid"]
-            stats["inflight_occupancy"] = torch.sum(inflight["valid"])
-        if lost is not None:
-            stats["lost_clients"] = torch.sum(lost.float())
-        if fed.divergence_guard:
-            stats["skipped_nonfinite"] = nonfinite_skips
-        return new_state, stats
+        return new_state, add_fault_stats(fed, stats, new_state, ainfo, lost)
 
     return round_fn

@@ -168,37 +168,6 @@ def _next_state(fed, state, new_params, opt_state, sel_gates, eff_gates,
         ef_accum=state.ef_accum if ef_accum is None else ef_accum)
 
 
-def _apply_delta(fed, state, params, agg_delta, mass, push_timer=None,
-                 finite=None):
-    """Apply the round's aggregate as the engine does: at the round barrier
-    (``engine.apply_if_mass``, skipped bit-exactly on a zero-mass or
-    guarded round) when ``fed.async_depth == 0``, else through the
-    in-flight buffer (``engine.async_apply``, the aggregate zeroed in
-    place first when the guard found it non-finite). Returns (new_params,
-    opt_state, inflight, last_delta, info or None)."""
-    if fed.async_depth > 0:
-        if finite is not None:
-            for d in tree_leaves(agg_delta):
-                d.masked_fill_(~finite, 0.0)
-        return engine.async_apply(fed, params, state.opt_state,
-                                  state.inflight, agg_delta,
-                                  last_delta=state.last_delta,
-                                  push_timer=push_timer)
-    new_params, opt_state = engine.apply_if_mass(
-        fed, params, state.opt_state, agg_delta, mass, finite=finite)
-    return new_params, opt_state, state.inflight, state.last_delta, None
-
-
-def _fault_plan(fed, state, round_idx, C, dev):
-    """(availability or None, lost mask or None, corruption transform or
-    None) of the round's failure plan and event clock."""
-    plan = engine.failure_plan(fed, round_idx, C, device=dev)
-    part = plan.available if plan is not None else None
-    ctf = (engine.corruption_transform(fed, plan.corrupt)
-           if plan is not None and plan.corrupt is not None else None)
-    return part, engine.lost_mask(fed, state, plan), ctf
-
-
 def _client(client_batch, c):
     return {k: v[c] for k, v in client_batch.items()}
 
@@ -244,9 +213,8 @@ def _eval_pass(model, fed, state, batch):
 
 def _round_stats(fed, server_loss, local_losses, gates, new_state, pm, w,
                  info, lost):
-    """The round's stats; the async keys only with a buffer, the fault keys
-    only where their feature is on (the reference's ``_async_stats`` and
-    ``_failure_stats``)."""
+    """The round's stats, with the buffer's and the fault layer's keys
+    where their feature is on (``engine.add_fault_stats``)."""
     npri = 1.0 - pm.float()
     stats = {
         "server_loss": server_loss,
@@ -255,15 +223,7 @@ def _round_stats(fed, server_loss, local_losses, gates, new_state, pm, w,
         "backlog": new_state.backlog,
         "theta_round": 1.0 / (1.0 + torch.sum(npri * w * gates)),
     }
-    if fed.async_depth > 0:
-        stats["staleness"] = info["applied_age"]
-        stats["applied_valid"] = info["applied_valid"]
-        stats["inflight_occupancy"] = torch.sum(new_state.inflight["valid"])
-    if lost is not None:
-        stats["lost_clients"] = torch.sum(lost.float())
-    if fed.divergence_guard:
-        stats["skipped_nonfinite"] = new_state.nonfinite_skips
-    return stats
+    return engine.add_fault_stats(fed, stats, new_state, info, lost)
 
 
 def make_spatial_round(model, fed, num_clients: int, device="cuda"):
@@ -285,7 +245,6 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
              and bool(fed.error_feedback))
     strategy = engine.get_strategy(fed.selection)
     use_cohort = fed.max_cohort > 0 and not strategy.needs_deltas
-    clock_on = fed.latency_mode != "none"
 
     def round_step(state, batch, round_idx=0):
         round_idx = int(round_idx)
@@ -301,7 +260,8 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
         ef_rows = state.ef_accum
         # the fault plan: availability gates, lost clients' mass masked
         # after training, corruption of the trained rows in place
-        part, lost, ctf = _fault_plan(fed, state, round_idx, C, dev)
+        part, lost, ctf = engine.round_faults(fed, state, round_idx, C,
+                                               dev)
 
         if use_cohort:
             # gates -> gather-train: only the K cohort rows train
@@ -372,11 +332,10 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                                                 agg_g, key=akey)
             del stacked
             finite = engine.aggregate_finite(fed, agg_delta, server_loss)
-            push_timer = (engine.slot_timer(fed, state.latency, gates)
-                          if clock_on and fed.async_depth > 0 else None)
-            new_params, opt_state, inflight, last_delta, info = _apply_delta(
-                fed, state, params, agg_delta,
-                inclusion_mass(fed, agg_w, agg_g), push_timer, finite)
+            new_params, opt_state, inflight, last_delta, info = (
+                engine.apply_aggregate(fed, state, params, agg_delta,
+                                       inclusion_mass(fed, agg_w, agg_g),
+                                       gates, finite))
             del agg_delta
             new_state = _next_state(fed, state, new_params, opt_state,
                                     sel_gates, gates, util_ema, inflight,
@@ -422,7 +381,6 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
     # rows need every client's delta at once: gather [C, ...]
     robust_gather = resolve_aggregator(fed.aggregator) != "mean" or codec_on
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
-    clock_on = fed.latency_mode != "none"
 
     def sketches(params, client_batch, C, buf, round_idx):
         """grad_sim's pass 1: [C, sketch_dim], each client trained into
@@ -449,7 +407,7 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
         C = pm.shape[0]
         server_loss, local_losses, util_ema = _eval_pass(model, fed, state,
                                                          batch)
-        part, lost, _ = _fault_plan(fed, state, round_idx, C, dev)
+        part, lost, _ = engine.round_faults(fed, state, round_idx, C, dev)
         buf = None                          # the one streamed client copy
         delta_cos = None
         if strategy.needs_deltas:
@@ -511,10 +469,9 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
 
         with torch.no_grad():
             finite = engine.aggregate_finite(fed, agg_delta, server_loss)
-            push_timer = (engine.slot_timer(fed, state.latency, gates)
-                          if clock_on and fed.async_depth > 0 else None)
-            new_params, opt_state, inflight, last_delta, info = _apply_delta(
-                fed, state, params, agg_delta, mass, push_timer, finite)
+            new_params, opt_state, inflight, last_delta, info = (
+                engine.apply_aggregate(fed, state, params, agg_delta, mass,
+                                       gates, finite))
             del agg_delta
             new_state = _next_state(fed, state, new_params, opt_state,
                                     sel_gates, gates, util_ema, inflight,

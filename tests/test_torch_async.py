@@ -233,6 +233,9 @@ def test_async_apply_on_hand_built_buffers(case):
         if k in jbuf:
             np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jbuf[k]),
                                           err_msg=k)
+    # the buffer is updated in place, every leaf: the one passed in is
+    # the new one
+    assert all(tb[k] is tbuf[k] for k in tbuf) and sorted(tb) == sorted(tbuf)
     n = int(np.asarray(jbuf["valid"]).sum())
     for got, want in zip(tree_leaves(tb["delta"]),
                          jax.tree.leaves(jbuf["delta"])):

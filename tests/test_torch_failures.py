@@ -1,7 +1,8 @@
 """The fault layer of the port against the JAX package on the CPU: each
 failure model's plans, the event clock (latency draws, lost masks, slot
 timers), the divergence guard and its skip counter, ``run_federation``'s
-halt, and the reference's ``ValueError``s for bad fault and buffer knobs.
+halt, the ``delta_transform`` seam composed with corruption, and the
+reference's ``ValueError``s for bad fault and buffer knobs.
 Runs on the shortened quickstart of tests/test_torch_round.py (C = 8, E =
 2, 6 rounds).
 
@@ -10,7 +11,10 @@ rounds exactly; the latency draws within 1e-5 relative (the port's
 ``prng.normal`` sits a few ulp off jax's on a few draws), every completion
 time checked to lie farther than LATENCY_MARGIN from each integer up to
 ceil(deadline) and from the deadline, where a ceiling or a comparison
-would flip; runs at tests/test_torch_round.py's tolerances."""
+would flip; runs at tests/test_torch_round.py's tolerances; error-feedback
+rows within 1e-3 of their row's quantum, or a flip of the int8 code on at
+most 1% of the elements (``assert_ef_rows_match``), a corrupted client's
+row kept bit for bit."""
 import math
 
 import jax
@@ -205,14 +209,144 @@ def test_guarded_run_matches_reference(case, monkeypatch):
     if case == "skip_counter_resets":
         # a finite round after a skip resets the count
         assert any(a > 0 and b == 0 for a, b in zip(skips, skips[1:])), skips
-    # the error-feedback rows: finite, and within one quantum (twice the
-    # largest residual, half a quantum) of the reference's, where a
-    # last-bit difference of x / scale crossed a rounding boundary
-    for got, want in zip(tree_leaves(ht.state.ef_accum),
-                         jax.tree.leaves(hj.state.ef_accum)):
-        assert bool(torch.isfinite(got).all())
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                                   atol=2 * float(np.abs(want).max()))
+    assert_ef_rows_match(tree_leaves(ht.state.ef_accum),
+                         jax.tree.leaves(hj.state.ef_accum))
+
+
+# the error-feedback rows' bound, as a fraction of the row's quantum
+EF_ROW_RTOL = 1e-3
+EF_MAX_FLIPS = 0.01
+
+
+def assert_ef_rows_match(got_leaves, want_leaves):
+    """Error-feedback rows [C, ...] element by element: each within
+    EF_ROW_RTOL of the row's quantum (at least twice its largest residual,
+    a residual being at most half a quantum) of the reference's, or a
+    one-quantum flip of its int8 code, where a last-bit difference of
+    x / scale crossed a rounding boundary. A flip turns a residual r near
+    +-q/2 into r -+ q, so the two values are opposite within the same
+    bound; at most EF_MAX_FLIPS of the elements may flip."""
+    flips = total = 0
+    for got, want in zip(got_leaves, want_leaves):
+        a = got.numpy().reshape(got.shape[0], -1).astype(np.float64)
+        b = np.asarray(want).reshape(a.shape).astype(np.float64)
+        assert np.isfinite(a).all()
+        tol = EF_ROW_RTOL * 2 * np.abs(b).max(axis=1, keepdims=True)
+        same = np.abs(a - b) <= tol
+        flip = ~same & (np.abs(a + b) <= tol)
+        assert (same | flip).all(), np.argwhere(~(same | flip))[:5]
+        flips += int(flip.sum())
+        total += a.size
+    assert flips <= EF_MAX_FLIPS * total, (flips, total)
+
+
+def stepped_rounds(cfg, jax_transform=None, port_transform=None):
+    """Both packages' make_round_fn stepped round by round from the same
+    init and key chain (the simulators' split per round), with an optional
+    delta_transform each: yields (round, jax state, jax stats, port state,
+    port stats) after every round."""
+    from repro.models.small import SMALL_MODELS as JAX_MODELS
+    from repro.models.small import make_loss_fn as jax_loss_fn
+    from test_torch_round import jax_synth
+    jfed, fed = JaxFedConfig(**cfg), FedConfig(**cfg)
+    p0 = _init("synth_logreg")
+    jfedn = jax_synth(**FED_KW)
+    jround = jax.jit(jengine.make_round_fn(
+        jax_loss_fn(JAX_MODELS["synth_logreg"][1]), jfed,
+        delta_transform=jax_transform))
+    jstate = jengine.init_state(p0, jfed, 8)
+    jargs = ({"x": jnp.asarray(jfedn.x), "y": jnp.asarray(jfedn.y)},
+             jnp.asarray(jfedn.priority_mask), jnp.asarray(jfedn.weights))
+    tround = engine.make_round_fn(
+        make_loss_fn(SMALL_MODELS["synth_logreg"][1]), fed,
+        delta_transform=port_transform)
+    tstate = engine.init_state(
+        params_from_jax(jax.tree.map(np.asarray, p0), "cpu"), fed, 8)
+    targs = federation_tensors(make_synth_federation(**FED_KW), "cpu")
+    jrng, trng = jax.random.PRNGKey(fed.seed), prng.PRNGKey(fed.seed)
+    for r in range(fed.rounds):
+        jrng, jkey = jax.random.split(jrng)
+        trng, tkey = prng.split(trng)
+        jstate, jstats = jround(jstate, *jargs, jkey, r)
+        tstate, tstats = tround(tstate, *targs, tkey, r)
+        np.testing.assert_array_equal(tstats["gates"].numpy(),
+                                      np.asarray(jstats["gates"]))
+        yield r, jstate, jstats, tstate, tstats
+
+
+def test_int8_error_feedback_rows_step_with_reference():
+    """int8 + error feedback under NaN chaos, stepped round by round in
+    both packages: after every round the rows match the reference's
+    (assert_ef_rows_match), and every corrupted (NaN) client's row keeps
+    its last finite residual bit for bit, in the port as in the
+    reference, whether or not the client transmitted (some do)."""
+    cfg = dict(BASE, **GUARDED["int8_ef_nan_chaos"][0])
+    fed = FedConfig(**cfg)
+    told = jold = None                      # init_state's rows are zeros
+    sent_nan = 0
+    for r, jstate, jstats, tstate, tstats in stepped_rounds(cfg):
+        assert int(tstats["skipped_nonfinite"]) == 0
+        tnew = [t.clone() for t in tree_leaves(tstate.ef_accum)]
+        jnew = [np.asarray(t) for t in jax.tree.leaves(jstate.ef_accum)]
+        assert_ef_rows_match(tnew, jnew)
+        told = told or [torch.zeros_like(t) for t in tnew]
+        jold = jold or [np.zeros_like(t) for t in jnew]
+        bad = engine.failure_plan(fed, r, 8).corrupt.numpy()
+        sent_nan += int((bad & (tstats["gates"].numpy() > 0)).sum())
+        for c in np.flatnonzero(bad):
+            for new, old in zip(tnew, told):
+                assert torch.equal(new[c], old[c]), (r, c)
+            for new, old in zip(jnew, jold):
+                np.testing.assert_array_equal(new[c], old[c])
+        told, jold = tnew, jnew
+    assert sent_nan > 0
+
+
+def _attack(where):
+    """An attacker for the delta_transform seam: clients 1 and 5, by
+    identity, send -3 times their delta plus 0.01 (not a pure scaling, so
+    the order of composition with a scaled corruption shows)."""
+    def transform(cp, gp, idx):
+        bad = (idx == 1) | (idx == 5)
+        out = {}
+        for k in cp:
+            b = bad.reshape((-1,) + (1,) * (cp[k].ndim - 1))
+            out[k] = where(b, gp[k][None] - 3.0 * (cp[k] - gp[k][None])
+                           + 0.01, cp[k])
+        return out
+    return transform
+
+
+@pytest.mark.parametrize("max_cohort", [0, 3])
+def test_delta_transform_composes_with_corruption(max_cohort):
+    """A user delta_transform composed over scaled corruption, on the dense
+    round and on a cohort round (rows in cohort space, the transform
+    targeting client identities), stepped round by round against the
+    reference's make_round_fn: gates exactly, params within
+    tests/test_torch_round.py's 1e-4 max|p| every round. An attacker is
+    included in some round, so the transform moves the result."""
+    cfg = dict(BASE, failure_model="corrupt", corrupt_rate=0.3,
+               corrupt_scale=4.0, max_cohort=max_cohort)
+    calls = {"jax": 0, "port": 0}
+
+    def counted(name, fn):
+        def transform(cp, gp, idx):
+            calls[name] += 1
+            return fn(cp, gp, idx)
+        return transform
+
+    attacked = 0
+    for r, jstate, jstats, tstate, tstats in stepped_rounds(
+            cfg, counted("jax", _attack(jnp.where)),
+            counted("port", _attack(torch.where))):
+        attacked += int(tstats["gates"][1] > 0) + int(tstats["gates"][5] > 0)
+        for k, want in jstate.params.items():
+            want = np.asarray(want)
+            np.testing.assert_allclose(
+                tstate.params[k].numpy(), want, rtol=0,
+                atol=1e-4 * np.abs(want).max(), err_msg=f"{k} round {r}")
+    assert calls["port"] == cfg["rounds"] and calls["jax"] >= 1
+    assert attacked > 0
 
 
 def test_run_federation_halt_matches_reference(monkeypatch):
