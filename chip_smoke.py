@@ -122,11 +122,25 @@ if a check fails:
    for bit); (h3) (f2)'s full-width round under the buffer, the clock,
    crashes and the guard (peak GB a round); (h4) the temporal round at
    smoke size, fifo D = 1 with crash and drop-out, against the CPU.
+15. slice (i): candidate pools and checkpoints. (i1) tests/test_pool.py's
+   federation (3 + 9 clients, a pool of 6) on the card against the CPU
+   under six configs (each weighting, a cohort under momentum on the
+   temporal backend, welfare with participation, the async buffer with
+   the clock and chaos drawn per identity, dp with crashes, median +
+   int8 + error feedback): pools, gates, lost clients and backlog
+   exactly, every round's top-P margin checked, out-of-pool rows bit for
+   bit; (i2) cell (b) with a pool of 20 of 60 under backlog weighting;
+   (i3) population scale, a pool of 20 at C = 1,000 and C = 10,000
+   beside the dense quickstart and a dense round at C = 1,000; (i4)
+   (f2)'s round with a pool of 8 of 16 clients, and the temporal round
+   with a pool at smoke size against the CPU; (i5) checkpoint and resume
+   on the card (bit for bit), files crossing between the CPU and the
+   card, the fingerprint's errors, and cell (b)'s state saved and loaded.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slice (h) are each counted from zero just
-before their slices and must equal what the slices' rounds, forwards,
+K8, K9, fedagg) and those of slices (h) and (i) are each counted from
+zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
 
@@ -2651,9 +2665,10 @@ F3_ROUNDS = 3
 def lm_round_records():
     """Record, for each LM round ``launch.train.run`` makes, the client
     rows the aggregation receives, and after it the backlog, adam's step
-    count and whether the round had inclusion mass."""
+    count (where the server optimizer has one), whether the round had
+    inclusion mass and a pool round's pool."""
     from repro_torch.fl import engine, sharded
-    rec = {"rows": [], "backlog": [], "t": [], "mass": []}
+    rec = {"rows": [], "backlog": [], "t": [], "mass": [], "pool_idx": []}
     make, delta = sharded.make_round_step, engine.server_delta
 
     def recording_delta(fed, gp, cp, w, g, **k):
@@ -2667,7 +2682,10 @@ def lm_round_records():
         def recording_step(state, batch, round_idx=0):
             new, stats = step(state, batch, round_idx)
             rec["backlog"].append(new.backlog.cpu().tolist())
-            rec["t"].append(int(new.opt_state["t"]))
+            if isinstance(new.opt_state, dict) and "t" in new.opt_state:
+                rec["t"].append(int(new.opt_state["t"]))
+            if "pool_idx" in stats:
+                rec["pool_idx"].append(stats["pool_idx"].cpu().tolist())
             return new, stats
         return recording_step
 
@@ -3140,7 +3158,7 @@ EF_ROW_RTOL = 1e-2
 EF_MAX_FLIPS = 0.01
 
 
-def ef_rows_agree(fed, dev_rows, cpu_rows, stats, C):
+def ef_rows_agree(fed, dev_rows, cpu_rows, stats, C, corrupt=True):
     """The error-feedback rows of the card's run against the CPU run's,
     round by round. An element agrees within EF_ROW_RTOL of its row's
     quantum (at least twice the row's largest residual), or is a flip of
@@ -3149,7 +3167,8 @@ def ef_rows_agree(fed, dev_rows, cpu_rows, stats, C):
     are opposite within the same bound. A flip moves the aggregate, so
     the two runs go on from different params: the rows are compared up to
     the first round with a flip. Every corrupted (NaN) client's row must
-    keep its previous value bit for bit, in both runs, every round.
+    keep its previous value bit for bit, in both runs, every round (with
+    ``corrupt``: a run with no corruption fault skips that part).
     Returns (problems, summary)."""
     import numpy as np
     import torch
@@ -3174,6 +3193,8 @@ def ef_rows_agree(fed, dev_rows, cpu_rows, stats, C):
             total += a.size
             ratio = np.abs(a - b) / np.maximum(q, 1e-30)
             worst = max(worst, float(np.where(same, ratio, 0.0).max()))
+        if not corrupt:
+            continue
         prev_d = prev_d or [torch.zeros_like(t) for t in dv]
         prev_c = prev_c or [torch.zeros_like(t) for t in cv]
         bad = engine.failure_plan(fed, r, C).corrupt.numpy()
@@ -3185,7 +3206,7 @@ def ef_rows_agree(fed, dev_rows, cpu_rows, stats, C):
         prev_d, prev_c = dv, cv
     if flips > EF_MAX_FLIPS * total:
         problems.append(f"{flips} of {total} elements flipped")
-    if sent == 0:
+    if corrupt and sent == 0:
         problems.append("no NaN row was transmitted")
     return problems, dict(ef_max_rel_to_quantum=worst, ef_flips=flips,
                           ef_elements=total, ef_rounds_compared=compared,
@@ -3554,6 +3575,662 @@ def slice_h4(check: Check, expected: TrainExpected, device="cuda"):
     return row
 
 
+# ------------------------------------------------------------- slice (i)
+# (i1): tests/test_pool.py's federation (SYNTH seed 11, 3 priority + 9
+# non-priority clients, 64 samples) and its knobs, P = 6
+POOL_FEDN = dict(seed=11, n_priority=3, n_nonpriority=9, samples_per_client=64)
+POOL_BASE = dict(num_clients=12, num_priority=3, rounds=6, local_epochs=1,
+                 epsilon=0.5, warmup_frac=0.0, align_stat="loss",
+                 candidate_pool=6)
+I1_RUNS = [
+    ("uniform_vmap_spatial", dict()),
+    ("backlog_cohort4_momentum_scan_temporal", dict(
+        pool_weighting="backlog", max_cohort=4, epsilon=1.0,
+        backlog_boost=0.1, server_opt="momentum", server_lr=0.5,
+        backend="scan_temporal")),
+    ("ema_welfare_participation", dict(
+        pool_weighting="ema", selection="welfare", welfare_floor=0.3,
+        participation=0.5)),
+    ("async_ready_clock_chaos", dict(
+        backend="scan_async", async_depth=2, async_mode="ready",
+        latency_mode="lognormal", round_deadline=2.0, failure_model="chaos",
+        crash_rate=0.2, dropout_rate=0.2, dropout_len=2, corrupt_rate=0.2,
+        corrupt_scale=3.0)),
+    ("dp_crash", dict(aggregator="dp", dp_clip=0.5, dp_noise=0.1,
+                      failure_model="crash", crash_rate=0.3)),
+    ("median_int8_ef", dict(aggregator="median", wire_codec="int8",
+                            error_feedback=True)),
+]
+# the stats a pool round adds or scatters, held exactly against the CPU
+I_DISCRETE = ("pool_idx",) + H_DISCRETE
+POOL_MARGIN = 1e-4
+PER_CLIENT = ("backlog", "util_ema", "incl_ema", "ef_accum")
+
+
+@contextmanager
+def pool_rounds():
+    """Record every pool round of the run_federation calls inside the
+    block: its key, its pool, the backlog and inclusion EMA it started
+    from and the error-feedback rows it ended with (on the host), and
+    every (round, leaf) whose out-of-pool rows moved (``moved``: the
+    per-client leaves are compared on their device, bit for bit)."""
+    import torch
+    from repro_torch.fl import simulator
+    from repro_torch.utils import tree_leaves
+    make = simulator.make_round_fn
+    rec = {"rounds": [], "moved": []}
+
+    def recording(*args, **kw):
+        round_fn = make(*args, **kw)
+
+        def recorded(state, data, pm, w, rng, r):
+            before = {n: [t.clone() for t in tree_leaves(getattr(state, n))]
+                      for n in PER_CLIENT}
+            state, stats = round_fn(state, data, pm, w, rng, r)
+            idx = stats["pool_idx"]
+            out = torch.ones(pm.shape[0], dtype=torch.bool, device=idx.device)
+            out[idx] = False
+            for n in PER_CLIENT:
+                for a, b in zip(tree_leaves(getattr(state, n)), before[n]):
+                    if not torch.equal(a[out], b[out]):
+                        rec["moved"].append((int(r), n))
+            rec["rounds"].append(dict(
+                key=torch.as_tensor(rng).cpu(), pool_idx=idx.cpu(),
+                backlog=before["backlog"][0].cpu(),
+                incl_ema=before["incl_ema"][0].cpu(),
+                ef=[t.detach().cpu().clone()
+                    for t in tree_leaves(state.ef_accum)]))
+            return state, stats
+        return recorded
+
+    simulator.make_round_fn = recording
+    try:
+        yield rec
+    finally:
+        simulator.make_round_fn = make
+
+
+def pool_margin(fed, key, pm, backlog, incl_ema):
+    """The gap between the P-th and (P+1)-th largest finite pool scores of
+    a round with round key ``key`` (the pool key is split off it first),
+    recomputed on the host as ``engine.pool_select`` scores them."""
+    import torch
+    from repro_torch import prng
+    g = prng.gumbel(prng.split(key)[1], (pm.shape[0],))
+    if fed.pool_weighting == "backlog":
+        g = g + torch.log1p(backlog.float())
+    elif fed.pool_weighting == "ema":
+        g = g + torch.log(torch.clamp(1.0 + 1e-6 - incl_ema.float(),
+                                      min=1e-6))
+    pm = torch.as_tensor(pm).cpu().bool()
+    finite = torch.sort(g[~pm], descending=True).values
+    k = int(fed.candidate_pool) - int(pm.sum())
+    return float(finite[k - 1] - finite[k])
+
+
+@contextmanager
+def fedagg_rows():
+    """The client rows of every fedagg call inside the block."""
+    from repro_torch.kernels import ops
+    call, rows = ops.fedagg, []
+
+    def recording(updates, *a, **k):
+        rows.append(int(updates.shape[0]))
+        return call(updates, *a, **k)
+
+    ops.fedagg = recording
+    try:
+        yield rows
+    finally:
+        ops.fedagg = call
+
+
+def pool_params0():
+    import torch
+    gen = torch.Generator().manual_seed(42)
+    return {"b": 0.05 * torch.randn(10, generator=gen),
+            "w": 0.05 * torch.randn(60, 10, generator=gen)}
+
+
+def pool_run(fed, fedn, device, **kw):
+    """run_federation of ``synth_logreg`` from ``pool_params0``, every
+    round's stats and pool recorded: (history, stats, pool rounds)."""
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    loss_fn = make_loss_fn(SMALL_MODELS["synth_logreg"][1])
+    with round_stats() as stats, pool_rounds() as pools:
+        h = run_federation(loss_fn, pool_params0(), fed, fedn, device=device,
+                           **kw)
+    return h, stats, pools
+
+
+def slice_i1(check: Check, expected: TrainExpected, device="cuda"):
+    """Candidate pools on the card against the CPU, on tests/test_pool.py's
+    federation and P = 6 under each of I1_RUNS (6 rounds): the pool, the
+    gates, the lost clients, the backlog and every other buffer or fault
+    stat exactly, after checking that in every round the P-th and
+    (P+1)-th largest finite pool scores differ by more than POOL_MARGIN;
+    global loss within rtol 1e-5 and params within 1e-4 max|p| of the CPU
+    run (not for int8: a one-quantum flip of its wire moves them), the
+    int8 run's error-feedback rows as (h1) holds them; every out-of-pool
+    row of backlog, util_ema, incl_ema and ef_accum bit-identical across
+    each round, on the card and on the CPU; one fedagg launch a round."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synth import make_synth_federation
+    from repro_torch.kernels import fedagg as fk
+    fedn = make_synth_federation(**POOL_FEDN)
+    pm = torch.from_numpy(np.asarray(fedn.priority_mask, bool))
+    C = pm.shape[0]
+    out = {}
+    before_v = dict(fk.fedagg.variant_launches)
+    for label, knobs in I1_RUNS:
+        name = f"slice (i1) {label}"
+        fed = FedConfig(**dict(POOL_BASE, **knobs))
+        if fed.latency_mode != "none":
+            margin = latency_margin(fed, C)
+            check(margin > LATENCY_MARGIN, f"{name}: latency margin {margin}")
+        cpu, rec_cpu, pools_cpu = pool_run(fed, fedn, "cpu", eval_every=2)
+        before = fk.fedagg.launches
+        t0 = time.perf_counter()
+        dev, rec_dev, pools_dev = pool_run(fed, fedn, device, eval_every=2)
+        secs = time.perf_counter() - t0
+        launches = fk.fedagg.launches - before
+        margins = [pool_margin(fed, p["key"], pm, p["backlog"], p["incl_ema"])
+                   for p in pools_cpu["rounds"]]
+        check(min(margins) > POOL_MARGIN, f"{name}: pool margin "
+              f"{min(margins)}")
+        same = len(rec_dev) == len(rec_cpu) == fed.rounds and all(
+            sorted(a) == sorted(b) and all(
+                np.array_equal(a[k], b[k]) for k in I_DISCRETE if k in b)
+            for a, b in zip(rec_dev, rec_cpu))
+        check(same, f"{name}: discrete stats differ from the CPU run")
+        check(all(set(range(3)) <= set(st["pool_idx"].tolist())
+                  for st in rec_dev), f"{name}: a priority client out of "
+              "the pool")
+        check(not pools_dev["moved"] and not pools_cpu["moved"],
+              f"{name}: out-of-pool rows moved: {pools_dev['moved'][:4]} "
+              f"{pools_cpu['moved'][:4]}")
+        loss_rel = float(np.max(np.abs(np.array(dev.global_loss)
+                                       / np.array(cpu.global_loss) - 1.0)))
+        rel = max(float((dev.params[k].cpu() - cpu.params[k]).abs().max()
+                        / cpu.params[k].abs().max()) for k in cpu.params)
+        if fed.wire_codec != "int8":
+            check(loss_rel <= 1e-5, f"{name}: global loss off the CPU run "
+                  f"by rtol {loss_rel}")
+            check(rel <= 1e-4, f"{name}: params off the CPU run by {rel} x "
+                  "max|p|")
+        check(all(bool(torch.isfinite(v).all()) for v in dev.params.values()),
+              f"{name}: non-finite params")
+        if device != "cpu":
+            check(launches == fed.rounds, f"{name}: {launches} fedagg "
+                  f"launches in {fed.rounds} rounds")
+        expected["fedagg"] += fed.rounds
+        row = dict(seconds=secs, launches=launches, min_pool_margin=min(margins),
+                   global_loss_rtol_vs_cpu=loss_rel,
+                   params_rel_err_vs_cpu=rel, included=dev.included,
+                   pool_idx=[st["pool_idx"].tolist() for st in rec_dev])
+        if "lost_clients" in rec_dev[0]:
+            row["lost_clients"] = [float(st["lost_clients"]) for st in rec_dev]
+        if fed.wire_codec == "int8":
+            problems, summary = ef_rows_agree(
+                fed, [p["ef"] for p in pools_dev["rounds"]],
+                [p["ef"] for p in pools_cpu["rounds"]], rec_dev, C,
+                corrupt=False)
+            check(not problems, f"{name}: error-feedback rows: "
+                  + "; ".join(problems[:5]))
+            row.update(summary)
+        out[label] = row
+        print(f"{name}:", json.dumps(row), flush=True)
+    variants = {f"{k[0]}/{k[1]}": v - before_v.get(k, 0)
+                for k, v in sorted(fk.fedagg.variant_launches.items())
+                if v - before_v.get(k, 0)}
+    print("slice (i1) fedagg launches per (aggregator, codec):",
+          json.dumps(variants), flush=True)
+    out["launches_by_variant"] = variants
+    return out
+
+
+I2_ROUNDS = 3
+
+
+def slice_i2(check: Check, expected: TrainExpected, fedn, b_row,
+             device="cuda"):
+    """Cell (b) (the full-width cnn on the CIFAR stand-in, C = 60, E = 5)
+    with a candidate pool of 20 (the 2 priority clients and 18 sampled)
+    under backlog weighting, I2_ROUNDS rounds through run_federation:
+    s/round beside slice (b)'s and the run's own peak GB; checks that
+    priority is in every pool, that fedagg made one launch a round over
+    20 rows, and that every out-of-pool row is untouched."""
+    import torch
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS["cnn"]
+    loss_fn = make_loss_fn(apply_fn)
+    p0 = init_fn(0, device)
+    fed = cifar_config(I2_ROUNDS).replace(candidate_pool=20,
+                                          pool_weighting="backlog")
+    before = fk.fedagg.launches
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with round_stats() as rec, pool_rounds() as pools, fedagg_rows() as rows:
+        h = run_federation(loss_fn, p0, fed, fedn, eval_every=1,
+                           device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fk.fedagg.launches - before
+    pool_idx = [st["pool_idx"].tolist() for st in rec]
+    check(all(len(p) == 20 and {0, 1} <= set(p) for p in pool_idx),
+          f"slice (i2): pools {pool_idx}")
+    check(rows == [20] * I2_ROUNDS, f"slice (i2): fedagg rows {rows}")
+    check(not pools["moved"], f"slice (i2): out-of-pool rows moved: "
+          f"{pools['moved'][:4]}")
+    check(all(bool(torch.isfinite(v).all()) for v in h.params.values()),
+          "slice (i2): non-finite params")
+    if device != "cpu":
+        check(launches == I2_ROUNDS, f"slice (i2): {launches} fedagg "
+              f"launches in {I2_ROUNDS} rounds")
+    expected["fedagg"] += I2_ROUNDS
+    row = dict(rounds=I2_ROUNDS, pool=20, seconds_per_round=secs / I2_ROUNDS,
+               b_seconds_per_round=b_row["seconds_per_round"],
+               launches=launches, fedagg_rows=rows, pool_idx=pool_idx,
+               backlog_max=[int(st["backlog"].max()) for st in rec],
+               included_nonpriority=h.included, test_acc=h.test_acc)
+    if device != "cpu":
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("slice (i2) cnn, a pool of 20 of 60:", json.dumps(row), flush=True)
+    return row
+
+
+I3_ROUNDS = 5
+I3_POOL = 20
+
+
+def tiled_federation(fedn, clients):
+    """``fedn``'s priority clients (the first ones) beside its
+    non-priority clients repeated cyclically up to ``clients`` clients in
+    all (each copy keeps its weight)."""
+    import numpy as np
+    from repro_torch.data.synth import Federation
+    pm = np.asarray(fedn.priority_mask, bool)
+    P = int(pm.sum())
+    rest = P + np.arange(clients - P) % (len(pm) - P)
+
+    def tile(a):
+        return np.concatenate([a[:P], a[rest]])
+    return Federation(x=tile(fedn.x), y=tile(fedn.y),
+                      priority_mask=tile(pm), weights=tile(fedn.weights),
+                      test_x=fedn.test_x, test_y=fedn.test_y)
+
+
+def timed_rounds(fed, fedn, rounds, device):
+    """``rounds`` rounds of ``make_round_fn`` on the federation's tensors
+    on ``device`` (the quickstart's ``synth_logreg`` init), each timed on
+    the host clock after a sync: (seconds a round, the last stats)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.fl import engine
+    from repro_torch.fl.simulator import federation_tensors
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS["synth_logreg"]
+    data, pm, w = federation_tensors(fedn, device)
+    round_fn = engine.make_round_fn(make_loss_fn(apply_fn), fed)
+    state = engine.init_state(init_fn(42, device), fed, pm.shape[0])
+    rng = prng.PRNGKey(fed.seed)
+    times = []
+    for r in range(rounds):
+        rng, rkey = prng.split(rng)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = round_fn(state, data, pm, w, rkey, r)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, stats
+
+
+def slice_i3(check: Check, expected: TrainExpected, device="cuda"):
+    """Population scale: the quickstart's knobs (E = 5, eps 0.2) with a
+    pool of 20 (10 priority + 10 sampled), I3_ROUNDS rounds each, at C =
+    1,000 (make_synth_federation, 10 + 990 clients of 200 samples) and C =
+    10,000 (the same 990 non-priority clients repeated cyclically to 9,990
+    beside the 10 priority ones: x [10,000, 200, 60] f32, 0.48 GB on the
+    card), each
+    round timed after a sync; beside them the dense 10 + 10 quickstart
+    (5 rounds) and a dense round at C = 1,000 (the second of two). The
+    first round of each run is its warm-up; s/round is the mean of the
+    rest. Checks that the pooled round costs less than twice as much at
+    C = 10,000 as at C = 1,000, and one fedagg launch a round."""
+    import numpy as np
+    from repro_torch.data.synth import make_synth_federation
+    from repro_torch.kernels import fedagg as fk
+    t0 = time.perf_counter()
+    f1k = make_synth_federation(seed=0, n_priority=10, n_nonpriority=990,
+                                samples_per_client=200)
+    gen_s = time.perf_counter() - t0
+    f10k = tiled_federation(f1k, 10_000)
+    quick = make_synth_federation(seed=0, n_priority=10, n_nonpriority=10,
+                                  samples_per_client=200)
+    print("slice (i3): the C = 10,000 population is tiled: the C = 1,000 "
+          "one's 10 priority clients beside its 990 non-priority clients "
+          "repeated cyclically (9,990 rows)", flush=True)
+    before = fk.fedagg.launches
+    row = dict(data_gen_s=gen_s, x_gb_10k=f10k.x.nbytes / 1e9)
+    runs = (("pool20_c1000", f1k, I3_POOL, I3_ROUNDS),
+            ("pool20_c10000", f10k, I3_POOL, I3_ROUNDS),
+            ("dense_quickstart_c20", quick, 0, I3_ROUNDS),
+            ("dense_c1000", f1k, 0, 2))
+    for label, fedn, pool, rounds in runs:
+        C = int(fedn.x.shape[0])
+        fed = quickstart_config(rounds, "vmap_spatial").replace(
+            num_clients=C, candidate_pool=pool)
+        times, stats = timed_rounds(fed, fedn, rounds, device)
+        if pool:
+            check(stats["pool_idx"].shape[0] == pool and set(range(10))
+                  <= set(stats["pool_idx"].tolist()),
+                  f"slice (i3) {label}: pool {stats['pool_idx'].tolist()}")
+        row[label] = dict(clients=C, round_s=times,
+                          s_per_round=float(np.mean(times[1:])))
+        expected["fedagg"] += rounds
+    ratio = (row["pool20_c10000"]["s_per_round"]
+             / row["pool20_c1000"]["s_per_round"])
+    row["c10000_over_c1000"] = ratio
+    check(ratio < 2.0, f"slice (i3): a pooled round costs {ratio:.2f}x as "
+          "much at C = 10,000 as at C = 1,000")
+    launches = fk.fedagg.launches - before
+    want = sum(r[3] for r in runs)
+    if device != "cpu":
+        check(launches == want, f"slice (i3): {launches} fedagg launches, "
+              f"expected {want}")
+    row["launches"] = launches
+    print("slice (i3) population scale:", json.dumps(row), flush=True)
+    return row
+
+
+# (i4): (f2)'s round with 16 clients (4 priority) and a pool of 8
+I4 = dict(clients=16, n_priority=4, per_client=8, seq=512, local_epochs=2,
+          lr=0.05, candidate_pool=8)
+I4_ROUNDS = 2
+# the temporal round at smoke size, 6 clients (2 priority), a pool of 4
+I4_SMOKE = dict(local_epochs=2, lr=0.05, epsilon=0.1, candidate_pool=4)
+I4_SMOKE_RUN = dict(clients=6, n_priority=2, per_client=2, seq=32, rounds=2)
+I4_TOL = 2e-5
+
+
+def slice_i4(check: Check, expected: TrainExpected, f2_row, device="cuda"):
+    """Full width: qwen1.5-0.5b (random init, f32 params, bf16 compute,
+    remat) through launch.train.run's spatial round under I4: 16 clients
+    of which a pool of 8 (the 4 priority) is evaluated and trained a
+    round, I4_ROUNDS rounds. K5 / K6 / K9 launch as (f2)'s formula for 8
+    clients, fedagg once a round over 8 rows; each round's peak GB beside
+    (f2)'s; the pools read from the round step's stats. Then the temporal
+    round with a pool of 4 of 6 at smoke size (f32) on the card and on the
+    CPU from the same init and batches: pools and gates exactly (every
+    gate decision farther than GATE_MARGIN from eps), params within
+    I4_TOL x max(1, max|p|); 1 + 4 no-grad forwards a round and E steps
+    for each gated-in pool client, no fedagg."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.tokens import make_token_federation
+    from repro_torch.fl import engine, sharded
+    from repro_torch.launch import train
+    from repro_torch.launch.train import build_batches
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_count, tree_leaves
+    cfg = get_config("qwen1.5-0.5b")
+    P, E = I4["candidate_pool"], I4["local_epochs"]
+    torch.cuda.empty_cache()
+    before = train_counts()
+    with lm_round_records() as recs, lm_rounds() as rec:
+        params, hist = train.run(arch="qwen1.5-0.5b", smoke=False,
+                                 rounds=I4_ROUNDS, device=device,
+                                 verbose=False, **I4)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, P, E, I4_ROUNDS)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"slice (i4): launches {launches}, expected {want}")
+    check(recs["rows"] == [P] * I4_ROUNDS, f"slice (i4): fedagg rows "
+          f"{recs['rows']}")
+    check(all(len(p) == P and set(range(I4["n_priority"])) <= set(p)
+              for p in recs["pool_idx"]) and len(recs["pool_idx"]) == I4_ROUNDS,
+          f"slice (i4): pools {recs['pool_idx']}")
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    check(finite and all(math.isfinite(h["server_loss"]) for h in hist),
+          "slice (i4): non-finite params or server loss")
+    row = dict(params=param_count(params), clients=I4["clients"], pool=P,
+               rounds=I4_ROUNDS, warmup_round_s=hist[0]["sec"],
+               round_s=[h["sec"] for h in hist[1:]],
+               f2_s_per_round=f2_row["s_per_round"],
+               round_peak_gb=rec["peak_gb"], f2_peak_gb=f2_row["peak_gb"],
+               pool_idx=recs["pool_idx"], gates=[h["gates"] for h in hist],
+               server_loss=[h["server_loss"] for h in hist],
+               launches=launches)
+    del params
+    torch.cuda.empty_cache()
+
+    smoke = get_smoke("qwen1.5-0.5b")
+    model = get_model(smoke)
+    C, npri = I4_SMOKE_RUN["clients"], I4_SMOKE_RUN["n_priority"]
+    fed = FedConfig(num_clients=C, num_priority=npri, **I4_SMOKE)
+    data = make_token_federation(seed=0, vocab=smoke.vocab_size, n_clients=C,
+                                 n_priority=npri, seq_len=I4_SMOKE_RUN["seq"],
+                                 tokens_per_client=(I4_SMOKE_RUN["seq"] + 1) * 8)
+
+    def rounds(dev):
+        step = sharded.make_round_step(model, fed, C, fsdp=True, device=dev)
+        state = engine.init_state(model.init(prng.PRNGKey(0), device=dev),
+                                  fed, C)
+        rng = np.random.default_rng(0)
+        stats = []
+        for r in range(I4_SMOKE_RUN["rounds"]):
+            batch = build_batches(smoke, data, clients=C,
+                                  per_client=I4_SMOKE_RUN["per_client"],
+                                  seq=I4_SMOKE_RUN["seq"], rng=rng, device=dev)
+            state, st = step(state, batch, r)
+            stats.append({k: v.cpu().numpy() for k, v in st.items()})
+        return state, stats
+
+    cpu_state, cpu_stats = rounds("cpu")
+    before = train_counts()
+    dev_state, dev_stats = rounds(device)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    margin = min(abs(abs(float(st["local_losses"][c]) - float(st["server_loss"]))
+                     - fed.epsilon)
+                 for st in cpu_stats for c in st["pool_idx"] if c >= npri)
+    check(margin > GATE_MARGIN, f"slice (i4) temporal: gate margin {margin}")
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(dev_stats, cpu_stats)
+               for k in ("pool_idx", "gates", "backlog"))
+    check(same, "slice (i4) temporal: pools, gates or backlog differ from "
+          "the CPU run")
+    err = max(float(torch.max(torch.abs(a.cpu() - b)))
+              / max(1.0, float(torch.max(torch.abs(b))))
+              for a, b in zip(tree_leaves(dev_state.params),
+                              tree_leaves(cpu_state.params)))
+    check(err <= I4_TOL, f"slice (i4) temporal: params off the CPU run by "
+          f"{err}")
+    want = TrainExpected()
+    for st in dev_stats:
+        want.add_rounds(smoke, fed.candidate_pool, fed.local_epochs, 1,
+                        trained=int((st["gates"] > 0).sum()), fedagg=False)
+    for k, v in want.items():
+        expected[k] += v
+    if device != "cpu":
+        check(launches == want, f"slice (i4) temporal: launches {launches}, "
+              f"expected {want}")
+    row["temporal_smoke"] = dict(
+        gate_margin=margin, params_rel_err_vs_cpu=err,
+        pool_idx=[st["pool_idx"].tolist() for st in dev_stats],
+        gates=[st["gates"].tolist() for st in dev_stats], launches=launches)
+    print("slice (i4) qwen1.5-0.5b, a pool of 8 of 16:", json.dumps(row),
+          flush=True)
+    return row
+
+
+# (i5): (i1)'s scan_async + chaos config under adam and int8 + EF
+I5 = dict(dict(I1_RUNS)["async_ready_clock_chaos"], server_opt="adam",
+          server_lr=0.05, wire_codec="int8", error_feedback=True)
+
+
+def state_leaves(state):
+    from repro_torch.checkpoint.io import flatten
+    return flatten(state)[0]
+
+
+def slice_i5(check: Check, expected: TrainExpected, device="cuda"):
+    """Checkpoint and resume on the card, under I5 with P = 6: two
+    uninterrupted 6-round runs (``checkpoint_path`` on the first) to see
+    whether the round is deterministic; a 3-round run whose checkpoint
+    (step 3) is loaded and resumed for rounds 3-5, which must equal the
+    uninterrupted run bit for bit (where two uninterrupted runs differ,
+    each such leaf is named and held to their spread). A checkpoint the
+    CPU run wrote loads into the card run (leaf for leaf) and resumes
+    there with the CPU run's pools and gates; the card's loads on the CPU
+    leaf for leaf. A fingerprint mismatch (``async_mode``,
+    ``candidate_pool``) raises. Then cell (b)'s width: a state with int8
+    error-feedback rows [60, 579,402] and adam moments, filled with
+    random values, saved and loaded on the card, every leaf bit for bit:
+    MB written, seconds to save and to load."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.synth import make_synth_federation
+    from repro_torch.fl import engine
+    from repro_torch.fl.simulator import (load_federation_state,
+                                          save_federation_state)
+    from repro_torch.models.small import SMALL_MODELS
+    from repro_torch.utils import param_count, tree_map
+    fedn = make_synth_federation(**POOL_FEDN)
+    fed = FedConfig(**dict(POOL_BASE, **I5))
+    C = int(fedn.x.shape[0])
+    tmp = ROOT / "build" / "checkpoints"
+    tmp.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(tmp / f"i5_{k}.msgpack")
+             for k in ("full", "half", "cpu", "b")}
+
+    def like(dev):
+        return engine.init_state(tree_map(lambda p: p.to(dev),
+                                          pool_params0()), fed, C)
+
+    full, rec_full, _ = pool_run(fed, fedn, device, eval_every=3,
+                                 checkpoint_path=paths["full"])
+    again, _, _ = pool_run(fed, fedn, device, eval_every=3)
+    a, b = state_leaves(full.state), state_leaves(again.state)
+    spread = [float((x.double() - y.double()).abs().max()) if
+              x.is_floating_point() else float((x != y).sum())
+              for x, y in zip(a, b)]
+    deterministic = all(torch.equal(x, y) for x, y in zip(a, b))
+    half, _, _ = pool_run(fed.replace(rounds=3), fedn, device, eval_every=3,
+                          checkpoint_path=paths["half"])
+    check(float(half.state.inflight["valid"].sum()) > 0,
+          "slice (i5): no cohort in flight at the checkpoint")
+    state, rng, step = load_federation_state(paths["half"], like(device),
+                                             fed=fed, device=device)
+    resumed, rec_res, _ = pool_run(fed, fedn, device, eval_every=3,
+                                   state=state, rng=rng, start_round=step)
+    r = state_leaves(resumed.state)
+    off = [i for i, (x, y) in enumerate(zip(a, r)) if not torch.equal(x, y)]
+    if deterministic:
+        check(not off and torch.equal(resumed.rng, full.rng),
+              f"slice (i5): the resumed run differs from the uninterrupted "
+              f"one in leaves {off}")
+    else:
+        print(f"slice (i5): two uninterrupted runs differ in leaves "
+              f"{[i for i, s in enumerate(spread) if s]}", flush=True)
+        worse = [i for i in off if float((a[i].double() - r[i].double())
+                                         .abs().max()) > spread[i]]
+        check(not worse, f"slice (i5): resumed leaves {worse} differ from "
+              "the uninterrupted run by more than two such runs do")
+    check(all(np.array_equal(x["pool_idx"], y["pool_idx"])
+              and np.array_equal(x["gates"], y["gates"])
+              for x, y in zip(rec_full[step:], rec_res)),
+          "slice (i5): the resumed run's pools or gates differ")
+    # the CPU's file on the card, and the card's on the CPU
+    cpu_full, rec_cpu, _ = pool_run(fed, fedn, "cpu", eval_every=3)
+    cpu_half, _, _ = pool_run(fed.replace(rounds=3), fedn, "cpu",
+                              eval_every=3, checkpoint_path=paths["cpu"])
+    state, rng, step = load_federation_state(paths["cpu"], like(device),
+                                             fed=fed, device=device)
+    loaded = all(torch.equal(x.cpu(), y) for x, y in
+                 zip(state_leaves(state), state_leaves(cpu_half.state)))
+    check(loaded, "slice (i5): the CPU's checkpoint changed on the card")
+    _, rec_x, _ = pool_run(fed, fedn, device, eval_every=3, state=state,
+                           rng=rng, start_round=step)
+    check(all(np.array_equal(x["pool_idx"], y["pool_idx"])
+              and np.array_equal(x["gates"], y["gates"])
+              for x, y in zip(rec_cpu[step:], rec_x)),
+          "slice (i5): the card run resumed from the CPU's checkpoint has "
+          "other pools or gates than the CPU run")
+    state, _, _ = load_federation_state(paths["half"], like("cpu"), fed=fed,
+                                        device="cpu")
+    check(all(torch.equal(x, y.cpu()) for x, y in
+              zip(state_leaves(state), state_leaves(half.state))),
+          "slice (i5): the card's checkpoint changed on the CPU")
+    raised = []
+    for kw in (dict(async_mode="fifo"), dict(candidate_pool=0)):
+        try:
+            load_federation_state(paths["half"], like(device),
+                                  fed=fed.replace(**kw), device=device)
+        except ValueError as exc:
+            raised.append(next(iter(kw)) in str(exc))
+    check(raised == [True, True], f"slice (i5): fingerprint checks {raised}")
+    card_rounds = 2 * fed.rounds + 3 + 3 + 3
+    expected["fedagg"] += card_rounds
+    # cell (b)'s width: int8 error-feedback rows and adam moments
+    init_fn = SMALL_MODELS["cnn"][0]
+    bfed = cifar_config(1).replace(server_opt="adam", wire_codec="int8",
+                                   error_feedback=True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    big = engine.init_state(init_fn(0, device), bfed, 60)
+    for t in state_leaves(big):
+        if t.is_floating_point():
+            t.copy_(torch.randn(t.shape, generator=gen, device=device))
+    big.opt_state["t"].fill_(7)
+    rng = torch.tensor([12345, 678], dtype=torch.int64)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_federation_state(paths["b"], big, rng, 1, fed=bfed)
+    save_s = time.perf_counter() - t0
+    mb = Path(paths["b"]).stat().st_size / 1e6
+    t0 = time.perf_counter()
+    back, brng, _ = load_federation_state(
+        paths["b"], engine.init_state(init_fn(1, device), bfed, 60),
+        fed=bfed, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    exact = torch.equal(brng, rng) and all(
+        torch.equal(x, y) and x.dtype == y.dtype and x.device == y.device
+        for x, y in zip(state_leaves(back), state_leaves(big)))
+    check(exact, "slice (i5): cell (b)'s state did not load back bit for bit")
+    for p in paths.values():
+        Path(p).unlink(missing_ok=True)
+    row = dict(deterministic=deterministic,
+               nonzero_spread_leaves=[i for i, s in enumerate(spread) if s],
+               resumed_bit_identical=not off, resumed_from_step=int(step),
+               cpu_checkpoint_loads_on_card=loaded,
+               fingerprint_mismatch_raises=raised, launches=card_rounds,
+               b_width=dict(M=param_count(big.params), clients=60,
+                            leaves=len(state_leaves(big)), mb_written=mb,
+                            save_s=save_s, load_s=load_s,
+                            bit_identical=exact))
+    print("slice (i5) checkpoint and resume:", json.dumps(row), flush=True)
+    del big, back
+    return row
+
+
 def phase(fn, *args, **kw):
     """fn(*args, **kw), its host-clock time printed under its name."""
     t0 = time.perf_counter()
@@ -3736,7 +4413,6 @@ def main() -> int:
     h_expected = TrainExpected()
     h1 = phase(slice_h1, check, h_expected)
     h2 = phase(slice_h2, check, h_expected, fedn, b)
-    del fedn
     h3 = phase(slice_h3, check, h_expected, f2)
     h4 = phase(slice_h4, check, h_expected)
     h_launches = train_counts()
@@ -3758,6 +4434,35 @@ def main() -> int:
                  "rmsnorm"):
         check(h_launches[name] > 0,
               f"async + fault path: kernel {name} was never launched")
+    # candidate pools and checkpoints: slices (i1)-(i5), counted on their
+    # own
+    reset_train_counts()
+    i_expected = TrainExpected()
+    i1 = phase(slice_i1, check, i_expected)
+    i2 = phase(slice_i2, check, i_expected, fedn, b)
+    del fedn
+    i3 = phase(slice_i3, check, i_expected)
+    i4 = phase(slice_i4, check, i_expected, f2)
+    i5 = phase(slice_i5, check, i_expected)
+    i_launches = train_counts()
+    i_variants = dict(fk.fedagg.variant_launches)
+    print("pool + checkpoint path launches:", json.dumps(i_launches),
+          "expected:", json.dumps(i_expected), flush=True)
+    for name in TRAIN_KERNELS:
+        check(i_launches[name] == i_expected[name], f"pool + checkpoint "
+              f"path: {i_launches[name]} {name} launches, expected "
+              f"{i_expected[name]}")
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["pool_path_launches"] = sum(
+                v for k, v in i_variants.items() if pick(*k))
+        elif entry["name"] in i_launches:
+            entry["pool_path_launches"] = i_launches[entry["name"]]
+    for name in ("fedagg", "flash_attention", "flash_attention_bwd",
+                 "rmsnorm"):
+        check(i_launches[name] > 0,
+              f"pool + checkpoint path: kernel {name} was never launched")
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -3772,7 +4477,8 @@ def main() -> int:
               for k, v in c.items()},
         "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3,
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
-        "h3": h3, "h4": h4}))
+        "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
+        "i5": i5}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where a FedALIGN round's time goes in the PyTorch port, on one CUDA card.
 
-    python3 scripts/torch_round_profile.py [--out DIR]
+    python3 scripts/torch_round_profile.py [--out DIR] [--candidate-pool P]
 
 Config (b) of ``chip_smoke.py``: the paper's CIFAR ``cnn`` at full width on
-the CIFAR stand-in (60 clients x 1000 images, E=5, batch 32). After a
+the CIFAR stand-in (60 clients x 1000 images, E=5, batch 32); with
+``--candidate-pool P`` (slice (i2): 20) the round draws a pool of P under
+backlog weighting and the phases run on the pool's [P] gather. After a
 warm-up round it
 
 1. times the round's phases with the host clock, each ending in a device
@@ -33,6 +35,7 @@ sys.path.insert(0, str(ROOT))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "results"))
+    ap.add_argument("--candidate-pool", type=int, default=0)
     args = ap.parse_args()
 
     import torch
@@ -49,7 +52,8 @@ def main() -> int:
     from repro_torch.models.small import SMALL_MODELS, make_loss_fn
 
     dev = torch.device("cuda")
-    fed = cifar_config(3)
+    P = args.candidate_pool
+    fed = cifar_config(3).replace(candidate_pool=P, pool_weighting="backlog")
     fedn = make_benchmark_federation("cifar", seed=0, n_priority=2)
     data, pm, w = federation_tensors(fedn, dev)
     init_fn, apply_fn = SMALL_MODELS["cnn"]
@@ -67,20 +71,32 @@ def main() -> int:
 
     state, _ = round_fn(state, data, pm, w, prng.fold_in(key, 0), 0)   # warm-up
 
-    # 1. phases of one round, as make_round_fn runs them
+    # 1. phases of one round, as make_round_fn runs them (a pool round on
+    # its [P] gather, drawn as the round draws it)
     params = state.params
     solver = engine.local_solver(loss_fn, fed)
-    C, n = int(pm.shape[0]), int(data["y"].shape[1])
+    n = int(data["y"].shape[1])
+    def draw():
+        idx = engine.pool_select(fed, prng.split(key)[1], pm, state.backlog,
+                                 state.incl_ema, P)
+        return {k: v[idx] for k, v in data.items()}, w[idx]
+
+    t_pool = 0.0
+    if 0 < P < int(pm.shape[0]):
+        (sub, sub_w), t_pool = sync_time(draw)
+    else:
+        sub, sub_w = data, w
+    C = int(sub_w.shape[0])
     with torch.no_grad():
         (losses, met), t_eval = sync_time(
-            lambda: engine._eval_vmap(loss_fn, params, data))
+            lambda: engine._eval_vmap(loss_fn, params, sub))
         order, t_perm = sync_time(lambda: engine.minibatch_order(
             fed, prng.split(key, C).to(dev), n))
         gates = torch.ones(C, device=dev)
         clients, t_train = sync_time(
-            lambda: solver(params, data, order, torch.tensor(fed.lr)))
+            lambda: solver(params, sub, order, torch.tensor(fed.lr)))
         _, t_agg = sync_time(lambda: engine.apply_server_opt(
-            fed, params, (), engine.server_delta(fed, params, clients, w,
+            fed, params, (), engine.server_delta(fed, params, clients, sub_w,
                                                  gates)))
     _, t_round = sync_time(
         lambda: round_fn(state, data, pm, w, prng.fold_in(key, 1), 1))
@@ -109,7 +125,9 @@ def main() -> int:
     out = {
         "card": smi_line(), "torch": torch.__version__,
         "config": "cifar cnn, C=60, n=1000, E=5, bs=32",
-        "phase_s": {"eval_prepass": t_eval, "minibatch_perms": t_perm,
+        "candidate_pool": P,
+        "phase_s": {"pool_select_and_gather": t_pool,
+                    "eval_prepass": t_eval, "minibatch_perms": t_perm,
                     "local_training_all_clients": t_train,
                     "aggregate_and_server_step": t_agg,
                     "whole_round": t_round},

@@ -38,7 +38,7 @@ ALIASES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
 }
 
-# the dense GQA family and jamba; the rest of the zoo is ROADMAP A16
+# the dense GQA family and jamba; the rest of the zoo is ROADMAP A16b
 PORTED = ("qwen1_5_0_5b", "qwen2_5_3b", "phi3_mini_3_8b",
           "jamba_1_5_large_398b")
 
@@ -49,7 +49,7 @@ def _module(name: str):
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A16); ported: "
+            f"arch {name!r} is not ported yet (ROADMAP A16b); ported: "
             f"{list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 

@@ -2,11 +2,12 @@
 and ``FedConfig``.
 
 Every field name and default equals the reference's, so one config means
-the same run in both packages (a test pins this). Knobs whose subsystem the
-port has not reached yet are kept for that parity; ``validate_config`` (for
-a federation) and ``models.transformer.check_model_config`` (for an LM)
-refuse them with ``NotImplementedError`` naming the knob, never by silently
-running something else.
+the same run in both packages (a test pins this). Every FedConfig knob is
+ported; ``validate_config`` raises the reference's ``ValueError``s. Model
+knobs whose subsystem the port has not reached yet are kept for that
+parity, and ``models.transformer.check_model_config`` refuses them with
+``NotImplementedError`` naming the knob, never by silently running
+something else.
 """
 from __future__ import annotations
 
@@ -168,8 +169,9 @@ class FedConfig:
     participation: float = 1.0        # fraction sampled per round (<1 = partial)
     straggler_period: int = 0         # >0: non-priority client k shows up every
                                       # (2 + k % period) rounds (App. A.4)
-    candidate_pool: int = 0           # candidate-pool sampling (not ported)
-    pool_weighting: str = "uniform"   # candidate-pool weights (not ported)
+    candidate_pool: int = 0           # P clients a round draws (0: all C;
+                                      # P >= C is the dense round)
+    pool_weighting: str = "uniform"   # uniform | backlog | ema
     algorithm: str = "fedavg"         # local solver: fedavg | fedprox
     prox_mu: float = 1.0              # FedProx proximal coefficient
     selection: str = "fedalign"       # fedalign | all | priority_only |
@@ -247,8 +249,9 @@ _VALIDATORS: dict = {}
 def register_validator(name: str):
     """Decorator: contribute a subsystem's FedConfig check to
     ``validate_config``. A hook raises ``ValueError`` on an invalid knob
-    combination and ``NotImplementedError`` on a knob the port has not
-    reached; hooks run in sorted-name order."""
+    combination, as the reference's hooks do (the aggregation hook also
+    raises ``NotImplementedError`` on an ``agg_dtype`` the fedagg kernel
+    does not take); hooks run in sorted-name order."""
     def deco(fn):
         _VALIDATORS[name] = fn
         return fn
@@ -268,8 +271,8 @@ def validate_config(fed: "FedConfig") -> "FedConfig":
 
 @register_validator("population")
 def check_pool_config(fed: "FedConfig") -> None:
-    """Candidate-pool knobs: the reference's value checks, then the port's
-    refusal of pooling itself."""
+    """Candidate-pool knobs, with the reference's errors: a negative pool,
+    an unknown weighting, a pool too small to hold every priority client."""
     if fed.candidate_pool < 0:
         raise ValueError(
             f"candidate_pool must be >= 0, got {fed.candidate_pool} "
@@ -283,7 +286,3 @@ def check_pool_config(fed: "FedConfig") -> None:
             f"candidate_pool={fed.candidate_pool} is smaller than "
             f"num_priority={fed.num_priority}: priority clients are always "
             "in-pool, so the pool must hold at least all of them")
-    if fed.candidate_pool > 0:
-        raise NotImplementedError(
-            f"candidate_pool={fed.candidate_pool}: candidate-pool rounds are "
-            "not ported yet (use candidate_pool=0)")

@@ -1,7 +1,6 @@
 """Federation round engine: client selection + execution backends.
 
-Counterpart of ``repro/fl/engine.py``, candidate pools aside. A round
-runs, in order:
+Counterpart of ``repro/fl/engine.py``. A round runs, in order:
 
 1. the eval pre-pass: each client's loss and accuracy of the received w_t;
 2. participation sampling (a Bernoulli draw of ``fed.participation``, the
@@ -60,9 +59,18 @@ event clock, ``fed.latency_mode``) train but lose their aggregation mass
 (``lost_mask``), and corrupted clients' trained params are NaN'd or
 scaled through the ``delta_transform`` seam. The divergence guard
 (``fed.divergence_guard``) keeps a non-finite aggregate off the params
-and the optimizer moments and counts consecutive skips. Candidate pools,
-and the pool-keyed fault draws only they reach, raise
-``NotImplementedError`` naming their ROADMAP item (A13).
+and the optimizer moments and counts consecutive skips.
+
+Candidate pools (``fed.candidate_pool = P``, 0 < P < C) decouple the
+population from the round's cost: ``pool_select`` draws P clients a
+round (priority always in, the rest by Gumbel-top-k under
+``fed.pool_weighting``), the round runs on the [P] gather of the data and
+of the per-client state leaves, and scatters them back at the pool's
+indices; an out-of-pool client's rows stay bit-identical. Inside a pool
+round every per-client draw (participation, the failure models, the local
+training keys) is keyed on the client's identity with ``fold_in``, so it
+does not depend on which pool the client landed in. P = 0 and P >= C run
+the dense round unchanged.
 """
 from __future__ import annotations
 
@@ -133,11 +141,6 @@ class FederationState:
 
     def replace(self, **kw) -> "FederationState":
         return dataclasses.replace(self, **kw)
-
-
-def _not_ported(knob: str, value, hint: str):
-    raise NotImplementedError(
-        f"FedConfig.{knob}={value!r} is not ported yet ({hint})")
 
 
 @register_validator("async")
@@ -512,24 +515,49 @@ def participation_mask(fed, key, priority_mask, round_idx, client_ids=None):
     ``fed.participation`` (the priority set never empty: if the draw
     misses every priority client, all of them join), plus the straggler
     cadence (non-priority client k joins every 2 + k % period rounds).
-    The draw is ``jax.random.bernoulli(key, rate, (C,))`` bit for bit.
-    Pool identities (``client_ids``) are not ported."""
-    if client_ids is not None:
-        _not_ported("candidate_pool", fed.candidate_pool, "use 0")
+    A dense round's draw is ``jax.random.bernoulli(key, rate, (C,))`` bit
+    for bit. ``client_ids`` carries a pool round's [P] global identities:
+    each draw is keyed on the identity (``_identity_bernoulli``) and the
+    cadence uses the global index, so a client's availability does not
+    depend on the pool it landed in."""
     C = priority_mask.shape[0]
     dev = priority_mask.device
     pm = priority_mask.bool()
     if fed.participation < 1.0:
-        part = prng.bernoulli(key, fed.participation, (C,)).to(dev)
+        part = _identity_bernoulli(key, fed.participation, C,
+                                   client_ids).to(dev)
         part = part | ((torch.sum(part & pm) == 0) & pm)
     else:
         part = torch.ones(C, dtype=torch.bool, device=dev)
     if fed.straggler_period > 0:
-        ids = torch.arange(C, device=dev)
+        ids = torch.arange(C, device=dev) if client_ids is None else client_ids
         cadence = 2 + ids % fed.straggler_period
         available = (round_idx % cadence) == 0
         part = part & (available | pm)
     return part
+
+
+def pool_select(fed, key, priority_mask, backlog, incl_ema, pool: int):
+    """One round's candidate pool: [P] sorted global client indices, on
+    the mask's device. Priority clients score +inf (always in); the rest
+    are drawn without replacement by Gumbel-top-k, score = Gumbel noise
+    over [C] (``prng.gumbel``) plus the log of the weight of
+    ``fed.pool_weighting``: ``uniform`` 1, ``backlog`` 1 + backlog_k (a
+    client starved by cohort overflow comes back sooner), ``ema`` (1 +
+    1e-6) - incl_ema_k floored at 1e-6 (a client rarely included gets a
+    boost). The top P indices are sorted ascending, so the pool is an
+    order-preserving slice of the dense index space."""
+    dev = priority_mask.device
+    g = prng.gumbel(torch.as_tensor(key).cpu(),
+                    (priority_mask.shape[0],)).to(dev)
+    if fed.pool_weighting == "backlog":
+        g = g + torch.log1p(backlog.float())
+    elif fed.pool_weighting == "ema":
+        g = g + torch.log(torch.clamp(1.0 + 1e-6 - incl_ema.float(),
+                                      min=1e-6))
+    score = torch.where(priority_mask.bool(),
+                        torch.tensor(float("inf"), device=dev), g)
+    return torch.sort(torch.topk(score, int(pool)).indices).values
 
 
 def sketch_key(fed, round_idx):
@@ -787,7 +815,9 @@ def failure_key(fed, round_idx):
 
 def failure_plan(fed, round_idx, num_clients, client_ids=None, device="cpu"):
     """The configured failure model's plan for one round, its masks on
-    ``device``, or None when the model is ``none``."""
+    ``device``, or None when the model is ``none``. With ``client_ids`` (a
+    pool round's [P] global identities) the masks are in pool space, each
+    drawn on the client's identity."""
     name = resolve_failure_model(fed.failure_model)
     if name == "none":
         return None
@@ -805,13 +835,15 @@ def _fm_none(fed, key, round_idx, num_clients, client_ids=None):
 
 
 def _identity_bernoulli(key, rate, num_clients, client_ids):
-    """[C] Bernoulli draws, the reference's shaped draw. The per-identity
-    draws of a candidate-pool round are not ported."""
-    if client_ids is not None:
-        raise NotImplementedError(
-            "failure draws keyed on client_ids (candidate pools) are not "
-            "ported yet (ROADMAP A13)")
-    return prng.bernoulli(key, rate, (num_clients,))
+    """[num_clients] Bernoulli draws on the CPU. A dense round
+    (``client_ids=None``) takes the reference's one shaped draw; a pool
+    round keys each draw on the client's identity, ``bernoulli(fold_in(key,
+    id), rate)``, so client k's draw is the same in whichever pool it
+    landed, and the cost is O(P), not O(C)."""
+    if client_ids is None:
+        return prng.bernoulli(key, rate, (num_clients,))
+    return prng.bernoulli(prng.fold_in(key, torch.as_tensor(client_ids).cpu()),
+                          rate, ())
 
 
 def _crashed_mask(fed, key, num_clients, client_ids=None):
@@ -943,17 +975,69 @@ def slot_timer(fed, latency, eff_gates):
     return torch.clamp(t, min=1)
 
 
+# ============================================================ candidate pools
+def _ef_on(fed) -> bool:
+    return (resolve_wire_codec(fed.wire_codec) != "identity"
+            and bool(fed.error_feedback))
+
+
+def pool_view(fed, state: FederationState, idx) -> FederationState:
+    """The [P] view of a federation state for a pool round: the
+    per-client leaves (``backlog``, the EMAs, the event clock's latency
+    draws and the error-feedback rows) gathered at ``idx``; params,
+    moments, the in-flight buffer, the drift sketch and the skip counter
+    pass through."""
+    def take(a):
+        return a[idx]
+    return state.replace(
+        backlog=take(state.backlog), util_ema=take(state.util_ema),
+        incl_ema=take(state.incl_ema),
+        latency=(tree_map(take, state.latency)
+                 if fed.latency_mode != "none" else state.latency),
+        ef_accum=(tree_map(take, state.ef_accum) if _ef_on(fed)
+                  else state.ef_accum))
+
+
+def pool_scatter(fed, state: FederationState, sub: FederationState, stats,
+                 idx):
+    """Write a pool round's per-client leaves back at ``idx``: ``backlog``
+    and the EMAs into new [C] tensors, the error-feedback rows in place
+    into ``state.ef_accum`` (no second [C, ...] copy), ``latency`` kept
+    (drawn once at init). Every out-of-pool row stays bit-identical. The
+    stats' ``local_losses`` and ``gates`` move to the [C] space, zero out
+    of the pool, ``backlog`` is the scattered ledger and ``pool_idx`` the
+    pool. Returns (new_state, stats)."""
+    if _ef_on(fed):
+        for full, rows in zip(tree_leaves(state.ef_accum),
+                              tree_leaves(sub.ef_accum)):
+            full.index_copy_(0, idx, rows)
+    new_state = sub.replace(
+        backlog=state.backlog.index_copy(0, idx, sub.backlog),
+        util_ema=state.util_ema.index_copy(0, idx, sub.util_ema),
+        incl_ema=state.incl_ema.index_copy(0, idx, sub.incl_ema),
+        latency=state.latency, ef_accum=state.ef_accum)
+    C = state.backlog.shape[0]
+    for name in ("local_losses", "gates"):
+        v = stats[name]
+        stats[name] = v.new_zeros(C).index_copy_(0, idx, v)
+    stats["backlog"] = new_state.backlog
+    stats["pool_idx"] = idx
+    return new_state, stats
+
+
 # ============================================================ local training
 def round_faults(fed, state, round_idx, num_clients, device,
-                 delta_transform=None):
+                 delta_transform=None, client_ids=None):
     """The round's fault prologue, shared by ``make_round_fn`` and both LM
-    rounds: ``(available, lost, transform)``. ``available`` is the plan's
-    [C] availability (None: everyone present), to fold into participation;
-    ``lost`` the [C] mask of crashed and deadline-late clients (None when
-    no client can be lost), whose mass the aggregation drops after
-    training; ``transform`` the corruption transform composed under
-    ``delta_transform`` (either alone when the other is None)."""
-    plan = failure_plan(fed, round_idx, num_clients, device=device)
+    rounds: ``(available, lost, transform)``, drawn per identity in a
+    pool round (``client_ids``, its [P] global indices). ``available`` is
+    the plan's [C] availability (None: everyone present), to fold into
+    participation; ``lost`` the [C] mask of crashed and deadline-late
+    clients (None when no client can be lost), whose mass the aggregation
+    drops after training; ``transform`` the corruption transform composed
+    under ``delta_transform`` (either alone when the other is None)."""
+    plan = failure_plan(fed, round_idx, num_clients, client_ids=client_ids,
+                        device=device)
     available = plan.available if plan is not None else None
     tf = delta_transform
     if plan is not None and plan.corrupt is not None:
@@ -1110,10 +1194,22 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
 
     ``delta_transform(client_params, global_params, client_idx) ->
     client_params`` rewrites the trained client params right before the
-    aggregation (``client_idx`` holds the client identities of the rows);
-    the corruption fault composes under it. With ``backend="scan_async"``
-    and ``fed.async_depth > 0`` the aggregate goes through the in-flight
-    buffer (``async_apply``)."""
+    aggregation (``client_idx`` indexes the rows' clients in the round's
+    index space: the dense [C] one, or in a pool round the pool's [P]
+    one, as the reference's code passes them); the corruption fault
+    composes under it. With ``backend="scan_async"`` and
+    ``fed.async_depth > 0`` the aggregate goes through the in-flight
+    buffer (``async_apply``).
+
+    ``fed.candidate_pool = P`` with 0 < P < C runs the pool round: the
+    pool key is split off ``rng`` first, ``pool_select`` draws the [P]
+    indices, the round runs on the gathered view (``pool_view``) with
+    identity-keyed draws, and ``pool_scatter`` writes the per-client
+    leaves back; the stats carry ``pool_idx``, and ``local_losses`` and
+    ``gates`` in the [C] space with zeros out of the pool. The
+    error-feedback rows are scattered back in place, so the state passed
+    in shares them with the new one. P = 0 and P >= C run the dense
+    round, bit for bit."""
     backend = backend or fed.backend
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
@@ -1127,17 +1223,16 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
     # stochastic aggregators (dp) get a per-round key; the error-feedback
     # rows exist only under a non-identity codec with error_feedback on
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
-    ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
-             and bool(fed.error_feedback))
+    ef_on = _ef_on(fed)
     eval_clients, train_clients = _BACKENDS[backend]
     gate_before_train = not get_strategy(fed.selection).needs_deltas
     solver = local_solver(loss_fn, fed)
     sched = make_schedule(fed)
     warmup_rounds = int(fed.warmup_frac * fed.rounds)
+    pool = int(fed.candidate_pool)
 
-    @torch.no_grad()
-    def round_fn(state: FederationState, data, priority_mask, weights, rng,
-                 round_idx):
+    def round_body(state: FederationState, data, priority_mask, weights, rng,
+                   round_idx, client_ids=None):
         round_idx = int(round_idx)
         global_params = state.params
         C = priority_mask.shape[0]
@@ -1159,18 +1254,22 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
 
         # (2) the reference's key chain: participation key, then local keys
         rng, pkey = prng.split(rng)
-        part = participation_mask(fed, pkey, priority_mask, round_idx)
+        part = participation_mask(fed, pkey, priority_mask, round_idx,
+                                  client_ids=client_ids)
         # the fault plan: drop-outs fold into participation, crashed and
         # deadline-late clients lose their mass after training, corruption
         # rides the delta_transform seam
         available, lost, tf = round_faults(fed, state, round_idx, C, dev,
-                                           delta_transform)
+                                           delta_transform, client_ids)
         if available is not None:
             part = part & available
         keep = None if lost is None else 1.0 - lost.float()
         warm = round_idx < warmup_rounds
+        # per-client training keys by identity: a pool round folds the
+        # global index in (O(P)), where the dense round splits C keys
         rng, lkey = prng.split(rng)
-        lkeys = prng.split(lkey, C).to(dev)
+        lkeys = (prng.split(lkey, C) if client_ids is None
+                 else prng.fold_in(lkey, client_ids.cpu())).to(dev)
         order = minibatch_order(fed, lkeys, n)
         akey = aggregator_key(fed, round_idx) if agg_needs_key else None
 
@@ -1299,5 +1398,22 @@ def make_round_fn(loss_fn: Callable, fed, *, backend: Optional[str] = None,
             "warmup": torch.tensor(int(warm), dtype=torch.int32),
         }
         return new_state, add_fault_stats(fed, stats, new_state, ainfo, lost)
+
+    @torch.no_grad()
+    def round_fn(state: FederationState, data, priority_mask, weights, rng,
+                 round_idx):
+        C = priority_mask.shape[0]
+        if not 0 < pool < C:
+            return round_body(state, data, priority_mask, weights, rng,
+                              round_idx)
+        # the pool key first, so the round's own chain (participation,
+        # then local keys) is consumed in the dense round's order
+        rng, pool_key = prng.split(rng)
+        idx = pool_select(fed, pool_key, priority_mask, state.backlog,
+                          state.incl_ema, pool)
+        sub, stats = round_body(
+            pool_view(fed, state, idx), {k: v[idx] for k, v in data.items()},
+            priority_mask[idx], weights[idx], rng, round_idx, client_ids=idx)
+        return pool_scatter(fed, state, sub, stats, idx)
 
     return round_fn

@@ -69,12 +69,19 @@ the spatial round corrupts the trained rows in place
 (``engine.corruption_transform``), the temporal round refuses corruption
 with the reference's ``ValueError`` and skips a lost client's E steps.
 The divergence guard (with the server loss) skips a non-finite aggregate
-bit-exactly, or zeroes it before it enters the buffer.
+bit-exactly, or zeroes it before it enters the buffer. The temporal round
+raises the reference's ``ValueError`` for a ``corrupt`` / ``chaos``
+failure model with ``corrupt_rate > 0``, and for ``grad_sim`` without
+sketches.
 
-Out of this slice, raising ``NotImplementedError`` with its ROADMAP item
-in both rounds: ``candidate_pool`` (A13). The temporal round raises the
-reference's ``ValueError`` first for a ``corrupt`` / ``chaos`` failure
-model with ``corrupt_rate > 0``, and for ``grad_sim`` without sketches.
+**Candidate pools** (``fed.candidate_pool = P``, 0 < P < C) wrap both
+rounds (``_pool_wrap``): the pool is drawn by ``engine.pool_select`` from
+the named stream ``pool_round_key`` (the rounds take no rng), the round
+runs on the [P] gather of ``batch["clients"]``, the priority mask, the
+weights and the per-client state leaves, with the fault draws keyed on
+the clients' identities, and ``engine.pool_scatter`` writes the leaves
+back; an out-of-pool client's rows stay bit-identical. P = 0 and P >= C
+run the round unwrapped.
 """
 from __future__ import annotations
 
@@ -87,8 +94,9 @@ from repro_torch.core.aggregation import (aggregator_key, flatten_stacked,
                                           resolve_wire_codec)
 from repro_torch.core.alignment import epsilon_at
 from repro_torch.fl import engine
-from repro_torch.utils import (resolve_device, tree_leaves, tree_map,
-                               tree_unflatten_like)
+from repro_torch import prng
+from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
+                               tree_map, tree_unflatten_like)
 
 FSDP_ARCHS = {"jamba-1.5-large-398b", "llava-next-34b"}
 
@@ -98,22 +106,37 @@ def needs_fsdp(cfg) -> bool:
     return cfg.name in FSDP_ARCHS
 
 
-# (knob, test, ROADMAP item) for every FedConfig knob the LM rounds of
-# this slice do not run
-_OUT_OF_SLICE = (
-    ("candidate_pool", lambda f: f.candidate_pool > 0, "A13"),
-)
+def pool_round_key(fed, round_idx):
+    """The LM rounds' candidate-pool key: the named stream
+    ``"candidate_pool"`` off the config seed, folded with the absolute
+    round index (a resumed run redraws round r's pool)."""
+    base = fold_in_name(prng.PRNGKey(fed.seed), "candidate_pool")
+    return prng.fold_in(base, int(round_idx))
 
 
-def check_round_config(fed):
-    """Refuse the knobs this slice's pod round does not run, naming their
-    ROADMAP item, then run the shared ``validate_config``."""
-    for knob, on, item in _OUT_OF_SLICE:
-        if on(fed):
-            raise NotImplementedError(
-                f"FedConfig.{knob}={getattr(fed, knob)!r} is not ported to "
-                f"the LM round yet (ROADMAP {item})")
-    return validate_config(fed)
+def _pool_wrap(fed, round_step):
+    """Run ``round_step`` on a [P] candidate pool of the batch's C clients
+    when 0 < ``fed.candidate_pool`` < C (see the module note); otherwise
+    the round itself."""
+    pool = int(fed.candidate_pool)
+    if pool <= 0:
+        return round_step
+
+    def pooled_step(state, batch, round_idx=0):
+        pm = batch["priority_mask"]
+        if pool >= pm.shape[0]:
+            return round_step(state, batch, round_idx)
+        idx = engine.pool_select(fed, pool_round_key(fed, round_idx), pm,
+                                 state.backlog, state.incl_ema, pool)
+        sub_batch = dict(batch, priority_mask=pm[idx],
+                         weights=batch["weights"][idx],
+                         clients={k: v[idx]
+                                  for k, v in batch["clients"].items()})
+        sub, stats = round_step(engine.pool_view(fed, state, idx), sub_batch,
+                                round_idx, client_ids=idx)
+        return engine.pool_scatter(fed, state, sub, stats, idx)
+
+    return pooled_step
 
 
 def _train_steps(model, params, batch, lr, n_steps, out):
@@ -238,7 +261,7 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     the K gathered clients train."""
     E = fed.local_epochs
     lr = fed.lr
-    check_round_config(fed)
+    validate_config(fed)
     dev = resolve_device(device)
     agg_needs_key = get_aggregator(fed.aggregator).needs_key
     ef_on = (resolve_wire_codec(fed.wire_codec) != "identity"
@@ -246,7 +269,7 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     strategy = engine.get_strategy(fed.selection)
     use_cohort = fed.max_cohort > 0 and not strategy.needs_deltas
 
-    def round_step(state, batch, round_idx=0):
+    def round_step(state, batch, round_idx=0, client_ids=None):
         round_idx = int(round_idx)
         params = state.params
         _check_params_device(params, dev)
@@ -261,7 +284,7 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
         # the fault plan: availability gates, lost clients' mass masked
         # after training, corruption of the trained rows in place
         part, lost, ctf = engine.round_faults(fed, state, round_idx, C,
-                                               dev)
+                                               dev, client_ids=client_ids)
 
         if use_cohort:
             # gates -> gather-train: only the K cohort rows train
@@ -345,7 +368,7 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
         return new_state, _round_stats(fed, server_loss, local_losses, gates,
                                        new_state, pm, w, info, lost)
 
-    return round_step
+    return _pool_wrap(fed, round_step)
 
 
 def make_temporal_round(model, fed, cohort: int, device="cuda"):
@@ -364,7 +387,7 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
             "has no per-client materialization to corrupt on the linear "
             "path — use the spatial round for corruption faults, or set "
             "corrupt_rate=0 (crash/drop-out faults stream fine)")
-    check_round_config(fed)
+    validate_config(fed)
     strategy = engine.get_strategy(fed.selection)
     if strategy.needs_deltas and not fed.grad_sim_sketch:
         raise ValueError(
@@ -397,7 +420,7 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
                                                 int(fed.sketch_dim))[0])
         return torch.stack(rows)
 
-    def round_step(state, batch, round_idx=0):
+    def round_step(state, batch, round_idx=0, client_ids=None):
         round_idx = int(round_idx)
         params = state.params
         _check_params_device(params, dev)
@@ -407,7 +430,8 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
         C = pm.shape[0]
         server_loss, local_losses, util_ema = _eval_pass(model, fed, state,
                                                          batch)
-        part, lost, _ = engine.round_faults(fed, state, round_idx, C, dev)
+        part, lost, _ = engine.round_faults(fed, state, round_idx, C, dev,
+                                            client_ids=client_ids)
         buf = None                          # the one streamed client copy
         delta_cos = None
         if strategy.needs_deltas:
@@ -481,7 +505,7 @@ def make_temporal_round(model, fed, cohort: int, device="cuda"):
         return new_state, _round_stats(fed, server_loss, local_losses, gates,
                                        new_state, pm, w, info, lost)
 
-    return round_step
+    return _pool_wrap(fed, round_step)
 
 
 def make_round_step(model, fed, num_clients: int, *, fsdp: bool,

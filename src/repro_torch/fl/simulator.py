@@ -9,8 +9,15 @@ the History contents are the reference's. The round key chain is the same:
 read at the same chunk boundaries, and ``drain_inflight`` flushes a
 ``scan_async`` buffer after the last round, as in the reference.
 
-Checkpoint/resume to disk (``checkpoint_path``, ROADMAP A14) is not
-ported and raises.
+Runs are resumable, in the reference's file format: ``checkpoint_path``
+writes the full (state, rng) carry at every chunk boundary
+(``save_federation_state``, ``checkpoint/io.py``), and
+``load_federation_state`` plus ``run_federation(state=..., rng=...,
+start_round=...)`` continue the run bit for bit, an in-flight
+``scan_async`` buffer and candidate-pool draws included: the round key is
+split once a round whatever the chunking, and every other stream is keyed
+on the absolute round. A checkpoint written by either package loads in
+the other.
 """
 from __future__ import annotations
 
@@ -20,7 +27,10 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.core.aggregation import check_client_weights, dp_report
+from repro_torch.checkpoint.io import load_pytree, save_pytree
+from repro_torch.core.aggregation import (check_client_weights, dp_report,
+                                          resolve_aggregator,
+                                          resolve_wire_codec)
 from repro_torch.core.metrics import History
 from repro_torch.data.synth import Federation
 from repro_torch.fl import engine
@@ -61,6 +71,95 @@ def evaluate(loss_fn, params, x, y, batch=4096):
     return float(out[0]), float(out[1])
 
 
+def _state_fingerprint(fed) -> Optional[dict]:
+    """The run knobs whose mismatch on resume changes no leaf shape, the
+    reference's dict in its key order (it is written into the file): the
+    buffer's pop policy, a non-mean aggregator, the event clock's draws
+    and deadline, the failure model and its rates, a non-identity wire
+    codec and its rate, the candidate pool and its weighting. Only
+    non-default knobs are recorded; None when there are none."""
+    if fed is None:
+        return None
+    fp = {}
+    if fed.async_depth > 0:
+        fp.update(async_mode=fed.async_mode, min_lag=int(fed.min_lag),
+                  adaptive_staleness=bool(fed.adaptive_staleness))
+    agg = resolve_aggregator(fed.aggregator)
+    if agg != "mean":
+        fp["aggregator"] = agg
+    if fed.latency_mode != "none":
+        fp.update(latency_mode=fed.latency_mode,
+                  latency_mu=float(fed.latency_mu),
+                  latency_sigma=float(fed.latency_sigma),
+                  latency_net_mu=float(fed.latency_net_mu),
+                  latency_net_sigma=float(fed.latency_net_sigma))
+    if float(fed.round_deadline) != float("inf"):
+        fp["round_deadline"] = float(fed.round_deadline)
+    fm = engine.resolve_failure_model(fed.failure_model)
+    if fm != "none":
+        fp.update(failure_model=fm, crash_rate=float(fed.crash_rate),
+                  dropout_rate=float(fed.dropout_rate),
+                  dropout_len=int(fed.dropout_len),
+                  corrupt_rate=float(fed.corrupt_rate),
+                  corrupt_scale=float(fed.corrupt_scale))
+    wc = resolve_wire_codec(fed.wire_codec)
+    if wc != "identity":
+        fp.update(wire_codec=wc, error_feedback=bool(fed.error_feedback))
+        if wc == "topk":
+            fp["codec_topk_frac"] = float(fed.codec_topk_frac)
+        if wc == "sketch":
+            fp["codec_sketch_dim"] = int(fed.codec_sketch_dim)
+    if int(fed.candidate_pool) > 0:
+        fp.update(candidate_pool=int(fed.candidate_pool),
+                  pool_weighting=str(fed.pool_weighting))
+    return fp or None
+
+
+def save_federation_state(path: str, state, rng, round_idx: int,
+                          fed=None) -> None:
+    """Checkpoint the full cross-round carry, the FederationState and the
+    driver's PRNG key (on disk as the reference's uint32 words), as one
+    pytree ``{"state", "rng"}`` with step ``round_idx``; with ``fed``, its
+    ``_state_fingerprint`` rides along for ``load_federation_state`` to
+    check."""
+    key = np.asarray(torch.as_tensor(rng).cpu().numpy(), dtype=np.uint32)
+    save_pytree(path, {"state": state, "rng": key}, step=int(round_idx),
+                meta=_state_fingerprint(fed))
+
+
+def load_federation_state(path: str, like_state, fed=None, device="cuda"):
+    """Restore ``(state, rng, next_round)`` written by
+    ``save_federation_state`` (of either package). ``like_state`` fixes
+    the structure, shapes and dtypes (``engine.init_state`` with the
+    run's config makes one); the state goes to ``device``, the key stays
+    on the host, as the simulator keeps it. With ``fed``, a fingerprint
+    that differs from the writer's raises the reference's ``ValueError``;
+    a file with no fingerprint loads unchecked."""
+    dev = resolve_device(device)
+    tree, step, meta = load_pytree(path, {"state": like_state,
+                                          "rng": prng.PRNGKey(0)},
+                                   device=dev)
+    if fed is not None and meta is not None:
+        want = _state_fingerprint(fed) or {}
+        if meta != want:
+            raise ValueError(
+                f"checkpoint {path!r} was written with run fingerprint "
+                f"{meta} but this config resumes with {want or '{}'} — "
+                "async slot ages/timers would pop on the wrong schedule, "
+                "the optimizer moments would be fed by a different "
+                "aggregator, the restored error-feedback accumulators "
+                "would re-inject residuals of a different wire codec (or "
+                "topk/sketch rate), and/or the fault-injection stream "
+                "would diverge from the writer's, and/or the candidate-pool "
+                "sampler would draw different pools from this round on. "
+                "Resume with the writer's async_mode/min_lag/"
+                "adaptive_staleness/aggregator/latency_*/round_deadline/"
+                "failure-model/wire_codec/error_feedback/codec-rate/"
+                "candidate_pool/pool_weighting knobs (or drain the buffer "
+                "before switching policies)")
+    return tree["state"], tree["rng"].cpu(), step
+
+
 def federation_tensors(federation: Federation, device):
     """The round's inputs on ``device``: data {'x','y'} [C, n, ...], the
     priority mask and the checked client weights."""
@@ -81,18 +180,20 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
     ``device`` (default the card; raises if there is none).
 
     ``init_params`` seeds a fresh FederationState (copied to ``device``);
-    pass ``state``/``rng`` plus ``start_round`` to continue a run held in
-    memory (its in-flight buffer is copied: the rounds move its slots in
-    place). Under the divergence guard with ``fed.max_nonfinite_skips > 0``
-    the run halts at the first chunk boundary whose rounds reached that
-    many consecutive skips, and ``hist.diverged_at`` names the round.
-    ``drain_inflight=True`` applies the still-buffered deltas after the
-    last round (``engine.drain_inflight``). Returns the History, with
-    ``params``, ``state`` and ``rng`` of the last round attached."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "run_federation(checkpoint_path=...) is not ported yet "
-            "(ROADMAP A14)")
+    pass ``state``/``rng`` plus ``start_round`` (``load_federation_state``)
+    to continue a run bit for bit; the in-flight buffer and the
+    error-feedback rows are copied, since the rounds update them in place.
+    ``checkpoint_path`` writes the (state, rng) carry at every chunk
+    boundary (``save_federation_state``), so a killed run loses at most
+    ``eval_every`` rounds. Under the divergence guard with
+    ``fed.max_nonfinite_skips > 0`` the run halts at the first chunk
+    boundary whose rounds reached that many consecutive skips, and
+    ``hist.diverged_at`` names the (absolute) round. ``drain_inflight=True``
+    applies the still-buffered deltas after the last round
+    (``engine.drain_inflight``) and rewrites the final checkpoint with the
+    drained state, so a resume can never apply them twice. Returns the
+    History, with ``params``, ``state`` and ``rng`` of the last round
+    attached."""
     dev = resolve_device(device)
     round_fn = make_round_fn(loss_fn, fed)
     data, pm, w = federation_tensors(federation, dev)
@@ -103,8 +204,9 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
         # private copy: the caller keeps ownership of what it passed in
         state = init_state(tree_map(lambda p: p.to(dev, copy=True), init_params),
                            fed, C)
-    elif isinstance(state.inflight, dict):
-        state = state.replace(inflight=tree_map(torch.clone, state.inflight))
+    else:
+        state = state.replace(inflight=tree_map(torch.clone, state.inflight),
+                              ef_accum=tree_map(torch.clone, state.ef_accum))
     rng = prng.PRNGKey(fed.seed) if rng is None else torch.as_tensor(rng).cpu()
     hist = History()
 
@@ -136,6 +238,8 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
                           f"inc={float(s['included_nonpriority']):.1f}")
             else:
                 hist.log(s)
+        if checkpoint_path is not None:
+            save_federation_state(checkpoint_path, state, rng, b + 1, fed=fed)
         start = b + 1
         if halt_skips > 0:
             # the guard already kept every non-finite aggregate off the
@@ -150,7 +254,13 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
                       "params are the last finite ones")
                 break
     if drain_inflight:
+        had_buffer = isinstance(state.inflight, dict)
         state = engine.drain_inflight(fed, state)
+        if checkpoint_path is not None and had_buffer:
+            # the last boundary's file predates the drain: rewrite it, so a
+            # resume sees an empty buffer and a second drain is a no-op
+            save_federation_state(checkpoint_path, state, rng, fed.rounds,
+                                  fed=fed)
     hist.params = state.params
     hist.state = state
     hist.rng = rng

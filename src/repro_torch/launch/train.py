@@ -73,8 +73,11 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
         **fed_kw):
     """``fed_kw`` passes any further FedConfig knob straight through (the
     aggregators, wire codecs, server optimizers, strategies, the training
-    cohort, overlapped cohorts (``async_depth``, ``async_mode``, ...) and
-    the fault layer; knobs the port has not reached raise).
+    cohort, overlapped cohorts (``async_depth``, ``async_mode``, ...), the
+    fault layer and candidate pools (``candidate_pool``,
+    ``pool_weighting``: a pooled round's ``gates`` are in the [C] space,
+    zero out of the pool, so ``included`` counts the pool's included
+    clients).
     Returns (params, history): the final global params, detached, and one
     record per round with the reference's keys (``lost_clients`` and
     ``skipped_nonfinite`` where their feature is on) plus the round's

@@ -38,7 +38,7 @@ runs twice a gradient, once in the forward and once in the backward.
 
 Out of the port so far, and refused with ``NotImplementedError`` by
 ``check_model_config``: MLA, the xlstm pattern, ``first_dense`` > 0,
-encoder-decoder, VLM, ``attn_bf16`` and ``seq_shard_attn`` (ROADMAP A16).
+encoder-decoder, VLM, ``attn_bf16`` and ``seq_shard_attn`` (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ def check_model_config(cfg):
         if on(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {knob}={getattr(cfg, knob)!r} ({what}) is not "
-                "ported yet (ROADMAP A16)")
+                "ported yet (ROADMAP A16b)")
     return cfg
 
 

@@ -13,6 +13,9 @@ on: a key is a pair of uint32 words, and every derived stream hashes a
 * ``uniform``, ``bernoulli``, ``rademacher`` and ``randint`` build on
   ``bits`` exactly as jax 0.9 does (mantissa fill, compare, two-word
   modulus), so their outputs are bit-exact too.
+* ``gumbel`` is ``-log(-log(uniform(tiny, 1)))``, ``jax.random.gumbel``'s
+  default mode: the uniform is bit-exact, the two logs are the host
+  library's and may sit an ulp or so off XLA's.
 * ``normal`` is ``sqrt(2) * erf_inv(uniform(-1 + ulp, 1))`` with XLA's f32
   ``erf_inv`` polynomial (M. Giles' approximation, the constants and the
   Horner order of XLA's lowering). It is not bit-exact: ``log1p`` is the
@@ -144,6 +147,15 @@ def _uniform_from_bits(b: torch.Tensor, minval, maxval) -> torch.Tensor:
 def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (bool)."""
     return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` (mode "low"): ``-log(-log(u))``
+    with ``u`` uniform on [finfo(f32).tiny, 1). Not bit-exact (see the
+    module note); the candidate-pool sampler ranks by it, and its callers
+    check that no rank sits on a rounding tie."""
+    u = uniform(key, shape, torch.finfo(torch.float32).tiny, 1.0)
+    return -torch.log(-torch.log(u))
 
 
 def rademacher(key: torch.Tensor, shape) -> torch.Tensor:

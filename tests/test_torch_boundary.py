@@ -28,7 +28,7 @@ from repro_torch.models.small import SMALL_MODELS, make_loss_fn  # noqa: E402
 from repro_torch.serving import BatchScheduler  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,7 +102,7 @@ OUT_OF_SLICE = [
     ("selection", "topk_align", "runs"), ("selection", "grad_sim", "runs"),
     ("selection", "welfare", "runs"), ("backend", "scan_async", "runs"),
     ("async_depth", 2, ValueError), ("participation", 0.5, "runs"),
-    ("max_cohort", 2, "runs"), ("candidate_pool", 3, NotImplementedError),
+    ("max_cohort", 2, "runs"), ("candidate_pool", 3, "runs"),
     ("server_opt", "momentum", "runs"), ("server_opt", "adam", "runs"),
     ("server_opt", "yogi", "runs"), ("failure_model", "crash", "runs"),
     ("failure_model", "chaos", "runs"), ("latency_mode", "lognormal", "runs"),
@@ -135,26 +135,32 @@ def test_out_of_slice_knob_raises(knob, value, outcome):
         engine.make_round_fn(loss_fn, fed)
 
 
-# (driver option, whether it still raises): drain_inflight runs (a no-op
-# on a synchronous run); checkpoints (ROADMAP A14) are not ported
-@pytest.mark.parametrize("kw,raises", [(dict(checkpoint_path="ckpt"), True),
-                                       (dict(drain_inflight=True), False)],
+# the driver options once outside the slice: both run, and change nothing
+# of the run (drain_inflight is a no-op on a synchronous run); the
+# checkpoint they write loads back to the run's final state and key
+@pytest.mark.parametrize("kw", [dict(checkpoint_path="ckpt.msgpack"),
+                                dict(drain_inflight=True)],
                          ids=["checkpoint_path", "drain_inflight"])
-def test_out_of_slice_driver_options_raise(kw, raises):
+def test_out_of_slice_driver_options_raise(kw, tmp_path):
+    from repro_torch.fl.simulator import load_federation_state
     fedn, init_fn, loss_fn = _tiny()
     fed = FedConfig(num_clients=4, num_priority=2, rounds=1, local_epochs=1,
                     batch_size=8)
-    if not raises:
-        plain = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
-                               device="cpu")
-        hist = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
-                              device="cpu", **kw)
-        assert all(torch.equal(hist.params[k], plain.params[k])
+    if "checkpoint_path" in kw:
+        kw = dict(checkpoint_path=str(tmp_path / kw["checkpoint_path"]))
+    plain = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
+                           device="cpu")
+    hist = run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn,
+                          device="cpu", **kw)
+    assert all(torch.equal(hist.params[k], plain.params[k])
+               for k in plain.params)
+    if "checkpoint_path" in kw:
+        state, rng, step = load_federation_state(
+            kw["checkpoint_path"], engine.init_state(init_fn(0, "cpu"), fed, 4),
+            fed=fed, device="cpu")
+        assert step == 1 and torch.equal(rng, hist.rng)
+        assert all(torch.equal(state.params[k], hist.params[k])
                    for k in plain.params)
-        return
-    with pytest.raises(NotImplementedError, match="A14"):
-        run_federation(loss_fn, init_fn(0, "cpu"), fed, fedn, device="cpu",
-                       **kw)
 
 
 PORTED_KNOBS = [("aggregator", "trimmed_mean"), ("aggregator", "median"),

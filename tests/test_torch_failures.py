@@ -317,21 +317,32 @@ def _attack(where):
     return transform
 
 
-@pytest.mark.parametrize("max_cohort", [0, 3])
-def test_delta_transform_composes_with_corruption(max_cohort):
+# (max_cohort, candidate_pool): the dense round, a cohort round, a pooled
+# round (4 priority + 2 sampled of 8)
+SEAM = [(0, 0), (3, 0), (0, 6)]
+
+
+@pytest.mark.parametrize("max_cohort,pool", SEAM, ids=["0", "3", "pool6"])
+def test_delta_transform_composes_with_corruption(max_cohort, pool):
     """A user delta_transform composed over scaled corruption, on the dense
-    round and on a cohort round (rows in cohort space, the transform
-    targeting client identities), stepped round by round against the
-    reference's make_round_fn: gates exactly, params within
-    tests/test_torch_round.py's 1e-4 max|p| every round. An attacker is
-    included in some round, so the transform moves the result."""
+    round, on a cohort round (rows in cohort space, the transform
+    targeting client identities) and on a pooled round, stepped round by
+    round against the reference's make_round_fn: gates exactly, params
+    within tests/test_torch_round.py's 1e-4 max|p| every round. A pooled
+    round hands the seam pool-local indices, as the reference's code does
+    (its docstring says identities): ``arange(P)``, so the attacker is the
+    pool's rows 1 and 5. An attacker is included in some round, so the
+    transform moves the result."""
     cfg = dict(BASE, failure_model="corrupt", corrupt_rate=0.3,
-               corrupt_scale=4.0, max_cohort=max_cohort)
+               corrupt_scale=4.0, max_cohort=max_cohort, candidate_pool=pool)
     calls = {"jax": 0, "port": 0}
+    seen = []
 
     def counted(name, fn):
         def transform(cp, gp, idx):
             calls[name] += 1
+            if name == "port":
+                seen.append(idx.tolist())
             return fn(cp, gp, idx)
         return transform
 
@@ -339,7 +350,13 @@ def test_delta_transform_composes_with_corruption(max_cohort):
     for r, jstate, jstats, tstate, tstats in stepped_rounds(
             cfg, counted("jax", _attack(jnp.where)),
             counted("port", _attack(torch.where))):
-        attacked += int(tstats["gates"][1] > 0) + int(tstats["gates"][5] > 0)
+        rows = (tstats["pool_idx"].tolist() if pool
+                else list(range(cfg["num_clients"])))
+        attacked += sum(int(tstats["gates"][rows[i]] > 0) for i in (1, 5))
+        if pool:
+            np.testing.assert_array_equal(tstats["pool_idx"].numpy(),
+                                          np.asarray(jstats["pool_idx"]))
+            assert seen[-1] == list(range(pool))
         for k, want in jstate.params.items():
             want = np.asarray(want)
             np.testing.assert_allclose(
@@ -401,6 +418,25 @@ def test_async_depth_needs_the_async_backend():
 
 
 def test_pool_keyed_fault_draws_are_not_ported():
-    fed = FedConfig(failure_model="crash", crash_rate=0.1)
-    with pytest.raises(NotImplementedError, match="A13"):
-        engine.failure_plan(fed, 0, 4, client_ids=torch.arange(4))
+    """Once a refusal (ROADMAP A13), now the pool-keyed draws: every
+    failure model's plan over a pool of identities equals the reference's,
+    mask for mask, and each client's draw is the one it gets in any other
+    pool."""
+    ids = np.array([0, 3, 7, 19, 1000])
+    for model in ("crash", "dropout", "corrupt", "chaos"):
+        kw = dict(failure_model=model, seed=5, **RATES)
+        jfed, fed = JaxFedConfig(**kw), FedConfig(**kw)
+        for r in range(3):
+            jplan = jengine.failure_plan(jfed, r, 5,
+                                         client_ids=jnp.asarray(ids))
+            plan = engine.failure_plan(fed, r, 5,
+                                       client_ids=torch.from_numpy(ids))
+            alone = engine.failure_plan(fed, r, 1,
+                                        client_ids=torch.tensor([19]))
+            for name in ("available", "crashed", "corrupt"):
+                want, got = getattr(jplan, name), getattr(plan, name)
+                assert (got is None) == (want is None), name
+                if want is not None:
+                    np.testing.assert_array_equal(got.numpy(),
+                                                  np.asarray(want))
+                    assert bool(getattr(alone, name)[0]) == bool(got[3])

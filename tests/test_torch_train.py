@@ -35,8 +35,9 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.data.tokens import make_token_federation  # noqa: E402
-from repro_torch.fl import sharded  # noqa: E402
+from repro_torch.fl import engine, sharded  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.train import build_batches  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -232,7 +233,7 @@ OUT_OF_SLICE = [
     (dict(async_depth=2, backend="scan_async"), None),
     (dict(failure_model="crash", crash_rate=0.1), None),
     (dict(latency_mode="lognormal"), None),
-    (dict(divergence_guard=True), None), (dict(candidate_pool=3), "A13"),
+    (dict(divergence_guard=True), None), (dict(candidate_pool=3), None),
 ]
 
 
@@ -260,26 +261,44 @@ def test_out_of_slice_round_knob_raises(kw, item):
 
 def test_fsdp_round_is_not_ported():
     """Once a refusal (ROADMAP A17), now the temporal round: fsdp=True
-    builds it, and it refuses the knobs the spatial round refuses, naming
-    the same items (tests/test_torch_temporal.py holds the round)."""
-    model = get_model(get_smoke("qwen1.5-0.5b"))
+    builds it, and since the candidate pools (A13) no listed knob is
+    refused: both rounds build and run one round under each
+    (tests/test_torch_temporal.py holds the round)."""
+    cfg = get_smoke("qwen1.5-0.5b")
+    model = get_model(cfg)
     assert callable(sharded.make_round_step(model, FedConfig(num_clients=4),
                                             4, fsdp=True, device="cpu"))
-    refused = [(kw, item) for kw, item in OUT_OF_SLICE if item is not None]
-    assert {item for _, item in refused} == {"A13"}
-    for kw, item in refused:
-        fed = FedConfig(num_clients=4, num_priority=2, **kw)
+    assert all(item is None for _, item in OUT_OF_SLICE)
+    data = make_token_federation(seed=0, vocab=cfg.vocab_size, n_clients=4,
+                                 n_priority=2, seq_len=32,
+                                 tokens_per_client=33 * 8)
+    batch = build_batches(cfg, data, clients=4, per_client=2, seq=32,
+                          rng=np.random.default_rng(0), device="cpu")
+    for kw, _ in OUT_OF_SLICE:
+        fed = FedConfig(num_clients=4, num_priority=2, local_epochs=1, **kw)
         for fsdp in (True, False):
-            with pytest.raises(NotImplementedError, match=item):
-                sharded.make_round_step(model, fed, 4, fsdp=fsdp,
-                                        device="cpu")
+            if fsdp and kw.get("selection") == "grad_sim":
+                fed = fed.replace(grad_sim_sketch=True)
+            step = sharded.make_round_step(model, fed, 4, fsdp=fsdp,
+                                           device="cpu")
+            state = engine.init_state(model.init(prng.PRNGKey(0),
+                                                 device="cpu"), fed, 4)
+            state, stats = step(state, batch, 0)
+            assert stats["gates"].shape == (4,), (kw, fsdp)
+            assert all(torch.isfinite(p).all()
+                       for p in tree_leaves(state.params)), (kw, fsdp)
 
 
 def test_cli_parses_out_of_slice_knobs_and_run_refuses_them():
-    """The parser takes every reference flag; the round refuses the knob."""
-    a = train.build_parser().parse_args(["--candidate-pool", "3", "--device",
-                                         "cpu", "--rounds", "1"])
+    """The parser takes every reference flag, and the knob once refused
+    now runs: ``--candidate-pool 3`` raises the reference's ValueError (the
+    run's 4 priority clients do not fit a pool of 3), a pool of 5 trains
+    the 4 priority clients and 1 sampled of the CLI's 8."""
+    argv = ["--device", "cpu", "--rounds", "1", "--seq", "32"]
+    a = train.build_parser().parse_args(["--candidate-pool", "3"] + argv)
     assert isinstance(a, argparse.Namespace) and a.candidate_pool == 3
-    with pytest.raises(NotImplementedError, match="A13"):
-        train.main(["--candidate-pool", "3", "--device", "cpu", "--rounds",
-                    "1"])
+    with pytest.raises(ValueError, match="num_priority=4"):
+        train.main(["--candidate-pool", "3"] + argv)
+    params, hist = train.main(["--candidate-pool", "5"] + argv)
+    assert len(hist) == 1 and np.isfinite(hist[0]["server_loss"])
+    assert sum(g > 0 for g in hist[0]["gates"][4:]) <= 1
