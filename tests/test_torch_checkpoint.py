@@ -10,6 +10,7 @@ equal the uninterrupted run bit for bit, and the port resumed from the
 reference's file must equal the reference's uninterrupted run at
 tests/test_torch_round.py's tolerances (gates, pools and backlog
 exactly, params within 1e-4 max|p|)."""
+import functools
 import itertools
 
 import jax
@@ -45,6 +46,19 @@ BASE = dict(num_clients=C, num_priority=3, rounds=8, local_epochs=1,
             batch_size=32)
 POOL_ASYNC = dict(BASE, candidate_pool=6, server_opt="yogi", server_lr=0.3,
                   backend="scan_async", async_depth=2, staleness_decay=0.9)
+
+
+@functools.lru_cache(maxsize=None)
+def federations():
+    """FEDN in both packages, made once per module: the SYNTH generator
+    draws each client with small SVDs, which crawl beside other test
+    workers."""
+    return jax_synth(**FEDN), make_synth_federation(**FEDN)
+
+
+@functools.lru_cache(maxsize=None)
+def init_params():
+    return _init("synth_logreg")
 
 
 # every msgpack format the checkpoints use, at each width's edges
@@ -108,7 +122,7 @@ def test_state_layout_matches_reference(opt):
     """The written leaves of init_state for each layout: the treedef
     string, and each leaf's shape and dtype string, as the reference
     writes them."""
-    p0 = _init("synth_logreg")
+    p0 = init_params()
     tp0 = params_from_jax(jax.tree.map(np.asarray, p0), "cpu")
     n = 0
     for kw in _layout_cfgs():
@@ -132,22 +146,22 @@ def test_state_layout_matches_reference(opt):
 
 def _ref_run(cfg, **kw):
     return jsim.run_federation(jax_loss_fn(JAX_MODELS["synth_logreg"][1]),
-                               _init("synth_logreg"), JaxFedConfig(**cfg),
-                               jax_synth(**FEDN), **kw)
+                               init_params(), JaxFedConfig(**cfg),
+                               federations()[0], **kw)
 
 
 def _port_run(cfg, p0=None, **kw):
     p0 = p0 if p0 is not None or "state" in kw else params_from_jax(
-        jax.tree.map(np.asarray, _init("synth_logreg")), "cpu")
+        jax.tree.map(np.asarray, init_params()), "cpu")
     return tsim.run_federation(make_loss_fn(SMALL_MODELS["synth_logreg"][1]),
                                p0, FedConfig(**cfg),
-                               make_synth_federation(**FEDN), device="cpu",
+                               federations()[1], device="cpu",
                                **kw)
 
 
 def _like(cfg):
     return engine.init_state(params_from_jax(
-        jax.tree.map(np.asarray, _init("synth_logreg")), "cpu"),
+        jax.tree.map(np.asarray, init_params()), "cpu"),
         FedConfig(**cfg), C)
 
 
@@ -222,7 +236,7 @@ def test_port_checkpoint_loads_in_reference(tmp_path):
     path = str(tmp_path / "port.msgpack")
     h = _port_run(cfg, eval_every=2, checkpoint_path=path)
     jfed = JaxFedConfig(**cfg)
-    jlike = jengine.init_state(_init("synth_logreg"), jfed, C)
+    jlike = jengine.init_state(init_params(), jfed, C)
     jstate, jrng, step = jsim.load_federation_state(path, jlike, fed=jfed)
     assert step == cfg["rounds"]
     leaves, td = flatten({"state": h.state, "rng": h.rng})
@@ -256,7 +270,7 @@ def test_fingerprint_mismatch_raises(tmp_path):
                                        device="cpu")
         with pytest.raises(ValueError, match=match):
             jsim.load_federation_state(
-                path, jengine.init_state(_init("synth_logreg"),
+                path, jengine.init_state(init_params(),
                                          JaxFedConfig(**cfg), C),
                 fed=JaxFedConfig(**cfg).replace(**kw))
     for f in (fed, None):

@@ -19,6 +19,8 @@ holds them; the LM rounds at tests/test_torch_temporal.py's tolerances
 and their params within tests/test_torch_train.py's PARITY. Every
 out-of-pool row of ``backlog``, ``util_ema``, ``incl_ema`` and
 ``ef_accum`` is held bit for bit across each round."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,19 @@ BASE = dict(num_clients=C, num_priority=3, rounds=6, local_epochs=1,
             epsilon=0.5, warmup_frac=0.0, align_stat="loss",
             candidate_pool=P)
 PER_CLIENT = ("backlog", "util_ema", "incl_ema")
+
+
+@functools.lru_cache(maxsize=None)
+def federations():
+    """FEDN in both packages, made once per module: the SYNTH generator
+    draws each client with small SVDs, which crawl beside other test
+    workers."""
+    return jax_synth(**FEDN), make_synth_federation(**FEDN)
+
+
+@functools.lru_cache(maxsize=None)
+def init_params():
+    return _init("synth_logreg")
 
 
 @pytest.mark.parametrize("seed,shape", [(0, (12,)), (3, (1000,)),
@@ -125,10 +140,10 @@ def test_pool_select_matches_reference(weighting):
 def _run(fed, backend, rounds=1, state=None):
     loss_fn = make_loss_fn(SMALL_MODELS["synth_logreg"][1])
     fn = engine.make_round_fn(loss_fn, fed, backend=backend)
-    p0 = params_from_jax(jax.tree.map(np.asarray, _init("synth_logreg")),
+    p0 = params_from_jax(jax.tree.map(np.asarray, init_params()),
                          "cpu")
     state = state or engine.init_state(p0, fed, C)
-    args = federation_tensors(make_synth_federation(**FEDN), "cpu")
+    args = federation_tensors(federations()[1], "cpu")
     for r in range(rounds):
         state, stats = fn(state, *args, prng.PRNGKey(1 + r), 2 + r)
     return state, stats
@@ -162,8 +177,8 @@ def stepped_pool_rounds(cfg):
     gates, backlog and lost clients exactly and the out-of-pool rows bit
     for bit. Yields (round, jax state, port state) after every round."""
     jfed, fed = JaxFedConfig(**cfg), FedConfig(**cfg)
-    p0 = _init("synth_logreg")
-    jfedn = jax_synth(**FEDN)
+    p0 = init_params()
+    jfedn = federations()[0]
     jround = jax.jit(jengine.make_round_fn(
         jax_loss_fn(JAX_MODELS["synth_logreg"][1]), jfed))
     jstate = jengine.init_state(p0, jfed, C)
@@ -173,7 +188,7 @@ def stepped_pool_rounds(cfg):
         make_loss_fn(SMALL_MODELS["synth_logreg"][1]), fed)
     tstate = engine.init_state(
         params_from_jax(jax.tree.map(np.asarray, p0), "cpu"), fed, C)
-    targs = federation_tensors(make_synth_federation(**FEDN), "cpu")
+    targs = federation_tensors(federations()[1], "cpu")
     pm = targs[1].numpy()
     jrng, trng = jax.random.PRNGKey(fed.seed), prng.PRNGKey(fed.seed)
     for r in range(fed.rounds):

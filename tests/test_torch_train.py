@@ -262,31 +262,31 @@ def test_out_of_slice_round_knob_raises(kw, item):
 def test_fsdp_round_is_not_ported():
     """Once a refusal (ROADMAP A17), now the temporal round: fsdp=True
     builds it, and since the candidate pools (A13) no listed knob is
-    refused: both rounds build and run one round under each
-    (tests/test_torch_temporal.py holds the round)."""
+    refused: both rounds build under each, and the temporal round runs a
+    round under each (the spatial round runs each through train.run in
+    test_out_of_slice_round_knob_raises; tests/test_torch_temporal.py
+    holds the round)."""
     cfg = get_smoke("qwen1.5-0.5b")
     model = get_model(cfg)
-    assert callable(sharded.make_round_step(model, FedConfig(num_clients=4),
-                                            4, fsdp=True, device="cpu"))
     assert all(item is None for _, item in OUT_OF_SLICE)
     data = make_token_federation(seed=0, vocab=cfg.vocab_size, n_clients=4,
-                                 n_priority=2, seq_len=32,
-                                 tokens_per_client=33 * 8)
-    batch = build_batches(cfg, data, clients=4, per_client=2, seq=32,
+                                 n_priority=2, seq_len=16,
+                                 tokens_per_client=17 * 8)
+    batch = build_batches(cfg, data, clients=4, per_client=1, seq=16,
                           rng=np.random.default_rng(0), device="cpu")
+    params = model.init(prng.PRNGKey(0), device="cpu")
     for kw, _ in OUT_OF_SLICE:
         fed = FedConfig(num_clients=4, num_priority=2, local_epochs=1, **kw)
-        for fsdp in (True, False):
-            if fsdp and kw.get("selection") == "grad_sim":
-                fed = fed.replace(grad_sim_sketch=True)
-            step = sharded.make_round_step(model, fed, 4, fsdp=fsdp,
-                                           device="cpu")
-            state = engine.init_state(model.init(prng.PRNGKey(0),
-                                                 device="cpu"), fed, 4)
-            state, stats = step(state, batch, 0)
-            assert stats["gates"].shape == (4,), (kw, fsdp)
-            assert all(torch.isfinite(p).all()
-                       for p in tree_leaves(state.params)), (kw, fsdp)
+        assert callable(sharded.make_round_step(model, fed, 4, fsdp=False,
+                                                device="cpu"))
+        if kw.get("selection") == "grad_sim":
+            fed = fed.replace(grad_sim_sketch=True)
+        step = sharded.make_round_step(model, fed, 4, fsdp=True,
+                                       device="cpu")
+        state, stats = step(engine.init_state(params, fed, 4), batch, 0)
+        assert stats["gates"].shape == (4,), kw
+        assert all(torch.isfinite(p).all()
+                   for p in tree_leaves(state.params)), kw
 
 
 def test_cli_parses_out_of_slice_knobs_and_run_refuses_them():
