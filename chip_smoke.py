@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the FedALIGN round end to
 end through the hand-written fedagg kernel, under every aggregator and wire
-codec; LM serving (prefill + decode of the dense GQA models and of jamba)
-through the hand-written flash-attention, decode-attention, RMSNorm and
-selective-scan kernels; and federated LM training (the spatial and the
-temporal round over the dense GQA models and jamba) through the
+codec; LM serving (prefill + decode of the dense GQA models, the MoE
+archs, minicpm3's MLA and jamba) through the hand-written
+flash-attention, decode-attention, RMSNorm and selective-scan kernels;
+and federated LM training (the spatial and the temporal round over the
+dense GQA models, the MoE and MLA archs and jamba) through the
 flash-attention forward and backward, RMSNorm, selective-scan and fedagg
 kernels.
 
@@ -38,7 +39,8 @@ if a check fails:
    replayed in a CUDA graph against its eager output), then each timed at
    the serving path's shapes beside the plain version, its bound and a
    PyTorch yardstick (timed here only); K7 and K9 at every shape the
-   serving paths give them (qwen1.5-0.5b, qwen2.5-3b, jamba-1.5-large),
+   serving paths give them (qwen1.5-0.5b, qwen2.5-3b, jamba-1.5-large,
+   granite-moe, deepseek-moe, minicpm3),
    warm and cold, beside an empty kernel of the same launch shape; then the
    flash-attention backward (K6) against its plain version over the same
    cases, the FlashAttention and RMSNorm Functions' gradients on the card
@@ -136,10 +138,19 @@ if a check fails:
    with a pool at smoke size against the CPU; (i5) checkpoint and resume
    on the card (bit for bit), files crossing between the CPU and the
    card, the fingerprint's errors, and cell (b)'s state saved and loaded.
+16. slice (j): the MoE and MLA archs. (j1) the smoke granite-moe,
+   deepseek-moe (its leading dense block) and minicpm3 (MLA) on the card
+   against the CPU: prefill and decode logits, expert choices exactly
+   (router margins checked), the scheduler against generate, and 2
+   rounds of ``launch.train.run`` (gates exactly, expert choices equal);
+   (j2) the three at their published widths, every layer and expert
+   (f32 params, bf16 compute): generate, a BatchScheduler for deepseek
+   and minicpm3, the f32 teacher-forced check, init s, peak GB and
+   launches; minicpm3's latent cache bytes beside an expanded k / v's.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slices (h) and (i) are each counted from
+K8, K9, fedagg) and those of slices (h), (i) and (j) are each counted from
 zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
@@ -1291,8 +1302,10 @@ LM_TOL = 2e-5                     # x max|v| (attention) or |out| (rmsnorm):
                                   # own f32 kernel tolerance (tests/test_kernels.py)
 
 # (label, B, Sq, Skv, H, KV, hd, causal, window): causal and not, windowed,
-# Sq < Skv, ragged lengths, G in {1, 4, 8}, hd in {32, 64, 96, 128}, and the
-# slice's prefill shapes (qwen1.5-0.5b at B 8 x 512, qwen2.5-3b at 4 x 1024)
+# Sq < Skv, ragged lengths, G in {1, 3, 4, 8}, hd in {32, 64, 96, 128}, and
+# the slices' prefill shapes (qwen1.5-0.5b at B 8 x 512, qwen2.5-3b at 4 x
+# 1024; granite-moe at G 3, deepseek-moe, and minicpm3's MLA at hd 96 =
+# nope 64 + rope 32 with v zero past its 64 columns, as MLA pads it)
 FLASH_CASES = [
     ("mha_hd32", 2, 128, 128, 8, 8, 32, True, 0),
     ("gqa4_ragged_hd64", 2, 100, 100, 8, 2, 64, True, 0),
@@ -1310,10 +1323,19 @@ FLASH_CASES = [
     ("s1", 2, 1, 1, 8, 2, 64, True, 0),
     ("tile_edges_hd96", 1, 129, 191, 8, 2, 96, True, 0),
     ("long_g8_hd128", 1, 2048, 2048, 32, 4, 128, True, 0),
+    ("granite_prefill", 8, 512, 512, 24, 8, 64, True, 0),
+    ("deepseek_prefill", 4, 1024, 1024, 16, 16, 128, True, 0),
+    ("minicpm3_prefill", 4, 1024, 1024, 40, 40, 96, True, 0),
 ]
+# the cases whose v (and dO) carry zeros in their last columns: MLA pads v
+# from v_head_dim to nope + rope, and its output's padded columns take no
+# gradient
+V_ZERO_COLS = {"minicpm3_prefill": 32}
 # (label, B, Skv, H, KV, hd, [kv_len, ...]): kv_len in {1, mid, Skv}, ragged
-# Skv, G in {1, 4, 8}, the slices' decode shapes (qwen1.5-0.5b, qwen2.5-3b,
-# jamba-1.5-large); "strided" reads one layer of a stacked
+# Skv, G in {1, 3, 4, 8}, the slices' decode shapes (qwen1.5-0.5b,
+# qwen2.5-3b, jamba-1.5-large, granite-moe at G 3: its head group padded
+# to 4, the padding masked; deepseek-moe); "strided" reads one layer of a
+# stacked
 # [P, B, Skv, KV, hd] cache
 DECODE_CASES = [
     ("qwen1.5_decode", 8, 544, 16, 16, 64, (1, 271, 544)),
@@ -1322,15 +1344,20 @@ DECODE_CASES = [
     ("ragged_hd32_g4", 2, 77, 8, 2, 32, (1, 40, 77)),
     ("g8_hd96", 3, 100, 8, 1, 96, (1, 33, 100)),
     ("strided", 2, 300, 8, 2, 64, (1, 150, 300)),
+    ("granite_decode", 8, 544, 24, 8, 64, (1, 271, 544)),
+    ("deepseek_decode", 4, 1040, 16, 16, 128, (1, 519, 1040)),
 ]
 # (label, rows, D, scale dtype): ragged rows, the zoo's widths (jamba's
-# 8192 with its bf16 scale, at ragged prefill rows and a decode step's 2),
-# a width without 16-byte rows
+# 8192 with its bf16 scale, at ragged prefill rows and a decode step's 2;
+# granite's 1536, minicpm3's 2560 and its MLA q_norm's 768), a width
+# without 16-byte rows
 RMSNORM_CASES = [
     ("d256", 37, 256, "float32"), ("d1024_decode", 8, 1024, "float32"),
     ("d1024_prefill", 4096, 1024, "float32"), ("d2048", 4099, 2048, "float32"),
     ("d3072", 7, 3072, "float32"), ("d100_scalar", 5, 100, "float32"),
     ("d8192", 77, 8192, "bfloat16"), ("d8192_decode", 2, 8192, "bfloat16"),
+    ("d1536", 4096, 1536, "float32"), ("d2560", 4096, 2560, "float32"),
+    ("d768_qnorm", 4096, 768, "float32"),
 ]
 
 
@@ -1338,6 +1365,17 @@ def lm_inputs(shape, dtype, device, seed):
     import torch
     gen = torch.Generator().manual_seed(seed)
     return torch.randn(*shape, generator=gen).to(dtype).to(device)
+
+
+def flash_inputs(i, case, dtype, device):
+    """q, k, v of FLASH_CASES[i], v's last V_ZERO_COLS columns zero."""
+    label, B, Sq, Skv, H, KV, hd = case[:7]
+    q = lm_inputs((B, Sq, H, hd), dtype, device, 3 * i)
+    k = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 1)
+    v = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 2)
+    if label in V_ZERO_COLS:
+        v[..., hd - V_ZERO_COLS[label]:] = 0
+    return q, k, v
 
 
 def attn_close(out, want, v, dtype):
@@ -1355,7 +1393,8 @@ def attn_close(out, want, v, dtype):
     return bool(torch.all(torch.abs(o - p) <= ulp + tol)), err
 
 
-GRAPH_DECODE = ("qwen2.5_decode", "jamba_decode", "ragged_hd32_g4")
+GRAPH_DECODE = ("qwen2.5_decode", "jamba_decode", "ragged_hd32_g4",
+                "granite_decode")
 
 
 def graph_replays_match(fn, eager) -> bool:
@@ -1383,10 +1422,9 @@ def lm_kernel_phase(check: Check, device="cuda"):
     worst = {"flash_attention": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for i, (label, B, Sq, Skv, H, KV, hd, causal, window) in enumerate(FLASH_CASES):
-            q = lm_inputs((B, Sq, H, hd), dtype, device, 3 * i)
-            k = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 1)
-            v = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 2)
+        for i, case in enumerate(FLASH_CASES):
+            label, B, Sq, Skv, H, KV, hd, causal, window = case
+            q, k, v = flash_inputs(i, case, dtype, device)
             before = fk.flash_attention_fwd.launches
             out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window)
             check(fk.flash_attention_fwd.launches == before + 1,
@@ -1535,26 +1573,35 @@ def cold_copies(nbytes) -> int:
     return max(2, -(-int(COLD_BYTES) // int(nbytes)))
 
 
-# K7 and K9 at every shape the serving paths give them: (label, B, Skv, H,
-# KV, hd) and (label, rows, D, scale dtype)
+# K5, K7 and K9 at every shape the serving paths give them: (label, B, S,
+# H, KV, hd), (label, B, Skv, H, KV, hd) and (label, rows, D, scale dtype)
+PREFILL_TIMING = (("qwen1.5_prefill", 8, 512, 16, 16, 64),
+                  ("qwen2.5_prefill", 4, 1024, 16, 2, 128),
+                  ("granite_prefill", 8, 512, 24, 8, 64),
+                  ("deepseek_prefill", 4, 1024, 16, 16, 128),
+                  ("minicpm3_prefill", 4, 1024, 40, 40, 96))
 DECODE_TIMING = (("qwen1.5_decode", 8, 544, 16, 16, 64),
                  ("qwen2.5_decode", 4, 1040, 16, 2, 128),
-                 ("jamba_decode", 2, 1040, 64, 8, 128))
+                 ("jamba_decode", 2, 1040, 64, 8, 128),
+                 ("granite_decode", 8, 544, 24, 8, 64),
+                 ("deepseek_decode", 4, 1040, 16, 16, 128))
 NORM_TIMING = (("qwen1.5_prefill_norm", 4096, 1024, "float32"),
                ("qwen1.5_decode_norm", 8, 1024, "float32"),
                ("qwen2.5_prefill_norm", 4096, 2048, "float32"),
                ("qwen2.5_decode_norm", 4, 2048, "float32"),
                ("jamba_prefill_norm", 2048, 8192, "bfloat16"),
-               ("jamba_decode_norm", 2, 8192, "bfloat16"))
+               ("jamba_decode_norm", 2, 8192, "bfloat16"),
+               ("granite_prefill_norm", 4096, 1536, "float32"),
+               ("minicpm3_prefill_norm", 4096, 2560, "float32"),
+               ("minicpm3_prefill_qnorm", 4096, 768, "float32"))
 
 
 def lm_timing_phase(device="cuda"):
-    """Each LM kernel at the slices' shapes (bf16): K5 at qwen1.5-0.5b's
-    and qwen2.5-3b's prefill, K7 at the last decode step of qwen1.5-0.5b,
-    qwen2.5-3b and jamba-1.5-large, K9 at the prefill and decode rows of
-    the three; beside its plain version, its bound and one PyTorch call of
-    the same function timed here only (scaled_dot_product_attention;
-    rms_norm). Device times from CUDA-graph replay; the kernel's eager time
+    """Each LM kernel at the slices' shapes (bf16): K5 at the prefill of
+    PREFILL_TIMING, K7 at the last decode step of DECODE_TIMING, K9 at the
+    rows of NORM_TIMING; beside its plain version, its bound and one
+    PyTorch call of the same function timed here only
+    (scaled_dot_product_attention; rms_norm). Device times from CUDA-graph replay; the kernel's eager time
     beside them. K7 and K9 also cold (inputs rotated over COLD_BYTES), with
     the library call cold too, and beside the launch floor (an empty kernel
     of the same launch shape)."""
@@ -1565,8 +1612,7 @@ def lm_timing_phase(device="cuda"):
     from repro_torch.kernels import rmsnorm as rk
     bf16 = torch.bfloat16
     rows = {}
-    for label, B, S, H, KV, hd in (("qwen1.5_prefill", 8, 512, 16, 16, 64),
-                                   ("qwen2.5_prefill", 4, 1024, 16, 2, 128)):
+    for label, B, S, H, KV, hd in PREFILL_TIMING:
         q = lm_inputs((B, S, H, hd), bf16, device, 1)
         k = lm_inputs((B, S, KV, hd), bf16, device, 2)
         v = lm_inputs((B, S, KV, hd), bf16, device, 3)
@@ -1650,25 +1696,43 @@ def reset_lm_counts():
     sk.ssm_scan.launches = 0
 
 
+def mixer_counts(cfg, pre=True):
+    """(attention layers, Mamba layers) of a config, over all periods and,
+    with ``pre``, the leading dense blocks (deepseek-moe's layer 0, whose
+    mixer is the first layer's)."""
+    mixers = [k["mixer"] for k in cfg.layer_kinds()] * cfg.n_periods
+    if pre:
+        mixers += [cfg.layer_kinds()[0]["mixer"]] * cfg.first_dense
+    return mixers.count("attn"), mixers.count("mamba")
+
+
+def norm_count(cfg, pre=True):
+    """RMSNorm launches of one forward over the layers (two a layer, two
+    more an MLA attention layer: q_norm and kv_norm), with ``pre`` the
+    leading blocks' and the final norm too."""
+    A = mixer_counts(cfg, pre)[0]
+    L = cfg.num_layers - (0 if pre else cfg.first_dense)
+    return 2 * L + (2 * A if cfg.mla else 0) + (1 if pre else 0)
+
+
 class Expected(dict):
     """The LM launches a run should make. With A attention and M Mamba
     layers of L in all (the dense family: A = L, M = 0; jamba: A = 1 and
     M = 7 a period): per full-sequence forward (train or prefill) A
-    flash-attention, M selective-scan and 2L + 1 RMSNorm launches; per
-    decode step A decode-attention and 2L + 1 RMSNorm launches (a Mamba
-    decode step is plain torch)."""
+    flash-attention, M selective-scan and 2L + 1 RMSNorm launches (2A more
+    under MLA); per decode step A decode-attention (none under MLA, whose
+    absorbed decode is plain torch) and the same RMSNorm launches (a
+    Mamba decode step is plain torch)."""
 
     def __init__(self):
         super().__init__({k: 0 for k in LM_KERNELS})
 
     def add(self, cfg, forwards=0, steps=0):
-        L = cfg.num_layers
-        mixers = [k["mixer"] for k in cfg.layer_kinds()] * cfg.n_periods
-        A, M = mixers.count("attn"), mixers.count("mamba")
+        A, M = mixer_counts(cfg)
         self["flash_attention"] += A * forwards
         self["ssm_scan"] += M * forwards
-        self["decode_attention"] += A * steps
-        self["rmsnorm"] += (2 * L + 1) * (forwards + steps)
+        self["decode_attention"] += 0 if cfg.mla else A * steps
+        self["rmsnorm"] += norm_count(cfg) * (forwards + steps)
 
 
 def logits_trace(model, params, prompt, max_new):
@@ -1837,6 +1901,38 @@ def serve_run(check: Check, expected: Expected, cfg, params, B, S, new, label,
     return row
 
 
+def scheduler_run(check: Check, expected: Expected, model, params, label,
+                  slots, max_len, n_req, lo, hi, new, device="cuda"):
+    """A BatchScheduler of ``slots`` slots over ``n_req`` requests of
+    lo-hi prompt tokens, ``new`` new each: every request finished with
+    tokens in range; its ticks, seconds and token rates."""
+    import numpy as np
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=int(n)).astype(np.int32),
+                    max_new_tokens=new)
+            for i, n in enumerate(rng.integers(lo, hi + 1, size=n_req))]
+    sched = BatchScheduler(model, params, batch_slots=slots, max_len=max_len,
+                           device=device)
+    for r in reqs:
+        sched.submit(r)
+    done, secs = sync_time(sched.run)
+    expected.add(cfg, steps=sched.ticks)
+    n_out = sum(len(r.out_tokens) for r in done)
+    ok = (len(done) == n_req and all(len(r.out_tokens) == new for r in done)
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens))
+    check(ok, f"{label} scheduler: requests unfinished or tokens out of range")
+    fed = sum(len(r.prompt) for r in reqs) + n_out
+    row = dict(requests=len(done), ticks=sched.ticks, seconds=secs,
+               ms_per_tick=1e3 * secs / sched.ticks,
+               generated_tokens_per_s=n_out / secs,
+               fed_and_generated_tokens_per_s=fed / secs)
+    print(f"{label} scheduler:", json.dumps(row), flush=True)
+    return row
+
+
 def teacher_forced_check(check: Check, expected: Expected, cfg, params,
                          label, device="cuda", B=2, S=64, S2=72):
     """A full-width model in f32 (params shared with the bf16 runs):
@@ -1886,12 +1982,10 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
     max_len 320, 16 requests of 16-256 prompt tokens, 32 new each), the
     f32 teacher-forced check, then qwen2.5-3b through generate (B 4,
     prompt 1024, 16 new)."""
-    import numpy as np
     import torch
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    from repro_torch.serving import BatchScheduler, Request
     from repro_torch.utils import param_count
     out = {}
     cfg = get_config("qwen1.5-0.5b")
@@ -1901,27 +1995,9 @@ def slice_e(check: Check, expected: Expected, device="cuda"):
     out["qwen1.5-0.5b"]["generate"] = serve_run(check, expected, cfg, params,
                                                 8, 512, 32, "slice (e) qwen1.5-0.5b",
                                                 device)
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=int(n)).astype(np.int32),
-                    max_new_tokens=32)
-            for i, n in enumerate(rng.integers(16, 257, size=16))]
-    sched = BatchScheduler(model, params, batch_slots=8, max_len=320, device=device)
-    for r in reqs:
-        sched.submit(r)
-    done, secs = sync_time(sched.run)
-    expected.add(cfg, steps=sched.ticks)
-    n_out = sum(len(r.out_tokens) for r in done)
-    ok = (len(done) == 16 and all(len(r.out_tokens) == 32 for r in done)
-          and all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens))
-    check(ok, "slice (e) scheduler: requests unfinished or tokens out of range")
-    fed = sum(len(r.prompt) for r in reqs) + n_out
-    out["qwen1.5-0.5b"]["scheduler"] = dict(
-        requests=len(done), ticks=sched.ticks, seconds=secs,
-        ms_per_tick=1e3 * secs / sched.ticks, generated_tokens_per_s=n_out / secs,
-        fed_and_generated_tokens_per_s=fed / secs)
-    print("slice (e) qwen1.5-0.5b scheduler:",
-          json.dumps(out["qwen1.5-0.5b"]["scheduler"]), flush=True)
+    out["qwen1.5-0.5b"]["scheduler"] = scheduler_run(
+        check, expected, model, params, "slice (e) qwen1.5-0.5b", 8, 320, 16,
+        16, 256, 32, device)
     out["qwen1.5-0.5b"]["f32_teacher_forced"] = teacher_forced_check(
         check, expected, cfg, params, "slice (e) qwen1.5-0.5b", device)
     del params
@@ -2130,11 +2206,9 @@ def slice_g2(check: Check, expected: Expected, device="cuda"):
     bf16 params shared) at capacity_factor = experts / top_k = 2, the
     least at which no token can drop (each expert can take every token),
     so that a token's output does not depend on how many share its batch."""
-    import numpy as np
     import torch
     from repro_torch import prng
     from repro_torch.models import get_model
-    from repro_torch.serving import BatchScheduler, Request
     from repro_torch.utils import param_bytes, param_count
     label = "slice (g2) jamba-1.5-large-398b"
     cfg = jamba_full_config()
@@ -2146,26 +2220,8 @@ def slice_g2(check: Check, expected: Expected, device="cuda"):
                init_s=t_init, init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"{label} init:", json.dumps(out), flush=True)
     out["generate"] = serve_run(check, expected, cfg, params, 2, 1024, 16, label, device)
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=int(n)).astype(np.int32),
-                    max_new_tokens=16)
-            for i, n in enumerate(rng.integers(16, 129, size=8))]
-    sched = BatchScheduler(model, params, batch_slots=4, max_len=144, device=device)
-    for r in reqs:
-        sched.submit(r)
-    done, secs = sync_time(sched.run)
-    expected.add(cfg, steps=sched.ticks)
-    n_out = sum(len(r.out_tokens) for r in done)
-    ok = (len(done) == 8 and all(len(r.out_tokens) == 16 for r in done)
-          and all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens))
-    check(ok, f"{label} scheduler: requests unfinished or tokens out of range")
-    fed = sum(len(r.prompt) for r in reqs) + n_out
-    out["scheduler"] = dict(requests=len(done), ticks=sched.ticks, seconds=secs,
-                            ms_per_tick=1e3 * secs / sched.ticks,
-                            generated_tokens_per_s=n_out / secs,
-                            fed_and_generated_tokens_per_s=fed / secs)
-    print(f"{label} scheduler:", json.dumps(out["scheduler"]), flush=True)
+    out["scheduler"] = scheduler_run(check, expected, model, params, label, 4,
+                                     144, 8, 16, 128, 16, device)
     nodrop = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
     out["f32_teacher_forced"] = teacher_forced_check(check, expected, nodrop,
                                                      params, label, device)
@@ -2229,11 +2285,12 @@ def lm_bwd_phase(check: Check, device="cuda"):
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for i, (label, B, Sq, Skv, H, KV, hd, causal, window) in enumerate(FLASH_CASES):
-            q = lm_inputs((B, Sq, H, hd), dtype, device, 3 * i)
-            k = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 1)
-            v = lm_inputs((B, Skv, KV, hd), dtype, device, 3 * i + 2)
+        for i, case in enumerate(FLASH_CASES):
+            label, B, Sq, Skv, H, KV, hd, causal, window = case
+            q, k, v = flash_inputs(i, case, dtype, device)
             do = lm_inputs((B, Sq, H, hd), dtype, device, 500 + i)
+            if label in V_ZERO_COLS:
+                do[..., hd - V_ZERO_COLS[label]:] = 0
             out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window)
             before = fk.flash_attention_bwd.launches
             got = fk.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
@@ -2363,20 +2420,16 @@ def reset_train_counts():
     fa.fedagg.variant_launches.clear()
 
 
-def mixer_counts(cfg):
-    """(attention layers, Mamba layers) of a config, over all periods."""
-    mixers = [k["mixer"] for k in cfg.layer_kinds()] * cfg.n_periods
-    return mixers.count("attn"), mixers.count("mamba")
-
-
 class TrainExpected(dict):
     """The launches the training path should make, with A attention and M
     Mamba layers of L (the dense family: A = L, M = 0; jamba: A = 1, M = 7
     a period). A no-grad forward: A of K5, M of K8, 2L + 1 of K9 (the
-    final norm is outside the periods). One loss_fn gradient with remat
-    (every shipped config's): the forward's and, as the backward re-runs
-    each period, again A of K5 and M of K8, A of K6, and 2L + 1 + 2L of
-    K9. A round of C clients and E local steps: the server loss and each
+    final norm is outside the periods; ``norm_count``: 2A more under MLA).
+    One loss_fn gradient with remat (every shipped config's): the
+    forward's and, as the backward re-runs each period, again A of K5 and
+    M of K8, A of K6, and 2L + 1 + 2L of K9; the leading dense blocks run
+    outside the periods' checkpoints, so their launches are not repeated.
+    A round of C clients and E local steps: the server loss and each
     client's loss at the received model (no graph), E gradients for each
     client that trains, and one fedagg launch (none on the temporal
     round's mean stream)."""
@@ -2388,14 +2441,15 @@ class TrainExpected(dict):
         A, M = mixer_counts(cfg)
         self["flash_attention"] += A * n
         self["ssm_scan"] += M * n
-        self["rmsnorm"] += (2 * cfg.num_layers + 1) * n
+        self["rmsnorm"] += norm_count(cfg) * n
 
     def add_grad(self, cfg, n=1):
         A, M = mixer_counts(cfg)
-        self["flash_attention"] += 2 * A * n
+        A_p, M_p = mixer_counts(cfg, pre=False)
+        self["flash_attention"] += (A + A_p) * n
         self["flash_attention_bwd"] += A * n
-        self["ssm_scan"] += 2 * M * n
-        self["rmsnorm"] += (4 * cfg.num_layers + 1) * n
+        self["ssm_scan"] += (M + M_p) * n
+        self["rmsnorm"] += (norm_count(cfg) + norm_count(cfg, pre=False)) * n
 
     def add_rounds(self, cfg, C, E, rounds, trained=None, fedagg=True):
         """``trained``: the clients that take their E steps a round (a
@@ -4231,6 +4285,195 @@ def slice_i5(check: Check, expected: TrainExpected, device="cuda"):
     return row
 
 
+# ------------------------------------- the MoE and MLA archs, slice (j)
+J_ARCHS = ("granite-moe-3b-a800m", "deepseek-moe-16b", "minicpm3-4b")
+# (j1) training: eps per arch, a non-priority client gated in in one of
+# the 2 rounds and out in another, every decision > GATE_MARGIN from eps
+# (the CPU run's gaps are checked in train_parity); the MoE archs' bound
+# is the MoE gradient's of tests/test_torch_moe_archs.py (1e-4), MLA's
+# the dense family's
+J_TRAIN = {"granite-moe-3b-a800m": (0.023, 1e-4),
+           "deepseek-moe-16b": (0.2, 1e-4),
+           "minicpm3-4b": (0.04, PARITY_ATOL)}
+J_TRAIN_RUN = dict(TRAIN_RUN, rounds=2)
+# a serving run's routing is compared exactly only where every token's k-th
+# and (k+1)-th router probability lie farther apart than this (the card's
+# and the CPU's f32 router logits differ by ~1e-7)
+ROUTE_MARGIN = 1e-4
+# (j2) at full width: (arch, B, prompt, new, scheduler), as slice (e)
+J2_RUNS = (("granite-moe-3b-a800m", 8, 512, 32, False),
+           ("deepseek-moe-16b", 4, 1024, 16, True),
+           ("minicpm3-4b", 4, 1024, 16, True))
+
+
+@contextmanager
+def routes():
+    """Every MoE layer's routing while the block runs, in call order:
+    (device type, top-k experts [T, k] on the host, the least k-th minus
+    (k+1)-th router probability), computed from the layer's own input as
+    ``moe_apply`` computes it (f32 router, stable descending sort)."""
+    import torch
+    from repro_torch.models import transformer as T
+    rec = []
+    orig = T.moe_apply
+
+    def recorded(p, x, cfg, **kw):
+        with torch.no_grad():
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["w_router"].float(), dim=-1)
+            srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        k = cfg.top_k
+        rec.append((x.device.type, idx[:, :k].cpu(),
+                    float(torch.min(srt[:, k - 1] - srt[:, k]))))
+        return orig(p, x, cfg, **kw)
+    T.moe_apply = recorded
+    try:
+        yield rec
+    finally:
+        T.moe_apply = orig
+
+
+def same_routes(rec):
+    """(equal, n): the card's routing calls against the CPU's, in order."""
+    import torch
+    cpu = [r[1] for r in rec if r[0] == "cpu"]
+    dev = [r[1] for r in rec if r[0] != "cpu"]
+    return (len(cpu) == len(dev) and all(torch.equal(a, b) for a, b in zip(cpu, dev)),
+            len(dev))
+
+
+def slice_j1(check: Check, expected: Expected, train_expected: TrainExpected,
+             device="cuda"):
+    """The smoke granite-moe, deepseek-moe (its leading dense block) and
+    minicpm3 (MLA) on the card against the same code on the CPU: prefill
+    and every decode step's logits within PARITY_ATOL of the larger
+    magnitude (at least 1), every decision's top-2 gap on the CPU over
+    twice that, each MoE layer's expert choices equal after checking
+    their router margins exceed ROUTE_MARGIN; a BatchScheduler against
+    generate (the MoE archs at capacity 16, where no token drops); then
+    ``launch.train.run`` for 2 rounds through ``train_parity`` (gates
+    exact, losses, params and one loss_fn gradient within the arch's
+    bound), its expert choices on the card equal to the CPU's."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import get_model
+    out = {}
+    for arch in J_ARCHS:
+        name = f"slice (j1) {arch}"
+        cfg = get_smoke(arch)
+        model = get_model(cfg)
+        p_cpu = model.init(prng.PRNGKey(0), device="cpu")
+        p_dev = model.init(prng.PRNGKey(0), device=device)
+        B, S, new = 2, 12, 6
+        prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size)
+        with routes() as rec:
+            cpu = logits_trace(model, p_cpu, prompt, new)
+            dev = logits_trace(model, p_dev, prompt.to(device), new)
+        expected.add(cfg, forwards=1, steps=new)
+        tol = PARITY_ATOL * max(1.0, max(float(torch.max(torch.abs(c))) for c in cpu))
+        err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(dev, cpu))
+        check(err <= tol, f"{name}: logits off the CPU run by {err} > {tol}")
+        gap = decision_gap(cpu)
+        check(gap > 2 * tol, f"{name}: top-2 gap {gap} too small to compare tokens")
+        row = dict(max_logits_err=err, tol=tol, top2_gap=gap)
+        if cfg.moe:
+            margin = min(r[2] for r in rec)
+            equal, n = same_routes(rec)
+            check(margin > ROUTE_MARGIN, f"{name}: router margin {margin}")
+            check(equal and n > 0, f"{name}: expert choices differ from the CPU's")
+            row.update(route_margin=margin, routes_equal=equal, routed_calls=n)
+        nodrop = get_model(cfg.replace(capacity_factor=16.0)) if cfg.moe else model
+        row.update(scheduler_vs_generate(check, expected, nodrop, p_cpu, p_dev,
+                                         name, device, tol))
+        eps, train_tol = J_TRAIN[arch]
+        with routes() as rec:
+            row["train"] = train_parity(check, train_expected, name + " training",
+                                        arch, {}, eps, device, tol=train_tol,
+                                        run=J_TRAIN_RUN)
+        if cfg.moe:
+            equal, n = same_routes(rec)
+            check(equal and n > 0, f"{name} training: expert choices differ "
+                  "from the CPU's")
+            row["train"].update(routes_equal=equal, routed_calls=n,
+                                route_margin=min(r[2] for r in rec))
+        print(f"{name}:", json.dumps(row), flush=True)
+        out[arch] = row
+    return out
+
+
+def mla_cache_bytes(cfg, B, W):
+    """(bytes of the MLA cache of B sequences of W rows, bytes of the
+    expanded k (nope + rope) and v (v_head_dim) caches of the same heads),
+    in the compute dtype."""
+    from repro_torch.models import transformer as T
+    c = T.make_cache(cfg, B, W, device="meta")
+    mla = sum(t.numel() * t.element_size() for layer in c["periods"].values()
+              for t in (layer["c_kv"], layer["k_rope"]))
+    size = c["periods"]["l0"]["c_kv"].element_size()
+    expanded = (cfg.num_layers * B * W * cfg.num_heads * size
+                * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim))
+    return mla, expanded
+
+
+def slice_j2(check: Check, expected: Expected, device="cuda"):
+    """Full width, random init from PRNGKey(0) drawn on the card, f32
+    params and bf16 compute, every layer and expert: granite-moe-3b-a800m
+    through generate (B 8, prompt 512, 32 new); deepseek-moe-16b (f32
+    params: 65.5 GB; the card must keep > 4 GB free at its peak, the
+    init's included) and
+    minicpm3-4b through generate (B 4, prompt 1024, 16 new) and a
+    BatchScheduler (4 slots, 8 requests of 16-128 prompt tokens, 16 new
+    each), minicpm3's MLA cache bytes beside an expanded k / v cache's;
+    each arch's f32 teacher-forced check (the MoE archs at capacity_factor
+    = experts / top_k, where no token drops), its init seconds, peak GB,
+    free GB at the peak and LM launches."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_bytes, param_count
+    out = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, B, S, new, sched in J2_RUNS:
+        label = f"slice (j2) {arch}"
+        before = lm_counts()
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+        row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+                   init_s=t_init, init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"{label} init:", json.dumps(row), flush=True)
+        row["generate"] = serve_run(check, expected, cfg, params, B, S, new,
+                                    label, device)
+        if sched:
+            row["scheduler"] = scheduler_run(check, expected, model, params, label,
+                                             4, 144, 8, 16, 128, 16, device)
+        if cfg.mla:
+            mla, expanded = mla_cache_bytes(cfg, B, S + new)
+            row["cache"] = dict(mla_bytes=mla, expanded_kv_bytes=expanded,
+                                ratio=expanded / mla)
+            print(f"{label} cache:", json.dumps(row["cache"]), flush=True)
+        nodrop = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k) \
+            if cfg.moe else cfg
+        row["f32_teacher_forced"] = teacher_forced_check(check, expected, nodrop,
+                                                         params, label, device)
+        # serve_run resets the peak counter: the init's peak counts too
+        peak = max(torch.cuda.max_memory_allocated(), 1e9 * row["init_peak_gb"])
+        row.update(peak_gb=peak / 1e9, free_at_peak_gb=(total - peak) / 1e9,
+                   launches={k: v - before[k] for k, v in lm_counts().items()})
+        check(total - peak > 4e9, f"{label}: {(total - peak) / 1e9:.2f} GB free "
+              "at the peak")
+        print(f"{label}:", json.dumps({k: row[k] for k in (
+            "init_s", "peak_gb", "free_at_peak_gb", "launches")}), flush=True)
+        out[arch] = row
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase(fn, *args, **kw):
     """fn(*args, **kw), its host-clock time printed under its name."""
     t0 = time.perf_counter()
@@ -4364,7 +4607,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": row})
-        timed = {"decode_attention": [r[0] for r in DECODE_TIMING],
+        timed = {"flash_attention": [r[0] for r in PREFILL_TIMING],
+                 "decode_attention": [r[0] for r in DECODE_TIMING],
                  "rmsnorm": [r[0] for r in NORM_TIMING],
                  "ssm_scan": [r[0] for r in SSM_TIMING]}.get(name)
         if timed:
@@ -4463,6 +4707,31 @@ def main() -> int:
                  "rmsnorm"):
         check(i_launches[name] > 0,
               f"pool + checkpoint path: kernel {name} was never launched")
+    # the MoE and MLA archs: slices (j1) and (j2), serving and training,
+    # counted on their own
+    reset_train_counts()
+    j_serve, j_train = Expected(), TrainExpected()
+    j1 = phase(slice_j1, check, j_serve, j_train)
+    j2 = phase(slice_j2, check, j_serve)
+    j_launches = dict(train_counts(), decode_attention=lm_counts()["decode_attention"])
+    j_expected = {k: j_serve.get(k, 0) + j_train.get(k, 0) for k in j_launches}
+    j_variants = dict(fk.fedagg.variant_launches)
+    print("MoE + MLA path launches:", json.dumps(j_launches), "expected:",
+          json.dumps(j_expected), flush=True)
+    for name, n in j_launches.items():
+        check(n == j_expected[name], f"MoE + MLA path: {n} {name} launches, "
+              f"expected {j_expected[name]}")
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["moe_mla_path_launches"] = sum(
+                v for k, v in j_variants.items() if pick(*k))
+        elif entry["name"] in j_launches:
+            entry["moe_mla_path_launches"] = j_launches[entry["name"]]
+    for name in ("fedagg", "flash_attention", "flash_attention_bwd",
+                 "decode_attention", "rmsnorm"):
+        check(j_launches[name] > 0,
+              f"MoE + MLA path: kernel {name} was never launched")
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -4478,7 +4747,7 @@ def main() -> int:
         "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3,
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
         "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
-        "i5": i5}))
+        "i5": i5, "j1": j1, "j2": j2}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -38,9 +38,12 @@ ALIASES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
 }
 
-# the dense GQA family and jamba; the rest of the zoo is ROADMAP A16b
+# the dense GQA family, jamba, the MoE archs (granite's GQA, deepseek's
+# leading dense layer) and minicpm3's MLA; llava, xlstm and whisper are
+# ROADMAP A16b
 PORTED = ("qwen1_5_0_5b", "qwen2_5_3b", "phi3_mini_3_8b",
-          "jamba_1_5_large_398b")
+          "jamba_1_5_large_398b", "granite_moe_3b_a800m", "deepseek_moe_16b",
+          "minicpm3_4b")
 
 
 def _module(name: str):

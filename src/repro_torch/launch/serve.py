@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --smoke --batch 4 --prompt-len 32 --gen 16 [--device cuda]
 
-``--arch`` takes any ported architecture (the dense qwen1.5-0.5b,
-qwen2.5-3b, phi3-mini-3.8b and the hybrid jamba-1.5-large-398b).
+``--arch`` takes any ported architecture: the dense qwen1.5-0.5b,
+qwen2.5-3b and phi3-mini-3.8b, the MoE granite-moe-3b-a800m and
+deepseek-moe-16b (its leading dense block), minicpm3-4b (MLA: a latent
+decode cache) and the hybrid jamba-1.5-large-398b.
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``). As in the reference, ``--smoke`` is a
@@ -27,10 +29,11 @@ from repro_torch.utils import resolve_device, tree_map
 
 def pad_caches(model, caches, batch, max_len):
     """Grow prefill caches to max_len along the sequence axis (the
-    attention k / v caches). The recurrent states (a Mamba layer's conv
-    tail and ssm state) are length-free: they already have the full shape
-    and are returned as they are, the same tensors, as is the host int
-    ``len``."""
+    attention k / v caches, MLA's latent and roped-key caches, the leading
+    blocks' unstacked ones among them). The recurrent states (a Mamba
+    layer's conv tail and ssm state) are length-free: they already have
+    the full shape and are returned as they are, the same tensors, as is
+    the host int ``len``."""
     full = model.make_cache(batch, max_len, device="meta")
 
     def pad(c, f):

@@ -1,30 +1,32 @@
-"""Grouped-query attention: projections, RoPE, and the train / prefill /
-decode paths with their KV cache.
+"""Attention: grouped-query attention (GQA) and multi-head latent
+attention (MLA), each with its train / prefill / decode paths and cache.
 
-Counterpart of ``repro/models/attention.py`` (GQA only; MLA is ROADMAP
-A16). Train and prefill go through ``kops.flash_attention``, the
-``FlashAttention`` autograd Function (on the card the flash-attention
-forward kernel, and its backward kernel when a gradient flows; no graph
-is built when nothing requires grad), decode through
-``kops.decode_attention`` (the decode-attention kernel). Layouts are the
-reference's: q [B, S, H, hd], k / v [B, S, KV, hd], cache k / v
-[B, W, KV, hd].
+Counterpart of ``repro/models/attention.py`` (GQA and MLA; the
+encoder-decoder's cross-attention is ROADMAP A16b). Train and prefill go
+through ``kops.flash_attention``, the ``FlashAttention`` autograd Function
+(on the card the flash-attention forward kernel, and its backward kernel
+when a gradient flows; no graph is built when nothing requires grad), GQA
+decode through ``kops.decode_attention`` (the decode-attention kernel).
+Layouts are the reference's: q [B, S, H, hd], k / v [B, S, KV, hd], cache
+k / v [B, W, KV, hd]; MLA's cache c_kv [B, W, kv_lora_rank], k_rope
+[B, W, qk_rope_head_dim].
 
 Under a sliding window the cache is a ring: absolute position p lives at
 slot p % W. Prefill keeps the last W positions rolled by S % W, decode
 writes slot pos % W and attends over min(pos + 1, W) rows.
 
 Unlike the reference (functional, a new cache per step), decode writes the
-new k / v row into the cache it is given, in place, and returns that same
-cache: a copy of every layer's cache per token would move more bytes than
-the attention itself.
+new k / v row (MLA: the new latent row) into the cache it is given, in
+place, and returns that same cache: a copy of every layer's cache per
+token would move more bytes than the attention itself.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, init_rmsnorm, rmsnorm
 from repro_torch.utils import fold_in_name
 
 
@@ -59,6 +61,17 @@ def gqa_project(p, x, cfg):
             v.reshape(B, S, KV, hd))
 
 
+def _decode_slot(pos, W, window):
+    """The cache row a decode step at host-int ``pos`` writes."""
+    if pos is None:
+        raise ValueError("decode needs the position as a host int (pos=)")
+    slot = pos % W if window else pos
+    if not 0 <= slot < W:
+        raise ValueError(f"decode position {pos} outside a cache of {W} "
+                         "rows (pad_caches grows it)")
+    return slot
+
+
 def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
                         pos: int | None = None):
     """Full GQA block. mode: 'train' | 'prefill' | 'decode'.
@@ -88,13 +101,8 @@ def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
                 vc = torch.roll(vc, S % W, dims=1)
             new_cache = {"k": kc, "v": vc, "len": min(W, S)}
     elif mode == "decode":
-        if pos is None:
-            raise ValueError("decode needs the position as a host int (pos=)")
         W = cache["k"].shape[1]
-        slot = pos % W if window else pos
-        if not 0 <= slot < W:
-            raise ValueError(f"decode position {pos} outside a cache of {W} "
-                             "rows (pad_caches grows it)")
+        slot = _decode_slot(pos, W, window)
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
         kv_len = min(pos + 1, W)
@@ -105,4 +113,103 @@ def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
 
     B_, S_, H, hd = out.shape
     y = out.reshape(B_, S_, H * hd) @ p["wo"].to(cd)
+    return y, new_cache
+
+
+# ============================================================== MLA attention
+def init_mla(key, cfg):
+    d = cfg.d_model
+    H = cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dev = key.device
+    ks = {n: fold_in_name(key, n) for n in ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")}
+    return {
+        "wq_a": dense_init(ks["wq_a"], (d, qr), cfg.pdtype),
+        "q_norm": init_rmsnorm(qr, cfg.pdtype, dev),
+        "wq_b": dense_init(ks["wq_b"], (qr, H * (nope + rope)), cfg.pdtype),
+        "wkv_a": dense_init(ks["wkv_a"], (d, kvr + rope), cfg.pdtype),
+        "kv_norm": init_rmsnorm(kvr, cfg.pdtype, dev),
+        "wkv_b": dense_init(ks["wkv_b"], (kvr, H * (nope + vd)), cfg.pdtype),
+        "wo": dense_init(ks["wo"], (H * vd, d), cfg.pdtype),
+    }
+
+
+def mla_attention_block(p, x, cfg, *, positions, mode, cache=None,
+                        pos: int | None = None):
+    """MLA (multi-head latent attention, the MiniCPM3 / DeepSeek-V2 form).
+    Arguments and return as ``gqa_attention_block``; the cache is
+    dict(c_kv [B, W, kv_lora_rank], k_rope [B, W, qk_rope_head_dim], len).
+
+    Train and prefill expand the latents into full k and v and run flash
+    attention at head dim nope + rope, v zero-padded to it and the output
+    sliced back to v_head_dim. Decode takes the absorbed path in f32 plain
+    torch, as the reference computes it outside any kernel: q_nope folded
+    through w_uk into the latent space, scores over the cached latents and
+    shared roped keys, the context mapped out through w_uv. It reads only
+    the cache's first kv_len rows, the ones the reference's NEG_INF mask
+    keeps (every row when the ring is full)."""
+    B, S, _ = x.shape
+    cd = cfg.cdtype
+    H = cfg.num_heads
+    nope, rope, vd, kvr = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                           cfg.v_head_dim, cfg.kv_lora_rank)
+    scale = (nope + rope) ** -0.5
+    window = cfg.sliding_window
+
+    q = rmsnorm(p["q_norm"], x @ p["wq_a"].to(cd)) @ p["wq_b"].to(cd)
+    q = q.reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"].to(cd)                                     # [B,S,kvr+rope]
+    # the latent columns are a strided view (row pitch kvr + rope); the
+    # RMSNorm kernel takes contiguous rows only
+    c_kv = rmsnorm(p["kv_norm"], kv_a[..., :kvr].contiguous())
+    k_rope = apply_rope(kv_a[..., kvr:].reshape(B, S, 1, rope), positions,
+                        cfg.rope_theta)
+
+    wkv_b = p["wkv_b"].to(cd).reshape(kvr, H, nope + vd)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]               # [kvr,H,nope], [kvr,H,vd]
+
+    if mode in ("train", "prefill"):
+        k_nope = torch.einsum("bsr,rhn->bshn", c_kv, w_uk)
+        v = torch.einsum("bsr,rhv->bshv", c_kv, w_uv)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        # v padded to k's head dim for the shared flash kernel, sliced back
+        pad = nope + rope - vd
+        v_p = F.pad(v, (0, pad)) if pad > 0 else v
+        out = kops.flash_attention(qfull, k, v_p.contiguous(), causal=cfg.causal,
+                                   window=window, block_kv=cfg.attn_block_kv)
+        out = out[..., :vd]
+        new_cache = None
+        if mode == "prefill":
+            W = min(window, S) if window else S
+            cc, rc = c_kv[:, S - W:], k_rope[:, S - W:, 0]
+            if window and S > window:
+                cc = torch.roll(cc, S % W, dims=1)
+                rc = torch.roll(rc, S % W, dims=1)
+            new_cache = {"c_kv": cc, "k_rope": rc, "len": min(W, S)}
+    elif mode == "decode":
+        W = cache["c_kv"].shape[1]
+        slot = _decode_slot(pos, W, window)
+        cache["c_kv"][:, slot] = c_kv[:, 0]
+        cache["k_rope"][:, slot] = k_rope[:, 0, 0]
+        kv_len = min(pos + 1, W)
+        f32 = torch.float32
+        c = cache["c_kv"][:, :kv_len].to(f32)
+        r = cache["k_rope"][:, :kv_len].to(f32)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk.to(f32))
+        s = (torch.einsum("bqhr,bsr->bhqs", q_lat, c)
+             + torch.einsum("bqhp,bsp->bhqs", q_rope.to(f32), r)) * scale
+        w = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhqs,bsr->bqhr", w, c)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.to(f32)).to(cd)
+        new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                     "len": kv_len}
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    y = out.reshape(B, S, H * vd) @ p["wo"].to(cd)
     return y, new_cache

@@ -1,16 +1,20 @@
-"""Decoder-only LM: the dense ``pattern="attn"`` family (optionally with
-MoE FFNs) and the hybrid ``pattern="jamba"``: init, forward, the training
-loss and the serving entry points.
+"""Decoder-only LM: the ``pattern="attn"`` family (GQA or MLA attention,
+dense or MoE FFNs, optionally leading dense blocks) and the hybrid
+``pattern="jamba"``: init, forward, the training loss and the serving
+entry points.
 
 Counterpart of ``repro/models/transformer.py`` for the dense GQA models
-(qwen1.5-0.5b, qwen2.5-3b, phi3-mini-3.8b) and jamba-1.5-large-398b. The
-parameter tree is the reference's: ``embed``, ``final_norm``, ``lm_head``
-when the embeddings are untied, ``pre_blocks`` (empty here) and
-``periods``, which holds one subtree per layer of a period (``l0`` for the
-dense family; ``l0``..``l7`` for jamba: attention then 7 Mamba mixers, a
-MoE FFN on every other layer) with its leaves stacked on a leading
-[n_periods] axis. ``forward`` walks the periods in a Python loop where the
-reference scans them.
+(qwen1.5-0.5b, qwen2.5-3b, phi3-mini-3.8b), the MoE ones
+(granite-moe-3b-a800m, deepseek-moe-16b), minicpm3-4b's MLA and
+jamba-1.5-large-398b. The parameter tree is the reference's: ``embed``,
+``final_norm``, ``lm_head`` when the embeddings are untied,
+``pre_blocks`` (a list: the ``first_dense`` leading blocks with a dense
+FFN, deepseek's layer 0; empty elsewhere) and ``periods``, which holds
+one subtree per layer of a period (``l0`` for the attn family; ``l0``..
+``l7`` for jamba: attention then 7 Mamba mixers, a MoE FFN on every other
+layer) with its leaves stacked on a leading [n_periods] axis.
+``forward`` runs the pre blocks, then walks the periods in a Python loop
+where the reference scans them.
 
 API (functional, as the reference's):
     init(key, cfg, device)                           -> params
@@ -20,25 +24,29 @@ API (functional, as the reference's):
     prefill(params, batch, cfg)                      -> (caches, last_logits)
     decode_step(params, caches, tokens, pos, cfg)    -> (logits, caches)
 
-The decode position ``pos`` is a host int: it picks the cache slot and the
-valid length without reading the device. An attention cache's ``len`` is a
-host int too (every attention layer's cache holds the same number of valid
-rows). Decode writes in place into the ``caches`` it is given: each
-attention layer its new k / v row, each Mamba layer its conv tail and
-state. ``prefill`` and ``decode_step`` run under ``torch.no_grad``: serving
-builds no autograd graph even on params that require grad.
+Caches are ``{"pre": [one cache a pre block], "periods": {l0: ...}}``,
+the periods' leaves stacked on [n_periods]. The decode position ``pos`` is
+a host int: it picks the cache slot and the valid length without reading
+the device. An attention cache's ``len`` is a host int too (every
+attention layer's cache holds the same number of valid rows). Decode
+writes in place into the ``caches`` it is given: each attention layer its
+new k / v row (MLA: its latent and roped-key row), each Mamba layer its
+conv tail and state. ``prefill`` and ``decode_step`` run under
+``torch.no_grad``: serving builds no autograd graph even on params that
+require grad.
 
 Training: ``forward(mode="train")`` with grad enabled and ``cfg.remat``
 checkpoints each period (``torch.utils.checkpoint``, non-reentrant: the
 period's forward runs again in the backward), the reference's "full"
-policy; ``remat_policy="save_mixer"`` is not ported (ROADMAP A16d). The
-Mamba mixer differentiates through ``kernels/ssm_scan.py:SSMScan`` (the
-scan kernel forward, a plain-torch backward); under remat a period's scan
-runs twice a gradient, once in the forward and once in the backward.
+policy; the pre blocks run outside any checkpoint, as in the reference.
+``remat_policy="save_mixer"`` is not ported (ROADMAP A16d). The Mamba
+mixer differentiates through ``kernels/ssm_scan.py:SSMScan`` (the scan
+kernel forward, a plain-torch backward); under remat a period's scan runs
+twice a gradient, once in the forward and once in the backward.
 
 Out of the port so far, and refused with ``NotImplementedError`` by
-``check_model_config``: MLA, the xlstm pattern, ``first_dense`` > 0,
-encoder-decoder, VLM, ``attn_bf16`` and ``seq_shard_attn`` (ROADMAP A16b).
+``check_model_config``: the xlstm pattern, encoder-decoder, VLM,
+``attn_bf16`` and ``seq_shard_attn`` (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -50,16 +58,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.models import layers as L
-from repro_torch.models.attention import gqa_attention_block, init_gqa
+from repro_torch.models.attention import (gqa_attention_block, init_gqa,
+                                         init_mla, mla_attention_block)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_mamba, mamba_block
 from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
 
 _UNPORTED = (
-    ("mla", lambda c: c.mla, "MLA attention"),
     ("pattern", lambda c: c.pattern not in ("attn", "jamba"), "the xlstm layer pattern"),
-    ("first_dense", lambda c: c.first_dense > 0, "leading dense blocks"),
     ("encdec", lambda c: c.encdec, "the encoder-decoder model"),
     ("vlm", lambda c: c.vlm, "image inputs"),
     ("attn_bf16", lambda c: c.attn_bf16, "bf16 attention products"),
@@ -83,7 +90,8 @@ def _init_block(key, cfg, kind):
     dev = key.device
     p = {"norm1": L.init_rmsnorm(d, cfg.pdtype, dev)}
     if kind["mixer"] == "attn":
-        p["attn"] = init_gqa(fold_in_name(key, "attn"), cfg)
+        init_attn = init_mla if cfg.mla else init_gqa
+        p["attn"] = init_attn(fold_in_name(key, "attn"), cfg)
     else:
         p["mamba"] = init_mamba(fold_in_name(key, "mamba"), cfg)
     p["norm2"] = L.init_rmsnorm(d, cfg.pdtype, dev)
@@ -99,8 +107,9 @@ def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos):
     ``router_aux_coef * lb_loss`` for a MoE FFN, else 0.0."""
     h = L.rmsnorm(p["norm1"], x)
     if kind["mixer"] == "attn":
-        h, new_cache = gqa_attention_block(p["attn"], h, cfg, positions=positions,
-                                           mode=mode, cache=cache, pos=pos)
+        attend = mla_attention_block if cfg.mla else gqa_attention_block
+        h, new_cache = attend(p["attn"], h, cfg, positions=positions,
+                              mode=mode, cache=cache, pos=pos)
     else:
         h, new_cache = mamba_block(p["mamba"], h, cfg, mode=mode, cache=cache)
     x = x + h
@@ -132,12 +141,18 @@ def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos):
     return x, new_caches, aux
 
 
+def _pre_kind(cfg):
+    """The kind of every leading block: the first layer's mixer, a dense FFN."""
+    return {"mixer": cfg.layer_kinds()[0]["mixer"], "ffn": "dense"}
+
+
 # ------------------------------------------------------------------- model init
 def init(key, cfg, device="cuda"):
     """The reference's init, leaf for leaf: ``fold_in_name`` per leaf, the
     period keys from ``split``, each layer ``l{j}`` of a period from
     ``fold_in_name(period key, "l{j}")``, looped where the reference vmaps.
-    The draws run on ``device``; each period is written into the stacked
+    The leading blocks ``pre{i}`` come first, as in the reference. The
+    draws run on ``device``; each period is written into the stacked
     leaves as it is drawn, so the peak is the model plus one period (a
     single period is stacked as a view, with no copy)."""
     check_model_config(cfg)
@@ -151,7 +166,10 @@ def init(key, cfg, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(fold_in_name(key, "lm_head"),
                                          (cfg.d_model, cfg.vocab_size), cfg.pdtype)
-    params["pre_blocks"] = []
+    # leading dense blocks outside the periods (deepseek-moe's layer 0)
+    params["pre_blocks"] = [
+        _init_block(fold_in_name(key, f"pre{i}"), cfg, _pre_kind(cfg))
+        for i in range(cfg.first_dense)]
     pkeys = prng.split(fold_in_name(key, "periods"), cfg.n_periods)
     stacked = None
     kinds = cfg.layer_kinds()
@@ -187,7 +205,8 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
     """Returns (hidden [B,S,d], new_caches, aux). ``pos`` (decode): the
     position as a host int. aux: the sum over periods of each period's
     last layer's ``router_aux_coef * lb_loss`` (an f32 scalar; 0.0 where
-    that layer is dense), as the reference's ``forward``."""
+    that layer is dense), plus each pre block's (0.0: they are dense), as
+    the reference's ``forward``."""
     check_model_config(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
@@ -203,6 +222,13 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
             f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
             "A16d); the port checkpoints whole periods ('full')")
     aux_total = 0.0
+    pre_caches = []
+    for i, bp in enumerate(params["pre_blocks"]):
+        c_in = caches["pre"][i] if caches is not None else None
+        x, c, aux = _apply_block(bp, x, cfg, _pre_kind(cfg), positions=positions,
+                                 mode=mode, cache=c_in, pos=pos)
+        pre_caches.append(c)
+        aux_total = aux_total + aux
     period_caches = []
     for i, p_i in enumerate(_periods(params["periods"], cfg.n_periods)):
         if remat:
@@ -219,13 +245,13 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
     x = L.rmsnorm(params["final_norm"], x)
     new_caches = None
     if mode == "prefill":
-        new_caches = {"pre": [], "periods": tree_map(
+        new_caches = {"pre": pre_caches, "periods": tree_map(
             lambda *cs: torch.stack(cs) if isinstance(cs[0], torch.Tensor) else cs[0],
             *period_caches)}
     elif mode == "decode":
         # each layer wrote its k / v row or its state into the stacked
         # cache in place; only the attention layers' host-int len moves
-        new_caches = {"pre": [], "periods": {
+        new_caches = {"pre": pre_caches, "periods": {
             name: dict(c, len=period_caches[0][name]["len"]) if "len" in c else c
             for name, c in caches["periods"].items()}}
     return x, new_caches, aux_total
@@ -255,27 +281,32 @@ def loss_fn(params, batch, cfg):
 
 # --------------------------------------------------------------------- serving
 def make_cache(cfg, batch_size, cache_len, device="cuda"):
-    """Zero decode cache for every layer, stacked per period. Attention:
-    k, v [n_periods, B, W, KV, hd] in the compute dtype (W = the window,
-    capped at cache_len), len 0. Mamba: conv [n_periods, B, K-1, di] in the
-    compute dtype, h [n_periods, B, di, N] f32 (length-free).
-    ``device="meta"`` gives the shapes alone."""
+    """Zero decode cache for every layer, stacked per period, and one
+    unstacked for each pre block. GQA attention: k, v [n_periods, B, W, KV,
+    hd] in the compute dtype (W = the window, capped at cache_len), len 0;
+    MLA: c_kv [n_periods, B, W, kv_lora_rank] and k_rope [n_periods, B, W,
+    qk_rope_head_dim] in the compute dtype, len 0. Mamba: conv
+    [n_periods, B, K-1, di] in the compute dtype, h [n_periods, B, di, N]
+    f32 (length-free). ``device="meta"`` gives the shapes alone."""
     check_model_config(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     P, B, cd = cfg.n_periods, batch_size, cfg.cdtype
     W = min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
 
-    def one(kind):
+    def one(kind, lead):
+        def zeros(*shape, dtype=cd):
+            return torch.zeros(lead + shape, dtype=dtype, device=dev)
         if kind["mixer"] == "attn":
-            shape = (P, B, W, cfg.num_kv_heads, cfg.head_dim)
-            return {"k": torch.zeros(shape, dtype=cd, device=dev),
-                    "v": torch.zeros(shape, dtype=cd, device=dev), "len": 0}
-        return {"conv": torch.zeros((P, B, cfg.ssm_conv_dim - 1, cfg.d_inner),
-                                    dtype=cd, device=dev),
-                "h": torch.zeros((P, B, cfg.d_inner, cfg.ssm_state_dim),
-                                 dtype=torch.float32, device=dev)}
-    return {"pre": [], "periods": {f"l{j}": one(kind)
-                                   for j, kind in enumerate(cfg.layer_kinds())}}
+            if cfg.mla:
+                return {"c_kv": zeros(B, W, cfg.kv_lora_rank),
+                        "k_rope": zeros(B, W, cfg.qk_rope_head_dim), "len": 0}
+            return {"k": zeros(B, W, cfg.num_kv_heads, cfg.head_dim),
+                    "v": zeros(B, W, cfg.num_kv_heads, cfg.head_dim), "len": 0}
+        return {"conv": zeros(B, cfg.ssm_conv_dim - 1, cfg.d_inner),
+                "h": zeros(B, cfg.d_inner, cfg.ssm_state_dim, dtype=torch.float32)}
+    return {"pre": [one(_pre_kind(cfg), ()) for _ in range(cfg.first_dense)],
+            "periods": {f"l{j}": one(kind, (P,))
+                        for j, kind in enumerate(cfg.layer_kinds())}}
 
 
 @torch.no_grad()
