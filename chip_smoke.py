@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port on one CUDA card: the FedALIGN round end to
 end through the hand-written fedagg kernel, under every aggregator and wire
 codec; LM serving (prefill + decode of the dense GQA models, the MoE
-archs, minicpm3's MLA and jamba) through the hand-written
-flash-attention, decode-attention, RMSNorm and selective-scan kernels;
-and federated LM training (the spatial and the temporal round over the
-dense GQA models, the MoE and MLA archs and jamba) through the
+archs, minicpm3's MLA, jamba, llava's image inputs and xlstm) through the
+hand-written flash-attention, decode-attention, RMSNorm and
+selective-scan kernels; and federated LM training (the spatial and the
+temporal round over the dense GQA models, the MoE and MLA archs, jamba,
+llava and xlstm) through the
 flash-attention forward and backward, RMSNorm, selective-scan and fedagg
 kernels.
 
@@ -143,14 +144,27 @@ if a check fails:
    against the CPU: prefill and decode logits, expert choices exactly
    (router margins checked), the scheduler against generate, and 2
    rounds of ``launch.train.run`` (gates exactly, expert choices equal);
-   (j2) the three at their published widths, every layer and expert
-   (f32 params, bf16 compute): generate, a BatchScheduler for deepseek
+   (j2) the three at their published widths, every expert, granite every
+   layer, deepseek and minicpm3 at half depth since slice (k) (f32
+   params, bf16 compute): generate, a BatchScheduler for deepseek
    and minicpm3, the f32 teacher-forced check, init s, peak GB and
    launches; minicpm3's latent cache bytes beside an expanded k / v's.
+17. slice (k): llava-next-34b (image inputs) and xlstm-125m (mLSTM,
+   sLSTM). (k1) both smoke configs on the card against the CPU from
+   the same params: prefill (llava's with image rows) and decode logits,
+   the text-only generate's tokens, and 2 rounds of the LM round (llava's
+   temporal round on image batches, xlstm through ``launch.train.run``);
+   (k2) llava uncut in its bf16 params (34.39 B, 68.8 GB; init peak under
+   the card's memory): B 2 x (576 image rows + 512 tokens) prefill, 16
+   decode steps at n_img + S + i, a text-only generate and the f32
+   teacher-forced check with image rows; (k3) one temporal round over
+   llava cut to 2 of 60 layers (f32 params), K5 / K6 at G 7 under
+   autograd; (k4) xlstm-125m at full width: generate B 4 x 1024, the
+   sLSTM host loop's share of prefill, one spatial round.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slices (h), (i) and (j) are each counted from
+K8, K9, fedagg) and those of slices (h), (i), (j) and (k) are each counted from
 zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
@@ -1326,6 +1340,11 @@ FLASH_CASES = [
     ("granite_prefill", 8, 512, 512, 24, 8, 64, True, 0),
     ("deepseek_prefill", 4, 1024, 1024, 16, 16, 128, True, 0),
     ("minicpm3_prefill", 4, 1024, 1024, 40, 40, 96, True, 0),
+    # G 7 (llava-next-34b: 56 query heads over 8 kv heads): a ragged small
+    # case, and llava's prefill of 576 image rows + 512 tokens (1088 is no
+    # multiple of the 128-key tile)
+    ("g7_ragged_hd128", 2, 75, 75, 14, 2, 128, True, 0),
+    ("llava_prefill", 2, 1088, 1088, 56, 8, 128, True, 0),
 ]
 # the cases whose v (and dO) carry zeros in their last columns: MLA pads v
 # from v_head_dim to nope + rope, and its output's padded columns take no
@@ -1346,6 +1365,8 @@ DECODE_CASES = [
     ("strided", 2, 300, 8, 2, 64, (1, 150, 300)),
     ("granite_decode", 8, 544, 24, 8, 64, (1, 271, 544)),
     ("deepseek_decode", 4, 1040, 16, 16, 128, (1, 519, 1040)),
+    # llava at G 7: the head group padded to 8, one row masked
+    ("llava_decode", 2, 1104, 56, 8, 128, (1, 552, 1104)),
 ]
 # (label, rows, D, scale dtype): ragged rows, the zoo's widths (jamba's
 # 8192 with its bf16 scale, at ragged prefill rows and a decode step's 2;
@@ -1358,6 +1379,12 @@ RMSNORM_CASES = [
     ("d8192", 77, 8192, "bfloat16"), ("d8192_decode", 2, 8192, "bfloat16"),
     ("d1536", 4096, 1536, "float32"), ("d2560", 4096, 2560, "float32"),
     ("d768_qnorm", 4096, 768, "float32"),
+    # llava's 7168 with its bf16 scale (norm1, norm2, img_norm, the final
+    # norm) at its prefill's 2 x 1088 rows and a decode step's 2; xlstm's
+    # 768 at its f32 scale, a decode step's 4 rows (its prefill's are
+    # d768_qnorm's shape)
+    ("d7168", 2176, 7168, "bfloat16"), ("d7168_decode", 2, 7168, "bfloat16"),
+    ("d768_decode", 4, 768, "float32"),
 ]
 
 
@@ -1394,7 +1421,7 @@ def attn_close(out, want, v, dtype):
 
 
 GRAPH_DECODE = ("qwen2.5_decode", "jamba_decode", "ragged_hd32_g4",
-                "granite_decode")
+                "granite_decode", "llava_decode")
 
 
 def graph_replays_match(fn, eager) -> bool:
@@ -1579,12 +1606,14 @@ PREFILL_TIMING = (("qwen1.5_prefill", 8, 512, 16, 16, 64),
                   ("qwen2.5_prefill", 4, 1024, 16, 2, 128),
                   ("granite_prefill", 8, 512, 24, 8, 64),
                   ("deepseek_prefill", 4, 1024, 16, 16, 128),
-                  ("minicpm3_prefill", 4, 1024, 40, 40, 96))
+                  ("minicpm3_prefill", 4, 1024, 40, 40, 96),
+                  ("llava_prefill", 2, 1088, 56, 8, 128))
 DECODE_TIMING = (("qwen1.5_decode", 8, 544, 16, 16, 64),
                  ("qwen2.5_decode", 4, 1040, 16, 2, 128),
                  ("jamba_decode", 2, 1040, 64, 8, 128),
                  ("granite_decode", 8, 544, 24, 8, 64),
-                 ("deepseek_decode", 4, 1040, 16, 16, 128))
+                 ("deepseek_decode", 4, 1040, 16, 16, 128),
+                 ("llava_decode", 2, 1104, 56, 8, 128))
 NORM_TIMING = (("qwen1.5_prefill_norm", 4096, 1024, "float32"),
                ("qwen1.5_decode_norm", 8, 1024, "float32"),
                ("qwen2.5_prefill_norm", 4096, 2048, "float32"),
@@ -1593,7 +1622,11 @@ NORM_TIMING = (("qwen1.5_prefill_norm", 4096, 1024, "float32"),
                ("jamba_decode_norm", 2, 8192, "bfloat16"),
                ("granite_prefill_norm", 4096, 1536, "float32"),
                ("minicpm3_prefill_norm", 4096, 2560, "float32"),
-               ("minicpm3_prefill_qnorm", 4096, 768, "float32"))
+               ("minicpm3_prefill_qnorm", 4096, 768, "float32"),
+               ("llava_prefill_norm", 2176, 7168, "bfloat16"),
+               ("llava_decode_norm", 2, 7168, "bfloat16"),
+               ("xlstm_prefill_norm", 4096, 768, "float32"),
+               ("xlstm_decode_norm", 4, 768, "float32"))
 
 
 def lm_timing_phase(device="cuda"):
@@ -1696,23 +1729,32 @@ def reset_lm_counts():
     sk.ssm_scan.launches = 0
 
 
-def mixer_counts(cfg, pre=True):
-    """(attention layers, Mamba layers) of a config, over all periods and,
-    with ``pre``, the leading dense blocks (deepseek-moe's layer 0, whose
-    mixer is the first layer's)."""
-    mixers = [k["mixer"] for k in cfg.layer_kinds()] * cfg.n_periods
+def layer_kinds(cfg, pre=True):
+    """Every layer's kind, over all periods and, with ``pre``, the leading
+    dense blocks (deepseek-moe's layer 0, whose mixer is the first
+    layer's)."""
+    kinds = cfg.layer_kinds() * cfg.n_periods
     if pre:
-        mixers += [cfg.layer_kinds()[0]["mixer"]] * cfg.first_dense
+        kinds += [{"mixer": cfg.layer_kinds()[0]["mixer"], "ffn": "dense"}] * cfg.first_dense
+    return kinds
+
+
+def mixer_counts(cfg, pre=True):
+    """(attention layers, Mamba layers) of a config (``layer_kinds``)."""
+    mixers = [k["mixer"] for k in layer_kinds(cfg, pre)]
     return mixers.count("attn"), mixers.count("mamba")
 
 
-def norm_count(cfg, pre=True):
-    """RMSNorm launches of one forward over the layers (two a layer, two
-    more an MLA attention layer: q_norm and kv_norm), with ``pre`` the
-    leading blocks' and the final norm too."""
+def norm_count(cfg, pre=True, images=False):
+    """RMSNorm launches of one forward over the layers (norm1, norm2 where
+    the layer has an FFN: xlstm's blocks have none; two more an MLA
+    attention layer: q_norm and kv_norm), with ``pre`` the leading blocks'
+    and the final norm too, and with ``images`` (and ``pre``) llava's
+    img_norm."""
+    kinds = layer_kinds(cfg, pre)
     A = mixer_counts(cfg, pre)[0]
-    L = cfg.num_layers - (0 if pre else cfg.first_dense)
-    return 2 * L + (2 * A if cfg.mla else 0) + (1 if pre else 0)
+    return (len(kinds) + sum(k["ffn"] != "none" for k in kinds)
+            + (2 * A if cfg.mla else 0) + (1 if pre else 0) + (1 if pre and images else 0))
 
 
 class Expected(dict):
@@ -1722,31 +1764,39 @@ class Expected(dict):
     flash-attention, M selective-scan and 2L + 1 RMSNorm launches (2A more
     under MLA); per decode step A decode-attention (none under MLA, whose
     absorbed decode is plain torch) and the same RMSNorm launches (a
-    Mamba decode step is plain torch)."""
+    Mamba decode step is plain torch). ``images``: the forwards carry
+    llava's image rows (one img_norm launch more each)."""
 
     def __init__(self):
         super().__init__({k: 0 for k in LM_KERNELS})
 
-    def add(self, cfg, forwards=0, steps=0):
+    def add(self, cfg, forwards=0, steps=0, images=False):
         A, M = mixer_counts(cfg)
         self["flash_attention"] += A * forwards
         self["ssm_scan"] += M * forwards
         self["decode_attention"] += 0 if cfg.mla else A * steps
-        self["rmsnorm"] += norm_count(cfg) * (forwards + steps)
+        self["rmsnorm"] += (norm_count(cfg, images=images) * forwards
+                            + norm_count(cfg) * steps)
 
 
-def logits_trace(model, params, prompt, max_new):
+def logits_trace(model, params, prompt, max_new, image_embeds=None):
     """generate's calls one by one (prefill, pad_caches, decode_step), the
-    logits of each kept on the host: [prefill, step 0, ...]."""
+    logits of each kept on the host: [prefill, step 0, ...]. With
+    ``image_embeds`` [B, n_img, d] (llava) the prefill carries them first
+    and the decode positions count them (n_img + S + i), as the model's
+    API allows and the text-only ``generate`` does not."""
     import torch
     from repro_torch.launch.serve import pad_caches
     B, S = prompt.shape
-    caches, logits = model.prefill(params, {"tokens": prompt})
-    caches = pad_caches(model, caches, B, S + max_new)
+    batch, n_img = {"tokens": prompt}, 0
+    if image_embeds is not None:
+        batch["image_embeds"], n_img = image_embeds, image_embeds.shape[1]
+    caches, logits = model.prefill(params, batch)
+    caches = pad_caches(model, caches, B, n_img + S + max_new)
     out = [logits.float().cpu()]
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     for i in range(max_new):
-        logits, caches = model.decode_step(params, caches, tok, S + i)
+        logits, caches = model.decode_step(params, caches, tok, n_img + S + i)
         out.append(logits.float().cpu())
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     return out
@@ -1934,7 +1984,7 @@ def scheduler_run(check: Check, expected: Expected, model, params, label,
 
 
 def teacher_forced_check(check: Check, expected: Expected, cfg, params,
-                         label, device="cuda", B=2, S=64, S2=72):
+                         label, device="cuda", B=2, S=64, S2=72, images=False):
     """A full-width model in f32 (params shared with the bf16 runs):
     prefill's last logits and each decode step's logits against
     forward(mode="train") logits on the same tokens, within
@@ -1944,7 +1994,8 @@ def teacher_forced_check(check: Check, expected: Expected, cfg, params,
     shapes); over 24 layers that is of order 24 x 2^-24 x sqrt(d_ff) ~
     1e-4 relative, below the bound. This holds K7 against the K5 path, and
     the prefill -> decode handoff (the conv tail and K8's final state), at
-    full width."""
+    full width. With ``images`` (llava) both sides carry n_img image rows
+    first (``image_rows``) and the decode positions count them."""
     import torch
     from repro_torch import prng
     from repro_torch.launch.serve import pad_caches
@@ -1953,17 +2004,24 @@ def teacher_forced_check(check: Check, expected: Expected, cfg, params,
     cfg = cfg.replace(compute_dtype="float32")
     model = get_model(cfg)
     toks = prng.randint(prng.PRNGKey(2), (B, S2), 0, cfg.vocab_size).to(device)
-    hidden, _, _ = T.forward(params, toks, cfg, mode="train")
-    expected.add(cfg, forwards=1)
+    img = image_rows(cfg, B, device, seed=3) if images else None
+    n_img = img.shape[1] if images else 0
+    hidden, _, _ = T.forward(params, toks, cfg, mode="train", image_embeds=img)
+    expected.add(cfg, forwards=1, images=images)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    ref = hidden.float() @ w.float()
-    caches, logits = model.prefill(params, {"tokens": toks[:, :S]})
-    caches = pad_caches(model, caches, B, S2)
+    ref = hidden[:, n_img:].float() @ w.float()
+    del hidden
+    batch = {"tokens": toks[:, :S]}
+    if images:
+        batch["image_embeds"] = img
+    caches, logits = model.prefill(params, batch)
+    caches = pad_caches(model, caches, B, n_img + S2)
     got = [(S - 1, logits)]
     for t in range(S, S2):
-        logits, caches = model.decode_step(params, caches, toks[:, t:t + 1], t)
+        logits, caches = model.decode_step(params, caches, toks[:, t:t + 1],
+                                           n_img + t)
         got.append((t, logits))
-    expected.add(cfg, forwards=1, steps=S2 - S)
+    expected.add(cfg, forwards=1, steps=S2 - S, images=images)
     errs = [float(torch.max(torch.abs(lg - ref[:, t]))) for t, lg in got]
     ok = all(bool(torch.all(torch.abs(lg - ref[:, t])
                             <= SERVE_ATOL + SERVE_RTOL * torch.abs(ref[:, t])))
@@ -2340,9 +2398,16 @@ def lm_bwd_phase(check: Check, device="cuda"):
     return worst
 
 
+# K6 at the training shapes: (label, B, S, H, KV, hd)
+BWD_TIMING = (("qwen1.5_train", 8, 512, 16, 16, 64),
+              ("qwen2.5_train", 4, 1024, 16, 2, 128),
+              ("llava_train", 2, 1088, 56, 8, 128))
+
+
 def lm_bwd_timing(device="cuda"):
-    """K6 at the training shapes (bf16, causal; qwen1.5-0.5b's 8 x 512 with
-    16 heads at hd 64, qwen2.5-3b's 4 x 1024 with 16 / 2 heads at hd 128):
+    """K6 at the training shapes of BWD_TIMING (bf16, causal; qwen1.5-0.5b's
+    8 x 512 with 16 heads at hd 64, qwen2.5-3b's 4 x 1024 with 16 / 2 heads
+    at hd 128, llava's 2 x (576 + 512) with 56 / 8 at hd 128):
     device time by CUDA-graph replay and eager time, the plain version's
     device time, the bound, the rate in TFLOP/s, and
     scaled_dot_product_attention's backward (``enable_gqa``, causal) as the
@@ -2357,8 +2422,7 @@ def lm_bwd_timing(device="cuda"):
     from repro_torch.kernels import flash_attention as fk
     bf16 = torch.bfloat16
     rows = {}
-    for label, B, S, H, KV, hd in (("qwen1.5_train", 8, 512, 16, 16, 64),
-                                   ("qwen2.5_train", 4, 1024, 16, 2, 128)):
+    for label, B, S, H, KV, hd in BWD_TIMING:
         q = lm_inputs((B, S, H, hd), bf16, device, 1)
         k = lm_inputs((B, S, KV, hd), bf16, device, 2)
         v = lm_inputs((B, S, KV, hd), bf16, device, 3)
@@ -2432,32 +2496,36 @@ class TrainExpected(dict):
     A round of C clients and E local steps: the server loss and each
     client's loss at the received model (no graph), E gradients for each
     client that trains, and one fedagg launch (none on the temporal
-    round's mean stream)."""
+    round's mean stream). ``images``: llava's batches, whose img_norm runs
+    once a forward, outside the periods' checkpoints."""
 
     def __init__(self):
         super().__init__({k: 0 for k in TRAIN_KERNELS})
 
-    def add_forwards(self, cfg, n):
+    def add_forwards(self, cfg, n, images=False):
         A, M = mixer_counts(cfg)
         self["flash_attention"] += A * n
         self["ssm_scan"] += M * n
-        self["rmsnorm"] += norm_count(cfg) * n
+        self["rmsnorm"] += norm_count(cfg, images=images) * n
 
-    def add_grad(self, cfg, n=1):
+    def add_grad(self, cfg, n=1, images=False):
         A, M = mixer_counts(cfg)
         A_p, M_p = mixer_counts(cfg, pre=False)
         self["flash_attention"] += (A + A_p) * n
         self["flash_attention_bwd"] += A * n
         self["ssm_scan"] += (M + M_p) * n
-        self["rmsnorm"] += (norm_count(cfg) + norm_count(cfg, pre=False)) * n
+        self["rmsnorm"] += (norm_count(cfg, images=images)
+                            + norm_count(cfg, pre=False)) * n
 
-    def add_rounds(self, cfg, C, E, rounds, trained=None, fedagg=True):
+    def add_rounds(self, cfg, C, E, rounds, trained=None, fedagg=True,
+                   images=False):
         """``trained``: the clients that take their E steps a round (a
         cohort's K, or the temporal round's gated-in count; default all
         C); ``fedagg``: whether the round aggregates through the kernel."""
-        self.add_forwards(cfg, (1 + C) * rounds)
+        self.add_forwards(cfg, (1 + C) * rounds, images)
         self["fedagg"] += rounds if fedagg else 0
-        self.add_grad(cfg, (C if trained is None else trained) * E * rounds)
+        self.add_grad(cfg, (C if trained is None else trained) * E * rounds,
+                      images)
 
 
 # slice (f1): (arch, model knobs, eps), the settings of
@@ -4304,6 +4372,13 @@ ROUTE_MARGIN = 1e-4
 J2_RUNS = (("granite-moe-3b-a800m", 8, 512, 32, False),
            ("deepseek-moe-16b", 4, 1024, 16, True),
            ("minicpm3-4b", 4, 1024, 16, True))
+# since slice (k), two of (j2)'s archs at half their depth, published
+# widths: deepseek-moe-16b at 14 of 28 layers (the dense layer 0 and 13
+# MoE layers, 8.1 B params) and minicpm3-4b at 31 of 62 (2.1 B); this
+# keeps the script's time within ~120 s of slice (j)'s when (k)'s llava
+# init alone takes ~55 s. Uncut (deepseek 65.5 GB in f32 with 13.6 GB
+# free) both served in the slice (j) runs
+J2_LAYERS = {"deepseek-moe-16b": 14, "minicpm3-4b": 31}
 
 
 @contextmanager
@@ -4417,12 +4492,12 @@ def mla_cache_bytes(cfg, B, W):
 
 
 def slice_j2(check: Check, expected: Expected, device="cuda"):
-    """Full width, random init from PRNGKey(0) drawn on the card, f32
-    params and bf16 compute, every layer and expert: granite-moe-3b-a800m
-    through generate (B 8, prompt 512, 32 new); deepseek-moe-16b (f32
-    params: 65.5 GB; the card must keep > 4 GB free at its peak, the
-    init's included) and
-    minicpm3-4b through generate (B 4, prompt 1024, 16 new) and a
+    """Published widths, random init from PRNGKey(0) drawn on the card, f32
+    params and bf16 compute, every expert: granite-moe-3b-a800m (every
+    layer) through generate (B 8, prompt 512, 32 new); deepseek-moe-16b (the
+    card must keep > 4 GB free at its peak, the init's included) and
+    minicpm3-4b, both cut to J2_LAYERS' depth, through generate (B 4,
+    prompt 1024, 16 new) and a
     BatchScheduler (4 slots, 8 requests of 16-128 prompt tokens, 16 new
     each), minicpm3's MLA cache bytes beside an expanded k / v cache's;
     each arch's f32 teacher-forced check (the MoE archs at capacity_factor
@@ -4439,11 +4514,14 @@ def slice_j2(check: Check, expected: Expected, device="cuda"):
         label = f"slice (j2) {arch}"
         before = lm_counts()
         cfg = get_config(arch)
+        if arch in J2_LAYERS:
+            cfg = cfg.replace(num_layers=J2_LAYERS[arch])
         model = get_model(cfg)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
-        row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+        row = dict(num_layers=cfg.num_layers, params=param_count(params),
+                   param_gb=param_bytes(params) / 1e9,
                    init_s=t_init, init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         print(f"{label} init:", json.dumps(row), flush=True)
         row["generate"] = serve_run(check, expected, cfg, params, B, S, new,
@@ -4472,6 +4550,424 @@ def slice_j2(check: Check, expected: Expected, device="cuda"):
         del params
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------- llava and xlstm, slice (k)
+K_ARCHS = ("llava-next-34b", "xlstm-125m")
+# (k1) xlstm through launch.train.run (the spatial round): eps gates a
+# non-priority client in and one out, every decision > GATE_MARGIN from
+# eps (train_parity checks the CPU run's gaps)
+XLSTM_TRAIN_EPS = 0.05
+K_TRAIN_RUN = dict(TRAIN_RUN, rounds=2)
+# (k1) the smoke llava through the temporal round (the round needs_fsdp
+# picks for it) on batches carrying image embeds: 4 clients (2 priority),
+# 2 sequences of 16 image rows + 32 tokens each, E = 2, 2 rounds
+VLM_ROUND = dict(clients=4, n_priority=2, per_client=2, seq=32,
+                 local_epochs=2, lr=0.05, rounds=2)
+VLM_EPS = 0.1
+# (k2) llava at full width: B x (576 image rows + S tokens), new tokens
+K2 = dict(batch=2, prompt=512, new=16)
+# (k3) one temporal round over llava cut to 2 of 60 layers (f32 params,
+# bf16 compute), eps admitting every client
+K3 = dict(clients=2, n_priority=1, per_client=2, seq=512, local_epochs=1,
+          lr=0.05, epsilon=1.0)
+# (k4) xlstm at full width: generate (B, prompt, new) and one spatial round
+K4_SERVE = (4, 1024, 16)
+K4 = dict(clients=4, n_priority=2, per_client=2, seq=512, local_epochs=1,
+          lr=0.05, epsilon=1.0)
+
+
+def image_rows(cfg, B, device, seed=0, lead=()):
+    """The stubbed vision tower's output [*lead, B, n_img, d] in the
+    compute dtype: normal draws from a seeded CPU generator, so the card
+    and the CPU see the same rows."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    shape = tuple(lead) + (B, cfg.num_image_tokens, cfg.d_model)
+    return torch.randn(*shape, generator=gen).to(cfg.cdtype).to(device)
+
+
+def report(label, row, keys):
+    """Each of ``keys`` of ``row`` on a line of its own."""
+    for k in keys:
+        print(f"{label} {k}: {row[k]}", flush=True)
+
+
+def vlm_round_parity(check: Check, expected: TrainExpected, name, model,
+                     p_cpu, device="cuda", tol=PARITY_ATOL):
+    """The smoke llava through ``make_round_step(fsdp=needs_fsdp)`` (the
+    temporal round) for VLM_ROUND's rounds on the card and on the CPU,
+    from the same params, on the same token batches (``build_batches``)
+    with the same image embeds: gates equal, after checking every
+    decision is more than GATE_MARGIN from eps and some non-priority
+    client is in and some out; losses and the final params within ``tol``
+    of the largest magnitude (at least 1). The reference's ``train.run``
+    cannot train llava (its batches carry no images), so neither does this
+    through ``train.run``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.tokens import make_token_federation
+    from repro_torch.fl import engine, sharded
+    from repro_torch.launch.train import build_batches
+    from repro_torch.utils import tree_leaves, tree_map
+    cfg, kw = model.cfg, VLM_ROUND
+    C, npri, b, S = kw["clients"], kw["n_priority"], kw["per_client"], kw["seq"]
+    fed = FedConfig(num_clients=C, num_priority=npri, local_epochs=kw["local_epochs"],
+                    epsilon=VLM_EPS, lr=kw["lr"])
+    data = make_token_federation(seed=0, vocab=cfg.vocab_size, n_clients=C,
+                                 n_priority=npri, seq_len=S,
+                                 tokens_per_client=(S + 1) * 8)
+    runs = {}
+    for dev in ("cpu", device):
+        step = sharded.make_round_step(model, fed, C, fsdp=sharded.needs_fsdp(cfg),
+                                       device=dev)
+        state = engine.init_state(tree_map(lambda t: t.to(dev, copy=True), p_cpu),
+                                  fed, C)
+        rng = np.random.default_rng(0)
+        hist = []
+        for r in range(kw["rounds"]):
+            batch = build_batches(cfg, data, clients=C, per_client=b, seq=S,
+                                  rng=rng, device=dev)
+            batch["clients"]["image_embeds"] = image_rows(cfg, b, dev, 10 + r, (C,))
+            batch["server"]["image_embeds"] = image_rows(cfg, b, dev, 20 + r)
+            state, st = step(state, batch, r)
+            hist.append({k: st[k].cpu() for k in ("server_loss", "local_losses",
+                                                   "gates")})
+            if dev != "cpu":
+                expected.add_rounds(cfg, C, kw["local_epochs"], 1,
+                                    trained=int((st["gates"] > 0).sum()),
+                                    fedagg=False, images=True)
+        runs[dev] = ([t.cpu() for t in tree_leaves(state.params)], hist)
+    (p_dev, h_dev), (p_ref, h_ref) = runs[device], runs["cpu"]
+    margin = min(abs(abs(float(l) - float(h["server_loss"])) - VLM_EPS)
+                 for h in h_ref for l in h["local_losses"][npri:])
+    check(margin > GATE_MARGIN, f"{name}: gate margin {margin}")
+    gated = torch.stack([h["gates"][npri:] for h in h_ref])
+    check(0 < float(gated.sum()) < gated.numel(),
+          f"{name}: eps {VLM_EPS} gates every client in or every one out")
+    same = all(torch.equal(a["gates"], b_["gates"]) for a, b_ in zip(h_dev, h_ref))
+    check(same, f"{name}: gates differ from the CPU run")
+    loss_err = max(float(torch.max(torch.abs(a[k] - b_[k])))
+                   / max(1.0, float(torch.max(torch.abs(b_[k]))))
+                   for a, b_ in zip(h_dev, h_ref) for k in ("server_loss", "local_losses"))
+    check(loss_err <= tol, f"{name}: losses off the CPU run by {loss_err}")
+    param_err = max(float(torch.max(torch.abs(a - b_))) / max(1.0, float(torch.max(torch.abs(b_))))
+                    for a, b_ in zip(p_dev, p_ref))
+    check(param_err <= tol, f"{name}: params off the CPU run by {param_err}")
+    row = dict(eps=VLM_EPS, gate_margin=margin, gates=[h["gates"].tolist() for h in h_ref],
+               gates_equal=same, max_loss_rel_err=loss_err, max_param_rel_err=param_err)
+    print(f"{name}:", json.dumps(row), flush=True)
+    return row
+
+
+def slice_k1(check: Check, expected: Expected, train_expected: TrainExpected,
+             device="cuda"):
+    """The smoke llava (images) and xlstm (mLSTM + sLSTM) on the card
+    against the same code on the CPU, from the same params carried across
+    by ``convert.py``: prefill then every decode step's logits within
+    PARITY_ATOL of the larger magnitude (at least 1; llava's prefill with
+    16 image rows, its decode at n_img + S + i), every decision's top-2
+    gap on the CPU over twice that; the text-only ``generate``'s tokens
+    equal; then two rounds of the LM round: llava's temporal round on
+    image batches (``vlm_round_parity``), xlstm through
+    ``launch.train.run``'s spatial round (``train_parity``)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import params_from_jax, params_to_numpy
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model
+    out = {}
+    for arch in K_ARCHS:
+        name = f"slice (k1) {arch}"
+        cfg = get_smoke(arch)
+        model = get_model(cfg)
+        p_cpu = model.init(prng.PRNGKey(0), device="cpu")
+        p_dev = params_from_jax(params_to_numpy(p_cpu), device)
+        B, S, new = 2, 12, 6
+        prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size)
+        img = image_rows(cfg, B, "cpu", seed=4) if cfg.vlm else None
+        cpu = logits_trace(model, p_cpu, prompt, new, img)
+        dev = logits_trace(model, p_dev, prompt.to(device), new,
+                           None if img is None else img.to(device))
+        expected.add(cfg, forwards=1, steps=new, images=cfg.vlm)
+        tol = PARITY_ATOL * max(1.0, max(float(torch.max(torch.abs(c))) for c in cpu))
+        err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(dev, cpu))
+        check(err <= tol, f"{name}: logits off the CPU run by {err} > {tol}")
+        gap = decision_gap(cpu)
+        check(gap > 2 * tol, f"{name}: top-2 gap {gap} too small to compare tokens")
+        text_gap = decision_gap(logits_trace(model, p_cpu, prompt, new))
+        check(text_gap > 2 * tol, f"{name}: text-only top-2 gap {text_gap}")
+        t_cpu = generate(model, p_cpu, prompt, new, device="cpu")
+        t_dev = generate(model, p_dev, prompt, new, device=device)
+        expected.add(cfg, forwards=1, steps=new)
+        same = bool(torch.equal(t_dev.cpu(), t_cpu))
+        check(same, f"{name}: text-only greedy tokens differ from the CPU run")
+        row = dict(max_logits_err=err, tol=tol, top2_gap=gap, text_top2_gap=text_gap,
+                   tokens_equal=same)
+        if cfg.vlm:
+            row["train"] = vlm_round_parity(check, train_expected, name + " training",
+                                            model, p_cpu, device)
+        else:
+            row["train"] = train_parity(check, train_expected, name + " training",
+                                        arch, {}, XLSTM_TRAIN_EPS, device,
+                                        run=K_TRAIN_RUN)
+        print(f"{name}:", json.dumps(row), flush=True)
+        out[arch] = row
+    return out
+
+
+def slice_k2(check: Check, expected: Expected, device="cuda"):
+    """llava-next-34b uncut: published widths, every one of its 60 layers,
+    random init drawn on the card from PRNGKey(0), bf16 params as the
+    config says (34.39 B params, 68.8 GB; f32 would need 137.6 GB) and
+    bf16 compute; the init's peak under the card's memory. Serves B 2 x
+    (576 image rows + 512 tokens) by prefill with image_embeds, pad_caches
+    to n_img + S + new, and 16 decode steps at n_img + S + i (after one
+    warm-up of 64 tokens and 2 steps); a text-only ``generate`` of the same
+    prompt; and the f32-compute teacher-forced check with image rows (2 x
+    (576 + 16), 4 decode steps) at the bounds of (e) / (j2)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, pad_caches
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_bytes, param_count
+    label = "slice (k2) llava-next-34b"
+    cfg = get_config("llava-next-34b")
+    model = get_model(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    init_peak = torch.cuda.max_memory_allocated()
+    row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+               param_dtype=str(cfg.pdtype), init_s=t_init, init_peak_gb=init_peak / 1e9)
+    check(init_peak < total, f"{label}: init peak {init_peak / 1e9} GB")
+    report(label, row, ("init_s", "init_peak_gb"))
+    B, S, new = K2["batch"], K2["prompt"], K2["new"]
+    n_img = cfg.num_image_tokens
+    img = image_rows(cfg, B, device, seed=5)
+    prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size).to(device)
+
+    def serve(toks, steps):
+        caches, logits = model.prefill(params, {"tokens": toks, "image_embeds": img})
+        caches = pad_caches(model, caches, B, n_img + toks.shape[1] + steps)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        return caches, logits, tok
+
+    serve(prompt[:, :64], 2)                                         # warm-up
+    expected.add(cfg, forwards=1, images=True)
+    torch.cuda.reset_peak_memory_stats()
+    (caches, logits, tok), t_pre = sync_time(lambda: serve(prompt, new))
+    expected.add(cfg, forwards=1, images=True)
+
+    def decode():
+        nonlocal caches, tok
+        out = [tok]
+        for i in range(new):
+            lg, caches = model.decode_step(params, caches, tok, n_img + S + i)
+            tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            out.append(tok)
+        return lg, torch.cat(out, dim=1)
+    (last, toks), t_dec = sync_time(decode)
+    expected.add(cfg, steps=new)
+    ok = (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(last).all())
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
+    check(ok, f"{label}: non-finite logits or tokens out of range")
+    row.update(batch=B, image_rows=n_img, prompt=S, new_tokens=new, prefill_s=t_pre,
+               prefill_tokens_per_s=B * (n_img + S) / t_pre,
+               decode_ms_per_step=1e3 * t_dec / new,
+               decode_tokens_per_s=B * new / t_dec,
+               serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del caches
+    text, t_gen = sync_time(lambda: generate(model, params, prompt, new, device=device))
+    expected.add(cfg, forwards=1, steps=new)
+    check(tuple(text.shape) == (B, S + new) and int(text.max()) < cfg.vocab_size,
+          f"{label}: text-only generate gave {tuple(text.shape)}")
+    row["text_generate_s"] = t_gen
+    row["f32_teacher_forced"] = teacher_forced_check(
+        check, expected, cfg, params, label, device, S=16, S2=20, images=True)
+    peak = max(torch.cuda.max_memory_allocated(), init_peak)
+    row.update(peak_gb=peak / 1e9, free_at_peak_gb=(total - peak) / 1e9)
+    check(peak < total, f"{label}: peak {peak / 1e9} GB")
+    report(label, row, ("prefill_tokens_per_s", "decode_ms_per_step", "peak_gb"))
+    print(f"{label}:", json.dumps(row), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice_k3(check: Check, expected: TrainExpected, device="cuda"):
+    """llava training, cut: published widths (d 7168, 56 / 8 heads at hd
+    128, d_ff 20480, the 64,000-token embed and head) at 2 of 60 layers,
+    f32 params and bf16 compute (2.04 B params; the temporal round holds
+    4 f32 copies, ~33 GB; uncut they would be 550 GB). One temporal round
+    (``make_round_step(fsdp=True)``, the round needs_fsdp picks): 2
+    clients (1 priority) of 2 x (576 image rows + 512 tokens), E = 1, eps
+    admitting both: K5 and K6 at G 7 under autograd. Checks the launches,
+    finite params and losses, both clients gated in, peak under the
+    card's memory."""
+    import math
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.tokens import make_token_federation
+    from repro_torch.fl import engine, sharded
+    from repro_torch.launch.train import build_batches
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_count, tree_leaves
+    import numpy as np
+    name = "slice (k3) llava temporal round"
+    cfg = get_config("llava-next-34b").replace(num_layers=2, param_dtype="float32")
+    model = get_model(cfg)
+    kw = K3
+    C, b, S = kw["clients"], kw["per_client"], kw["seq"]
+    fed = FedConfig(num_clients=C, num_priority=kw["n_priority"],
+                    local_epochs=kw["local_epochs"], epsilon=kw["epsilon"], lr=kw["lr"])
+    data = make_token_federation(seed=0, vocab=cfg.vocab_size, n_clients=C,
+                                 n_priority=kw["n_priority"], seq_len=S,
+                                 tokens_per_client=max(8192, b * (S + 1) * 4))
+    torch.cuda.empty_cache()
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    n = param_count(params)
+    step = sharded.make_round_step(model, fed, C, fsdp=sharded.needs_fsdp(cfg),
+                                   device=device)
+    state = engine.init_state(params, fed, C)
+    del params
+    batch = build_batches(cfg, data, clients=C, per_client=b, seq=S,
+                          rng=np.random.default_rng(0), device=device)
+    batch["clients"]["image_embeds"] = image_rows(cfg, b, device, 30, (C,))
+    batch["server"]["image_embeds"] = image_rows(cfg, b, device, 31)
+    before = train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (state, st), t_round = sync_time(lambda: step(state, batch, 0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    gates = st["gates"].tolist()
+    want = TrainExpected()
+    want.add_rounds(cfg, C, kw["local_epochs"], 1, trained=sum(g > 0 for g in gates),
+                    fedagg=False, images=True)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check(gates == [1.0] * C, f"{name}: a client was gated out: {gates}")
+    losses = [float(st["server_loss"])] + st["local_losses"].tolist()
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
+    check(finite and all(math.isfinite(x) for x in losses),
+          f"{name}: non-finite params or losses")
+    check(peak < 80.0, f"{name}: peak {peak} GB")
+    row = dict(num_layers=cfg.num_layers, params=n, f32_copy_gb=4 * n / 1e9,
+               **kw, image_rows=cfg.num_image_tokens, init_s=t_init, round_s=t_round,
+               peak_gb=peak, server_loss=losses[0], local_losses=losses[1:],
+               gates=gates, launches=launches)
+    print(f"{name}:", json.dumps(row), flush=True)
+    del state, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextmanager
+def timed_blocks(mixers):
+    """The host-clock seconds spent in each of ``mixers``' blocks (e.g.
+    "slstm" for ``slstm_block``) while the block runs, each call between
+    two device syncs: {mixer: seconds}."""
+    import torch
+    from repro_torch.models import transformer as T
+    spent = {m: 0.0 for m in mixers}
+    orig = {m: getattr(T, f"{m}_block") for m in mixers}
+
+    def timed(m):
+        def block(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[m](*args, **kw)
+            torch.cuda.synchronize()
+            spent[m] += time.perf_counter() - t0
+            return out
+        return block
+    for m in mixers:
+        setattr(T, f"{m}_block", timed(m))
+    try:
+        yield spent
+    finally:
+        for m in mixers:
+            setattr(T, f"{m}_block", orig[m])
+
+
+def slice_k4(check: Check, expected: Expected, train_expected: TrainExpected,
+             device="cuda"):
+    """xlstm-125m at full width: random init on the card, f32 params and
+    bf16 compute. ``generate`` (serve_run: B 4, prompt 1024, 16 new) and
+    the f32 teacher-forced check; what the sLSTM's host loop costs at
+    prefill (one more prefill of the same B x S with each mLSTM and sLSTM
+    block timed inside it, ``timed_blocks``); then one spatial round through
+    ``launch.train.run`` (4 clients, 2 priority, 2 x 512 tokens each, E =
+    1, eps admitting all), its launches (K9 and fedagg; xlstm runs no
+    attention) checked."""
+    import math
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.utils import param_bytes, param_count, tree_leaves
+    label = "slice (k4) xlstm-125m"
+    cfg = get_config("xlstm-125m")
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+               init_s=t_init, init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report(label, row, ("init_s",))
+    B, S, new = K4_SERVE
+    row["generate"] = serve_run(check, expected, cfg, params, B, S, new, label, device)
+    row["f32_teacher_forced"] = teacher_forced_check(check, expected, cfg, params,
+                                                     label, device)
+    prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size).to(device)
+    with timed_blocks(("mlstm", "slstm")) as spent:
+        _, t_pre = sync_time(lambda: model.prefill(params, {"tokens": prompt}))
+    expected.add(cfg, forwards=1)
+    row["prefill_blocks"] = dict(
+        prefill_s=t_pre, mlstm_s=spent["mlstm"], slstm_s=spent["slstm"],
+        layers_each=cfg.n_periods, slstm_steps=S,
+        slstm_ms_per_step=1e3 * spent["slstm"] / (cfg.n_periods * S),
+        slstm_share_of_prefill=spent["slstm"] / t_pre,
+        mlstm_share_of_prefill=spent["mlstm"] / t_pre)
+    print(f"{label} prefill blocks:", json.dumps(row["prefill_blocks"]), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    before = train_counts()
+    with lm_rounds() as rec:
+        p_run, hist = train.run(arch="xlstm-125m", smoke=False, rounds=1,
+                                device=device, verbose=False, **K4)
+    train_expected.add_rounds(cfg, K4["clients"], K4["local_epochs"], 1)
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_rounds(cfg, K4["clients"], K4["local_epochs"], 1)
+    check(launches == want, f"{label} round: launches {launches}, expected {want}")
+    h = hist[0]
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(p_run))
+    check(finite and math.isfinite(h["server_loss"])
+          and all(math.isfinite(v) for v in h["local_losses"]),
+          f"{label} round: non-finite params or losses")
+    check(h["gates"] == [1.0] * K4["clients"], f"{label} round: gates {h['gates']}")
+    row["round"] = dict(**K4, round_s=h["sec"], peak_gb=rec["peak_gb"][0],
+                        server_loss=h["server_loss"], local_losses=h["local_losses"],
+                        launches=launches)
+    row["peak_gb"] = max(row["init_peak_gb"], row["generate"]["peak_gb"],
+                         rec["peak_gb"][0])
+    row.update(prefill_tokens_per_s=row["generate"]["prefill_tokens_per_s"],
+               decode_ms_per_step=row["generate"]["decode_ms_per_step"])
+    report(label, row, ("prefill_tokens_per_s", "decode_ms_per_step", "peak_gb"))
+    print(f"{label}:", json.dumps({k: row[k] for k in ("prefill_blocks", "round")}),
+          flush=True)
+    del p_run
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase(fn, *args, **kw):
@@ -4650,7 +5146,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:228", "launches": n,
         "max_abs_err": bwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"], "shape": "qwen1.5_train"})
+        "library_ms": t["library_ms"], "shape": "qwen1.5_train",
+        "shapes": [dict({k: bwd_times[lab].get(k) for k in SHAPE_KEYS}, shape=lab)
+                   for lab, *_ in BWD_TIMING]})
     # the asynchronous round and the fault layer: slices (h1)-(h4), counted
     # on their own
     reset_train_counts()
@@ -4732,6 +5230,33 @@ def main() -> int:
                  "decode_attention", "rmsnorm"):
         check(j_launches[name] > 0,
               f"MoE + MLA path: kernel {name} was never launched")
+    # llava and xlstm: slices (k1)-(k4), serving and training, counted on
+    # their own
+    reset_train_counts()
+    k_serve, k_train = Expected(), TrainExpected()
+    k1 = phase(slice_k1, check, k_serve, k_train)
+    k2 = phase(slice_k2, check, k_serve)
+    k3 = phase(slice_k3, check, k_train)
+    k4 = phase(slice_k4, check, k_serve, k_train)
+    k_launches = dict(train_counts(), decode_attention=lm_counts()["decode_attention"])
+    k_expected = {k: k_serve.get(k, 0) + k_train.get(k, 0) for k in k_launches}
+    k_variants = dict(fk.fedagg.variant_launches)
+    print("llava + xlstm path launches:", json.dumps(k_launches), "expected:",
+          json.dumps(k_expected), flush=True)
+    for name, n in k_launches.items():
+        check(n == k_expected[name], f"llava + xlstm path: {n} {name} launches, "
+              f"expected {k_expected[name]}")
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["vlm_xlstm_path_launches"] = sum(
+                v for k, v in k_variants.items() if pick(*k))
+        elif entry["name"] in k_launches:
+            entry["vlm_xlstm_path_launches"] = k_launches[entry["name"]]
+    for name in ("fedagg", "flash_attention", "flash_attention_bwd",
+                 "decode_attention", "rmsnorm"):
+        check(k_launches[name] > 0,
+              f"llava + xlstm path: kernel {name} was never launched")
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -4747,7 +5272,8 @@ def main() -> int:
         "d": d, "e": e, "g1": g1, "g2": g2, "f1": f1, "f2": f2, "f3": f3,
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
         "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
-        "i5": i5, "j1": j1, "j2": j2}))
+        "i5": i5, "j1": j1, "j2": j2, "k1": k1, "k2": k2, "k3": k3,
+        "k4": k4}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -39,11 +39,11 @@ ALIASES = {
 }
 
 # the dense GQA family, jamba, the MoE archs (granite's GQA, deepseek's
-# leading dense layer) and minicpm3's MLA; llava, xlstm and whisper are
-# ROADMAP A16b
+# leading dense layer), minicpm3's MLA, llava's image inputs and xlstm's
+# mLSTM / sLSTM blocks; whisper is ROADMAP A16b
 PORTED = ("qwen1_5_0_5b", "qwen2_5_3b", "phi3_mini_3_8b",
           "jamba_1_5_large_398b", "granite_moe_3b_a800m", "deepseek_moe_16b",
-          "minicpm3_4b")
+          "minicpm3_4b", "llava_next_34b", "xlstm_125m")
 
 
 def _module(name: str):

@@ -38,7 +38,7 @@ class ModelConfig:
     sliding_window: int = 0           # 0 = full attention
     causal: bool = True
 
-    # --- MLA (not ported) ----------------------------------------------------
+    # --- MLA (minicpm3) ------------------------------------------------------
     mla: bool = False
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
@@ -57,18 +57,18 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
 
-    # --- layer pattern ("attn" and "jamba" ported; "xlstm" not) --------------
+    # --- layer pattern ("attn", "jamba" and "xlstm") -------------------------
     pattern: str = "attn"
     first_dense: int = 0
 
-    # --- SSM (the jamba pattern's Mamba mixer) ---------------------------------
+    # --- SSM (jamba's Mamba mixer; the conv width and chunk also xlstm's) ----
     ssm_state_dim: int = 16
     ssm_conv_dim: int = 4
     ssm_expand: int = 2
     ssm_dt_rank: int = 0              # 0 -> ceil(d_model/16)
     ssm_chunk: int = 256
 
-    # --- xLSTM (not ported) ------------------------------------------------------
+    # --- xLSTM ---------------------------------------------------------------
     mlstm_proj_factor: float = 2.0
     slstm_proj_factor: float = 4.0 / 3.0
 
@@ -77,7 +77,7 @@ class ModelConfig:
     encoder_layers: int = 0
     num_frames: int = 1500
 
-    # --- VLM (llava, not ported) -----------------------------------------------
+    # --- VLM (llava) ---------------------------------------------------------
     vlm: bool = False
     num_image_tokens: int = 0
 

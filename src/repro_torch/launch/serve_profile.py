@@ -7,7 +7,9 @@
 The full-width config at its own dtypes, random init; ``--num-layers`` and
 ``--num-experts`` cut depth and experts where the whole model does not fit
 one card (jamba-1.5-large-398b: ``--num-layers 8 --num-experts 4``, one
-period of its published widths). After a warm-up generate it
+period of its published widths; llava-next-34b fits uncut in its bf16
+params). Serving is text-only, as ``generate`` is (llava and xlstm-125m
+included). After a warm-up generate it
 
 1. times one prefill and ``--steps`` decode steps with the host clock,
    each ending in a device sync;

@@ -1,20 +1,29 @@
 """Decoder-only LM: the ``pattern="attn"`` family (GQA or MLA attention,
-dense or MoE FFNs, optionally leading dense blocks) and the hybrid
-``pattern="jamba"``: init, forward, the training loss and the serving
-entry points.
+dense or MoE FFNs, optionally leading dense blocks, optionally image
+inputs), the hybrid ``pattern="jamba"`` and ``pattern="xlstm"``: init,
+forward, the training loss and the serving entry points.
 
 Counterpart of ``repro/models/transformer.py`` for the dense GQA models
 (qwen1.5-0.5b, qwen2.5-3b, phi3-mini-3.8b), the MoE ones
-(granite-moe-3b-a800m, deepseek-moe-16b), minicpm3-4b's MLA and
-jamba-1.5-large-398b. The parameter tree is the reference's: ``embed``,
-``final_norm``, ``lm_head`` when the embeddings are untied,
+(granite-moe-3b-a800m, deepseek-moe-16b), minicpm3-4b's MLA,
+llava-next-34b's image inputs, jamba-1.5-large-398b and xlstm-125m. The
+parameter tree is the reference's: ``embed``, ``final_norm``, ``lm_head``
+when the embeddings are untied, ``img_norm`` under ``cfg.vlm``,
 ``pre_blocks`` (a list: the ``first_dense`` leading blocks with a dense
 FFN, deepseek's layer 0; empty elsewhere) and ``periods``, which holds
 one subtree per layer of a period (``l0`` for the attn family; ``l0``..
 ``l7`` for jamba: attention then 7 Mamba mixers, a MoE FFN on every other
-layer) with its leaves stacked on a leading [n_periods] axis.
+layer; ``l0`` an mLSTM and ``l1`` an sLSTM block for xlstm, neither with
+an FFN) with its leaves stacked on a leading [n_periods] axis.
 ``forward`` runs the pre blocks, then walks the periods in a Python loop
 where the reference scans them.
+
+Image inputs (``cfg.vlm``): ``image_embeds`` [B, n_img, d] (the stubbed
+vision tower's output) are normed by ``img_norm`` in the compute dtype and
+put before the text embeddings; ``loss_fn`` drops the first n_img hidden
+rows, so only text positions carry loss. ``prefill`` takes
+``batch["image_embeds"]``; decode steps carry no images, and their
+positions count the image rows (n_img + S + i).
 
 API (functional, as the reference's):
     init(key, cfg, device)                           -> params
@@ -30,10 +39,10 @@ a host int: it picks the cache slot and the valid length without reading
 the device. An attention cache's ``len`` is a host int too (every
 attention layer's cache holds the same number of valid rows). Decode
 writes in place into the ``caches`` it is given: each attention layer its
-new k / v row (MLA: its latent and roped-key row), each Mamba layer its
-conv tail and state. ``prefill`` and ``decode_step`` run under
-``torch.no_grad``: serving builds no autograd graph even on params that
-require grad.
+new k / v row (MLA: its latent and roped-key row), each Mamba, mLSTM and
+sLSTM layer its conv tail and states. ``prefill`` and ``decode_step`` run
+under ``torch.no_grad``: serving builds no autograd graph even on params
+that require grad.
 
 Training: ``forward(mode="train")`` with grad enabled and ``cfg.remat``
 checkpoints each period (``torch.utils.checkpoint``, non-reentrant: the
@@ -45,8 +54,8 @@ kernel forward, a plain-torch backward); under remat a period's scan runs
 twice a gradient, once in the forward and once in the backward.
 
 Out of the port so far, and refused with ``NotImplementedError`` by
-``check_model_config``: the xlstm pattern, encoder-decoder, VLM,
-``attn_bf16`` and ``seq_shard_attn`` (ROADMAP A16b).
+``check_model_config``: encoder-decoder, ``attn_bf16`` and
+``seq_shard_attn`` (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -62,13 +71,13 @@ from repro_torch.models.attention import (gqa_attention_block, init_gqa,
                                          init_mla, mla_attention_block)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_mamba, mamba_block
+from repro_torch.models.xlstm import (NEG_INF, init_mlstm, init_slstm,
+                                      mlstm_block, slstm_block)
 from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
 
 _UNPORTED = (
-    ("pattern", lambda c: c.pattern not in ("attn", "jamba"), "the xlstm layer pattern"),
     ("encdec", lambda c: c.encdec, "the encoder-decoder model"),
-    ("vlm", lambda c: c.vlm, "image inputs"),
     ("attn_bf16", lambda c: c.attn_bf16, "bf16 attention products"),
     ("seq_shard_attn", lambda c: c.seq_shard_attn, "sequence-sharded attention"),
 )
@@ -89,15 +98,20 @@ def _init_block(key, cfg, kind):
     d = cfg.d_model
     dev = key.device
     p = {"norm1": L.init_rmsnorm(d, cfg.pdtype, dev)}
-    if kind["mixer"] == "attn":
+    mixer = kind["mixer"]
+    if mixer == "attn":
         init_attn = init_mla if cfg.mla else init_gqa
         p["attn"] = init_attn(fold_in_name(key, "attn"), cfg)
     else:
-        p["mamba"] = init_mamba(fold_in_name(key, "mamba"), cfg)
-    p["norm2"] = L.init_rmsnorm(d, cfg.pdtype, dev)
+        init_mixer = {"mamba": init_mamba, "mlstm": init_mlstm,
+                      "slstm": init_slstm}[mixer]
+        p[mixer] = init_mixer(fold_in_name(key, mixer), cfg)
+    # xlstm's blocks ("ffn": "none") carry neither norm2 nor an FFN
     if kind["ffn"] == "dense":
+        p["norm2"] = L.init_rmsnorm(d, cfg.pdtype, dev)
         p["mlp"] = L.init_swiglu(fold_in_name(key, "mlp"), d, cfg.d_ff, cfg.pdtype)
-    else:
+    elif kind["ffn"] == "moe":
+        p["norm2"] = L.init_rmsnorm(d, cfg.pdtype, dev)
         p["moe"] = init_moe(fold_in_name(key, "moe"), cfg)
     return p
 
@@ -106,17 +120,20 @@ def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos):
     """One layer. Returns (x, new_cache, aux): aux is the router's
     ``router_aux_coef * lb_loss`` for a MoE FFN, else 0.0."""
     h = L.rmsnorm(p["norm1"], x)
-    if kind["mixer"] == "attn":
+    mixer = kind["mixer"]
+    if mixer == "attn":
         attend = mla_attention_block if cfg.mla else gqa_attention_block
         h, new_cache = attend(p["attn"], h, cfg, positions=positions,
                               mode=mode, cache=cache, pos=pos)
     else:
-        h, new_cache = mamba_block(p["mamba"], h, cfg, mode=mode, cache=cache)
+        block = {"mamba": mamba_block, "mlstm": mlstm_block,
+                 "slstm": slstm_block}[mixer]
+        h, new_cache = block(p[mixer], h, cfg, mode=mode, cache=cache)
     x = x + h
     aux = 0.0
     if kind["ffn"] == "dense":
         x = x + L.swiglu_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.cdtype)
-    else:
+    elif kind["ffn"] == "moe":
         y, moe_aux = moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg)
         x = x + y
         aux = cfg.router_aux_coef * moe_aux["lb_loss"]
@@ -166,6 +183,9 @@ def init(key, cfg, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(fold_in_name(key, "lm_head"),
                                          (cfg.d_model, cfg.vocab_size), cfg.pdtype)
+    if cfg.vlm:
+        # the projector's norm (the vision tower is a stub: image_embeds)
+        params["img_norm"] = L.init_rmsnorm(cfg.d_model, cfg.pdtype, dev)
     # leading dense blocks outside the periods (deepseek-moe's layer 0)
     params["pre_blocks"] = [
         _init_block(fold_in_name(key, f"pre{i}"), cfg, _pre_kind(cfg))
@@ -200,17 +220,29 @@ def _periods(tree, n):
     return [tree_unflatten_like(tree, [u[i] for u in unbound]) for i in range(n)]
 
 
+def _embed_inputs(params, tokens, cfg, image_embeds=None):
+    """The token embeddings in the compute dtype; under ``cfg.vlm`` with
+    ``image_embeds`` [B, n_img, d], those rows normed by ``img_norm`` (K9)
+    and put first. Decode steps carry no images."""
+    x = params["embed"][tokens].to(cfg.cdtype)
+    if cfg.vlm and image_embeds is not None:
+        img = torch.as_tensor(image_embeds, device=x.device).to(cfg.cdtype)
+        x = torch.cat([L.rmsnorm(params["img_norm"], img), x], dim=1)
+    return x
+
+
 def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
-            pos=None):
-    """Returns (hidden [B,S,d], new_caches, aux). ``pos`` (decode): the
-    position as a host int. aux: the sum over periods of each period's
-    last layer's ``router_aux_coef * lb_loss`` (an f32 scalar; 0.0 where
-    that layer is dense), plus each pre block's (0.0: they are dense), as
-    the reference's ``forward``."""
+            pos=None, image_embeds=None):
+    """Returns (hidden [B,S',d], new_caches, aux); S' counts the image
+    rows under ``cfg.vlm``. ``pos`` (decode): the position as a host int.
+    aux: the sum over periods of each period's last layer's
+    ``router_aux_coef * lb_loss`` (an f32 scalar; 0.0 where that layer is
+    dense), plus each pre block's (0.0: they are dense), as the
+    reference's ``forward``."""
     check_model_config(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
-    x = params["embed"][tokens].to(cfg.cdtype)
+    x = _embed_inputs(params, tokens, cfg, image_embeds)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=dev)
@@ -249,8 +281,9 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
             lambda *cs: torch.stack(cs) if isinstance(cs[0], torch.Tensor) else cs[0],
             *period_caches)}
     elif mode == "decode":
-        # each layer wrote its k / v row or its state into the stacked
-        # cache in place; only the attention layers' host-int len moves
+        # each layer wrote its k / v row or its states into the stacked
+        # cache in place (period_caches hold views of it); only the
+        # attention layers' host-int len moves
         new_caches = {"pre": pre_caches, "periods": {
             name: dict(c, len=period_caches[0][name]["len"]) if "len" in c else c
             for name, c in caches["periods"].items()}}
@@ -266,10 +299,17 @@ def _unembed_last(params, hidden, cfg):
 
 # ----------------------------------------------------------------------- train
 def loss_fn(params, batch, cfg):
-    """batch: tokens / labels / mask [B, S]. Returns (scalar loss,
-    metrics): the masked mean next-token cross-entropy plus the auxiliary
-    loss (the MoE router's; 0 without MoE), differentiable in params."""
-    hidden, _, aux = forward(params, batch["tokens"], cfg, mode="train")
+    """batch: tokens / labels / mask [B, S] (text), plus image_embeds [B,
+    n_img, d] under ``cfg.vlm``. Returns (scalar loss, metrics): the
+    masked mean next-token cross-entropy over the text positions (image
+    positions carry no loss) plus the auxiliary loss (the MoE router's; 0
+    without MoE), differentiable in params. A VLM batch without
+    image_embeds raises the reference's ``AttributeError``."""
+    image_embeds = batch.get("image_embeds")
+    hidden, _, aux = forward(params, batch["tokens"], cfg, mode="train",
+                             image_embeds=image_embeds)
+    if cfg.vlm:
+        hidden = hidden[:, image_embeds.shape[1]:]
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
     s_loss, s_cnt = L.chunked_softmax_xent(hidden, w, batch["labels"],
                                            batch["mask"], cfg.loss_chunk)
@@ -287,23 +327,43 @@ def make_cache(cfg, batch_size, cache_len, device="cuda"):
     MLA: c_kv [n_periods, B, W, kv_lora_rank] and k_rope [n_periods, B, W,
     qk_rope_head_dim] in the compute dtype, len 0. Mamba: conv
     [n_periods, B, K-1, di] in the compute dtype, h [n_periods, B, di, N]
-    f32 (length-free). ``device="meta"`` gives the shapes alone."""
+    f32. mLSTM (di = mlstm_proj_factor * d, hd = di / H): conv [.., B,
+    K-1, di] in the compute dtype, C [.., B, H, hd, hd], n [.., B, H, hd]
+    and m [.., B, H] f32, m filled with -1e30. sLSTM: conv [.., B, K-1, d]
+    in the compute dtype, h, c, n and m [.., B, d] f32, m -1e30. The
+    recurrent caches are length-free. ``device="meta"`` gives the shapes
+    alone."""
     check_model_config(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     P, B, cd = cfg.n_periods, batch_size, cfg.cdtype
     W = min(cfg.sliding_window, cache_len) if cfg.sliding_window else cache_len
 
     def one(kind, lead):
-        def zeros(*shape, dtype=cd):
-            return torch.zeros(lead + shape, dtype=dtype, device=dev)
-        if kind["mixer"] == "attn":
+        def full(*shape, dtype=cd, fill=0.0):
+            return torch.full(lead + shape, fill, dtype=dtype, device=dev)
+        f32 = torch.float32
+        mixer, K1 = kind["mixer"], cfg.ssm_conv_dim - 1
+        if mixer == "attn":
             if cfg.mla:
-                return {"c_kv": zeros(B, W, cfg.kv_lora_rank),
-                        "k_rope": zeros(B, W, cfg.qk_rope_head_dim), "len": 0}
-            return {"k": zeros(B, W, cfg.num_kv_heads, cfg.head_dim),
-                    "v": zeros(B, W, cfg.num_kv_heads, cfg.head_dim), "len": 0}
-        return {"conv": zeros(B, cfg.ssm_conv_dim - 1, cfg.d_inner),
-                "h": zeros(B, cfg.d_inner, cfg.ssm_state_dim, dtype=torch.float32)}
+                return {"c_kv": full(B, W, cfg.kv_lora_rank),
+                        "k_rope": full(B, W, cfg.qk_rope_head_dim), "len": 0}
+            return {"k": full(B, W, cfg.num_kv_heads, cfg.head_dim),
+                    "v": full(B, W, cfg.num_kv_heads, cfg.head_dim), "len": 0}
+        if mixer == "mamba":
+            return {"conv": full(B, K1, cfg.d_inner),
+                    "h": full(B, cfg.d_inner, cfg.ssm_state_dim, dtype=f32)}
+        H = cfg.num_heads
+        if mixer == "mlstm":
+            di = int(cfg.mlstm_proj_factor * cfg.d_model)
+            hd = di // H
+            return {"conv": full(B, K1, di),
+                    "C": full(B, H, hd, hd, dtype=f32),
+                    "n": full(B, H, hd, dtype=f32),
+                    "m": full(B, H, dtype=f32, fill=NEG_INF)}
+        d = cfg.d_model
+        return {"conv": full(B, K1, d), "h": full(B, d, dtype=f32),
+                "c": full(B, d, dtype=f32), "n": full(B, d, dtype=f32),
+                "m": full(B, d, dtype=f32, fill=NEG_INF)}
     return {"pre": [one(_pre_kind(cfg), ()) for _ in range(cfg.first_dense)],
             "periods": {f"l{j}": one(kind, (P,))
                         for j, kind in enumerate(cfg.layer_kinds())}}
@@ -311,7 +371,11 @@ def make_cache(cfg, batch_size, cache_len, device="cuda"):
 
 @torch.no_grad()
 def prefill(params, batch, cfg):
-    hidden, caches, _ = forward(params, batch["tokens"], cfg, mode="prefill")
+    """batch: tokens [B, S], plus image_embeds [B, n_img, d] under
+    ``cfg.vlm``. -> (caches of n_img + S rows, the last position's
+    logits)."""
+    hidden, caches, _ = forward(params, batch["tokens"], cfg, mode="prefill",
+                                image_embeds=batch.get("image_embeds"))
     return caches, _unembed_last(params, hidden, cfg)
 
 

@@ -257,8 +257,8 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
     assert "generated 2x3 tokens" in capsys.readouterr().out
 
 
-OUT_OF_SLICE_LM = [("pattern", "xlstm"), ("encdec", True),
-                   ("vlm", True), ("attn_bf16", True), ("seq_shard_attn", True)]
+OUT_OF_SLICE_LM = [("encdec", True), ("attn_bf16", True),
+                   ("seq_shard_attn", True)]
 
 
 @pytest.mark.parametrize("knob,value", OUT_OF_SLICE_LM,
@@ -273,7 +273,7 @@ def test_out_of_slice_lm_knob_raises(knob, value):
         transformer.make_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-medium", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="A16"):
         get_config(arch)
@@ -316,3 +316,31 @@ def test_import_walk_covers_the_jamba_modules():
             "launch/serve.py", "launch/serve_profile.py",
             "serving/scheduler.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ssm_scan.cu").exists()
+
+
+# ------------------------------------------------- the llava and xlstm slice
+def test_import_walk_covers_the_vlm_and_xlstm_modules():
+    """llava's and xlstm's configs and the xLSTM blocks are among the files
+    the import check above walks (so none imports jax or the reference)."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"configs/llava_next_34b.py", "configs/xlstm_125m.py",
+            "models/xlstm.py", "models/transformer.py"} <= names
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "xlstm-125m"])
+def test_vlm_and_xlstm_archs_are_ported(arch):
+    for cfg in (get_config(arch), get_smoke(arch)):
+        assert get_model(cfg).cfg is cfg
+
+
+@pytest.mark.parametrize("knob,value", OUT_OF_SLICE_LM,
+                         ids=[f"{k}={v}" for k, v in OUT_OF_SLICE_LM])
+def test_out_of_slice_refusals_name_a16b(knob, value):
+    """What remains of A16b: the encoder-decoder (whisper-medium),
+    ``attn_bf16`` and ``seq_shard_attn``."""
+    cfg = get_smoke("qwen1.5-0.5b").replace(**{knob: value})
+    with pytest.raises(NotImplementedError, match="A16b"):
+        get_model(cfg)
+    with pytest.raises(NotImplementedError, match="A16b"):
+        get_config("whisper-medium")

@@ -219,7 +219,7 @@ def _rand(shape, seed, dtype):
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
 
 
-# (label, B, Skv, H, KV, hd, kv_lens): G 1 / 2 / 3 / 4 / 8 / 12, hd 32-128,
+# (label, B, Skv, H, KV, hd, kv_lens): G 1 / 2 / 3 / 4 / 7 / 8 / 12, hd 32-128,
 # one to many splits and tiles, then the three full-width decode shapes
 DECODE_CASES = [
     ("mha_hd64", 2, 64, 4, 4, 64, (1, 29, 64)),
@@ -228,6 +228,7 @@ DECODE_CASES = [
     ("g4_hd128_ragged", 2, 77, 8, 2, 128, (40, 77)),
     ("g8_hd64", 1, 300, 8, 1, 64, (1, 150, 300)),
     ("g12_chunks_hd32", 1, 90, 12, 1, 32, (33, 90)),
+    ("g7_pad_hd128", 1, 100, 14, 2, 128, (1, 45, 100)),
     ("qwen1.5_decode", 8, 544, 16, 16, 64, (271, 544)),
     ("qwen2.5_decode", 4, 1040, 16, 2, 128, (519, 1040)),
     ("jamba_decode", 2, 1040, 64, 8, 128, (1040,)),

@@ -69,13 +69,17 @@ RMSNORM_CASES = [("d256_ragged", (37, 256)), ("d1024", (2, 3, 1024)),
                  ("d100", (4, 100))]
 DTYPES = ("float32", "bfloat16")
 # on the card only (too large for the Pallas kernels in interpret mode):
-# jamba-1.5-large's decode shape (G 8, hd 128, 16 splits), and its width
-# 8192 with a bf16 scale at ragged prefill rows and a decode step's 2 rows
+# jamba-1.5-large's decode shape (G 8, hd 128, 16 splits) and llava's (G
+# 7, padded to 8), jamba's width 8192 with a bf16 scale at ragged prefill
+# rows and a decode step's 2 rows, and llava's 7168 at its prefill's rows
 CARD_DECODE_CASES = DECODE_CASES + [("jamba_decode", 2, 1040, 64, 8, 128,
-                                     (1, 519, 1040))]
+                                     (1, 519, 1040)),
+                                    ("llava_decode_g7", 2, 1104, 56, 8, 128,
+                                     (1, 552, 1104))]
 CARD_RMSNORM_CASES = ([(label, shape, "float32") for label, shape in RMSNORM_CASES]
                       + [("d8192", (77, 8192), "bfloat16"),
-                         ("d8192_decode", (2, 8192), "bfloat16")])
+                         ("d8192_decode", (2, 8192), "bfloat16"),
+                         ("d7168", (2176, 7168), "bfloat16")])
 
 
 @pytest.fixture(autouse=True, scope="module")

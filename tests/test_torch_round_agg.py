@@ -3,7 +3,9 @@ run_federation against the JAX package on the shortened quickstart config
 of tests/test_torch_round.py cut to 4 rounds (C=8, 4 priority, E=2), both
 backends, at that file's tolerances (gates and included counts exact), plus
 the dp run's (epsilon, delta) report. Kept apart from that file so each
-stays well under a minute on one worker."""
+stays well under a minute on one worker. Both packages' SYNTH federations
+are built once for the module (``feds``): the runs only read them, and the
+reference's generator alone takes ~1.2 s a build."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,6 +23,12 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def feds():
+    """(the reference's federation, the port's), built once."""
+    return jax_synth(**FED_KW), make_synth_federation(**FED_KW)
 
 
 # the robust, private and compressed aggregation of the same parity config:
@@ -41,7 +49,7 @@ AGG_VARIANTS = {
 @pytest.mark.parametrize("backend", ["vmap_spatial", "scan_temporal"])
 @pytest.mark.parametrize("variant", sorted(AGG_VARIANTS))
 def test_run_federation_aggregators_and_codecs_match_reference(
-        variant, backend, monkeypatch):
+        variant, backend, monkeypatch, feds):
     """Gates, included counts, losses and accuracy at the tolerances above.
     Params too, but int8 rounds x / scale to an integer: a last-bit
     difference of x (the local-training sums run in another order) can
@@ -62,8 +70,7 @@ def test_run_federation_aggregators_and_codecs_match_reference(
     monkeypatch.setattr(tagg._Int8Codec, "encode",
                         staticmethod(recording_encode))
     cfg = dict(BASE, rounds=4, backend=backend, **AGG_VARIANTS[variant])
-    hj, ht = _runs("synth_logreg", cfg, jax_synth(**FED_KW),
-                   make_synth_federation(**FED_KW), eval_every=2)
+    hj, ht = _runs("synth_logreg", cfg, *feds, eval_every=2)
     _assert_history_parity(hj, ht, FED_KW["test_samples"],
                            params_extra_atol=max(scales, default=0.0))
     assert (ht.dp_epsilon, ht.dp_delta) == (hj.dp_epsilon, hj.dp_delta)
