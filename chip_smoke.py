@@ -161,10 +161,22 @@ if a check fails:
    llava cut to 2 of 60 layers (f32 params), K5 / K6 at G 7 under
    autograd; (k4) xlstm-125m at full width: generate B 4 x 1024, the
    sLSTM host loop's share of prefill, one spatial round.
+18. slice (l): whisper-medium (the encoder-decoder) and the single-card
+   knobs. (l1) the smoke whisper on the card against the CPU from the
+   same params: prefill over its frames then decode logits, greedy
+   tokens, loss_fn and its gradient; ``attn_bf16`` on the smoke qwen1.5
+   (against the knob's route cast by hand on the card and the card's f32
+   route; the gap to the CPU's rounding measured);
+   ``remat_policy="save_mixer"`` against "full" on the smoke qwen1.5 and
+   jamba; (l2) whisper-medium uncut (f32 params, bf16 compute): encode B
+   8 x 1500 frames, prefill 32 tokens, 224 decode steps, the f32
+   teacher-forced check; (l3) its loss differentiated at B 2 x 1500 x 448;
+   (l4) ``save_mixer`` against "full" on qwen1.5-0.5b at full width, one
+   8 x 512 client step: both peaks, both step times, the gradients.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slices (h), (i), (j) and (k) are each counted from
+K8, K9, fedagg) and those of slices (h), (i), (j), (k) and (l) are each counted from
 zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
@@ -179,6 +191,7 @@ from __future__ import annotations
 import functools
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1345,6 +1358,11 @@ FLASH_CASES = [
     # multiple of the 128-key tile)
     ("g7_ragged_hd128", 2, 75, 75, 14, 2, 128, True, 0),
     ("llava_prefill", 2, 1088, 1088, 56, 8, 128, True, 0),
+    # whisper-medium: the encoder non-causal over 1500 frames (no multiple
+    # of the 128-key tile: every query tile runs all 12 key tiles, the last
+    # cut at 92 rows) and the decoder's causal prefill of 32 tokens
+    ("whisper_encoder", 8, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper_prefill", 8, 32, 32, 16, 16, 64, True, 0),
 ]
 # the cases whose v (and dO) carry zeros in their last columns: MLA pads v
 # from v_head_dim to nope + rope, and its output's padded columns take no
@@ -1367,6 +1385,8 @@ DECODE_CASES = [
     ("deepseek_decode", 4, 1040, 16, 16, 128, (1, 519, 1040)),
     # llava at G 7: the head group padded to 8, one row masked
     ("llava_decode", 2, 1104, 56, 8, 128, (1, 552, 1104)),
+    # whisper-medium's decoder self-attention: G 1, 32 + 224 positions
+    ("whisper_decode", 8, 256, 16, 16, 64, (1, 128, 256)),
 ]
 # (label, rows, D, scale dtype): ragged rows, the zoo's widths (jamba's
 # 8192 with its bf16 scale, at ragged prefill rows and a decode step's 2;
@@ -1601,19 +1621,23 @@ def cold_copies(nbytes) -> int:
 
 
 # K5, K7 and K9 at every shape the serving paths give them: (label, B, S,
-# H, KV, hd), (label, B, Skv, H, KV, hd) and (label, rows, D, scale dtype)
+# H, KV, hd), (label, B, Skv, H, KV, hd) and (label, rows, D, scale dtype);
+# K5 causal but at the labels of NONCAUSAL (whisper's encoder)
 PREFILL_TIMING = (("qwen1.5_prefill", 8, 512, 16, 16, 64),
                   ("qwen2.5_prefill", 4, 1024, 16, 2, 128),
                   ("granite_prefill", 8, 512, 24, 8, 64),
                   ("deepseek_prefill", 4, 1024, 16, 16, 128),
                   ("minicpm3_prefill", 4, 1024, 40, 40, 96),
-                  ("llava_prefill", 2, 1088, 56, 8, 128))
+                  ("llava_prefill", 2, 1088, 56, 8, 128),
+                  ("whisper_encoder", 8, 1500, 16, 16, 64))
+NONCAUSAL = ("whisper_encoder", "whisper_encoder_train")
 DECODE_TIMING = (("qwen1.5_decode", 8, 544, 16, 16, 64),
                  ("qwen2.5_decode", 4, 1040, 16, 2, 128),
                  ("jamba_decode", 2, 1040, 64, 8, 128),
                  ("granite_decode", 8, 544, 24, 8, 64),
                  ("deepseek_decode", 4, 1040, 16, 16, 128),
-                 ("llava_decode", 2, 1104, 56, 8, 128))
+                 ("llava_decode", 2, 1104, 56, 8, 128),
+                 ("whisper_decode", 8, 256, 16, 16, 64))
 NORM_TIMING = (("qwen1.5_prefill_norm", 4096, 1024, "float32"),
                ("qwen1.5_decode_norm", 8, 1024, "float32"),
                ("qwen2.5_prefill_norm", 4096, 2048, "float32"),
@@ -1650,12 +1674,14 @@ def lm_timing_phase(device="cuda"):
         k = lm_inputs((B, S, KV, hd), bf16, device, 2)
         v = lm_inputs((B, S, KV, hd), bf16, device, 3)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        pairs = B * H * S * (S + 1) // 2            # visible (query, key) pairs
+        causal = label not in NONCAUSAL
+        # visible (query, key) pairs
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
         bytes_ = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd) + 4 * B * H * S
         rows[label] = lm_row(
-            lambda: fk.flash_attention_fwd(q, k, v),
-            lambda: fk.flash_attention_plain(q, k, v),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            lambda: fk.flash_attention_fwd(q, k, v, causal=causal),
+            lambda: fk.flash_attention_plain(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                    enable_gqa=KV != H),
             bytes_, 4.0 * hd * pairs, H100_BF16_FLOPS)
     floor_k7 = getattr(dk, "decode_attention_floor", None)
@@ -1778,19 +1804,32 @@ class Expected(dict):
         self["rmsnorm"] += (norm_count(cfg, images=images) * forwards
                             + norm_count(cfg) * steps)
 
+    def add_encdec(self, cfg, forwards=0, steps=0, encodes=0):
+        """whisper: a full forward (prefill, or encode + the train-mode
+        decoder) runs K5 in each encoder and each decoder layer, an encode
+        alone in each encoder layer, a decode step K7 in each decoder
+        layer; its LayerNorms are plain torch (no K9)."""
+        E, D = cfg.encoder_layers, cfg.num_layers
+        self["flash_attention"] += (E + D) * forwards + E * encodes
+        self["decode_attention"] += D * steps
 
-def logits_trace(model, params, prompt, max_new, image_embeds=None):
+
+def logits_trace(model, params, prompt, max_new, image_embeds=None,
+                 frames=None):
     """generate's calls one by one (prefill, pad_caches, decode_step), the
     logits of each kept on the host: [prefill, step 0, ...]. With
     ``image_embeds`` [B, n_img, d] (llava) the prefill carries them first
     and the decode positions count them (n_img + S + i), as the model's
-    API allows and the text-only ``generate`` does not."""
+    API allows and the text-only ``generate`` does not; with ``frames``
+    [B, T, d] (whisper) the prefill encodes them."""
     import torch
     from repro_torch.launch.serve import pad_caches
     B, S = prompt.shape
     batch, n_img = {"tokens": prompt}, 0
     if image_embeds is not None:
         batch["image_embeds"], n_img = image_embeds, image_embeds.shape[1]
+    if frames is not None:
+        batch["frames"] = frames
     caches, logits = model.prefill(params, batch)
     caches = pad_caches(model, caches, B, n_img + S + max_new)
     out = [logits.float().cpu()]
@@ -2401,13 +2440,15 @@ def lm_bwd_phase(check: Check, device="cuda"):
 # K6 at the training shapes: (label, B, S, H, KV, hd)
 BWD_TIMING = (("qwen1.5_train", 8, 512, 16, 16, 64),
               ("qwen2.5_train", 4, 1024, 16, 2, 128),
-              ("llava_train", 2, 1088, 56, 8, 128))
+              ("llava_train", 2, 1088, 56, 8, 128),
+              ("whisper_encoder_train", 2, 1500, 16, 16, 64))
 
 
 def lm_bwd_timing(device="cuda"):
     """K6 at the training shapes of BWD_TIMING (bf16, causal; qwen1.5-0.5b's
     8 x 512 with 16 heads at hd 64, qwen2.5-3b's 4 x 1024 with 16 / 2 heads
-    at hd 128, llava's 2 x (576 + 512) with 56 / 8 at hd 128):
+    at hd 128, llava's 2 x (576 + 512) with 56 / 8 at hd 128; whisper's
+    encoder non-causal, 2 x 1500 frames with 16 heads at hd 64):
     device time by CUDA-graph replay and eager time, the plain version's
     device time, the bound, the rate in TFLOP/s, and
     scaled_dot_product_attention's backward (``enable_gqa``, causal) as the
@@ -2427,28 +2468,31 @@ def lm_bwd_timing(device="cuda"):
         k = lm_inputs((B, S, KV, hd), bf16, device, 2)
         v = lm_inputs((B, S, KV, hd), bf16, device, 3)
         do = lm_inputs((B, S, H, hd), bf16, device, 4)
-        out, lse = fk.flash_attention_fwd(q, k, v)
+        causal = label not in NONCAUSAL
+        out, lse = fk.flash_attention_fwd(q, k, v, causal=causal)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         capture = torch.cuda.Stream()
         capture.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(capture):
-            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                    enable_gqa=KV != H)
         torch.cuda.current_stream().wait_stream(capture)
         dot = do.transpose(1, 2)
         library = lambda: torch.autograd.grad(  # noqa: E731
             o_lib, (qt, kt, vt), dot, retain_graph=True)
-        pairs = B * H * S * (S + 1) // 2            # visible (query, key) pairs
+        # visible (query, key) pairs
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
         # q, out, dO, dq and k, v, dk, dv once each, lse and delta in f32
         bytes_ = 2 * (4 * B * S * H * hd + 4 * B * S * KV * hd) + 2 * 4 * B * H * S
         flops = 10.0 * hd * pairs
         t_b, t_o = bytes_ / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-        kernel = lambda: fk.flash_attention_bwd(q, k, v, out, lse, do)  # noqa: E731
+        kernel = lambda: fk.flash_attention_bwd(q, k, v, out, lse, do,  # noqa: E731
+                                                causal=causal)
         ms = graph_ms(kernel)
         rows[label] = dict(
             ms=ms, eager_ms=time_ms(kernel),
-            plain_ms=graph_ms(lambda: fk.flash_attention_bwd_plain(q, k, v, out, lse, do),
-                              calls=3, reps=3),
+            plain_ms=graph_ms(lambda: fk.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=causal), calls=3, reps=3),
             library_ms=graph_ms(library, stream=capture),
             library_eager_ms=time_ms(library),
             bound_ms=1e3 * max(t_b, t_o),
@@ -2493,6 +2537,8 @@ class TrainExpected(dict):
     forward's and, as the backward re-runs each period, again A of K5 and
     M of K8, A of K6, and 2L + 1 + 2L of K9; the leading dense blocks run
     outside the periods' checkpoints, so their launches are not repeated.
+    Under ``remat_policy="save_mixer"`` the backward re-runs only each
+    layer's norm2 + FFN: one K9 a layer with an FFN, no K5 or K8 again.
     A round of C clients and E local steps: the server loss and each
     client's loss at the received model (no graph), E gradients for each
     client that trains, and one fedagg launch (none on the temporal
@@ -2510,12 +2556,24 @@ class TrainExpected(dict):
 
     def add_grad(self, cfg, n=1, images=False):
         A, M = mixer_counts(cfg)
-        A_p, M_p = mixer_counts(cfg, pre=False)
+        if cfg.remat_policy == "save_mixer":      # only norm2 + FFN run again
+            A_p = M_p = 0
+            norms_p = sum(k["ffn"] != "none" for k in layer_kinds(cfg, False))
+        else:
+            A_p, M_p = mixer_counts(cfg, pre=False)
+            norms_p = norm_count(cfg, pre=False)
         self["flash_attention"] += (A + A_p) * n
         self["flash_attention_bwd"] += A * n
         self["ssm_scan"] += (M + M_p) * n
-        self["rmsnorm"] += (norm_count(cfg, images=images)
-                            + norm_count(cfg, pre=False)) * n
+        self["rmsnorm"] += (norm_count(cfg, images=images) + norms_p) * n
+
+    def add_encdec_grad(self, cfg, n=1):
+        """One whisper loss_fn gradient: K5 in each encoder layer once and,
+        with remat, in each decoder layer twice (its checkpoint runs again
+        in the backward); K6 in every layer."""
+        E, D = cfg.encoder_layers, cfg.num_layers
+        self["flash_attention"] += (E + (2 if cfg.remat else 1) * D) * n
+        self["flash_attention_bwd"] += (E + D) * n
 
     def add_rounds(self, cfg, C, E, rounds, trained=None, fedagg=True,
                    images=False):
@@ -2561,6 +2619,30 @@ def loss_grads(model, params, batch):
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     loss = model.loss_fn(tree_unflatten_like(params, leaves), batch)[0]
     return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def leaf_errs(got, want):
+    """(the largest per-leaf error relative to the leaf's largest
+    magnitude, every leaf present and nonzero where ``want``'s is)."""
+    import torch
+    err, complete = 0.0, len(got) == len(want)
+    for a, b in zip(got, want):
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = float(torch.max(torch.abs(b)))
+        complete &= scale == 0.0 or float(torch.max(torch.abs(a))) > 0.0
+        err = max(err, float(torch.max(torch.abs(a - b))) / max(scale, 1e-30))
+    return err, complete
+
+
+def rel_l2(got, want):
+    import torch
+    return max(float(torch.linalg.vector_norm((a - b).float())
+                     / torch.linalg.vector_norm(b.float())) for a, b in zip(got, want))
+
+
+def same_bits(a, b):
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def token_batch(cfg, B, S, device, seed=0):
@@ -2626,12 +2708,7 @@ def train_parity(check: Check, expected: TrainExpected, name, arch, knobs,
     l_dev, g_dev = loss_grads(model, tree_map(lambda t: t.to(device), p_cpu),
                               {k: t.to(device) for k, t in batch.items()})
     expected.add_grad(cfg)
-    grad_err, complete = 0.0, len(g_dev) == len(g_cpu)
-    for a, b in zip(g_dev, g_cpu):
-        a = a.cpu()
-        scale = float(torch.max(torch.abs(b)))
-        complete &= a is not None and (scale == 0.0 or float(torch.max(torch.abs(a))) > 0.0)
-        grad_err = max(grad_err, float(torch.max(torch.abs(a - b))) / max(scale, 1e-30))
+    grad_err, complete = leaf_errs(g_dev, g_cpu)
     check(complete, f"{name}: a gradient leaf is missing or zero on the card")
     check(grad_err <= tol, f"{name}: loss_fn gradient off the CPU's by "
           f"{grad_err} (relative to each leaf's largest)")
@@ -2717,9 +2794,10 @@ def slice_f2(check: Check, expected: TrainExpected, device="cuda"):
     l_k, g_k = loss_grads(model, params, batch)
     expected.add_grad(cfg32)
     saved = ops.flash_attention, ops.rmsnorm
-    ops.flash_attention = (lambda q, k, v, *, causal, window, scale=None, block_kv:
-                           fk.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                                    scale=scale, block_kv=block_kv)[0])
+    ops.flash_attention = (lambda q, k, v, *, causal, window, scale=None, block_kv,
+                           mm_dtype=None: fk.flash_attention_plain(
+                               q, k, v, causal=causal, window=window, scale=scale,
+                               block_kv=block_kv)[0])
     ops.rmsnorm = lambda x, s, *, eps: rk.rmsnorm_plain(x, s, eps)
     try:
         l_p, g_p = loss_grads(model, params, batch)
@@ -4970,6 +5048,431 @@ def slice_k4(check: Check, expected: Expected, train_expected: TrainExpected,
     return row
 
 
+# --------------------------------------------------- slice (l): whisper-medium
+# (l1) attn_bf16 on the card against the same model with the knob off and
+# its attention's q, k, v cast to bf16 by hand (the knob's route spelled
+# out: the same launches, so equal but for nondeterminism, which K5 has
+# none of), relative to max(1, max|x|); the knob must move the card's loss
+# and logits off its f32 route by L_ATTN_BF16_EFFECT x that bound (it
+# moved them by 3.5e-5 and 4.6e-3), so an ignored knob fails both checks
+L_ATTN_BF16_ROUTE_TOL = 1e-7
+L_ATTN_BF16_EFFECT = 20
+# the card's bf16 route (q, k, v rounded, P split hi + lo, the output
+# rounded to bf16) against the CPU's plain version, which rounds as the
+# reference does (q scale, k, v and each block's p rounded, an f32
+# output): a few bf16 ulp (2^-8) of each attention output, carried through
+# the rest of the f32 model; a bound on gross faults only (the two
+# roundings differ by about the knob's own effect), the gap reported
+L_ATTN_BF16_TOL = 1e-2
+# (l2) whisper-medium uncut: B x 1500 frames, a 32-token prompt, then 224
+# greedy decode steps (whisper's sample_len, n_text_ctx // 2: 256 cache rows)
+L2 = dict(batch=8, prompt=32, new=224)
+# (l3) its loss: B x 1500 frames x 448 tokens (n_text_ctx), remat on
+L3 = dict(batch=2, tokens=448)
+# (l4) save_mixer against "full": one (f2)-sized client step of qwen1.5-0.5b,
+# in alternating turns (the host's jitter between steps is +-20%)
+L4 = dict(batch=8, seq=512, turns=10)
+
+
+def frame_rows(cfg, B, device, seed=0):
+    """The stubbed audio frontend's output [B, num_frames, d] in the
+    compute dtype: normal draws from a seeded CPU generator, so the card
+    and the CPU see the same rows."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(B, cfg.num_frames, cfg.d_model, generator=gen).to(
+        cfg.cdtype).to(device)
+
+
+def encdec_batch(cfg, B, S, device, seed=0):
+    """``token_batch`` plus its frames."""
+    return dict(token_batch(cfg, B, S, device, seed),
+                frames=frame_rows(cfg, B, device, seed + 100))
+
+
+def slice_l1(check: Check, expected: Expected, train_expected: TrainExpected,
+             device="cuda"):
+    """Smoke size on the card against the same code on the CPU, from the
+    same params (drawn on the card, copied to the host). whisper: prefill
+    of 2 x 6 tokens over its 32 frames, then 4 decode steps, every call's
+    logits within PARITY_ATOL of the larger magnitude (at least 1) and the
+    greedy tokens equal, after each decision's top-2 gap on the CPU
+    exceeds twice that; loss_fn and its gradient leaf for leaf within
+    PARITY_ATOL of each leaf's largest. Then the knobs on the smoke
+    qwen1.5 (f32): ``attn_bf16``'s loss and prefill logits against the
+    card's own explicit bf16 casts (within L_ATTN_BF16_ROUTE_TOL) and its
+    f32 route (at least L_ATTN_BF16_EFFECT times that away), and against
+    the CPU's (the gap measured, within L_ATTN_BF16_TOL);
+    ``save_mixer``'s loss and gradients against "full"'s,
+    on the smoke qwen1.5 and the smoke jamba: bit for bit wherever two
+    "full" gradients on the card are."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import get_model
+    from repro_torch.utils import tree_map
+    out = {}
+    name = "slice (l1) whisper-medium"
+    cfg = get_smoke("whisper-medium")
+    model = get_model(cfg)
+    p_dev = model.init(prng.PRNGKey(0), device=device)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    B, S, new = 2, 6, 4
+    prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size)
+    frames = frame_rows(cfg, B, "cpu", seed=4)
+    cpu = logits_trace(model, p_cpu, prompt, new, frames=frames)
+    dev = logits_trace(model, p_dev, prompt.to(device), new, frames=frames.to(device))
+    expected.add_encdec(cfg, forwards=1, steps=new)
+    tol = PARITY_ATOL * max(1.0, max(float(torch.max(torch.abs(c))) for c in cpu))
+    err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(dev, cpu))
+    check(err <= tol, f"{name}: logits off the CPU run by {err} > {tol}")
+    gap = decision_gap(cpu)
+    check(gap > 2 * tol, f"{name}: top-2 gap {gap} too small to compare tokens")
+    same = all(torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+               for a, b in zip(dev, cpu))
+    check(same, f"{name}: greedy tokens differ from the CPU run")
+    batch = encdec_batch(cfg, 2, 10, "cpu", seed=5)
+    l_cpu, g_cpu = loss_grads(model, p_cpu, batch)
+    l_dev, g_dev = loss_grads(model, p_dev, {k: t.to(device) for k, t in batch.items()})
+    train_expected.add_encdec_grad(cfg)
+    loss_err = abs(float(l_dev) - float(l_cpu)) / max(1.0, abs(float(l_cpu)))
+    grad_err, complete = leaf_errs(g_dev, g_cpu)
+    check(loss_err <= PARITY_ATOL, f"{name}: loss off the CPU's by {loss_err}")
+    check(complete, f"{name}: a gradient leaf is missing or zero on the card")
+    check(grad_err <= PARITY_ATOL, f"{name}: loss_fn gradient off the CPU's by "
+          f"{grad_err} (relative to each leaf's largest)")
+    out["whisper"] = dict(max_logits_err=err, tol=tol, top2_gap=gap, tokens_equal=same,
+                          loss=float(l_cpu), loss_rel_err=loss_err,
+                          grad_leaves=len(g_dev), max_grad_rel_err=grad_err)
+    print(f"{name}:", json.dumps(out["whisper"]), flush=True)
+    del p_dev, p_cpu, g_cpu, g_dev
+
+    # attn_bf16 on the smoke qwen1.5: the loss (a no-grad train-mode
+    # forward) and the prefill's logits
+    name = "slice (l1) attn_bf16 qwen1.5-0.5b"
+    q32 = get_smoke("qwen1.5-0.5b")
+    runs = {}
+    p_dev = get_model(q32).init(prng.PRNGKey(0), device=device)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    batch = token_batch(q32, 2, 64, "cpu", seed=6)
+
+    def run(m, p):
+        b = {k: t.to(p["embed"].device) for k, t in batch.items()}
+        with torch.no_grad():
+            loss = float(m.loss_fn(p, b)[0])
+        logits = m.prefill(p, {"tokens": b["tokens"]})[1].float().cpu()
+        if p["embed"].device.type != "cpu":
+            train_expected.add_forwards(m.cfg, 1)
+            expected.add(m.cfg, forwards=1)
+        return loss, logits
+
+    for knob in (True, False):
+        m = get_model(q32.replace(attn_bf16=knob))
+        for on_cpu, p in ((True, p_cpu), (False, p_dev)):
+            runs[(knob, on_cpu)] = run(m, p)
+    # the knob's route by hand: knob off, the attention's inputs cast
+    from repro_torch.kernels import ops as kops
+    flash = kops.flash_attention
+    kops.flash_attention = lambda q, k, v, **kw: flash(
+        q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16),
+        **kw).to(q.dtype)
+    try:
+        runs[("by_hand", False)] = run(get_model(q32), p_dev)
+    finally:
+        kops.flash_attention = flash
+
+    def gaps(a, b):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        return (abs(la - lb) / max(1.0, abs(lb)),
+                float(torch.max(torch.abs(ga - gb))) / max(1.0, float(torch.max(torch.abs(gb)))))
+    row = dict(zip(("loss_gap", "logits_gap"), gaps((True, False), (True, True))))
+    row.update(zip(("knob_loss_card", "knob_logits_card"), gaps((True, False), (False, False))))
+    row.update(zip(("knob_loss_cpu", "knob_logits_cpu"), gaps((True, True), (False, True))))
+    row.update(zip(("route_loss_gap", "route_logits_gap"), gaps((True, False), ("by_hand", False))))
+    row["loss_bf16_card"], row["loss_bf16_cpu"] = runs[(True, False)][0], runs[(True, True)][0]
+    check(max(row["route_loss_gap"], row["route_logits_gap"]) <= L_ATTN_BF16_ROUTE_TOL,
+          f"{name}: the knob off the card's bf16 casts by hand by {row['route_loss_gap']} "
+          f"(loss), {row['route_logits_gap']} (logits) > {L_ATTN_BF16_ROUTE_TOL}")
+    effect = L_ATTN_BF16_EFFECT * L_ATTN_BF16_ROUTE_TOL
+    check(min(row["knob_loss_card"], row["knob_logits_card"]) >= effect,
+          f"{name}: the knob moved the card's loss by {row['knob_loss_card']}, its "
+          f"logits by {row['knob_logits_card']} (< {effect}): the f32 route taken")
+    check(max(row["loss_gap"], row["logits_gap"]) <= L_ATTN_BF16_TOL,
+          f"{name}: card off the CPU by {row['loss_gap']} (loss), "
+          f"{row['logits_gap']} (logits) > {L_ATTN_BF16_TOL}")
+    print(f"{name}:", json.dumps(row), flush=True)
+    out["attn_bf16"] = row
+    del p_dev, p_cpu
+
+    # save_mixer against "full" on the card: loss and gradients
+    for arch in ("qwen1.5-0.5b", "jamba-1.5-large-398b"):
+        name = f"slice (l1) save_mixer {arch}"
+        c = get_smoke(arch)
+        p = get_model(c).init(prng.PRNGKey(0), device=device)
+        b = token_batch(c, 2, 32, device, seed=7)
+        res = {pol: loss_grads(get_model(c.replace(remat_policy=pol)), p, b)
+               for pol in ("full", "save_mixer")}
+        full2 = loss_grads(get_model(c), p, b)
+        train_expected.add_grad(c, 2)
+        train_expected.add_grad(c.replace(remat_policy="save_mixer"))
+        (lf, gf), (ls, gs) = res["full"], res["save_mixer"]
+        repro = same_bits([lf] + gf, [full2[0]] + full2[1])
+        bitwise = same_bits([lf] + gf, [ls] + gs)
+        rel = rel_l2(gs, gf)
+        check(bitwise if repro else rel <= GRAD_RTOL,
+              f"{name}: gradients off the full policy's by {rel} (bit for bit: "
+              f"{bitwise}; two full runs bit for bit: {repro})")
+        row = dict(bitwise=bitwise, full_repeat_bitwise=repro, max_rel_l2=rel,
+                   loss=float(lf), loss_equal=bool(torch.equal(lf, ls)))
+        print(f"{name}:", json.dumps(row), flush=True)
+        out[f"save_mixer {arch}"] = row
+        del p, res, full2
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_teacher_forced(check: Check, expected: Expected, cfg, params, label,
+                          device="cuda", B=2, S=16, S2=24):
+    """whisper at full width in f32 (params shared with the bf16 runs):
+    prefill's last logits and each decode step's against the train-mode
+    forward's (``encode`` + ``decode_forward(mode="train")``) on the same
+    tokens and 1500 frames, within tests/test_serve.py's atol 5e-4 + rtol
+    5e-3, as ``teacher_forced_check``: K7 over the self cache and the
+    cached cross K / V against K5 and the per-call cross projection."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import encdec, get_model
+    cfg = cfg.replace(compute_dtype="float32")
+    model = get_model(cfg)
+    toks = prng.randint(prng.PRNGKey(2), (B, S2), 0, cfg.vocab_size).to(device)
+    frames = frame_rows(cfg, B, device, seed=3)
+    with torch.no_grad():
+        enc = encdec.encode(params, frames, cfg)
+        hidden, _ = encdec.decode_forward(params, toks, enc, cfg, mode="train")
+    expected.add_encdec(cfg, forwards=1)
+    ref = hidden.float() @ params["embed"].T.float()
+    del hidden, enc
+    caches, logits = model.prefill(params, {"tokens": toks[:, :S], "frames": frames})
+    caches = pad_caches(model, caches, B, S2)
+    got = [(S - 1, logits)]
+    for t in range(S, S2):
+        logits, caches = model.decode_step(params, caches, toks[:, t:t + 1], t)
+        got.append((t, logits))
+    expected.add_encdec(cfg, forwards=1, steps=S2 - S)
+    errs = [float(torch.max(torch.abs(lg - ref[:, t]))) for t, lg in got]
+    ok = all(bool(torch.all(torch.abs(lg - ref[:, t])
+                            <= SERVE_ATOL + SERVE_RTOL * torch.abs(ref[:, t])))
+             for t, lg in got)
+    check(ok, f"{label} f32 teacher-forced: logits off by {max(errs)}")
+    row = dict(max_abs_err=max(errs), logits_max=float(ref.abs().max()),
+               steps=len(got))
+    print(f"{label} f32 teacher-forced:", json.dumps(row), flush=True)
+    return row
+
+
+def slice_l2(check: Check, expected: Expected, device="cuda"):
+    """whisper-medium uncut: published widths, all 24 encoder and 24
+    decoder layers, random init drawn on the card from PRNGKey(0), f32
+    params as the config says (0.83 B params with the 65,536-row
+    ``pos_dec``, 3.3 GB) and bf16 compute. Encodes B 8 x 1500 stub frames
+    (timed alone), then serves a 32-token prompt over them: prefill (the
+    encoder again; each decoder layer's cross K / V projected once),
+    ``pad_caches`` to 256 rows and 224 greedy decode steps, after a warm-up
+    of 8 tokens and 2 steps; K5's and K7's launches against the code's
+    counts (E + D and D a step); then ``encdec_teacher_forced``."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import encdec, get_model
+    from repro_torch.utils import param_bytes, param_count
+    label = "slice (l2) whisper-medium"
+    cfg = get_config("whisper-medium")
+    model = get_model(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(lambda: model.init(prng.PRNGKey(0), device=device))
+    row = dict(params=param_count(params), param_gb=param_bytes(params) / 1e9,
+               init_s=t_init, init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    B, S, new = L2["batch"], L2["prompt"], L2["new"]
+    E, D = cfg.encoder_layers, cfg.num_layers
+    frames = frame_rows(cfg, B, device, seed=5)
+    prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size).to(device)
+
+    def serve(toks, steps):
+        caches, logits = model.prefill(params, {"tokens": toks, "frames": frames})
+        caches = pad_caches(model, caches, B, toks.shape[1] + steps)
+        out = [torch.argmax(logits, -1)[:, None].to(torch.int32)]
+        for i in range(steps):
+            lg, caches = model.decode_step(params, caches, out[-1], toks.shape[1] + i)
+            out.append(torch.argmax(lg, -1)[:, None].to(torch.int32))
+        return logits, lg, torch.cat(out, dim=1)
+
+    serve(prompt[:, :8], 2)                                          # warm-up
+    expected.add_encdec(cfg, forwards=1, steps=2)
+    with torch.no_grad():
+        _, t_enc = sync_time(lambda: encdec.encode(params, frames, cfg))
+    expected.add_encdec(cfg, encodes=1)
+    torch.cuda.reset_peak_memory_stats()
+    (caches, logits), t_pre = sync_time(lambda: model.prefill(
+        params, {"tokens": prompt, "frames": frames}))
+    caches = pad_caches(model, caches, B, S + new)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    before = lm_counts()
+
+    def decode():
+        nonlocal caches, tok
+        out = [tok]
+        for i in range(new):
+            lg, caches = model.decode_step(params, caches, tok, S + i)
+            tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            out.append(tok)
+        return lg, torch.cat(out, dim=1)
+    (last, toks), t_dec = sync_time(decode)
+    k7 = lm_counts()["decode_attention"] - before["decode_attention"]
+    expected.add_encdec(cfg, forwards=1, steps=new)
+    check(k7 == D * new, f"{label}: {k7} K7 launches over {new} steps, expected {D * new}")
+    before = lm_counts()
+    (_, _, toks2), t_gen = sync_time(lambda: serve(prompt, new))
+    k5 = lm_counts()["flash_attention"] - before["flash_attention"]
+    expected.add_encdec(cfg, forwards=1, steps=new)
+    check(k5 == E + D, f"{label}: {k5} K5 launches a prefill, expected {E + D}")
+    ok = (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(last).all())
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+          and tuple(toks.shape) == (B, new + 1) and torch.equal(toks, toks2))
+    check(ok, f"{label}: non-finite logits, tokens out of range, or the two "
+          "runs' tokens differ")
+    row.update(batch=B, frames=cfg.num_frames, prompt=S, new_tokens=new,
+               encode_s=t_enc, frames_per_s=B * cfg.num_frames / t_enc,
+               prefill_s=t_pre, prefill_tokens_per_s=B * S / t_pre,
+               decode_ms_per_step=1e3 * t_dec / new, decode_tokens_per_s=B * new / t_dec,
+               serve_s=t_gen, serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               k5_per_prefill=k5, k7_per_step=k7 / new,
+               self_cache_gb=2 * caches["dec"]["self"]["k"].numel()
+               * caches["dec"]["self"]["k"].element_size() / 1e9,
+               cross_cache_gb=2 * caches["dec"]["cross"]["k"].numel()
+               * caches["dec"]["cross"]["k"].element_size() / 1e9)
+    del caches
+    row["f32_teacher_forced"] = encdec_teacher_forced(check, expected, cfg, params,
+                                                      label, device)
+    peak = max(torch.cuda.max_memory_allocated(), int(row["init_peak_gb"] * 1e9))
+    row.update(peak_gb=peak / 1e9)
+    check(peak < total, f"{label}: peak {peak / 1e9} GB")
+    report(label, row, ("encode_s", "prefill_tokens_per_s", "decode_ms_per_step",
+                        "peak_gb", "k5_per_prefill", "k7_per_step"))
+    print(f"{label}:", json.dumps(row), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice_l3(check: Check, expected: TrainExpected, device="cuda"):
+    """whisper-medium's loss differentiated at full width: B 2 x 1500
+    frames x 448 tokens (n_text_ctx), f32 params, bf16 compute, remat on
+    (each decoder block a checkpoint; the encoder outside, as the
+    reference's): a warm-up gradient, then one timed. Reports the loss,
+    the gradient's global norm, step ms, peak GB, and the K5 / K6 launches
+    against the code's counts (E + 2D and E + D a gradient); every leaf's
+    gradient present, finite and nonzero."""
+    import math
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    label = "slice (l3) whisper-medium loss"
+    cfg = get_config("whisper-medium")
+    check(cfg.remat, f"{label}: remat is off")
+    model = get_model(cfg)
+    params = model.init(prng.PRNGKey(0), device=device)
+    batch = encdec_batch(cfg, L3["batch"], L3["tokens"], device, seed=8)
+    loss_grads(model, params, batch)                                 # warm-up
+    expected.add_encdec_grad(cfg)
+    before = train_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), t = sync_time(lambda: loss_grads(model, params, batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v - before[k] for k, v in train_counts().items()}
+    want = TrainExpected()
+    want.add_encdec_grad(cfg)
+    for k, v in want.items():
+        expected[k] += v
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    gnorm = math.sqrt(sum(float(torch.sum(g.float() ** 2)) for g in grads))
+    ok = (math.isfinite(float(loss)) and math.isfinite(gnorm)
+          and all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                  for g in grads))
+    check(ok, f"{label}: a non-finite loss or gradient, or a zero leaf")
+    row = dict(**L3, frames=cfg.num_frames, loss=float(loss), grad_norm=gnorm,
+               grad_leaves=len(grads), step_ms=1e3 * t, peak_gb=peak,
+               k5=launches["flash_attention"], k6=launches["flash_attention_bwd"])
+    report(label, row, ("loss", "grad_norm", "step_ms", "peak_gb", "k5", "k6"))
+    print(f"{label}:", json.dumps(row), flush=True)
+    del params, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice_l4(check: Check, expected: TrainExpected, device="cuda"):
+    """``remat_policy="save_mixer"`` against "full" on qwen1.5-0.5b at full
+    width: one (f2)-sized client step, a loss_fn gradient over 8 x 512
+    tokens (f32 params, bf16 compute), in L4["turns"] alternating turns
+    (full, save_mixer, ...) after a warm-up of each: the step times, their
+    medians and minima, and the peaks (the counter reset before each step; the first
+    two steps' gradients of each policy moved to the host, so that a peak
+    holds one step's); the losses and gradients bit for bit (the same ops
+    in the same order), else within GRAD_RTOL if two "full" gradients
+    differ too."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    label = "slice (l4) save_mixer qwen1.5-0.5b"
+    cfg = get_config("qwen1.5-0.5b")
+    params = get_model(cfg).init(prng.PRNGKey(0), device=device)
+    batch = token_batch(cfg, L4["batch"], L4["seq"], device, seed=9)
+    models = {pol: get_model(cfg.replace(remat_policy=pol))
+              for pol in ("full", "save_mixer")}
+    for model in models.values():
+        loss_grads(model, params, batch)                             # warm-up
+    runs = {"full": [], "save_mixer": []}
+    for _ in range(L4["turns"]):
+        for policy, rs in runs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            (loss, grads), t = sync_time(lambda: loss_grads(models[policy], params, batch))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            kept = [loss.cpu()] + [g.cpu() for g in grads] if len(rs) < 2 else None
+            rs.append((kept, 1e3 * t, peak))
+            del loss, grads
+    for model in models.values():                    # warm-up + the turns
+        expected.add_grad(model.cfg, 1 + L4["turns"])
+    (full, *_), (full2, *_) = runs["full"][:2]
+    (sm, *_), (sm2, *_) = runs["save_mixer"][:2]
+    repro = same_bits(full, full2) and same_bits(sm, sm2)
+    bitwise = same_bits(full, sm)
+    rel = rel_l2(sm[1:], full[1:])
+    check(bitwise if repro else rel <= GRAD_RTOL,
+          f"{label}: gradients off the full policy's by {rel} (bit for bit: "
+          f"{bitwise}; two runs of each bit for bit: {repro})")
+    row = dict(**L4, loss=float(full[0]), bitwise=bitwise, repeat_bitwise=repro,
+               max_rel_l2=rel)
+    for policy, rs in runs.items():
+        row[f"{policy}_step_ms"] = [r[1] for r in rs]
+        row[f"{policy}_median_ms"] = statistics.median(r[1] for r in rs)
+        row[f"{policy}_min_ms"] = min(r[1] for r in rs)
+        row[f"{policy}_peak_gb"] = max(r[2] for r in rs)
+    report(label, row, ("full_median_ms", "save_mixer_median_ms", "full_min_ms",
+                        "save_mixer_min_ms", "full_peak_gb",
+                        "save_mixer_peak_gb", "bitwise"))
+    print(f"{label}:", json.dumps(row), flush=True)
+    del params, runs, full, full2, sm, sm2
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase(fn, *args, **kw):
     """fn(*args, **kw), its host-clock time printed under its name."""
     t0 = time.perf_counter()
@@ -5257,6 +5760,30 @@ def main() -> int:
                  "decode_attention", "rmsnorm"):
         check(k_launches[name] > 0,
               f"llava + xlstm path: kernel {name} was never launched")
+    # whisper-medium and the two single-card knobs: slices (l1)-(l4),
+    # serving and training, counted on their own
+    reset_train_counts()
+    l_serve, l_train = Expected(), TrainExpected()
+    l1 = phase(slice_l1, check, l_serve, l_train)
+    l2 = phase(slice_l2, check, l_serve)
+    l3 = phase(slice_l3, check, l_train)
+    l4 = phase(slice_l4, check, l_train)
+    l_launches = dict(train_counts(), decode_attention=lm_counts()["decode_attention"])
+    l_expected = {k: l_serve.get(k, 0) + l_train.get(k, 0) for k in l_launches}
+    print("whisper + knobs path launches:", json.dumps(l_launches), "expected:",
+          json.dumps(l_expected), flush=True)
+    for name, n in l_launches.items():
+        check(n == l_expected[name], f"whisper + knobs path: {n} {name} launches, "
+              f"expected {l_expected[name]}")
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            entry["encdec_path_launches"] = 0
+        elif entry["name"] in l_launches:
+            entry["encdec_path_launches"] = l_launches[entry["name"]]
+    for name in ("flash_attention", "flash_attention_bwd", "decode_attention",
+                 "rmsnorm", "ssm_scan"):
+        check(l_launches[name] > 0,
+              f"whisper + knobs path: kernel {name} was never launched")
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -5273,7 +5800,7 @@ def main() -> int:
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
         "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
         "i5": i5, "j1": j1, "j2": j2, "k1": k1, "k2": k2, "k3": k3,
-        "k4": k4}))
+        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

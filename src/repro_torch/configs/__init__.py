@@ -2,8 +2,7 @@
 
 ``get_config(name)`` returns the full-size config, ``get_smoke(name)`` the
 reference's reduced variant of it for CPU tests. Names and aliases are the
-reference's; an architecture the port has not reached raises
-``NotImplementedError``.
+reference's; every one of the ten architectures is ported.
 """
 from __future__ import annotations
 
@@ -39,21 +38,17 @@ ALIASES = {
 }
 
 # the dense GQA family, jamba, the MoE archs (granite's GQA, deepseek's
-# leading dense layer), minicpm3's MLA, llava's image inputs and xlstm's
-# mLSTM / sLSTM blocks; whisper is ROADMAP A16b
+# leading dense layer), minicpm3's MLA, llava's image inputs, xlstm's
+# mLSTM / sLSTM blocks and whisper's encoder-decoder: all of ARCH_IDS
 PORTED = ("qwen1_5_0_5b", "qwen2_5_3b", "phi3_mini_3_8b",
           "jamba_1_5_large_398b", "granite_moe_3b_a800m", "deepseek_moe_16b",
-          "minicpm3_4b", "llava_next_34b", "xlstm_125m")
+          "minicpm3_4b", "llava_next_34b", "xlstm_125m", "whisper_medium")
 
 
 def _module(name: str):
     arch = ALIASES.get(name, name)
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A16b); ported: "
-            f"{list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -72,7 +72,7 @@ class ModelConfig:
     mlstm_proj_factor: float = 2.0
     slstm_proj_factor: float = 4.0 / 3.0
 
-    # --- encoder/decoder (whisper, not ported) -------------------------------
+    # --- encoder/decoder (whisper: models/encdec.py) -------------------------
     encdec: bool = False
     encoder_layers: int = 0
     num_frames: int = 1500
@@ -94,7 +94,7 @@ class ModelConfig:
     remat_policy: str = "full"
     use_pallas: bool = False          # never read: the route follows the device
     seq_shard_attn: bool = False      # not ported
-    attn_bf16: bool = False           # not ported
+    attn_bf16: bool = False           # bf16 attention products (f32 softmax state)
     expert_parallel: bool = False
     dp_axes: tuple = ("data",)
 

@@ -26,6 +26,9 @@ last Sq positions.
   rowsum(dO * O), p = exp(s - lse) (masked entries exactly 0), ds =
   p (dP - delta), dq = ds K scale, dk = ds^T (q scale), dv = p^T dO, dk and
   dv summed over each kv head's G query heads in f32 and rounded once.
+* ``mm_dtype`` (bf16 under the ``attn_bf16`` knob): the plain versions
+  round the products' inputs as the jnp lowering does; on the card
+  ``flash_attention`` sends q, k and v to the kernels' bf16 route.
 
 Shapes: q [B, Sq, H, hd], k and v [B, Skv, KV, hd], Sq <= Skv, H a multiple
 of KV (query head h reads kv head h // G, G = H / KV); out and dO like q;
@@ -72,9 +75,22 @@ def _check_shapes(q, k, v):
     return B, Sq, H, hd, Skv, KV
 
 
+def _rounding(mm_dtype):
+    """f32 -> f32 through ``mm_dtype`` (the identity for None or f32): the
+    products' inputs of a ``mm_dtype`` matmul with f32 accumulation, held
+    in f32 (products of bf16 values are exact in f32)."""
+    if mm_dtype is None or mm_dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(mm_dtype).float()
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
-                          block_kv=1024):
-    """(out, lse) by the reference's blockwise online softmax (f32)."""
+                          block_kv=1024, mm_dtype=None):
+    """(out, lse) by the reference's blockwise online softmax. ``mm_dtype``
+    (the ``attn_bf16`` knob's bf16) as the reference's jnp lowering takes
+    it: q scaled in f32, then q, k and v rounded to it, and p rounded to it
+    before PV; the products of those rounded values accumulate in f32, the
+    softmax state stays f32 and out comes back in q's dtype."""
     B, Sq, H, hd, Skv, KV = _check_shapes(q, k, v)
     G = H // KV
     if scale is None:
@@ -86,14 +102,15 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     n = k.shape[1]
-    qf = (q.float() * scale).reshape(B, Sq, KV, G, hd)
+    md = _rounding(mm_dtype)
+    qf = md(q.float() * scale).reshape(B, Sq, KV, G, hd)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
     for start in range(0, n, block):
-        kc = k[:, start:start + block].float()
-        vc = v[:, start:start + block].float()
+        kc = md(k[:, start:start + block].float())
+        vc = md(v[:, start:start + block].float())
         k_pos = start + torch.arange(block, device=q.device)
         s = torch.einsum("bqkgh,bskh->bkgqs", qf, kc)
         mask = (k_pos[None, :] < Skv).expand(Sq, block)
@@ -106,7 +123,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vc)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh", md(p), vc)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
@@ -162,13 +179,24 @@ def _kernel_dims(name, q, k, v):
     return dev, (B, Sq, H, hd, Skv, KV)
 
 
+def _check_mm(name, q, mm_dtype):
+    """On the card the route follows q's dtype: ``mm_dtype`` must be None
+    or that dtype (``flash_attention`` casts q, k and v for the knob)."""
+    if mm_dtype is not None and mm_dtype != q.dtype:
+        raise ValueError(f"{name}: mm_dtype {mm_dtype} on {q.dtype} inputs; "
+                         "the kernel's route follows the inputs' dtype")
+
+
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
-                        block_kv=1024):
+                        block_kv=1024, mm_dtype=None):
     """(out [B, Sq, H, hd] like q, lse [B * KV, G, Sq] f32). ``block_kv``
-    is the plain version's block; the kernel's tile is its own."""
+    and ``mm_dtype`` are the plain version's; the kernel's tile is its
+    own, and its route follows the inputs' dtype."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, block_kv=block_kv)
+                                     scale=scale, block_kv=block_kv,
+                                     mm_dtype=mm_dtype)
+    _check_mm("flash_attention", q, mm_dtype)
     dev, (B, Sq, H, hd, Skv, KV) = _kernel_dims("flash_attention", q, k, v)
     if scale is None:
         scale = hd ** -0.5
@@ -210,15 +238,18 @@ def _visible(Sq, Skv, causal, window, device):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal=True,
-                              window=0, scale=None):
+                              window=0, scale=None, mm_dtype=None):
     """(dq, dk, dv) like (q, k, v), by the reference's backward formulas in
-    f32 over whole [Sq, Skv] score matrices."""
+    f32 over whole [Sq, Skv] score matrices. ``mm_dtype``: the forward's
+    rounded inputs (q scale, k, v) and p before dV, and dq, dk, dv rounded
+    to it, as a gradient of a ``mm_dtype`` operand is."""
     B, Sq, H, hd, Skv, KV = _check_shapes(q, k, v)
     G = H // KV
     if scale is None:
         scale = hd ** -0.5
-    qf = (q.float() * scale).reshape(B, Sq, KV, G, hd)
-    kf, vf = k.float(), v.float()
+    md = _rounding(mm_dtype)
+    qf = md(q.float() * scale).reshape(B, Sq, KV, G, hd)
+    kf, vf = md(k.float()), md(v.float())
     dof = do.float().reshape(B, Sq, KV, G, hd)
     delta = torch.sum(dof * out.float().reshape(B, Sq, KV, G, hd), dim=-1)
     delta = delta.permute(0, 2, 3, 1)                        # [B, KV, G, Sq]
@@ -228,9 +259,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal=True,
     p = torch.where(mask, torch.exp(s - lse), 0.0)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
-    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf)
-    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    dq = md(torch.einsum("bkgqs,bskh->bqkgh", ds, kf)) * scale
+    dk = md(torch.einsum("bkgqs,bqkgh->bskh", ds, qf))
+    dv = md(torch.einsum("bkgqs,bqkgh->bskh", md(p), dof))
     return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -249,12 +280,15 @@ def _bind_bwd():
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
-                        scale=None):
+                        scale=None, mm_dtype=None):
     """(dq [B, Sq, H, hd] like q, dk and dv [B, Skv, KV, hd] like k) from
-    the forward's inputs, its out and lse, and dO (made contiguous here)."""
+    the forward's inputs, its out and lse, and dO (made contiguous here).
+    ``mm_dtype`` as ``flash_attention_fwd``'s."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
-                                         window=window, scale=scale)
+                                         window=window, scale=scale,
+                                         mm_dtype=mm_dtype)
+    _check_mm("flash_attention_bwd", q, mm_dtype)
     dev, (B, Sq, H, hd, Skv, KV) = _kernel_dims("flash_attention_bwd", q, k, v)
     if tuple(out.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dO "
@@ -305,22 +339,41 @@ class FlashAttention(torch.autograd.Function):
     plain versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, block_kv):
+    def forward(ctx, q, k, v, causal, window, scale, block_kv, mm_dtype=None):
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                       scale=scale, block_kv=block_kv)
+                                       scale=scale, block_kv=block_kv,
+                                       mm_dtype=mm_dtype)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        mm_dtype=mm_dtype)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                    block_kv=1024):
+                    block_kv=1024, mm_dtype=None):
     """Attention output only, [B, Sq, H, hd] like q; differentiable in q, k
-    and v through ``FlashAttention``."""
-    return FlashAttention.apply(q, k, v, causal, window, scale, block_kv)
+    and v through ``FlashAttention``.
+
+    ``mm_dtype`` (bf16 under ``cfg.attn_bf16``): on the CPU the plain
+    versions round as the reference's jnp lowering does. On the card q, k
+    and v are cast to it and run the kernels' bf16 route (bf16 tensor-core
+    products with P and dS split hi + lo, f32 softmax state), the output
+    cast back to q's dtype; the backward (K6's bf16 route) follows through
+    autograd of the casts. Where that differs from the reference: the
+    kernel rounds q, not q * scale (the same for hd 64, whose scale is a
+    power of 2), keeps P nearly to f32 where the reference rounds it to
+    bf16, and rounds its output to bf16 where the reference returns its
+    f32 sum. Under bf16 compute the knob changes nothing on the card."""
+    if mm_dtype is not None and q.device.type != "cpu" and q.dtype != mm_dtype:
+        out = FlashAttention.apply(q.to(mm_dtype), k.to(mm_dtype),
+                                   v.to(mm_dtype), causal, window, scale,
+                                   block_kv)
+        return out.to(q.dtype)
+    return FlashAttention.apply(q, k, v, causal, window, scale, block_kv,
+                                mm_dtype)

@@ -7,10 +7,14 @@
 qwen2.5-3b and phi3-mini-3.8b, the MoE granite-moe-3b-a800m and
 deepseek-moe-16b (its leading dense block), minicpm3-4b (MLA: a latent
 decode cache), the hybrid jamba-1.5-large-398b, xlstm-125m (mLSTM and
-sLSTM states) and llava-next-34b. ``generate`` serves text only, as the
-reference's: serving with images calls ``model.prefill`` with
-``image_embeds``, ``pad_caches`` to n_img + S + new, then ``decode_step``
-at n_img + S + i.
+sLSTM states), llava-next-34b and whisper-medium. ``generate`` serves
+text only, as the reference's: serving with images calls
+``model.prefill`` with ``image_embeds``, ``pad_caches`` to n_img + S +
+new, then ``decode_step`` at n_img + S + i; serving whisper calls
+``model.prefill`` with ``{"tokens", "frames"}`` (the encoder runs once and
+each decoder layer's cross K / V are projected once), ``pad_caches`` to S
++ new (the self k / v grow; the cross k / v and ``enc_out`` pass through),
+then ``decode_step`` at S + i (tests/test_serve.py:69's path).
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``). As in the reference, ``--smoke`` is a
@@ -34,10 +38,12 @@ from repro_torch.utils import resolve_device, tree_map
 def pad_caches(model, caches, batch, max_len):
     """Grow prefill caches to max_len along the sequence axis (the
     attention k / v caches, MLA's latent and roped-key caches, the leading
-    blocks' unstacked ones among them). The recurrent states (a Mamba
-    layer's conv tail and ssm state, an mLSTM's or sLSTM's conv tail and
-    states) are length-free: they already have the full shape and are
-    returned as they are, the same tensors, as is the host int ``len``."""
+    blocks' unstacked ones among them, the enc-dec's self k / v). The
+    recurrent states (a Mamba layer's conv tail and ssm state, an mLSTM's
+    or sLSTM's conv tail and states) are length-free, and the enc-dec's
+    cross k / v and ``enc_out`` are at num_frames rows: they already have
+    the full shape and are returned as they are, the same tensors, as is
+    the host int ``len``."""
     full = model.make_cache(batch, max_len, device="meta")
 
     def pad(c, f):

@@ -9,7 +9,10 @@ The full-width config at its own dtypes, random init; ``--num-layers`` and
 one card (jamba-1.5-large-398b: ``--num-layers 8 --num-experts 4``, one
 period of its published widths; llava-next-34b fits uncut in its bf16
 params). Serving is text-only, as ``generate`` is (llava and xlstm-125m
-included). After a warm-up generate it
+included), but for whisper-medium, whose prefill encodes B x num_frames
+stub frames (normal draws from seed 5) under the prompt, as
+``chip_smoke.py``'s slice (l2) serves it. After a warm-up (a generate;
+whisper: a prefill and ``--steps`` decode steps) it
 
 1. times one prefill and ``--steps`` decode steps with the host clock,
    each ending in a device sync;
@@ -117,7 +120,11 @@ def main() -> int:
     params = model.init(prng.PRNGKey(0), device=dev)
     B, S, n = args.batch, args.prompt, args.steps
     prompt = prng.randint(prng.PRNGKey(1), (B, S), 0, cfg.vocab_size).to(dev)
-    generate(model, params, prompt, 2, device=dev)                   # warm-up
+    inputs = {"tokens": prompt}
+    if cfg.encdec:
+        gen = torch.Generator().manual_seed(5)
+        inputs["frames"] = torch.randn(B, cfg.num_frames, cfg.d_model,
+                                       generator=gen).to(cfg.cdtype).to(dev)
 
     def sync_time(fn):
         torch.cuda.synchronize()
@@ -127,7 +134,7 @@ def main() -> int:
         return out, time.perf_counter() - t0
 
     def prefill():
-        caches, logits = model.prefill(params, {"tokens": prompt})
+        caches, logits = model.prefill(params, inputs)
         return pad_caches(model, caches, B, S + n), logits
 
     def decode(caches, logits):
@@ -136,6 +143,11 @@ def main() -> int:
             logits, caches = model.decode_step(params, caches, tok, S + i)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         return caches
+
+    if cfg.encdec:                                                   # warm-up
+        decode(*prefill())
+    else:
+        generate(model, params, prompt, 2, device=dev)
 
     # 1. host clock
     (caches, logits), t_pre = sync_time(prefill)

@@ -84,9 +84,11 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
     ``gates`` and ``local_losses``. Under the divergence guard the run
     halts once ``max_nonfinite_skips`` consecutive rounds were skipped
     (when that is > 0). Like the reference's, it never drains an
-    in-flight buffer."""
+    in-flight buffer, and it refuses an enc-dec config (whisper-medium)
+    with the reference's assertion: whisper has no federated round."""
     dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
+    assert not cfg.encdec, "use examples/whisper for enc-dec training"
     model = get_model(cfg)
     fed = FedConfig(num_clients=clients, num_priority=n_priority,
                     local_epochs=local_epochs, epsilon=epsilon, lr=lr,

@@ -2,16 +2,21 @@
 CUDA card.
 
     PYTHONPATH=src python3 -m repro_torch.launch.train_profile \\
-        [--arch qwen1.5-0.5b] [--batch 8] [--seq 512] [--out DIR]
+        [--arch qwen1.5-0.5b] [--batch 8] [--seq 512]
+        [--remat-policy full|save_mixer] [--out DIR]
 
 The full-width config at its own dtypes (f32 params, bf16 compute), random
 init, one client's local SGD step as ``fl/sharded.py`` runs it: the loss
-with the autograd graph, ``torch.autograd.grad``, the in-place update.
-After a warm-up step it
+with the autograd graph, ``torch.autograd.grad``, the in-place update
+(whisper-medium: ``--seq`` tokens decoded over num_frames stub frames,
+normal draws from seed 5, as ``chip_smoke.py``'s slice (l3); whisper has
+no federated round, but its loss's step is this one). After a warm-up
+step it
 
 1. times the phases with the host clock, each ending in a device sync:
    the forward, the backward with remat (which runs each period's forward
-   again), the update; then the same forward and backward without remat.
+   again; under ``--remat-policy save_mixer`` each layer's FFN only), the
+   update; then the same forward and backward without remat.
    The remat's cost is the difference of the two backwards;
 2. traces one step (remat on) with ``torch.profiler``: device time by
    kernel, the shares of the port's kernels (flash-attention forward K5
@@ -43,6 +48,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--remat-policy", default="full",
+                    choices=("full", "save_mixer"))
     ap.add_argument("--out", default=str(ROOT / "results"))
     args = ap.parse_args()
 
@@ -60,13 +67,17 @@ def main() -> int:
     from repro_torch.utils import tree_leaves, tree_map, tree_unflatten_like
 
     dev = torch.device("cuda")
-    cfg = get_config(args.arch)
+    cfg = get_config(args.arch).replace(remat_policy=args.remat_policy)
     model = get_model(cfg)
     params = model.init(prng.PRNGKey(0), device=dev)
     B, S, L = args.batch, args.seq, cfg.num_layers
     toks = prng.randint(prng.PRNGKey(1), (B, S + 1), 0, cfg.vocab_size).to(dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
              "mask": torch.ones(B, S, device=dev)}
+    if cfg.encdec:
+        gen = torch.Generator().manual_seed(5)
+        batch["frames"] = torch.randn(B, cfg.num_frames, cfg.d_model,
+                                      generator=gen).to(cfg.cdtype).to(dev)
     slot = tree_map(torch.clone, params)
 
     def sync_time(fn):
@@ -121,22 +132,29 @@ def main() -> int:
     gemm = sum(us for name, (us, _) in kernels.items()
                if any(f in name.lower() for f in CUBLAS))
     traced["cublas_share_of_busy"] = gemm / busy
+    rerun = cfg.remat_policy == "full"      # save_mixer reruns no mixer
     out = {
         "card": smi_line(), "torch": torch.__version__, "arch": cfg.name,
         "batch": B, "seq": S, "layers": L, "remat": cfg.remat,
+        "remat_policy": cfg.remat_policy,
         "step_s": t_step, "forward_s": t_fwd, "backward_s": t_bwd,
         "update_s": t_upd, "forward_no_remat_s": n_fwd,
         "backward_no_remat_s": n_bwd, "remat_s": t_bwd - n_bwd,
         "peak_mem_gb": peak, "launch_counters": launches,
-        "expected_launches": {"flash_attention": 2 * L,
-                              "flash_attention_bwd": L,
-                              "rmsnorm": 4 * L + 1},
+        "expected_launches": (
+            {"flash_attention": cfg.encoder_layers + 2 * L,
+             "flash_attention_bwd": cfg.encoder_layers + L, "rmsnorm": 0}
+            if cfg.encdec else {"flash_attention": L * (1 + rerun),
+                                "flash_attention_bwd": L,
+                                "rmsnorm": 2 * L + 1 + (2 if rerun else 1) * L}),
         "profiled_step": traced,
     }
     line = json.dumps(out)
     print(line)
     Path(args.out).mkdir(parents=True, exist_ok=True)
-    (Path(args.out) / "torch_train_profile.json").write_text(line + "\n")
+    name = "torch_train_profile" + (
+        "" if cfg.remat_policy == "full" else f"_{cfg.remat_policy}")
+    (Path(args.out) / f"{name}.json").write_text(line + "\n")
     return 0
 
 

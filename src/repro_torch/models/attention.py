@@ -1,8 +1,8 @@
 """Attention: grouped-query attention (GQA) and multi-head latent
-attention (MLA), each with its train / prefill / decode paths and cache.
+attention (MLA), each with its train / prefill / decode paths and cache,
+and the encoder-decoder's cross-attention.
 
-Counterpart of ``repro/models/attention.py`` (GQA and MLA; the
-encoder-decoder's cross-attention is ROADMAP A16b). Train and prefill go
+Counterpart of ``repro/models/attention.py``. Train and prefill go
 through ``kops.flash_attention``, the ``FlashAttention`` autograd Function
 (on the card the flash-attention forward kernel, and its backward kernel
 when a gradient flows; no graph is built when nothing requires grad), GQA
@@ -79,8 +79,10 @@ def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
     positions: [S] absolute positions (a tensor on x's device). In decode,
     ``pos`` is the same position as a host int (S == 1): it picks the cache
     slot and kv_len without reading the device. cache (prefill out, decode
-    in-out): dict(k, v: [B, W, KV, hd], len). Returns (out [B, S, d],
-    new_cache)."""
+    in-out): dict(k, v: [B, W, KV, hd], len). ``cfg.attn_bf16``: train
+    and prefill attend with bf16 products (``kops.flash_attention``'s
+    ``mm_dtype``); decode is unchanged, as in the reference. Returns (out
+    [B, S, d], new_cache)."""
     B, S, _ = x.shape
     cd = cfg.cdtype
     q, k, v = gqa_project(p, x, cfg)
@@ -90,7 +92,8 @@ def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
 
     if mode in ("train", "prefill"):
         out = kops.flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                   block_kv=cfg.attn_block_kv)
+                                   block_kv=cfg.attn_block_kv,
+                                   mm_dtype=torch.bfloat16 if cfg.attn_bf16 else None)
         new_cache = None
         if mode == "prefill":
             W = min(window, S) if window else S
@@ -213,3 +216,47 @@ def mla_attention_block(p, x, cfg, *, positions, mode, cache=None,
 
     y = out.reshape(B, S, H * vd) @ p["wo"].to(cd)
     return y, new_cache
+
+
+# ===================================================== cross-attention (enc-dec)
+def init_cross_attn(key, cfg):
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    ks = {n: fold_in_name(key, n) for n in ("wq", "wk", "wv", "wo")}
+    return {
+        "wq": dense_init(ks["wq"], (d, H * hd), cfg.pdtype),
+        "wk": dense_init(ks["wk"], (d, H * hd), cfg.pdtype),
+        "wv": dense_init(ks["wv"], (d, H * hd), cfg.pdtype),
+        "wo": dense_init(ks["wo"], (H * hd, d), cfg.pdtype),
+    }
+
+
+def cross_kv(p, enc, cfg):
+    """Cross-attention K / V [B, T, H, hd] from the encoder states enc [B,
+    T, d]: on every train call, once a request in serving."""
+    B, T, _ = enc.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    cd = cfg.cdtype
+    k = (enc @ p["wk"].to(cd)).reshape(B, T, H, hd)
+    v = (enc @ p["wv"].to(cd)).reshape(B, T, H, hd)
+    return {"k": k, "v": v}
+
+
+def cross_attention_cached(p, x, ckv, cfg):
+    """x: [B, S, d] queries against projected K / V (``cross_kv``), every
+    encoder row visible: f32 scores, softmax and weighted sum in plain
+    torch, as the reference's einsums (it wrote no kernel for them).
+    Returns [B, S, d]."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    cd = cfg.cdtype
+    q = (x @ p["wq"].to(cd)).reshape(B, S, H, hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ckv["k"].float()) * hd ** -0.5
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, ckv["v"].float()).to(cd)
+    return out.reshape(B, S, H * hd) @ p["wo"].to(cd)
+
+
+def cross_attention(p, x, enc, cfg):
+    """x: [B, S, d] queries; enc: [B, T, d] encoder states (full,
+    non-causal), K / V projected on this call (the train path)."""
+    return cross_attention_cached(p, x, cross_kv(p, enc, cfg), cfg)

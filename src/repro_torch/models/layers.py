@@ -1,4 +1,5 @@
-"""Core LM layers: init, RMSNorm, RoPE and the SwiGLU FFN.
+"""Core LM layers: init, RMSNorm, LayerNorm, RoPE, the SwiGLU FFN and the
+GELU MLP.
 
 Counterpart of ``repro/models/layers.py``, with the same names, layouts
 ([d_in, d_out] weights, ``x @ w``) and numerics: compute runs in
@@ -6,6 +7,8 @@ Counterpart of ``repro/models/layers.py``, with the same names, layouts
 ``rmsnorm`` goes through ``kernels/ops.py``, so on the card it is the
 hand-written RMSNorm kernel; the matrix products are ``torch.matmul`` (the
 reference leaves them to XLA), the chunked loss's vocabulary product too.
+``layernorm`` and ``gelu_mlp_apply`` (the encoder-decoder's) are plain
+torch: the reference has no kernel for either.
 """
 from __future__ import annotations
 
@@ -38,6 +41,21 @@ def init_rmsnorm(d, dtype, device="cpu"):
 def rmsnorm(p, x, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * scale``, f32 inside, x's dtype out."""
     return kops.rmsnorm(x, p["scale"], eps=eps)
+
+
+def init_layernorm(d, dtype, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32 with the
+    population variance (jnp.var's), x's dtype out."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- rope
@@ -73,6 +91,25 @@ def swiglu_apply(p, x, cdtype):
     g = x @ p["w_gate"].to(cdtype)
     u = x @ p["w_up"].to(cdtype)
     return (F.silu(g) * u) @ p["w_down"].to(cdtype)
+
+
+def init_gelu_mlp(key, d_model, d_ff, dtype):
+    ks = {n: fold_in_name(key, n) for n in ("up", "down")}
+    dev = key.device
+    return {
+        "w_up": dense_init(ks["up"], (d_model, d_ff), dtype),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_down": dense_init(ks["down"], (d_ff, d_model), dtype),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp_apply(p, x, cdtype):
+    """``gelu(x w_up + b_up) w_down + b_down`` in ``cdtype``, the biases
+    added in it. GELU is the tanh approximation: ``jax.nn.gelu``'s default
+    (approximate=True), not torch's default erf form."""
+    h = F.gelu(x @ p["w_up"].to(cdtype) + p["b_up"].to(cdtype), approximate="tanh")
+    return h @ p["w_down"].to(cdtype) + p["b_down"].to(cdtype)
 
 
 # ------------------------------------------------------------------ chunked loss

@@ -9,7 +9,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclass(frozen=True)
@@ -25,7 +25,7 @@ class Model:
 
 def get_model(cfg) -> Model:
     transformer.check_model_config(cfg)
-    mod = transformer
+    mod = encdec if cfg.encdec else transformer
     return Model(
         init=lambda key, device="cuda": mod.init(key, cfg, device),
         loss_fn=lambda params, batch: mod.loss_fn(params, batch, cfg),

@@ -48,14 +48,29 @@ Training: ``forward(mode="train")`` with grad enabled and ``cfg.remat``
 checkpoints each period (``torch.utils.checkpoint``, non-reentrant: the
 period's forward runs again in the backward), the reference's "full"
 policy; the pre blocks run outside any checkpoint, as in the reference.
-``remat_policy="save_mixer"`` is not ported (ROADMAP A16d). The Mamba
-mixer differentiates through ``kernels/ssm_scan.py:SSMScan`` (the scan
-kernel forward, a plain-torch backward); under remat a period's scan runs
-twice a gradient, once in the forward and once in the backward.
+``remat_policy="save_mixer"`` keeps each layer's mixer and recomputes
+only its FFN, the reference's intent (its comment at
+repro/models/transformer.py:155: keep the expensive mixer outputs,
+recompute only the cheap norm / FFN chains). The mixer (``norm1`` and the
+attention or the Mamba / xLSTM block) runs outside any checkpoint, so
+autograd keeps what its backward reads (K5's q, k, v, out and lse; the
+scan kernel's inputs); the residual add, ``norm2`` and the FFN run as
+one checkpoint a layer, whose forward runs again in the backward. The
+reference names only the mixer output h, but its mixer's backward needs
+the mixer's residuals, which keeping h alone would rerun the mixer to
+get. The gradients are the "full" policy's bit for bit: the same ops run
+in the same order (the mixer's forward, run once here and twice there,
+is deterministic), and each tensor's gradient sums the same terms.
+``torch.utils.checkpoint``'s selective policies are not used: they choose
+by the torch ops they see, and the kernels' ctypes launches are none.
+The Mamba mixer differentiates through
+``kernels/ssm_scan.py:SSMScan`` (the scan kernel forward, a plain-torch
+backward); under "full" remat a period's scan runs twice a gradient,
+once in the forward and once in the backward, under "save_mixer" once.
 
 Out of the port so far, and refused with ``NotImplementedError`` by
-``check_model_config``: encoder-decoder, ``attn_bf16`` and
-``seq_shard_attn`` (ROADMAP A16b).
+``check_model_config``: ``seq_shard_attn`` (ROADMAP A17b, the sharded
+rounds). The encoder-decoder is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -77,19 +92,18 @@ from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
 
 _UNPORTED = (
-    ("encdec", lambda c: c.encdec, "the encoder-decoder model"),
-    ("attn_bf16", lambda c: c.attn_bf16, "bf16 attention products"),
-    ("seq_shard_attn", lambda c: c.seq_shard_attn, "sequence-sharded attention"),
+    ("seq_shard_attn", lambda c: c.seq_shard_attn, "sequence-sharded attention",
+     "A17b"),
 )
 
 
 def check_model_config(cfg):
     """Refuse every knob outside the ported slices; returns ``cfg``."""
-    for knob, on, what in _UNPORTED:
+    for knob, on, what, item in _UNPORTED:
         if on(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {knob}={getattr(cfg, knob)!r} ({what}) is not "
-                "ported yet (ROADMAP A16b)")
+                f"ported yet (ROADMAP {item})")
     return cfg
 
 
@@ -116,19 +130,23 @@ def _init_block(key, cfg, kind):
     return p
 
 
-def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos):
-    """One layer. Returns (x, new_cache, aux): aux is the router's
-    ``router_aux_coef * lb_loss`` for a MoE FFN, else 0.0."""
+def _mixer(p, x, cfg, kind, *, positions, mode, cache, pos):
+    """``norm1`` and the layer's mixer -> (h, new_cache)."""
     h = L.rmsnorm(p["norm1"], x)
     mixer = kind["mixer"]
     if mixer == "attn":
         attend = mla_attention_block if cfg.mla else gqa_attention_block
-        h, new_cache = attend(p["attn"], h, cfg, positions=positions,
-                              mode=mode, cache=cache, pos=pos)
-    else:
-        block = {"mamba": mamba_block, "mlstm": mlstm_block,
-                 "slstm": slstm_block}[mixer]
-        h, new_cache = block(p[mixer], h, cfg, mode=mode, cache=cache)
+        return attend(p["attn"], h, cfg, positions=positions, mode=mode,
+                      cache=cache, pos=pos)
+    block = {"mamba": mamba_block, "mlstm": mlstm_block,
+             "slstm": slstm_block}[mixer]
+    return block(p[mixer], h, cfg, mode=mode, cache=cache)
+
+
+def _ffn(p, x, h, cfg, kind):
+    """The residual add of the mixer output h, then ``norm2`` and the FFN
+    -> (x, aux): aux is the router's ``router_aux_coef * lb_loss`` for a
+    MoE FFN, else 0.0."""
     x = x + h
     aux = 0.0
     if kind["ffn"] == "dense":
@@ -137,10 +155,26 @@ def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos):
         y, moe_aux = moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg)
         x = x + y
         aux = cfg.router_aux_coef * moe_aux["lb_loss"]
+    return x, aux
+
+
+def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos,
+                 save_mixer=False):
+    """One layer. Returns (x, new_cache, aux). ``save_mixer`` (training
+    under ``remat_policy="save_mixer"``): the FFN as a checkpoint, the
+    mixer outside it, so the backward reruns only the FFN."""
+    h, new_cache = _mixer(p, x, cfg, kind, positions=positions, mode=mode,
+                          cache=cache, pos=pos)
+    if save_mixer:
+        x, aux = checkpoint(lambda xc, hc: _ffn(p, xc, hc, cfg, kind), x, h,
+                            use_reentrant=False)
+    else:
+        x, aux = _ffn(p, x, h, cfg, kind)
     return x, new_cache, aux
 
 
-def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos):
+def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos,
+                  save_mixer=False):
     """The layers l0..l{n-1} of one period in order. Returns (x, the
     per-layer caches, the period's aux).
 
@@ -153,7 +187,8 @@ def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos):
         name = f"l{j}"
         c_in = caches[name] if caches is not None else None
         x, c, aux = _apply_block(p[name], x, cfg, kind, positions=positions,
-                                 mode=mode, cache=c_in, pos=pos)
+                                 mode=mode, cache=c_in, pos=pos,
+                                 save_mixer=save_mixer)
         new_caches[name] = c
     return x, new_caches, aux
 
@@ -164,6 +199,22 @@ def _pre_kind(cfg):
 
 
 # ------------------------------------------------------------------- model init
+def _stacked(keys, init_one):
+    """``init_one(key)`` for each of ``keys`` [n, 2], its leaves written into
+    stacked [n, ...] leaves as each is drawn, so the peak is the stack plus
+    one tree (a single tree is stacked as a view, with no copy)."""
+    n = keys.shape[0]
+    stacked = None
+    for i in range(n):
+        one = init_one(keys[i])
+        if n == 1:
+            return tree_map(lambda x: x[None], one)
+        if stacked is None:
+            stacked = tree_map(lambda x: x.new_empty((n,) + x.shape), one)
+        tree_map(lambda s, x: s[i].copy_(x), stacked, one)
+    return stacked
+
+
 def init(key, cfg, device="cuda"):
     """The reference's init, leaf for leaf: ``fold_in_name`` per leaf, the
     period keys from ``split``, each layer ``l{j}`` of a period from
@@ -191,19 +242,10 @@ def init(key, cfg, device="cuda"):
         _init_block(fold_in_name(key, f"pre{i}"), cfg, _pre_kind(cfg))
         for i in range(cfg.first_dense)]
     pkeys = prng.split(fold_in_name(key, "periods"), cfg.n_periods)
-    stacked = None
     kinds = cfg.layer_kinds()
-    for i in range(cfg.n_periods):
-        period = {f"l{j}": _init_block(fold_in_name(pkeys[i], f"l{j}"), cfg, kind)
-                  for j, kind in enumerate(kinds)}
-        if cfg.n_periods == 1:
-            stacked = tree_map(lambda x: x[None], period)
-            break
-        if stacked is None:
-            stacked = tree_map(lambda x: x.new_empty((cfg.n_periods,) + x.shape),
-                               period)
-        tree_map(lambda s, x: s[i].copy_(x), stacked, period)
-    params["periods"] = stacked
+    params["periods"] = _stacked(pkeys, lambda k: {
+        f"l{j}": _init_block(fold_in_name(k, f"l{j}"), cfg, kind)
+        for j, kind in enumerate(kinds)})
     return params
 
 
@@ -249,10 +291,8 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
 
     kinds = cfg.layer_kinds()
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
-            "A16d); the port checkpoints whole periods ('full')")
+    # any other policy checkpoints whole periods, as the reference's else
+    save_mixer = remat and cfg.remat_policy == "save_mixer"
     aux_total = 0.0
     pre_caches = []
     for i, bp in enumerate(params["pre_blocks"]):
@@ -263,14 +303,15 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
         aux_total = aux_total + aux
     period_caches = []
     for i, p_i in enumerate(_periods(params["periods"], cfg.n_periods)):
-        if remat:
+        if remat and not save_mixer:
             x, aux = checkpoint(lambda xc, p=p_i: _apply_period(
                 p, xc, cfg, kinds, positions=positions, mode=mode, caches=None,
                 pos=None)[::2], x, use_reentrant=False)
         else:
             c_in = _period(caches["periods"], i) if caches is not None else None
             x, c, aux = _apply_period(p_i, x, cfg, kinds, positions=positions,
-                                      mode=mode, caches=c_in, pos=pos)
+                                      mode=mode, caches=c_in, pos=pos,
+                                      save_mixer=save_mixer)
             period_caches.append(c)
         aux_total = aux_total + aux
 

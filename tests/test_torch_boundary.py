@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from repro.configs.base import FedConfig as JaxFedConfig  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro_torch import prng  # noqa: E402
-from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, get_smoke  # noqa: E402
 from repro_torch.configs.base import FedConfig, ModelConfig, validate_config  # noqa: E402
 from repro_torch.core import aggregation  # noqa: E402
 from repro_torch.data.synth import make_synth_federation  # noqa: E402
@@ -23,9 +23,11 @@ from repro_torch.fl.simulator import run_federation  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import encdec, transformer  # noqa: E402
 from repro_torch.models.small import SMALL_MODELS, make_loss_fn  # noqa: E402
 from repro_torch.serving import BatchScheduler  # noqa: E402
+from repro_torch.utils import tree_leaves as _leaves  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
@@ -257,28 +259,34 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
     assert "generated 2x3 tokens" in capsys.readouterr().out
 
 
-OUT_OF_SLICE_LM = [("encdec", True), ("attn_bf16", True),
-                   ("seq_shard_attn", True)]
+# what remains refused: seq_shard_attn (ROADMAP A17b), on each model
+# family's entry points (the decoder-only, the hybrid and the enc-dec)
+OUT_OF_SLICE_LM = [("qwen1.5-0.5b", "seq_shard_attn", True),
+                   ("jamba-1.5-large-398b", "seq_shard_attn", True),
+                   ("whisper-medium", "seq_shard_attn", True)]
 
 
-@pytest.mark.parametrize("knob,value", OUT_OF_SLICE_LM,
-                         ids=[f"{k}={v}" for k, v in OUT_OF_SLICE_LM])
-def test_out_of_slice_lm_knob_raises(knob, value):
-    cfg = get_smoke("qwen1.5-0.5b").replace(**{knob: value})
+@pytest.mark.parametrize("arch,knob,value", OUT_OF_SLICE_LM,
+                         ids=[f"{a}-{k}={v}" for a, k, v in OUT_OF_SLICE_LM])
+def test_out_of_slice_lm_knob_raises(arch, knob, value):
+    cfg = get_smoke(arch).replace(**{knob: value})
+    mod = encdec if cfg.encdec else transformer
     with pytest.raises(NotImplementedError, match=knob):
         get_model(cfg)
     with pytest.raises(NotImplementedError, match=knob):
-        transformer.init(prng.PRNGKey(0), cfg, device="cpu")
+        mod.init(prng.PRNGKey(0), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=knob):
-        transformer.make_cache(cfg, 1, 8, device="cpu")
+        mod.make_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="A16"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="A16"):
-        get_smoke(arch)
+def test_train_run_refuses_encdec_with_the_reference_assertion():
+    """whisper has no federated round: the reference's ``launch/train.run``
+    asserts ``not cfg.encdec`` (repro/launch/train.py:61), and so does the
+    port's, with the same message, before it builds anything."""
+    for smoke in (True, False):
+        with pytest.raises(AssertionError, match="enc-dec training"):
+            train.run(arch="whisper-medium", smoke=smoke, rounds=1, clients=2,
+                      n_priority=1, device="cpu", verbose=False)
 
 
 # ------------------------------------------------------- the training slice
@@ -334,13 +342,48 @@ def test_vlm_and_xlstm_archs_are_ported(arch):
         assert get_model(cfg).cfg is cfg
 
 
-@pytest.mark.parametrize("knob,value", OUT_OF_SLICE_LM,
-                         ids=[f"{k}={v}" for k, v in OUT_OF_SLICE_LM])
-def test_out_of_slice_refusals_name_a16b(knob, value):
-    """What remains of A16b: the encoder-decoder (whisper-medium),
-    ``attn_bf16`` and ``seq_shard_attn``."""
-    cfg = get_smoke("qwen1.5-0.5b").replace(**{knob: value})
-    with pytest.raises(NotImplementedError, match="A16b"):
+@pytest.mark.parametrize("arch,knob,value", OUT_OF_SLICE_LM,
+                         ids=[f"{a}-{k}={v}" for a, k, v in OUT_OF_SLICE_LM])
+def test_out_of_slice_refusals_name_a17b(arch, knob, value):
+    """All that remains refused of the model layer is ``seq_shard_attn``, a
+    sharding constraint of the pod rounds (ROADMAP A17b)."""
+    cfg = get_smoke(arch).replace(**{knob: value})
+    with pytest.raises(NotImplementedError, match="A17b"):
         get_model(cfg)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        get_config("whisper-medium")
+    assert [k for k, *_ in transformer._UNPORTED] == ["seq_shard_attn"]
+
+
+# ------------------------------------------------- the encoder-decoder slice
+def test_import_walk_covers_the_encdec_modules():
+    """whisper's config and the encoder-decoder are among the files the
+    import check above walks (so neither imports jax or the reference)."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"configs/whisper_medium.py", "models/encdec.py",
+            "models/attention.py", "models/layers.py"} <= names
+
+
+def test_every_arch_is_ported():
+    """``get_config`` / ``get_smoke`` / ``get_model`` take all ten archs;
+    whisper's model is the encoder-decoder's."""
+    assert set(PORTED) == set(ARCH_IDS) and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        for cfg in (get_config(arch), get_smoke(arch)):
+            assert get_model(cfg).cfg is cfg
+    caches = get_model(get_smoke("whisper-medium")).make_cache(1, 4, device="meta")
+    assert set(caches) == {"dec", "enc_out"}
+
+
+@pytest.mark.parametrize("knob,value", [("attn_bf16", True),
+                                        ("remat_policy", "save_mixer")])
+def test_single_card_knobs_are_ported(knob, value):
+    """The two single-card knobs once refused (A16b ``attn_bf16``, A16d
+    ``save_mixer``) build a model and take a gradient on the CPU."""
+    cfg = get_smoke("qwen1.5-0.5b").replace(**{knob: value})
+    model = get_model(cfg)
+    params = model.init(prng.PRNGKey(0), device="cpu")
+    leaves = [t.requires_grad_(True) for t in _leaves(params)]
+    toks = torch.zeros(1, 8, dtype=torch.int64)
+    loss, _ = model.loss_fn(params, {"tokens": toks, "labels": toks,
+                                     "mask": torch.ones(1, 8)})
+    assert all(g is not None for g in torch.autograd.grad(loss, leaves))

@@ -36,6 +36,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.fl import engine  # noqa: E402
 from repro_torch.models.small import SMALL_MODELS, make_loss_fn  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
+from test_torch_round import one_blas_thread  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,7 +45,8 @@ def one_torch_thread():
     (see tests/test_torch_round.py), the previous count restored after."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with one_blas_thread():
+        yield
     torch.set_num_threads(n)
 
 

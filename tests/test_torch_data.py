@@ -12,9 +12,19 @@ from repro.data.shards import make_benchmark_federation as jax_benchmark  # noqa
 from repro.data.synth import make_synth_federation as jax_synth  # noqa: E402
 from repro_torch.data.shards import make_benchmark_federation  # noqa: E402
 from repro_torch.data.synth import make_synth_federation  # noqa: E402
+from test_torch_round import one_blas_thread  # noqa: E402
 
 FIELDS = ("x", "y", "priority_mask", "weights", "test_x", "test_y",
           "client_test_x", "client_test_y")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def blas_one_thread():
+    """numpy's BLAS at one thread for the module: the generators' small
+    SVDs and products crawl at a thread a core beside other test workers
+    (``test_torch_round.one_blas_thread``); the bytes are the same."""
+    with one_blas_thread():
+        yield
 
 
 def federation_digest(fedn) -> dict:

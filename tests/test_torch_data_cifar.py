@@ -7,7 +7,7 @@ pytest.importorskip("torch")
 
 from repro.data.shards import make_benchmark_federation as jax_benchmark  # noqa: E402
 from repro_torch.data.shards import make_benchmark_federation  # noqa: E402
-from test_torch_data import federation_digest  # noqa: E402
+from test_torch_data import blas_one_thread, federation_digest  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("seed", [0, 1, 7])

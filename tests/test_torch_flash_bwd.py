@@ -15,7 +15,9 @@ bf16 forward uses its f32 output before the rounding; the two differ by
 about 2^-8 |dO| |O| in each ds, far above a bf16 ulp of a small gradient
 (a causal first row's dq is exactly 0 by the kernels' formulas).
 * ``RMSNorm``'s backward against ``jax.grad`` of the reference's
-  ``layers.rmsnorm`` and torch autograd through ``rmsnorm_plain``.
+  ``layers.rmsnorm`` and torch autograd through ``rmsnorm_plain``;
+* the ``attn_bf16`` knob's ``mm_dtype``: the plain forward against the jnp
+  lowering's ``mm_dtype`` and its backward against ``jax.vjp`` of it.
 
 Tolerances: f32 within F32_TOL of the largest magnitude of the tensor
 compared (the reference's f32 kernel tolerance, tests/test_kernels.py:
@@ -189,3 +191,42 @@ def test_rmsnorm_function_grad_matches_reference(shape, dtype):
     pdx, pds = torch.autograd.grad(rk.rmsnorm_plain(tx2, ts2), (tx2, ts2), g)
     _close(dx.float(), pdx.float(), dtype)
     _close(ds, pds, "float32")
+
+
+# ------------------------------------------------------------ attn_bf16
+MM_CASES = [BWD_CASES[1], BWD_CASES[3]]
+# the knob's gradients: bf16 products in both, rounded at other points (the
+# reference's autodiff of its blockwise scan rounds dP and each block's
+# unnormalized p; the plain backward rounds its f32 formulas' inputs and
+# its outputs), so within a few bf16 ulp (2^-8 relative) of each tensor's
+# largest magnitude: up to 7.3e-3 measured over four of BWD_CASES
+MM_GRAD_TOL = 1e-2
+
+
+@pytest.mark.parametrize("case", MM_CASES, ids=[c[0] for c in MM_CASES])
+def test_plain_mm_dtype_matches_the_jnp_lowering(case):
+    """``flash_attention_plain(mm_dtype=bf16)`` (the ``attn_bf16`` knob on
+    the CPU) against the reference's ``_flash_attention_jnp(mm_dtype=bf16)``
+    on f32 inputs, causal and not: the same rounding points, so within
+    F32_TOL, where the knob itself moves the output by more than 10x that;
+    its backward (``FlashAttention``) against ``jax.vjp`` of the same
+    lowering within MM_GRAD_TOL."""
+    from repro.kernels import ops as jops
+    (q, k, v, do), (qn, kn, vn, don), kw = _inputs(case, "float32")
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (qn, kn, vn, don))
+    want, vjp = jax.vjp(lambda a, b, c: jops.flash_attention(
+        a, b, c, block_kv=32, mm_dtype=jnp.bfloat16, **kw), jq, jk, jv)
+    out, _ = fk.flash_attention_plain(q, k, v, block_kv=32, mm_dtype=torch.bfloat16, **kw)
+    assert out.dtype == torch.float32
+    _close(out, want, "float32")
+    f32, _ = fk.flash_attention_plain(q, k, v, block_kv=32, **kw)
+    assert float(np.abs(f32.numpy() - np.asarray(want)).max()) \
+        > 10 * F32_TOL * float(np.abs(np.asarray(want)).max())
+    wgrads = vjp(jdo)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, block_kv=32,
+                                                  mm_dtype=torch.bfloat16, **kw),
+                              leaves, do)
+    for g, w in zip(got, wgrads):
+        w = np.asarray(w)
+        assert float(np.abs(g.numpy() - w).max()) <= MM_GRAD_TOL * float(np.abs(w).max())

@@ -200,26 +200,59 @@ def test_dense_moe_loss_gradient_matches_reference():
         _parity(g, want, tol=1e-4)
 
 
+def _jamba_reference_grad(jcfg):
+    """(batch, loss, gradient) of the reference's smoke jamba under
+    ``jcfg`` on one 2 x 9 batch."""
+    _, jp, tm, _ = _setup()
+    toks = np.random.default_rng(5).integers(0, tm.cfg.vocab_size, size=(2, 9))
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
+             "mask": np.ones(toks.shape, np.float32)}
+    jl, jg = jax.value_and_grad(lambda p: JT.loss_fn(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)[0])(jp)
+    return batch, jl, jax.tree.leaves(jg)
+
+
+def _port_grad(tp, batch, cfg):
+    from repro_torch.utils import tree_leaves, tree_unflatten_like
+    leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(tp)]
+    loss = TT.loss_fn(tree_unflatten_like(tp, leaves),
+                      {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)[0]
+    return loss, torch.autograd.grad(loss, leaves)
+
+
 def test_jamba_gradient_is_refused():
     """Once a refusal (ROADMAP A16f), now the gradient: the smoke jamba's
     loss_fn gradient (remat on, the Mamba mixers through the SSMScan
     Function, the MoE on the dense pattern) against jax.grad of the
-    reference's, leaf for leaf within 1e-4 x max(1, max|want|), as the
-    dense MoE test above."""
-    jm, jp, tm, tp = _setup()
-    toks = np.random.default_rng(5).integers(0, tm.cfg.vocab_size, size=(2, 9))
-    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
-             "mask": np.ones(toks.shape, np.float32)}
-    jg = jax.grad(lambda p: jm.loss_fn(p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(jp)
-    from repro_torch.utils import tree_leaves, tree_unflatten_like
-    assert tm.cfg.remat
-    leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(tp)]
-    loss = tm.loss_fn(tree_unflatten_like(tp, leaves),
-                      {k: torch.from_numpy(v) for k, v in batch.items()})[0]
-    grads = torch.autograd.grad(loss, leaves)
-    assert len(grads) == len(jax.tree.leaves(jg))
-    for g, want in zip(grads, jax.tree.leaves(jg)):
+    reference's (no remat, the same function), leaf for leaf within 1e-4
+    x max(1, max|want|), as the dense MoE test above."""
+    jm, _, tm, tp = _setup()
+    assert tm.cfg.remat and tm.cfg.remat_policy == "full"
+    batch, _, jg = _jamba_reference_grad(jm.cfg)
+    _, grads = _port_grad(tp, batch, tm.cfg)
+    assert len(grads) == len(jg)
+    for g, want in zip(grads, jg):
         _parity(g, want, tol=1e-4)
+
+
+def test_save_mixer_gradient_matches_reference_and_full():
+    """``remat_policy="save_mixer"`` on the smoke jamba (8 layers a period,
+    an attention and 7 Mamba mixers, MoE on every other layer): the loss
+    and gradient against jax.grad of the reference under the same policy,
+    leaf for leaf within 1e-4 x max(1, max|want|) as the test above; and
+    the port's "full" policy's, bit for bit (the period's aux is still its
+    last layer's)."""
+    jm, _, tm, tp = _setup()
+    batch, jl, jg = _jamba_reference_grad(
+        jm.cfg.replace(remat=True, remat_policy="save_mixer"))
+    loss, grads = _port_grad(tp, batch, tm.cfg.replace(remat_policy="save_mixer"))
+    loss_full, grads_full = _port_grad(tp, batch, tm.cfg)
+    _parity(loss.detach(), jl)
+    assert len(grads) == len(jg)
+    for g, want in zip(grads, jg):
+        _parity(g, want, tol=1e-4)
+    assert torch.equal(loss, loss_full)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_full))
 
 
 # ------------------------------------------------------------------ serving

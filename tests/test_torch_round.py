@@ -9,6 +9,9 @@ are exact counts over the same examples); the global loss per round at
 rtol 1e-5 and the final params within 1e-4 * max|p| (f32 on both sides,
 only the order of sums differs, and 6 rounds of SGD carry it along); the
 test accuracy within one test example, 1 / n_test."""
+import functools
+from contextlib import nullcontext
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.base import FedConfig as JaxFedConfig  # noqa: E402
 from repro.data.synth import Federation as JaxFederation  # noqa: E402
-from repro.data.synth import make_synth_federation as jax_synth  # noqa: E402
+from repro.data.synth import make_synth_federation as reference_synth  # noqa: E402
 from repro.fl import engine as jengine  # noqa: E402
 from repro.fl.simulator import run_federation as jax_run  # noqa: E402
 from repro.models.small import SMALL_MODELS as JAX_MODELS  # noqa: E402
@@ -38,6 +41,32 @@ FED_KW = dict(seed=0, n_priority=4, n_nonpriority=4, samples_per_client=40,
               test_samples=200)
 
 
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:                  # the limit only saves time
+    threadpool_limits = None
+
+
+def one_blas_thread():
+    """numpy's BLAS at one thread while the block runs. SYNTH draws each
+    client's inputs through ``multivariate_normal`` (an SVD of a 60 x 60
+    matrix); at the BLAS's default of a thread a core, beside the other
+    test workers, those SVDs crawl (the quickstart federation: 12 s with
+    every core busy, 0.12 s at one thread). The data are the same bits at
+    any thread count."""
+    return (threadpool_limits(1, user_api="blas") if threadpool_limits
+            else nullcontext())
+
+
+@functools.lru_cache(maxsize=None)
+def jax_synth(**kw):
+    """The reference's SYNTH federation, built once a process for each set
+    of arguments: its per-client SVDs take seconds, and crawl beside other
+    test workers. Shared by the modules that import it (the round, async,
+    failure and aggregator tests); its arrays are only read."""
+    return reference_synth(**kw)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """These rounds work on tensors of a few hundred elements, where torch's
@@ -46,7 +75,8 @@ def one_torch_thread():
     the previous count restored after."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with one_blas_thread():
+        yield
     torch.set_num_threads(n)
 
 

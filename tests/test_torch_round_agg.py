@@ -11,7 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_round import (BASE, FED_KW, _assert_history_parity,  # noqa: E402
-                              _runs, jax_synth, make_synth_federation)
+                              _runs, jax_synth, make_synth_federation,
+                              one_blas_thread)
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -21,7 +22,8 @@ def one_torch_thread():
     the previous count restored after."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with one_blas_thread():
+        yield
     torch.set_num_threads(n)
 
 

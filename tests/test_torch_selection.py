@@ -31,7 +31,7 @@ from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.data.shards import make_benchmark_federation  # noqa: E402
 from repro_torch.fl import engine  # noqa: E402
 from test_torch_cohort import BASE, _assert_parity, _rounds  # noqa: E402
-from test_torch_round import _assert_history_parity, _runs  # noqa: E402
+from test_torch_round import _assert_history_parity, _runs, one_blas_thread  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,7 +40,8 @@ def one_torch_thread():
     tests/test_torch_round.py), the previous count restored after."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with one_blas_thread():
+        yield
     torch.set_num_threads(n)
 
 

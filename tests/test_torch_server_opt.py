@@ -36,6 +36,7 @@ from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 REL = 1e-6
 SHAPES = {"b": (7,), "w": (5, 3), "z": (2, 2, 4)}
+from test_torch_round import one_blas_thread  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,7 +47,8 @@ def one_torch_thread():
     restored after."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with one_blas_thread():
+        yield
     torch.set_num_threads(n)
 
 

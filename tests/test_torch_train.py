@@ -118,12 +118,15 @@ def _loss_inputs(cfg, seed=0, B=2, S=50):
 
 @pytest.mark.parametrize("arch,knobs", [("qwen1.5-0.5b", {}),
                                         ("qwen2.5-3b", {}),
-                                        ("qwen1.5-0.5b", {"sliding_window": 16})],
-                         ids=["qwen1.5", "qwen2.5", "qwen1.5_window16"])
+                                        ("qwen1.5-0.5b", {"sliding_window": 16}),
+                                        ("qwen1.5-0.5b", {"remat_policy": "save_mixer"})],
+                         ids=["qwen1.5", "qwen2.5", "qwen1.5_window16",
+                              "qwen1.5_save_mixer"])
 def test_loss_fn_value_and_grad_match_reference(arch, knobs):
-    """With remat (the smoke configs' default): the FlashAttention and
-    RMSNorm Functions' backward on the CPU (the kernels' plain formulas)
-    against jax.value_and_grad of the reference's jnp model."""
+    """With remat (the smoke configs' default; under ``save_mixer`` the
+    reference's policy too): the FlashAttention and RMSNorm Functions'
+    backward on the CPU (the kernels' plain formulas) against
+    jax.value_and_grad of the reference's jnp model."""
     jcfg, tcfg = jax_get_smoke(arch).replace(**knobs), get_smoke(arch).replace(**knobs)
     assert tcfg.remat
     jp = JT.init(jax.random.PRNGKey(0), jcfg)
@@ -166,15 +169,70 @@ def test_remat_gives_the_gradient_of_the_plain_forward():
         assert torch.equal(a, b)
 
 
-def test_remat_policy_save_mixer_is_not_ported():
-    cfg = get_smoke("qwen1.5-0.5b").replace(remat_policy="save_mixer")
-    params = tree_map(lambda x: x.requires_grad_(True),
-                      TT.init(prng.PRNGKey(0), cfg, device="cpu"))
-    tokens, labels, mask = _loss_inputs(cfg, B=1, S=8)
+@pytest.mark.parametrize("arch,knobs", [("qwen1.5-0.5b", {}),
+                                        ("qwen1.5-0.5b", {"moe": True, "num_experts": 4,
+                                                          "top_k": 2, "moe_d_ff": 128})],
+                         ids=["qwen1.5", "qwen1.5_moe"])
+def test_save_mixer_gives_the_full_policy_gradient(arch, knobs):
+    """``remat_policy="save_mixer"`` (each layer's FFN a checkpoint, its
+    mixer kept) runs the same ops as "full" in the same order, and every
+    tensor's gradient sums the same terms: the loss and gradient of
+    "full", bit for bit, the MoE's aux among them."""
+    cfg = get_smoke(arch).replace(**knobs)
+    params = TT.init(prng.PRNGKey(0), cfg, device="cpu")
+    tokens, labels, mask = _loss_inputs(cfg, seed=2, B=2, S=24)
     batch = {"tokens": torch.from_numpy(tokens),
              "labels": torch.from_numpy(labels), "mask": torch.from_numpy(mask)}
-    with pytest.raises(NotImplementedError, match="A16d"):
-        TT.loss_fn(params, batch, cfg)
+    out = []
+    for policy in ("save_mixer", "full"):
+        p = tree_map(lambda x: x.clone().requires_grad_(True), params)
+        loss, met = TT.loss_fn(p, batch, cfg.replace(remat_policy=policy))
+        out.append((loss, met["aux_loss"], torch.autograd.grad(loss, tree_leaves(p))))
+    (l1, a1, g1), (l2, a2, g2) = out
+    assert torch.equal(l1, l2) and torch.equal(a1, a2)
+    assert (float(a1) > 0) == bool(knobs)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+ATTN_BF16_GRAD_TOL = 6e-3
+
+
+def test_attn_bf16_loss_and_grad_match_reference():
+    """``attn_bf16`` on the smoke qwen1.5 (f32 compute): the loss within
+    PARITY (absolute: 40 f32 ulp of a loss of ~6.3) of the reference's
+    under the knob, where the knob itself moves the reference's loss by
+    more than 5x that (1.2e-4; its forward rounds as the
+    jnp lowering does: q * scale, k, v and each block's p to bf16, f32
+    accumulation); the gradients within ATTN_BF16_GRAD_TOL of each leaf's
+    largest magnitude: the backward rounds at other points than the
+    reference's autodiff of its blockwise scan (4.6e-3 measured; an f32
+    backward gives 8.0e-3), as tests/test_torch_flash_bwd.py's MM_GRAD_TOL
+    says of one attention."""
+    arch = "qwen1.5-0.5b"
+    jcfg = jax_get_smoke(arch).replace(attn_bf16=True)
+    tcfg = get_smoke(arch).replace(attn_bf16=True)
+    jp = JT.init(jax.random.PRNGKey(0), jcfg)
+    tokens, labels, mask = _loss_inputs(jcfg)
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels),
+          "mask": jnp.asarray(mask)}
+    grad = jax.jit(jax.value_and_grad(lambda p, c: JT.loss_fn(p, jb, c)[0]),
+                   static_argnums=1)
+    jl, jg = grad(jp, jcfg)
+    jl32 = JT.loss_fn(jp, jb, jcfg.replace(attn_bf16=False))[0]
+    assert abs(float(jl) - float(jl32)) > 5 * PARITY
+    tp = tree_map(lambda x: x.requires_grad_(True),
+                  params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
+    tb = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels),
+          "mask": torch.from_numpy(mask)}
+    tl, _ = TT.loss_fn(tp, tb, tcfg)
+    grads = torch.autograd.grad(tl, tree_leaves(tp))
+    assert abs(float(tl) - float(jl)) <= PARITY
+    jleaves = jax.tree.leaves(jg)
+    assert len(jleaves) == len(grads)
+    for want, got in zip(jleaves, grads):
+        want = np.asarray(want)
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got.numpy() - want).max()) <= ATTN_BF16_GRAD_TOL * scale
 
 
 def test_generate_on_trained_params_builds_no_graph():
