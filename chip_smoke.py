@@ -8,7 +8,8 @@ selective-scan kernels; and federated LM training (the spatial and the
 temporal round over the dense GQA models, the MoE and MLA archs, jamba,
 llava and xlstm) through the
 flash-attention forward and backward, RMSNorm, selective-scan and fedagg
-kernels.
+kernels; and the paper's own experiments (Figs. 1-6, the local-only
+baseline, the Theorem 1 testbed) through the fedagg kernel.
 
     python3 chip_smoke.py
 
@@ -173,10 +174,29 @@ if a check fails:
    teacher-forced check; (l3) its loss differentiated at B 2 x 1500 x 448;
    (l4) ``save_mixer`` against "full" on qwen1.5-0.5b at full width, one
    8 x 512 client step: both peaks, both step times, the gradients.
+19. slice (m): the paper's experiments, every configuration taken from
+   ``repro_torch.configs.paper``. (m1) FIG1 (fmnist ``logreg``, emnist
+   ``mlp2``, cifar ``cnn`` on slice (b)'s federation), FIG2's three
+   SYNTH noise levels, FIG4 (FedProx), FIG5 (participation 0.3) and
+   FIG6's points over FIG1's fmnist, at full data size for 3 rounds each
+   through ``run_federation``; the fmnist runs held against the CPU
+   (gates, included counts, loss and accuracy), the SYNTH ones by their
+   gates and by an f64 CPU run (the card no more than WITNESS_K times as
+   far from it as the CPU's f32 run), emnist and cifar on the card alone;
+   each run's gate margin printed. (m2) Fig. 2: the three levels x
+   fedalign, priority_only and all, M2_ROUNDS rounds (the paper's 200 cut
+   to fit the time): final and best accuracy, mean included. (m3) App.
+   C.1 / Fig. 3: FedALIGN for 20 rounds on the fmnist stand-in at 50
+   samples a client against ``train_local_baseline`` at clients 5, 20, 40
+   (held against the CPU), then all 60 in one solve, timed, each client's
+   accuracy by ``local_accuracies`` (the two halves of
+   ``run_local_baseline``). (m4) Theorem 1 in f64: bench_theory.py's
+   instance at 200 rounds for five eps against the CPU (gates exactly,
+   the rest within 1e-12), and the bound at the reference test's case.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slices (h), (i), (j), (k) and (l) are each counted from
+K8, K9, fedagg) and those of slices (h), (i), (j), (k), (l) and (m) are each counted from
 zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
@@ -341,12 +361,20 @@ def compare(out, want, u, weights, gates, dtype):
 def kernel_cases():
     """(label, make_case kwargs): the slice's shapes, the reference's edge
     shapes (tests/test_kernels.py sweep and C=65), all-zero rows, zero
-    inclusion mass and a NaN in a gated-out row."""
+    inclusion mass and a NaN in a gated-out row. Slice (m)'s FIG1 shapes:
+    emnist's ``mlp2`` over 25 clients, fmnist's ``logreg`` over 60 (also
+    FIG4, FIG5, FIG6 and (m3)); FIG2's SYNTH rows are slice (a)'s."""
     cases = [("slice_a", dict(C=20, M=610, gates="all")),
              ("slice_a_pitched", dict(C=20, M=610, pitch=616)),
              ("slice_b", dict(C=60, M=579402, gates="all")),
              ("slice_b_pitched", dict(C=60, M=579402, pitch=579408)),
-             ("slice_b_mixed", dict(C=60, M=579402))]
+             ("slice_b_mixed", dict(C=60, M=579402)),
+             ("fig1_emnist", dict(C=25, M=206647, gates="all")),
+             ("fig1_emnist_pitched", dict(C=25, M=206647, pitch=206648)),
+             ("fig1_emnist_mixed", dict(C=25, M=206647)),
+             ("fig1_fmnist", dict(C=60, M=7850, gates="all")),
+             ("fig1_fmnist_pitched", dict(C=60, M=7850, pitch=7856)),
+             ("fig1_fmnist_mixed", dict(C=60, M=7850))]
     for C, M in [(1, 64), (1, 7), (4, 100), (5, 513), (3, 2065), (65, 4096)]:
         cases.append((f"edge_{C}x{M}", dict(C=C, M=M)))
     cases += [("zero_rows", dict(C=8, M=1000, zero_rows=(1, 3))),
@@ -945,8 +973,11 @@ def slice_a(check: Check, device="cuda", rounds=4, samples=200):
 
 
 def cifar_config(rounds):
+    """Cell (b)'s config: the paper's CIFAR-10 settings (N=60, |P|=2, E=5,
+    eps=0.2 on accuracies) but lr 0.1, where ``paper.FIG1["cifar"]`` has
+    0.01; kept so that (b)'s times stay comparable across revisions.
+    Slice (m1) runs ``FIG1["cifar"]`` itself."""
     from repro_torch.configs.base import FedConfig
-    # the paper's CIFAR-10 settings: N=60, |P|=2, E=5, eps=0.2 on accuracies
     return FedConfig(num_clients=60, num_priority=2, rounds=rounds,
                      local_epochs=5, epsilon=0.2, lr=0.1, warmup_frac=0.1,
                      align_stat="accuracy", selection="fedalign",
@@ -1129,12 +1160,10 @@ FIG5_SAMPLES = 200
 
 
 def fig5_config(backend):
-    """Paper App. C.3 / Fig. 5 (``repro/configs/paper.py`` FIG5) cut to
+    """Paper App. C.3 / Fig. 5 (``repro_torch.configs.paper.FIG5``) cut to
     FIG5_ROUNDS rounds: 60 clients, 18 priority, 30% sampled a round."""
-    from repro_torch.configs.base import FedConfig
-    return FedConfig(num_clients=60, num_priority=18, rounds=FIG5_ROUNDS,
-                     local_epochs=5, epsilon=0.2, lr=0.1, warmup_frac=0.1,
-                     participation=0.3, backend=backend)
+    from repro_torch.configs import paper
+    return paper.FIG5["fed"].replace(rounds=FIG5_ROUNDS, backend=backend)
 
 
 @contextmanager
@@ -5473,6 +5502,463 @@ def slice_l4(check: Check, expected: TrainExpected, device="cuda"):
     return row
 
 
+# ------------------------------------------- slice (m): the paper's layer
+M1_ROUNDS = 3
+# (m1)'s SYNTH pairs: the card's distance from the f64 run, at most this
+# many times the CPU f32 run's (paper_run)
+WITNESS_K = 10.0
+# every paper run starts from init_fn(42), benchmarks/common.py's init_seed
+PAPER_INIT = 42
+# Fig. 2's 200 rounds cut to 40: a SYNTH round takes 83-149 ms on an
+# H100 80GB HBM3 at 700 W (the host paces it, and hosts differ), so the 9
+# runs take 30-54 s (up to 67 s at 50 rounds; 200 would take 150-270 s)
+M2_ROUNDS = 40
+M2_SELECTIONS = ("fedalign", "priority_only", "all")
+# bench_local_vs_global.py: the fmnist stand-in at 50 samples a client,
+# batch 16, 20 rounds, the local baseline at three non-priority clients
+M3_SAMPLES = 50
+M3_FED = dict(num_priority=2, rounds=20, local_epochs=5, epsilon=0.2,
+              lr=0.1, warmup_frac=0.1, batch_size=16)
+M3_CLIENTS = [5, 20, 40]
+M3_PARAMS_REL = 1e-4
+# bench_theory.py's instance and eps grid at its full 200 rounds; the
+# reference test's case (tests/test_theory.py: 60 rounds, eps 0.5)
+M4_QUAD = dict(seed=3, n_priority=4, n_nonpriority=6, dim=8)
+M4_E = 5
+M4_ROUNDS = 200
+M4_EPS = (0.0, 0.2, 0.5, 2.0, 1e9)
+M4_BOUND_CASE = (60, 0.5)
+M4_REL = 1e-12
+
+
+def fig2_federation(skew):
+    """benchmarks/bench_synth_noise.py's SYNTH(1,1) at one noise level."""
+    from repro_torch.data.synth import make_synth_federation
+    return make_synth_federation(seed=0, n_priority=10, n_nonpriority=10,
+                                 samples_per_client=200,
+                                 label_noise_factor=2.5,
+                                 label_noise_skew=skew,
+                                 random_data_factor=1.0,
+                                 random_data_skew=skew)
+
+
+def paper_configs():
+    """(name, model, FedConfig, federation key, CPU check) for every paper
+    configuration at M1_ROUNDS rounds: FIG1's three datasets, FIG2's three
+    noise levels, FIG4, FIG5 and FIG6's points over FIG1's fmnist
+    (``paper.py``'s docstring). A federation key is ("synth", skew) or
+    ("shards", dataset, n_priority), built as the bench_*.py scripts
+    build them with fast=False. The CPU check (``paper_run``) is "parity"
+    for the fmnist ``logreg`` runs, "witness" for SYNTH, None for emnist's
+    ``mlp2`` and cifar's ``cnn`` (the card alone)."""
+    from repro_torch.configs import paper
+    runs = [(f"fig1/{ds}", e["model"], e["fed"], ("shards", ds,
+             e["fed"].num_priority), "parity" if e["model"] == "logreg"
+             else None) for ds, e in paper.FIG1.items()]
+    runs += [(f"fig2/{level}", e["model"], e["fed"], ("synth", e["skew"]),
+              "witness") for level, e in paper.FIG2.items()]
+    for name, e in (("fig4", paper.FIG4), ("fig5", paper.FIG5)):
+        runs.append((name, e["model"], e["fed"],
+                     ("shards", e["dataset"], e["fed"].num_priority),
+                     "parity"))
+    fm = paper.FIG1["fmnist"]
+    for pt in paper.FIG6:
+        fed = fm["fed"].replace(num_priority=pt["n_priority"],
+                                local_epochs=pt["E"])
+        runs.append((f"fig6/p{pt['n_priority']}_E{pt['E']}", fm["model"],
+                     fed, ("shards", fm["dataset"], pt["n_priority"]),
+                     "parity"))
+    return [(name, model, fed.replace(rounds=M1_ROUNDS), key, cpu)
+            for name, model, fed, key, cpu in runs]
+
+
+def paper_federation(key, cache):
+    from repro_torch.data.shards import make_benchmark_federation
+    if key not in cache:
+        cache[key] = (fig2_federation(key[1]) if key[0] == "synth" else
+                      make_benchmark_federation(key[1], seed=0,
+                                                n_priority=key[2]))
+    return cache[key]
+
+
+@contextmanager
+def align_records():
+    """Record each round's alignment statistics (the clients' values and
+    the priority objective's) as the engine computes them."""
+    from repro_torch.fl import engine
+    rec = []
+    update = engine.utility_update
+
+    def recording(fed, util_ema, align_vals, global_align):
+        rec.append((align_vals.cpu(), global_align.cpu()))
+        return update(fed, util_ema, align_vals, global_align)
+
+    engine.utility_update = recording
+    try:
+        yield rec
+    finally:
+        engine.utility_update = update
+
+
+def align_margin(rec, hist, fedn):
+    """min over the rounds and non-priority clients of | |a_k - a_P| - eps
+    |: how far the run's gates were from flipping."""
+    import numpy as np
+    npri = ~np.asarray(fedn.priority_mask, bool)
+    return min(float(np.min(np.abs(np.abs(a.numpy()[npri] - float(g)) - e)))
+               for (a, g), e in zip(rec, hist.eps))
+
+
+def deviation(h, ref):
+    """(global loss rtol, test accuracy difference, params x max|p|) of
+    run ``h`` from run ``ref``, each the largest over the rounds."""
+    import numpy as np
+    return (float(np.max(np.abs(np.array(h.global_loss)
+                                / np.array(ref.global_loss) - 1.0))),
+            float(np.max(np.abs(np.array(h.test_acc) - np.array(ref.test_acc)))),
+            max(float((h.params[k].cpu() - ref.params[k]).abs().max()
+                      / ref.params[k].abs().max()) for k in ref.params))
+
+
+def f64_run(loss_fn, p0, fed, fedn, eval_every):
+    """The same run on the CPU in f64 (params and inputs cast exactly): the
+    trajectory that every f32 run of the configuration rounds."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.utils import tree_map
+    f64 = dataclasses.replace(fedn, x=fedn.x.astype(np.float64),
+                              test_x=fedn.test_x.astype(np.float64))
+    return run_federation(loss_fn, tree_map(lambda p: p.double(), p0), fed,
+                          f64, eval_every=eval_every, device="cpu")
+
+
+def paper_run(check, name, model, fed, fedn, device, cpu, eval_every=1):
+    """One paper configuration through run_federation on ``device`` from
+    init_fn(PAPER_INIT): finite, one K1 launch a round, the gate margin.
+    ``cpu`` runs it on the CPU too, from the same params: gates and
+    included counts exactly; under "parity" also the global loss within
+    rtol 1e-5 (slice (a)'s parity config's bound) and the test accuracy
+    within one test example. Under "witness" (SYNTH at lr 0.1, slice (a)'s
+    quickstart: its local SGD amplifies each step's rounding past those
+    bounds within 3 rounds, so (a) holds only its gates) the run is also
+    taken on the CPU in f64 (``f64_run``), and the card's loss, accuracy
+    and params may be no more than WITNESS_K times as far from that run
+    as the CPU's own f32 run is (each floored at the parity bounds and
+    1e-5 x max|p|): an f32 run that rounds the same computation falls
+    within a few times the CPU's distance, a wrong one does not."""
+    import numpy as np
+    import torch
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS[model]
+    loss_fn = make_loss_fn(apply_fn)
+    p0 = init_fn(PAPER_INIT, "cpu")
+    before = fk.fedagg.launches
+    with align_records() as rec:
+        t0 = time.perf_counter()
+        h = run_federation(loss_fn, p0, fed, fedn, eval_every=eval_every,
+                           device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = fk.fedagg.launches - before
+    finite = (np.all(np.isfinite(h.global_loss))
+              and np.all(np.isfinite(h.test_acc))
+              and all(bool(torch.isfinite(v).all()) for v in h.params.values()))
+    check(bool(finite), f"{name}: non-finite loss, accuracy or params")
+    if device != "cpu":
+        check(launches == fed.rounds, f"{name}: {launches} fedagg launches "
+              f"in {fed.rounds} rounds")
+    row = dict(rounds=fed.rounds, seconds=secs,
+               ms_per_round=1e3 * secs / fed.rounds, launches=launches,
+               included=h.included, global_loss=h.global_loss,
+               test_acc=h.test_acc, gate_margin=align_margin(rec, h, fedn))
+    if cpu:
+        t0 = time.perf_counter()
+        ref = run_federation(loss_fn, p0, fed, fedn, eval_every=eval_every,
+                             device="cpu")
+        row["cpu_seconds"] = time.perf_counter() - t0
+        check(np.array_equal(np.array(h.gates), np.array(ref.gates))
+              and h.included == ref.included,
+              f"{name}: gates or included counts differ from the CPU run")
+        loss_rel, acc_diff, params_rel = deviation(h, ref)
+        row.update(global_loss_rtol_vs_cpu=loss_rel, acc_diff_vs_cpu=acc_diff,
+                   params_rel_err_vs_cpu=params_rel)
+        if cpu == "parity":
+            n_test = len(fedn.test_y)
+            check(loss_rel <= 1e-5, f"{name}: global loss off the CPU run by "
+                  f"rtol {loss_rel}")
+            check(acc_diff <= 1.0 / n_test + 1e-7, f"{name}: test accuracy "
+                  f"off the CPU run by {acc_diff} (1 / n_test = "
+                  f"{1.0 / n_test})")
+        else:
+            exact = f64_run(loss_fn, p0, fed, fedn, eval_every)
+            card, own = deviation(h, exact), deviation(ref, exact)
+            row["vs_f64"] = dict(card=card, cpu_f32=own)
+            floors = (1e-5, 1.0 / len(fedn.test_y), 1e-5)
+            for what, c, w, f in zip(("global loss rtol", "test accuracy",
+                                      "params x max|p|"), card, own, floors):
+                check(c <= WITNESS_K * max(w, f), f"{name}: the card's "
+                      f"{what} {c} off the f64 run, over {WITNESS_K} x the "
+                      f"CPU f32 run's {w} (floor {f})")
+    print(f"slice (m1) {name}:", json.dumps(row), flush=True)
+    return row
+
+
+def slice_m1(check: Check, cifar_fedn, device="cuda"):
+    """Every paper configuration (``paper_configs``) at its full data size
+    for M1_ROUNDS rounds through run_federation on the card; the logreg
+    and SYNTH ones held against the CPU, emnist's mlp2 and cifar's cnn on
+    the card alone (cifar on slice (b)'s federation, the same build). A
+    run identical to an earlier one (FIG6's (2, 5) point is FIG1's fmnist
+    config) is reported under both names and run once. Returns the rows,
+    the FIG2 federations (m2 reuses them) and the rounds run."""
+    feds = {("shards", "cifar", 2): cifar_fedn}
+    out, done, rounds = {}, {}, 0
+    t0 = time.perf_counter()
+    for name, _, _, key, _ in paper_configs():
+        paper_federation(key, feds)
+    data_s = time.perf_counter() - t0
+    for name, model, fed, key, cpu in paper_configs():
+        if (fed, key) in done:
+            out[name] = dict(out[done[(fed, key)]], same_as=done[(fed, key)])
+            print(f"slice (m1) {name}: the run of {done[(fed, key)]}",
+                  flush=True)
+            continue
+        out[name] = paper_run(check, name, model, fed,
+                              paper_federation(key, feds), device, cpu)
+        done[(fed, key)] = name
+        rounds += fed.rounds
+    print(f"slice (m1): federations built in {data_s:.1f} s", flush=True)
+    synth = {k[1]: v for k, v in feds.items() if k[0] == "synth"}
+    return dict(runs=out, data_gen_s=data_s), synth, rounds
+
+
+def slice_m2(check: Check, synth, device="cuda"):
+    """Paper Fig. 2 on the card: each SYNTH noise level (m1's federations)
+    under fedalign, priority_only and all, M2_ROUNDS rounds from
+    init_fn(PAPER_INIT), evaluated every 5 rounds (benchmarks/common.py's
+    fed_suite). Final and best accuracy and mean included are findings;
+    the checks are finite values in [0, 1] and one K1 launch a round."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import paper
+    from repro_torch.fl.simulator import run_federation
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS["synth_logreg"]
+    loss_fn = make_loss_fn(apply_fn)
+    if M2_ROUNDS < paper.FIG2["low"]["fed"].rounds:
+        print(f"slice (m2): rounds cut from {paper.FIG2['low']['fed'].rounds}"
+              f" to {M2_ROUNDS} to keep the phase near a minute", flush=True)
+    out, rounds = {}, 0
+    for level, e in paper.FIG2.items():
+        for sel in M2_SELECTIONS:
+            fed = e["fed"].replace(rounds=M2_ROUNDS, selection=sel, seed=0)
+            before = fk.fedagg.launches
+            t0 = time.perf_counter()
+            h = run_federation(loss_fn, init_fn(PAPER_INIT, device), fed,
+                               synth[e["skew"]], eval_every=5, device=device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = fk.fedagg.launches - before
+            s = h.summary()
+            name = f"slice (m2) {level}/{sel}"
+            accs = np.array(h.test_acc)
+            check(bool(np.all(np.isfinite(accs)) and np.all(accs >= 0)
+                       and np.all(accs <= 1)
+                       and np.all(np.isfinite(h.global_loss))),
+                  f"{name}: accuracy or loss not finite in [0, 1]")
+            if device != "cpu":
+                check(launches == M2_ROUNDS, f"{name}: {launches} fedagg "
+                      f"launches in {M2_ROUNDS} rounds")
+            row = dict(final_acc=s["final_acc"], best_acc=s["best_acc"],
+                       mean_included=s["mean_included"],
+                       final_loss=s["final_loss"], seconds=secs,
+                       ms_per_round=1e3 * secs / M2_ROUNDS, launches=launches)
+            out[f"{level}/{sel}"] = row
+            rounds += M2_ROUNDS
+            print(f"{name}:", json.dumps(row), flush=True)
+    return out, rounds
+
+
+def slice_m3(check: Check, device="cuda"):
+    """Paper App. C.1 / Fig. 3: FedALIGN for 20 rounds against locally
+    trained models on the fmnist stand-in at 50 samples a client
+    (bench_local_vs_global.py). The two halves of ``run_local_baseline``:
+    ``train_local_baseline`` for M3_CLIENTS on the card and on the CPU
+    (accuracies by ``local_accuracies`` as counts of correct test examples
+    exactly, the trained params within M3_PARAMS_REL x max|p|); then all
+    60 clients in one solve on the card, its training timed as the three
+    clients' is, then evaluated."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.shards import make_benchmark_federation
+    from repro_torch.fl.simulator import (local_accuracies, run_federation,
+                                          train_local_baseline)
+    from repro_torch.kernels import fedagg as fk
+    from repro_torch.models.small import SMALL_MODELS, make_loss_fn
+    init_fn, apply_fn = SMALL_MODELS["logreg"]
+    loss_fn = make_loss_fn(apply_fn)
+    fedn = make_benchmark_federation("fmnist", seed=0, n_priority=2,
+                                     samples_per_client=M3_SAMPLES)
+    fed = FedConfig(num_clients=fedn.x.shape[0], **M3_FED)
+    n_test = len(fedn.test_y)
+    before = fk.fedagg.launches
+    t0 = time.perf_counter()
+    h = run_federation(loss_fn, init_fn(PAPER_INIT, device), fed, fedn,
+                       eval_every=5, device=device)
+    fed_s = time.perf_counter() - t0
+    launches = fk.fedagg.launches - before
+    if device != "cpu":
+        check(launches == fed.rounds, f"slice (m3): {launches} fedagg "
+              f"launches in {fed.rounds} rounds")
+    check(bool(np.all(np.isfinite(h.test_acc))), "slice (m3): non-finite "
+          "FedALIGN accuracy")
+
+    def train(client_ids, on):
+        if on != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, params = train_local_baseline(loss_fn, init_fn, fed, fedn,
+                                           client_ids=client_ids, device=on)
+        if on != "cpu":
+            torch.cuda.synchronize()
+        return ids, params, time.perf_counter() - t0
+
+    ids, dev_params, three_s = train(M3_CLIENTS, device)
+    accs = local_accuracies(loss_fn, fedn, ids, dev_params)
+    _, cpu_params, _ = train(M3_CLIENTS, "cpu")
+    cpu_accs = local_accuracies(loss_fn, fedn, ids, cpu_params)
+    check({c: round(a * n_test) for c, a in accs.items()}
+          == {c: round(a * n_test) for c, a in cpu_accs.items()},
+          f"slice (m3): local accuracies {accs} differ from the CPU's "
+          f"{cpu_accs}")
+    rel = max(float((dev_params[k].cpu() - cpu_params[k]).abs().max()
+                    / cpu_params[k].abs().max()) for k in cpu_params)
+    check(rel <= M3_PARAMS_REL, f"slice (m3): local params off the CPU run "
+          f"by {rel} x max|p|")
+    all_ids, all_params, all_s = train(None, device)
+    all_accs = local_accuracies(loss_fn, fedn, all_ids, all_params)
+    vals = np.array(list(all_accs.values()))
+    check(len(all_accs) == fedn.x.shape[0] and bool(np.all(np.isfinite(vals))),
+          "slice (m3): the all-client baseline is incomplete or non-finite")
+    out = dict(fedalign_final_acc=h.summary()["final_acc"],
+               fedalign_seconds=fed_s, launches=launches, local_accs=accs,
+               local_accs_cpu=cpu_accs, local_params_rel_err_vs_cpu=rel,
+               three_clients_train_seconds=three_s,
+               all_clients_train_seconds=all_s,
+               all_local_min=float(vals.min()),
+               all_local_median=float(np.median(vals)),
+               all_local_max=float(vals.max()),
+               fedalign_beats_every_local=bool(h.summary()["final_acc"]
+                                               > vals.max()))
+    print("slice (m3):", json.dumps(out), flush=True)
+    return out
+
+
+def theorem1_row(q, T, eps, record=None):
+    """bench_theory.py's row for one eps: the error F(w_T) - F(w*) (as
+    ``excess``: the same value without the subtraction's rounding), the
+    bound with the paper's constants (sigma 0; bench_theory's G),
+    theta_T, rho, and w_T."""
+    import numpy as np
+    import torch
+    from repro_torch.core import theory
+    L, mu = q.smoothness()
+    gamma = max(8 * L / mu, M4_E)
+    t0 = time.perf_counter()
+    w_T, th, rh = theory.run_fedalign_gd(q, T, M4_E, eps,
+                                         lambda t: 2.0 / (mu * (t + gamma)),
+                                         record=record)
+    secs = time.perf_counter() - t0
+    err = float(q.excess(w_T))
+    theta_T, rho_un = theory.empirical_theta_rho(th, rh, gamma, M4_E)
+    zero = torch.zeros_like(q.c[0])
+    G = np.sqrt(max(float(torch.linalg.norm(q.A[k] @ (zero - q.c[k]))) ** 2
+                    for k in range(len(q.d))) * 4 + 1.0)
+    C1, C2, _ = theory.theorem1_constants(
+        L, mu, 0.0, G, M4_E, float(torch.linalg.norm(q.w_star())) ** 2)
+    bound = theory.theorem1_bound(T * M4_E, C1=C1, C2=C2, gamma=gamma,
+                                  Gamma=float(q.gamma()), theta_T=theta_T,
+                                  rho_T=2 * L / mu * rho_un)
+    return dict(eps=eps, error=err, bound=bound, theta_T=theta_T,
+                rho_unscaled=rho_un, bound_holds=bool(err <= bound),
+                seconds=secs, w_T=w_T.cpu().tolist())
+
+
+def rel_diff(a, b) -> float:
+    scale = max(abs(a), abs(b))
+    return 0.0 if scale == 0 else abs(a - b) / scale
+
+
+def slice_m4(check: Check, device="cuda"):
+    """Theorem 1 on the card in f64: bench_theory.py's instance at
+    M4_ROUNDS rounds for each eps of M4_EPS, against the CPU (gates every
+    round exactly; error, theta_T, rho and w_T within M4_REL relative);
+    the bound must hold at the reference test's case."""
+    import numpy as np
+    from repro_torch.core import theory
+    qs = {d: theory.make_quadratic_pfl(**M4_QUAD, device=d)
+          for d in ("cpu", device)}
+    out = {}
+    for eps in M4_EPS:
+        recs = {d: {} for d in qs}
+        rows = {d: theorem1_row(q, M4_ROUNDS, eps, recs[d])
+                for d, q in qs.items()}
+        dev, cpu = rows[device], rows["cpu"]
+        check(np.array_equal(recs[device]["gates"], recs["cpu"]["gates"]),
+              f"slice (m4) eps {eps}: gates differ from the CPU run")
+        worst = max([rel_diff(dev[k], cpu[k])
+                     for k in ("error", "theta_T", "rho_unscaled")]
+                    + [max(abs(a - b) for a, b in zip(dev["w_T"], cpu["w_T"]))
+                       / max(abs(b) for b in cpu["w_T"])])
+        check(worst <= M4_REL, f"slice (m4) eps {eps}: off the CPU run by "
+              f"{worst} relative")
+        dev.update(rel_err_vs_cpu=worst, cpu_seconds=cpu["seconds"],
+                   gate_margin=float(recs[device]["margin"].min()))
+        out[str(eps)] = dev
+        print(f"slice (m4) eps {eps}:", json.dumps(dev), flush=True)
+    T, eps = M4_BOUND_CASE
+    row = theorem1_row(qs[device], T, eps)
+    check(row["bound_holds"], f"slice (m4): the bound fails at {T} rounds, "
+          f"eps {eps}: {row}")
+    out[f"bound_case_T{T}_eps{eps}"] = row
+    print("slice (m4) the reference test's case:", json.dumps(row), flush=True)
+    return out
+
+
+def paper_phases(check: Check, cifar_fedn):
+    """Slices (m1)-(m4), counted on their own: every round of (m1)-(m3)
+    aggregates through K1 (mean over identity), once; no other kernel
+    runs. Returns {"m1": ..., "m4": ...} and the fedagg launches by
+    (aggregator, codec)."""
+    from repro_torch.kernels import fedagg as fk
+    reset_train_counts()
+    m1, synth, m1_rounds = phase(slice_m1, check, cifar_fedn)
+    m2, m2_rounds = phase(slice_m2, check, synth)
+    m3 = phase(slice_m3, check)
+    m4 = phase(slice_m4, check)
+    launches = train_counts()
+    variants = dict(fk.fedagg.variant_launches)
+    expected = m1_rounds + m2_rounds + M3_FED["rounds"]
+    print("paper path launches:", json.dumps(launches), "expected:",
+          json.dumps({"fedagg": expected}), flush=True)
+    check(launches["fedagg"] == expected, f"paper path: "
+          f"{launches['fedagg']} fedagg launches, expected {expected}")
+    check(set(variants) == {("mean", "identity")}, "paper path: fedagg ran "
+          f"other variants than mean over identity: {sorted(variants)}")
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "ssm_scan"):
+        check(launches[name] == 0, f"paper path: {launches[name]} {name} "
+              "launches, expected none")
+    return dict(m1=m1, m2=m2, m3=m3, m4=m4), variants
+
+
 def phase(fn, *args, **kw):
     """fn(*args, **kw), its host-clock time printed under its name."""
     t0 = time.perf_counter()
@@ -5685,7 +6171,6 @@ def main() -> int:
     i_expected = TrainExpected()
     i1 = phase(slice_i1, check, i_expected)
     i2 = phase(slice_i2, check, i_expected, fedn, b)
-    del fedn
     i3 = phase(slice_i3, check, i_expected)
     i4 = phase(slice_i4, check, i_expected, f2)
     i5 = phase(slice_i5, check, i_expected)
@@ -5784,6 +6269,16 @@ def main() -> int:
                  "rmsnorm", "ssm_scan"):
         check(l_launches[name] > 0,
               f"whisper + knobs path: kernel {name} was never launched")
+    # the paper's experiments: slices (m1)-(m4), counted on their own
+    m, m_variants = paper_phases(check, fedn)
+    del fedn
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["paper_path_launches"] = sum(
+                v for k, v in m_variants.items() if pick(*k))
+        else:
+            entry["paper_path_launches"] = 0
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -5800,7 +6295,7 @@ def main() -> int:
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
         "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
         "i5": i5, "j1": j1, "j2": j2, "k1": k1, "k2": k2, "k3": k3,
-        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4}))
+        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4, **m}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,15 @@
 """Where a FedALIGN round's time goes in the PyTorch port, on one CUDA card.
 
     python3 scripts/torch_round_profile.py [--out DIR] [--candidate-pool P]
+        [--paper NAME]
 
 Config (b) of ``chip_smoke.py``: the paper's CIFAR ``cnn`` at full width on
 the CIFAR stand-in (60 clients x 1000 images, E=5, batch 32); with
 ``--candidate-pool P`` (slice (i2): 20) the round draws a pool of P under
-backlog weighting and the phases run on the pool's [P] gather. After a
-warm-up round it
+backlog weighting and the phases run on the pool's [P] gather. With
+``--paper NAME`` the round is that configuration of slice (m1) instead
+(``chip_smoke.paper_configs``: ``fig2/medium``, ``fig1/fmnist``, ...), on
+its federation, from init seed 42. After a warm-up round it
 
 1. times the round's phases with the host clock, each ending in a device
    sync: eval pre-pass, minibatch permutations, local training (E epochs
@@ -17,12 +20,14 @@ warm-up round it
    (1 - summed kernel time / the unprofiled round's wall time).
 
 Prints one JSON line and writes it to ``DIR/torch_round_profile.json``
-(default ``results/``, which git ignores). Needs a CUDA card.
+(default ``results/``, which git ignores; ``torch_round_profile_<NAME>.json``
+under ``--paper``, its ``/`` as ``_``). Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -36,6 +41,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "results"))
     ap.add_argument("--candidate-pool", type=int, default=0)
+    ap.add_argument("--paper", metavar="NAME")
     args = ap.parse_args()
 
     import torch
@@ -44,7 +50,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import cifar_config, smi_line
+    from chip_smoke import (PAPER_INIT, cifar_config, paper_configs,
+                            paper_federation, smi_line)
     from repro_torch import prng
     from repro_torch.data.shards import make_benchmark_federation
     from repro_torch.fl import engine
@@ -53,12 +60,27 @@ def main() -> int:
 
     dev = torch.device("cuda")
     P = args.candidate_pool
-    fed = cifar_config(3).replace(candidate_pool=P, pool_weighting="backlog")
-    fedn = make_benchmark_federation("cifar", seed=0, n_priority=2)
+    if args.paper:
+        paper = {name: (model, fed, key)
+                 for name, model, fed, key, _ in paper_configs()}
+        if args.paper not in paper:
+            print(f"torch_round_profile: --paper takes one of "
+                  f"{sorted(paper)}", file=sys.stderr)
+            return 1
+        model, fed, key = paper[args.paper]
+        fed = fed.replace(candidate_pool=P, pool_weighting="backlog")
+        fedn = paper_federation(key, {})
+        init_seed, config = PAPER_INIT, f"paper {args.paper}: {model}, {fed}"
+    else:
+        model = "cnn"
+        fed = cifar_config(3).replace(candidate_pool=P,
+                                      pool_weighting="backlog")
+        fedn = make_benchmark_federation("cifar", seed=0, n_priority=2)
+        init_seed, config = 0, "cifar cnn, C=60, n=1000, E=5, bs=32"
     data, pm, w = federation_tensors(fedn, dev)
-    init_fn, apply_fn = SMALL_MODELS["cnn"]
+    init_fn, apply_fn = SMALL_MODELS[model]
     loss_fn = make_loss_fn(apply_fn)
-    state = engine.init_state(init_fn(0, dev), fed, int(pm.shape[0]))
+    state = engine.init_state(init_fn(init_seed, dev), fed, int(pm.shape[0]))
     round_fn = engine.make_round_fn(loss_fn, fed)
     key = prng.PRNGKey(fed.seed)
 
@@ -120,11 +142,15 @@ def main() -> int:
             kernels[evt.key] = (evt.self_device_time_total, evt.count)
     busy_s = sum(us for us, _ in kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    fedagg = {k: v for k, v in kernels.items() if "fedagg" in k}
+    # csrc/fedagg.cu's kernels sit in an anonymous namespace: their names
+    # carry no "fedagg", only their own
+    fedagg = {k: v for k, v in kernels.items()
+              if re.search(r"\b(stream_kernel|stream_kernel_5|topk_sum_kernel|"
+                           r"sketch_kernel|sorted_kernel|sorted_reg_kernel)\b", k)}
 
     out = {
         "card": smi_line(), "torch": torch.__version__,
-        "config": "cifar cnn, C=60, n=1000, E=5, bs=32",
+        "config": config,
         "candidate_pool": P,
         "phase_s": {"pool_select_and_gather": t_pool,
                     "eval_prepass": t_eval, "minibatch_perms": t_perm,
@@ -144,7 +170,9 @@ def main() -> int:
     line = json.dumps(out)
     print(line)
     Path(args.out).mkdir(parents=True, exist_ok=True)
-    (Path(args.out) / "torch_round_profile.json").write_text(line + "\n")
+    name = ("torch_round_profile.json" if not args.paper else
+            f"torch_round_profile_{args.paper.replace('/', '_')}.json")
+    (Path(args.out) / name).write_text(line + "\n")
     return 0
 
 

@@ -1104,21 +1104,20 @@ def minibatch_order(fed, keys, n: int) -> torch.Tensor:
     return perm[..., :steps * bs].reshape(keys.shape[0], E, steps, bs)
 
 
-def local_solver(loss_fn, fed):
-    """Returns f(global_params, data, order, lr) -> local params of K
-    clients after E epochs of minibatch SGD (FedProx when
-    ``fed.algorithm == 'fedprox'``). ``data`` leaves are [K, n, ...],
-    ``order`` is ``minibatch_order``'s [K, E, steps, bs]; the result has
-    params-shaped leaves with a leading [K] axis. Each step is one vmapped
-    gradient over the K clients."""
+def local_steps(loss_fn, fed):
+    """Returns f(params, anchor, data, order, lr) -> the [K]-stacked
+    ``params`` of K clients after E epochs of minibatch SGD (FedProx,
+    pulled toward ``anchor``, when ``fed.algorithm == 'fedprox'``).
+    ``anchor`` is the unstacked global params (a round) or [K]-stacked
+    starting points (the local-only baseline); ``data`` leaves are
+    [K, n, ...], ``order`` is ``minibatch_order``'s [K, E, steps, bs].
+    Each step is one vmapped gradient over the K clients."""
     prox_mu = fed.prox_mu if fed.algorithm == "fedprox" else 0.0
     batch_grad = vmap(grad(lambda p, b: loss_fn(p, b)[0]))
 
-    def solve(global_params, data, order, lr):
+    def run(params, anchor, data, order, lr):
         K, E, steps, _ = order.shape
         rows = torch.arange(K, device=order.device)[:, None]
-        params = tree_map(lambda p: p.expand((K,) + p.shape).clone(),
-                          global_params)
         for e in range(E):
             for s in range(steps):
                 idx = order[:, e, s]                             # [K, bs]
@@ -1126,9 +1125,25 @@ def local_solver(loss_fn, fed):
                 grads = batch_grad(params, batch)
                 if prox_mu > 0.0:
                     grads = tree_map(lambda g, q, w0: g + prox_mu * (q - w0),
-                                     grads, params, global_params)
+                                     grads, params, anchor)
                 params = tree_axpy(-lr, grads, params)
         return params
+
+    return run
+
+
+def local_solver(loss_fn, fed):
+    """Returns f(global_params, data, order, lr) -> local params of K
+    clients after E epochs of minibatch SGD from the global params
+    (``local_steps`` over K copies of them, anchored there); the result
+    has params-shaped leaves with a leading [K] axis."""
+    run = local_steps(loss_fn, fed)
+
+    def solve(global_params, data, order, lr):
+        K = order.shape[0]
+        params = tree_map(lambda p: p.expand((K,) + p.shape).clone(),
+                          global_params)
+        return run(params, global_params, data, order, lr)
 
     return solve
 

@@ -18,6 +18,10 @@ start_round=...)`` continue the run bit for bit, an in-flight
 split once a round whatever the chunking, and every other stream is keyed
 on the absolute round. A checkpoint written by either package loads in
 the other.
+
+``run_local_baseline`` (paper App. C.1) trains every listed client alone
+from its own init, all of them in one vmapped solve, and reports each
+one's accuracy on the global test set.
 """
 from __future__ import annotations
 
@@ -270,3 +274,70 @@ def run_federation(loss_fn: Callable, init_params, fed, federation: Federation,
     dp = dp_report(fed, start)
     hist.dp_epsilon, hist.dp_delta = dp if dp is not None else (None, None)
     return hist
+
+
+def train_local_baseline(loss_fn, init_fn, fed, federation: Federation, *,
+                         epochs: Optional[int] = None, client_ids=None,
+                         device="cuda"):
+    """The training of ``run_local_baseline``: every listed client (all by
+    default) alone on its local data, all of them in one vmapped solve on
+    ``device``. Returns (the client ids in order, their trained params
+    stacked on a leading [K] axis).
+
+    The reference's key stream and chunks: ``rng = PRNGKey(fed.seed + 1)``
+    is split once a client in ``client_ids`` order, and that client's key
+    into ``max(epochs // E, 1)`` chunk keys; a chunk is E epochs of the
+    round's local solver from the chunk's starting params (FedProx's
+    anchor), its minibatch order ``minibatch_order`` of the chunk key, at
+    the constant ``fed.lr``. ``epochs`` defaults to ``fed.rounds * E``;
+    only whole chunks run, as in the reference. Client c starts from
+    ``init_fn(fed.seed + 100 + c, device=...)``."""
+    dev = resolve_device(device)
+    E = fed.local_epochs
+    epochs = epochs or fed.rounds * E
+    chunks = max(epochs // E, 1)
+    ids = list(client_ids) if client_ids is not None else list(
+        range(federation.x.shape[0]))
+    rng = prng.PRNGKey(fed.seed + 1)
+    keys = []
+    for _ in ids:
+        rng, k = prng.split(rng)
+        keys.append(prng.split(k, chunks))
+    keys = torch.stack(keys, dim=1).to(dev)                   # [chunks, K, 2]
+    sel = np.asarray(ids, np.int64)
+    data = {"x": torch.from_numpy(np.ascontiguousarray(federation.x[sel])).to(dev),
+            "y": torch.from_numpy(np.asarray(federation.y[sel], np.int64)).to(dev)}
+    n = data["y"].shape[1]
+    params = tree_map(lambda *ps: torch.stack(ps),
+                      *[init_fn(fed.seed + 100 + c, device=dev) for c in ids])
+    steps = engine.local_steps(loss_fn, fed)
+    lr = torch.tensor(fed.lr, dtype=torch.float32)
+    for j in range(chunks):
+        order = engine.minibatch_order(fed, keys[j], n)
+        params = steps(params, params, data, order, lr)
+    return ids, params
+
+
+def local_accuracies(loss_fn, federation: Federation, ids, params):
+    """``{client: accuracy}`` on the global test set of each client's model
+    in ``params`` ([K]-stacked in ``ids`` order, as
+    ``train_local_baseline`` returns them), on the params' device."""
+    dev = _param_device(params)
+    test_x = torch.from_numpy(np.ascontiguousarray(federation.test_x)).to(dev)
+    test_y = torch.from_numpy(np.asarray(federation.test_y, np.int64)).to(dev)
+    return {c: evaluate(loss_fn, tree_map(lambda p: p[i], params),
+                        test_x, test_y)[1]
+            for i, c in enumerate(ids)}
+
+
+def run_local_baseline(loss_fn, init_fn, fed, federation: Federation, *,
+                       epochs: Optional[int] = None, client_ids=None,
+                       device="cuda"):
+    """Paper App. C.1: train each client alone on its local data; report the
+    per-client locally-trained model accuracy on the global test set, as
+    ``{client: accuracy}``. Runs on ``device`` (default the card; raises if
+    there is none): ``train_local_baseline``, then ``local_accuracies``."""
+    ids, params = train_local_baseline(loss_fn, init_fn, fed, federation,
+                                       epochs=epochs, client_ids=client_ids,
+                                       device=device)
+    return local_accuracies(loss_fn, federation, ids, params)

@@ -387,3 +387,30 @@ def test_single_card_knobs_are_ported(knob, value):
     loss, _ = model.loss_fn(params, {"tokens": toks, "labels": toks,
                                      "mask": torch.ones(1, 8)})
     assert all(g is not None for g in torch.autograd.grad(loss, leaves))
+
+
+# ------------------------------------------------------ the paper layer slice
+def test_import_walk_covers_the_paper_layer():
+    """The paper's configs, the Theorem 1 testbed, the batch loader and the
+    simulator with the local-only baseline are among the files the import
+    check above walks (so none imports jax or the reference)."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"configs/paper.py", "core/theory.py", "data/loader.py",
+            "fl/simulator.py"} <= names
+
+
+def test_paper_layer_entry_points_refuse_to_run_on_cpu_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.core import theory
+    from repro_torch.fl.simulator import run_local_baseline
+    fedn, init_fn, loss_fn = _tiny()
+    fed = FedConfig(num_clients=4, num_priority=2, rounds=1, local_epochs=1,
+                    batch_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_local_baseline(loss_fn, init_fn, fed, fedn, client_ids=[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        theory.make_quadratic_pfl(seed=0)
+    q = theory.make_quadratic_pfl(seed=0, device="cpu")
+    assert q.A.device.type == "cpu" and q.A.dtype == torch.float64
