@@ -193,10 +193,23 @@ if a check fails:
    ``run_local_baseline``). (m4) Theorem 1 in f64: bench_theory.py's
    instance at 200 rounds for five eps against the CPU (gates exactly,
    the rest within 1e-12), and the bound at the reference test's case.
+20. slice (n): the pod round's data axes. (n1) ``make_pod_round`` on a
+   one-rank NCCL group (``make_host_mesh(1)``), reached through
+   ``launch.train.run(..., mesh=...)``: qwen1.5-0.5b at full width, 4
+   clients of 4 x 512 tokens, E 2, 2 rounds under mean and one each under
+   dp, median and int8, every round beside ``make_spatial_round`` on the
+   same state and batch; gates, included counts and every param leaf the
+   same bits, the recorded collectives ``pod_round_plan``'s, each round's
+   seconds and peak GB for both; each case's fedagg launch (K1-K4) held
+   against ``fedagg_plain`` on the [4, M_total] operands the pod reduce
+   gave it. (n2) the dry-run CLI over every baseline target on both
+   production meshes (one CPU subprocess beside (n1)), its GB a device
+   beside the H100's 80 GB. More than one rank runs only under gloo
+   on the CPU (the tests): NCCL puts one rank on a card.
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slices (h), (i), (j), (k), (l) and (m) are each counted from
+K8, K9, fedagg) and those of slices (h), (i), (j), (k), (l), (m) and (n) are each counted from
 zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
@@ -4479,13 +4492,14 @@ ROUTE_MARGIN = 1e-4
 J2_RUNS = (("granite-moe-3b-a800m", 8, 512, 32, False),
            ("deepseek-moe-16b", 4, 1024, 16, True),
            ("minicpm3-4b", 4, 1024, 16, True))
-# since slice (k), two of (j2)'s archs at half their depth, published
-# widths: deepseek-moe-16b at 14 of 28 layers (the dense layer 0 and 13
-# MoE layers, 8.1 B params) and minicpm3-4b at 31 of 62 (2.1 B); this
-# keeps the script's time within ~120 s of slice (j)'s when (k)'s llava
-# init alone takes ~55 s. Uncut (deepseek 65.5 GB in f32 with 13.6 GB
-# free) both served in the slice (j) runs
-J2_LAYERS = {"deepseek-moe-16b": 14, "minicpm3-4b": 31}
+# two of (j2)'s archs cut in depth, published widths: deepseek-moe-16b at
+# 8 of 28 layers (the dense layer 0 and 7 MoE layers) and minicpm3-4b at
+# 16 of 62; since slice (n) (14 and 31 from slice (k) until then), to keep
+# the script under ~850 s of its 1,200 s limit on the slower hosts with
+# slice (n) and (k2)'s llava uncut (888 s with (j2) at 14 / 31). Uncut
+# (deepseek 65.5 GB in f32 with 13.6 GB free) both served in the slice
+# (j) runs
+J2_LAYERS = {"deepseek-moe-16b": 8, "minicpm3-4b": 16}
 
 
 @contextmanager
@@ -5509,10 +5523,11 @@ M1_ROUNDS = 3
 WITNESS_K = 10.0
 # every paper run starts from init_fn(42), benchmarks/common.py's init_seed
 PAPER_INIT = 42
-# Fig. 2's 200 rounds cut to 40: a SYNTH round takes 83-149 ms on an
+# Fig. 2's 200 rounds cut to 20: a SYNTH round takes 83-149 ms on an
 # H100 80GB HBM3 at 700 W (the host paces it, and hosts differ), so the 9
-# runs take 30-54 s (up to 67 s at 50 rounds; 200 would take 150-270 s)
-M2_ROUNDS = 40
+# runs take 15-27 s (30-54 s at 40 rounds, 150-270 s at 200); cut from 40
+# to make room for slice (n) inside the script's time limit
+M2_ROUNDS = 20
 M2_SELECTIONS = ("fedalign", "priority_only", "all")
 # bench_local_vs_global.py: the fmnist stand-in at 50 samples a client,
 # batch 16, 20 rounds, the local baseline at three non-priority clients
@@ -5959,6 +5974,300 @@ def paper_phases(check: Check, cifar_fedn):
     return dict(m1=m1, m2=m2, m3=m3, m4=m4), variants
 
 
+# ------------------------------------- slice (n): the pod round's data axes
+# (n1): qwen1.5-0.5b at full width (f32 params, bf16 compute), 4 clients of
+# 4 x 512 tokens, E 2, through launch.train.run on a one-rank NCCL mesh:
+# 2 rounds under mean, then 1 each under dp, median and int8 (error
+# feedback on)
+N1_RUN = dict(arch="qwen1.5-0.5b", smoke=False, clients=4, n_priority=2,
+              per_client=4, seq=512, local_epochs=2, lr=0.05)
+N1_CASES = [("mean", 2, {}),
+            ("dp", 1, dict(aggregator="dp", dp_clip=1.0, dp_noise=0.01)),
+            ("median", 1, dict(aggregator="median")),
+            ("int8", 1, dict(wire_codec="int8"))]
+H100_GB = 80.0
+# (n1)'s fedagg outputs are held against fedagg_plain this many columns at
+# a time, so the plain median's bitonic temporaries stay near 2 GB
+N1_PLAIN_COLS = 1 << 25
+
+
+def plain_by_columns(updates, w, g, ops, out):
+    """(max_abs_err, max|u|) of a fedagg output against ``fedagg_plain`` on
+    the same operands, N1_PLAIN_COLS columns at a time: mean, dp, trimmed
+    mean and median over the identity or int8 wire reduce each column
+    alone, so no [C, M] temporary of the plain version outlives its chunk.
+    max|u| is over the included rows, decoded."""
+    import torch
+    from repro_torch.kernels import fedagg as fk
+    ops = dict(ops)
+    codec = ops.pop("codec", "identity")
+    scales = ops.pop("dequant_scale", None)
+    if codec not in ("identity", "int8"):
+        raise ValueError(f"plain_by_columns: codec {codec!r}")
+    noise = ops.pop("noise", None)
+    inc = (w * g) > 0
+    err = top = 0.0
+    for lo in range(0, out.shape[0], N1_PLAIN_COLS):
+        hi = min(lo + N1_PLAIN_COLS, out.shape[0])
+        u = updates[:, lo:hi]
+        if codec == "int8":
+            u = fk.decode_wire_plain(u, codec="int8", dequant_scale=scales)
+        want = fk.fedagg_plain(u, w, g, noise=None if noise is None
+                               else noise[lo:hi], **ops)
+        err = max(err, float(torch.max(torch.abs(out[lo:hi].float()
+                                                 - want.float()))))
+        if bool(inc.any()):
+            top = max(top, float(torch.max(torch.abs(u[inc].float()))))
+    return err, top
+
+
+@contextmanager
+def beside_spatial(rec):
+    """Each pod round ``launch.train.run`` makes inside the block runs, on
+    the same state and batch, beside the one-process ``make_spatial_round``
+    (one rank holds every client, so its block is the whole batch). rec
+    gets, a round: both rounds' seconds and peak GB, whether gates,
+    included count and every param leaf are the same bits, and the
+    collectives the pod round recorded. In each run's first round every
+    fedagg launch of the pod round's reduce is also held against
+    ``fedagg_plain`` on the operands it received (``plain_by_columns``),
+    under "plain" (none in later rounds)."""
+    import torch
+    from repro_torch.fl import sharded
+    from repro_torch.utils import tree_leaves
+    make = sharded.make_pod_round
+    fedagg = sharded.kops.fedagg
+
+    def held(holds):
+        def fedagg_held(updates, weights, gates, *, noise=None, **kw):
+            out = fedagg(updates, weights, gates, noise=noise, **kw)
+            # the hold's time and memory stay out of the round's figures:
+            # its seconds are taken off, its temporaries' peak forgotten
+            torch.cuda.synchronize()
+            peak, t0 = torch.cuda.max_memory_allocated(), time.perf_counter()
+            err, top = plain_by_columns(updates, weights, gates,
+                                        dict(kw, noise=noise), out)
+            finite = bool(torch.isfinite(out).all())
+            holds.append(dict(aggregator=kw.get("aggregator", "mean"),
+                              codec=kw.get("codec", "identity"),
+                              shape=list(updates.shape), max_abs_err=err,
+                              max_abs_u=top, finite=finite,
+                              seconds=time.perf_counter() - t0,
+                              peak_before=peak))
+            torch.cuda.reset_peak_memory_stats()
+            return out
+        return fedagg_held
+
+    def timed(step, state, batch, r):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(state, batch, r)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+    def recording_make(model, fed, num_clients, mesh, device="cuda"):
+        pod_step = make(model, fed, num_clients, mesh, device=device)
+        spatial = sharded.make_spatial_round(model, fed, num_clients, device=device)
+
+        def step(state, batch, round_idx=0):
+            sharded.COLLECTIVES.clear()
+            holds = []
+            if not rec:                     # the run's first round
+                sharded.kops.fedagg = held(holds)
+            try:
+                (new, stats), pod_s, pod_gb = timed(pod_step, state, batch,
+                                                    round_idx)
+            finally:
+                sharded.kops.fedagg = fedagg
+            pod_s -= sum(h["seconds"] for h in holds)
+            pod_gb = max([pod_gb] + [h.pop("peak_before") / 1e9 for h in holds])
+            coll = list(sharded.COLLECTIVES)
+            (ref, ref_stats), sp_s, sp_gb = timed(spatial, state, batch, round_idx)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(new.params), tree_leaves(ref.params)))
+            rec.append(dict(
+                pod_s=pod_s, spatial_s=sp_s, pod_peak_gb=pod_gb,
+                spatial_peak_gb=sp_gb, params_equal=same,
+                gates_equal=bool(torch.equal(stats["gates"], ref_stats["gates"])),
+                included=float(stats["gates"].sum()),
+                included_spatial=float(ref_stats["gates"].sum()),
+                collectives=coll, plain=holds))
+            del ref, ref_stats
+            return new, stats
+        step.pod = pod_step.pod
+        return step
+
+    sharded.make_pod_round = recording_make
+    try:
+        yield
+    finally:
+        sharded.make_pod_round = make
+
+
+def slice_n1(check: Check, expected: TrainExpected, device="cuda"):
+    """The pod round on a one-rank NCCL group (``make_host_mesh(1)``: data
+    1, model 1), through ``launch.train.run(..., mesh=...)``, each round
+    beside ``make_spatial_round`` on the same state and batch (N1_RUN,
+    N1_CASES). At one rank the rank's partial is the whole and NCCL's
+    in-place all-reduce of one rank is the identity, so gates, included
+    count and every param leaf must be the same bits. The recorded
+    collectives must equal ``pod_round_plan``: the [C] f32 loss gather and
+    one all-reduce of the [M_total] f32 aggregate a round, or under median
+    the gather of the [C, M_total] rows. Each case's first round holds its
+    one fedagg launch (K1 mean, K2 dp, K3 median, K4 int8) against
+    ``fedagg_plain`` on the [C, M_total] operands the pod reduce gave it,
+    within F32_TOL x max|u| (the kernel phases stop at 60 x 579,402, and
+    f2's [8, M_total] cases hold mean only)."""
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.fl import sharded
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import param_shapes
+    from repro_torch.utils import param_count
+    cfg = get_config(N1_RUN["arch"])
+    M = param_count(param_shapes(cfg))
+    C, E = N1_RUN["clients"], N1_RUN["local_epochs"]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        for name, rounds, knobs in N1_CASES:
+            torch.cuda.empty_cache()
+            rec = []
+            with beside_spatial(rec):
+                params, hist = train.run(rounds=rounds, device=device,
+                                         mesh=mesh, verbose=False,
+                                         **N1_RUN, **knobs)
+            del params
+            # the pod round and the spatial round beside it, each round
+            expected.add_rounds(cfg, C, E, 2 * rounds)
+            fed = FedConfig(num_clients=C, **knobs)
+            plan = sharded.pod_round_plan(fed, M, C, 1)
+            for r, row in enumerate(rec):
+                label = f"slice (n1) {name} round {r}"
+                check(row["params_equal"], f"{label}: params differ from "
+                      "make_spatial_round's")
+                check(row["gates_equal"] and row["included"]
+                      == row["included_spatial"] == hist[r]["included"]
+                      + N1_RUN["n_priority"], f"{label}: gates or included "
+                      "count differ from make_spatial_round's")
+                check(row["collectives"] == plan, f"{label}: collectives "
+                      f"{row['collectives']}, planned {plan}")
+            # the round's one fedagg launch against its plain version on
+            # the operands the pod reduce gave it, at (n1)'s own shape
+            want = [knobs.get("aggregator", "mean"),
+                    knobs.get("wire_codec", "identity"), [C, M]]
+            holds = rec[0]["plain"] if rec else []
+            check([[h["aggregator"], h["codec"], h["shape"]] for h in holds]
+                  == [want], f"slice (n1) {name}: fedagg launches held "
+                  f"{holds}, expected one {want}")
+            for h in holds:
+                check(h["finite"] and h["max_abs_err"]
+                      <= F32_TOL * h["max_abs_u"], f"slice (n1) {name}: "
+                      f"fedagg {h['aggregator']}/{h['codec']} at {h['shape']}"
+                      f": max_abs_err {h['max_abs_err']} against the plain "
+                      f"version, bound {F32_TOL} x {h['max_abs_u']}")
+            ok = all(math.isfinite(h["server_loss"]) for h in hist)
+            check(ok and len(hist) == rounds, f"slice (n1) {name}: "
+                  "non-finite server loss")
+            row = dict(rounds=rounds, M_total=M, plan=plan, plain=holds,
+                       server_loss=[h["server_loss"] for h in hist],
+                       **{k: [x[k] for x in rec] for k in
+                          ("pod_s", "spatial_s", "pod_peak_gb",
+                           "spatial_peak_gb", "params_equal", "included")})
+            out[name] = row
+            print(f"slice (n1) {name}:", json.dumps(row), flush=True)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+N2_MESHES = (("single", []), ("multi", ["--multi-pod"]))
+
+
+def start_n2(tmp):
+    """Start slice (n2)'s dry-run: one CPU subprocess that plans every
+    baseline target on both production meshes (the CLI once a mesh), into
+    ``tmp``, while slice (n1) holds the card."""
+    import os
+    code = ("from repro_torch.launch import dryrun\n" + "".join(
+        f"dryrun.main({['--out', os.path.join(tmp, mesh)] + flags!r})\n"
+        for mesh, flags in N2_MESHES))
+    return subprocess.Popen(
+        [sys.executable, "-c", code], cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def slice_n2(check: Check, proc, tmp, started):
+    """The dry-run planner over every baseline target (10 archs x 4 shapes,
+    whisper's long_500k skipped) on the single and the multi-pod
+    production mesh (``start_n2``'s subprocess; CPU work, no card): it
+    exits 0, and each target's GB a device is printed beside an H100's 80
+    GB."""
+    log, _ = proc.communicate(timeout=600)
+    wall = time.perf_counter() - started
+    check(proc.returncode == 0, f"slice (n2) dry-run: exit "
+          f"{proc.returncode}: {log[-2000:]}")
+    table = {}
+    for mesh, _ in N2_MESHES:
+        for path in sorted(Path(tmp, mesh).glob("*.json")):
+            rec = json.loads(path.read_text())
+            key = f"{rec['arch']}/{rec['shape']}/{mesh}"
+            if rec["status"] != "ok":
+                table[key] = rec["status"]
+                continue
+            gb = rec["bytes_per_device"]["total"] / 1e9
+            table[key] = dict(gb_per_device=gb, of_h100=gb / H100_GB,
+                              devices=rec["devices"])
+    ok = sum(isinstance(v, dict) for v in table.values())
+    check(ok == 78, f"slice (n2): {ok} targets planned, expected 78")
+    for key, v in table.items():
+        print(f"slice (n2) {key}:", json.dumps(v))
+    return {"targets": ok, "wall_s": wall, "max_gb_per_device": max(
+        v["gb_per_device"] for v in table.values() if isinstance(v, dict))}
+
+
+def pod_phases(check: Check):
+    """Slices (n1) and (n2), counted on their own: every pod round and the
+    spatial round beside it train through K5, K6 and K9 and aggregate
+    through K1 (mean), K2 (dp), K3 (median) or K4 (int8) once; (n2)'s CPU
+    subprocess runs while (n1) holds the card. Returns
+    ({"n1": ..., "n2": ...}, the training launches, the fedagg launches
+    by (aggregator, codec))."""
+    import tempfile
+    from repro_torch.kernels import fedagg as fk
+    with tempfile.TemporaryDirectory() as tmp:
+        started = time.perf_counter()
+        proc = start_n2(tmp)
+        try:
+            reset_train_counts()
+            n_expected = TrainExpected()
+            n1 = phase(slice_n1, check, n_expected)
+            launches = train_counts()
+            variants = dict(fk.fedagg.variant_launches)
+            n2 = phase(slice_n2, check, proc, tmp, started)
+        finally:
+            proc.kill()
+    print("pod path launches:", json.dumps(launches), "expected:",
+          json.dumps(n_expected), flush=True)
+    for name in TRAIN_KERNELS:
+        check(launches[name] == n_expected[name], f"pod path: "
+              f"{launches[name]} {name} launches, expected {n_expected[name]}")
+    want = {("mean", "identity"): 4, ("dp", "identity"): 2,
+            ("median", "identity"): 2, ("mean", "int8"): 2}
+    check(variants == want, f"pod path: fedagg variants {variants}, "
+          f"expected {want}")
+    return dict(n1=n1, n2=n2), launches, variants
+
+
 def phase(fn, *args, **kw):
     """fn(*args, **kw), its host-clock time printed under its name."""
     t0 = time.perf_counter()
@@ -6279,6 +6588,19 @@ def main() -> int:
                 v for k, v in m_variants.items() if pick(*k))
         else:
             entry["paper_path_launches"] = 0
+    # the pod round's data axes: slices (n1) and (n2), counted on their own
+    n, n_launches, n_variants = pod_phases(check)
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["pod_path_launches"] = sum(
+                v for k, v in n_variants.items() if pick(*k))
+        else:
+            entry["pod_path_launches"] = n_launches.get(entry["name"], 0)
+    for name in ("fedagg", "flash_attention", "flash_attention_bwd",
+                 "rmsnorm"):
+        check(n_launches[name] > 0,
+              f"pod path: kernel {name} was never launched")
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -6295,7 +6617,7 @@ def main() -> int:
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
         "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
         "i5": i5, "j1": j1, "j2": j2, "k1": k1, "k2": k2, "k3": k3,
-        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4, **m}))
+        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4, **m, **n}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import FedConfig, ModelConfig, validate_config  # noqa: F401
+from repro_torch.configs.base import (INPUT_SHAPES, FedConfig, InputShape,  # noqa: F401
+                                      ModelConfig, validate_config)
 
 ARCH_IDS = [
     "llava_next_34b",

@@ -151,6 +151,23 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    """One of the assigned (seq_len, global_batch) workload points."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class FedConfig:
     """FedALIGN / federation hyper-parameters (paper §3-4). See the
     reference's field comments for the full semantics of each knob."""

@@ -82,11 +82,11 @@ def flatten_stacked(client_params, dtype=torch.float32):
     laid out by ``pitched_empty``."""
     leaves = tree_leaves(client_params)
     C = leaves[0].shape[0]
-    sizes = [leaf[0].numel() for leaf in leaves]
+    sizes = [math.prod(leaf.shape[1:]) for leaf in leaves]
     buf = pitched_empty(C, sum(sizes), dtype, leaves[0].device)
     off = 0
     for leaf, size in zip(leaves, sizes):
-        buf[:, off:off + size].copy_(leaf.reshape(C, -1))
+        buf[:, off:off + size].copy_(leaf.reshape(C, size))
         off += size
     return buf
 
@@ -96,7 +96,7 @@ def _unflatten(out, like, C):
     minus their client axis, in each leaf's dtype."""
     leaves, off = [], 0
     for leaf in tree_leaves(like):
-        size = leaf[0].numel()
+        size = math.prod(leaf.shape[1:])
         leaves.append(out[off:off + size].reshape(leaf.shape[1:]).to(leaf.dtype))
         off += size
     return tree_unflatten_like(like, leaves)
@@ -104,7 +104,7 @@ def _unflatten(out, like, C):
 
 def aggregate_clients(client_params, weights, gates, *, fused=True,
                       aggregator="mean", fed=None, key=None,
-                      wire_codec="identity", ef_accum=None):
+                      wire_codec="identity", ef_accum=None, reduce=None):
     """client_params: tree with leading client axis C on every leaf.
 
     fused=True (default): one fedagg launch on the [C, M_total] flattening;
@@ -119,8 +119,18 @@ def aggregate_clients(client_params, weights, gates, *, fused=True,
     accumulator is added to the rows before encoding and the call returns
     ``(aggregate, new_ef_accum)``: a row that transmitted (gate > 0 before
     any server-side gate rewrite) and has a finite residual keeps its
-    residual x - decode(encode(x)); every other row keeps its old one."""
+    residual x - decode(encode(x)); every other row keeps its old one.
+
+    ``reduce`` (fused only) replaces the one ``kops.fedagg`` launch: it
+    takes the same operands and returns the [M_total] aggregate. A pod
+    round passes one that reduces a rank's rows and combines the ranks'
+    (``fl/sharded.py: make_pod_round``)."""
     check_client_weights(weights)
+    if reduce is None:
+        reduce = kops.fedagg
+    elif not fused:
+        raise ValueError("reduce= replaces the fused launch; call with "
+                         "fused=True")
     leaves = tree_leaves(client_params)
     if not leaves:
         return client_params
@@ -155,7 +165,7 @@ def aggregate_clients(client_params, weights, gates, *, fused=True,
                 "[C, M_total] buffer; call with fused=True")
         return _aggregate_coded(codec_name, client_params, weights, gates,
                                 tx_gates, kernel_kw, noise, fed=fed,
-                                ef_accum=ef_accum)
+                                ef_accum=ef_accum, reduce=reduce)
     if ef_accum is not None:
         raise ValueError(
             "ef_accum (error-feedback rows) only makes sense with a "
@@ -167,7 +177,7 @@ def aggregate_clients(client_params, weights, gates, *, fused=True,
         # so per-leaf equals fused coordinate for coordinate
         agg_leaves, off = [], 0
         for leaf in leaves:
-            size = leaf[0].numel()
+            size = math.prod(leaf.shape[1:])
             kw = dict(kernel_kw)
             if noise is not None:
                 kw["noise"] = noise[off:off + size]
@@ -180,13 +190,13 @@ def aggregate_clients(client_params, weights, gates, *, fused=True,
     # buffer); mixed-dtype trees go f32. Accumulation is f32 either way.
     dtypes = {leaf.dtype for leaf in leaves}
     buf_dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
-    out = kops.fedagg(flatten_stacked(client_params, dtype=buf_dtype),
-                      weights, gates, noise=noise, **kernel_kw)
+    out = reduce(flatten_stacked(client_params, dtype=buf_dtype),
+                 weights, gates, noise=noise, **kernel_kw)
     return _unflatten(out, client_params, C)
 
 
 def _aggregate_coded(codec_name, client_params, weights, gates, tx_gates,
-                     kernel_kw, noise, *, fed, ef_accum):
+                     kernel_kw, noise, *, fed, ef_accum, reduce):
     """The compressed-uplink fused path: encode the f32 [C, M_total] buffer
     (error-feedback rows folded in first), decode and reduce inside the one
     fedagg launch, and advance the error-feedback rows. The dense decode is
@@ -198,8 +208,8 @@ def _aggregate_coded(codec_name, client_params, weights, gates, tx_gates,
         buf += flatten_stacked(ef_accum, dtype=torch.float32)
     M = buf.shape[1]
     updates, codec_kw = codec.encode(fed, buf)
-    out = kops.fedagg(updates, weights, gates, noise=noise, **codec_kw,
-                      **kernel_kw)
+    out = reduce(updates, weights, gates, noise=noise, **codec_kw,
+                 **kernel_kw)
     agg = _unflatten(out, client_params, C)
     if ef_accum is None:
         return agg
@@ -209,7 +219,7 @@ def _aggregate_coded(codec_name, client_params, weights, gates, tx_gates,
     ok = (tx_gates > 0) & torch.all(torch.isfinite(resid), dim=1)
     new_ef, off = [], 0
     for old in tree_leaves(ef_accum):
-        size = old[0].numel()
+        size = math.prod(old.shape[1:])
         r = resid[:, off:off + size].reshape(old.shape)
         okb = ok.reshape((C,) + (1,) * (old.dim() - 1))
         new_ef.append(torch.where(okb, r, old.float()))
@@ -303,7 +313,7 @@ def _delta_sq_norms(client_deltas):
     C = leaves[0].shape[0]
     tot = torch.zeros(C, dtype=torch.float32, device=leaves[0].device)
     for leaf in leaves:
-        x = leaf.reshape(C, -1).float()
+        x = leaf.reshape(C, math.prod(leaf.shape[1:])).float()
         tot = tot + torch.sum(x * x, dim=1)
     return tot
 
@@ -341,7 +351,7 @@ def _agg_dp(fed, client_deltas, weights, gates, key):
     norms = torch.sqrt(_delta_sq_norms(client_deltas))
     row_scale = torch.clamp(fed.dp_clip / torch.clamp(norms, min=1e-12),
                             max=1.0)
-    M = sum(leaf[0].numel() for leaf in leaves)
+    M = sum(math.prod(leaf.shape[1:]) for leaf in leaves)
     noise = prng.normal(torch.as_tensor(key).to(leaves[0].device), (M,))
     kw = dict(aggregator="dp", row_scale=row_scale,
               noise_scale=float(fed.dp_noise) * float(fed.dp_clip))
@@ -643,7 +653,7 @@ def apply_server_opt(fed, global_params, opt_state, agg_delta, *, scale=1.0):
 
 
 def aggregate_delta(global_params, client_params, weights, gates, *,
-                    fed, key=None, ef_accum=None):
+                    fed, key=None, ef_accum=None, reduce=None):
     """Delta-form gated aggregation without the server step:
 
         d <- agg(cast(w_k - w, fed.agg_dtype))      (one fused fedagg launch)
@@ -651,7 +661,8 @@ def aggregate_delta(global_params, client_params, weights, gates, *,
     reduced by ``fed.aggregator`` (``key`` feeds stochastic aggregators:
     ``aggregator_key(fed, round_idx)``) through ``fed.wire_codec``. With
     ``ef_accum`` (non-identity codecs) it returns ``(delta,
-    new_ef_accum)``. Leaves come back in ``fed.agg_dtype``."""
+    new_ef_accum)``. Leaves come back in ``fed.agg_dtype``. ``reduce``:
+    see ``aggregate_clients``."""
     if fed.agg_dtype not in _AGG_DTYPES:
         raise NotImplementedError(f"agg_dtype={fed.agg_dtype!r}")
     ad = _AGG_DTYPES[fed.agg_dtype]
@@ -664,7 +675,8 @@ def aggregate_delta(global_params, client_params, weights, gates, *,
             "wire has no compression residual to accumulate")
     return aggregate_clients(deltas, weights, gates, fused=fed.fused_agg,
                              aggregator=fed.aggregator, fed=fed, key=key,
-                             wire_codec=codec_name, ef_accum=ef_accum)
+                             wire_codec=codec_name, ef_accum=ef_accum,
+                             reduce=reduce)
 
 
 def aggregate_updates(global_params, client_params, weights, gates, *,

@@ -503,11 +503,12 @@ def inclusion_update(fed, incl_ema, eff_gates):
 
 
 def server_delta(fed, global_params, client_params, weights, gates, *,
-                 key=None, ef_accum=None):
-    """Renormalized gated delta aggregation (one fused fedagg launch),
-    without the server optimizer step."""
+                 key=None, ef_accum=None, reduce=None):
+    """Renormalized gated delta aggregation (one fused fedagg launch, or
+    ``reduce`` in its place), without the server optimizer step."""
     return aggregate_delta(global_params, client_params, weights, gates,
-                           fed=fed, key=key, ef_accum=ef_accum)
+                           fed=fed, key=key, ef_accum=ef_accum,
+                           reduce=reduce)
 
 
 def participation_mask(fed, key, priority_mask, round_idx, client_ids=None):

@@ -1,9 +1,12 @@
-"""FedALIGN rounds over the LM zoo on one card: the spatial round and the
-temporal (streamed-client) round.
+"""FedALIGN rounds over the LM zoo: the spatial round and the temporal
+(streamed-client) round on one card, and the spatial round as a pod round
+over the (pod, data) ranks of a process group.
 
-Counterpart of ``repro/fl/sharded.py``, its single-card part:
-``make_spatial_round``, ``make_temporal_round``, ``make_round_step`` and
-``needs_fsdp``. A round has the engine's persistent-state signature
+Counterpart of ``repro/fl/sharded.py``: ``make_spatial_round``,
+``make_temporal_round``, ``make_round_step``, ``needs_fsdp`` and, for its
+data axes, ``make_pod_round`` (see its docstring; ``pod_round_plan`` the
+collectives a round promises, ``COLLECTIVES`` those it issued). A round
+has the engine's persistent-state signature
 
     round_step(state: engine.FederationState, batch, round_idx=0)
         -> (new_state, stats)
@@ -94,6 +97,7 @@ from repro_torch.core.aggregation import (aggregator_key, flatten_stacked,
                                           resolve_wire_codec)
 from repro_torch.core.alignment import epsilon_at
 from repro_torch.fl import engine
+from repro_torch.kernels import ops as kops
 from repro_torch import prng
 from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
@@ -218,17 +222,20 @@ def _check_params_device(params, dev):
         raise ValueError(f"params lie on {have}, the round runs on {dev}")
 
 
-def _eval_pass(model, fed, state, batch):
+def _eval_pass(model, fed, state, batch, pod=None):
     """No grad: the server statistic F(w_t), each client's F_k(w_t) at the
     received model (the paper's matching statistic) and the utility EMA
-    updated with them."""
+    updated with them. In a pod round the batch holds the rank's own
+    clients, and their losses are gathered into the [C] vector."""
     params, client_batch = state.params, batch["clients"]
-    C = batch["priority_mask"].shape[0]
+    n = next(iter(client_batch.values())).shape[0]
     with torch.no_grad():
         server_loss, _ = model.loss_fn(params, batch["server"])
         local_losses = torch.stack([
             model.loss_fn(params, _client(client_batch, c))[0]
-            for c in range(C)])
+            for c in range(n)])
+        if pod is not None:
+            local_losses = pod.all_gather(local_losses)
         util_ema = engine.utility_update(fed, state.util_ema, local_losses,
                                          server_loss)
     return server_loss, local_losses, util_ema
@@ -259,6 +266,13 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     and the gates drop the excluded ones from the aggregation; with
     ``fed.max_cohort = K`` (and a strategy that gates from losses) only
     the K gathered clients train."""
+    return _pool_wrap(fed, _spatial_step(model, fed, device))
+
+
+def _spatial_step(model, fed, device, pod=None):
+    """The spatial round's step, in one process (``pod`` None: every
+    client is local) or as one rank of a pod round (``pod``: a ``_Pod``,
+    whose block of clients the batch holds; see ``make_pod_round``)."""
     E = fed.local_epochs
     lr = fed.lr
     validate_config(fed)
@@ -277,8 +291,10 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
         pm = batch["priority_mask"]
         w = batch["weights"]
         C = pm.shape[0]
+        # the clients held here: [lo, lo + n) of the C
+        lo, n = (0, C) if pod is None else pod.block(C)
         server_loss, local_losses, util_ema = _eval_pass(model, fed, state,
-                                                         batch)
+                                                         batch, pod)
         akey = aggregator_key(fed, round_idx) if agg_needs_key else None
         ef_rows = state.ef_accum
         # the fault plan: availability gates, lost clients' mass masked
@@ -298,27 +314,31 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                     sel_gates, local_losses, server_loss, pm,
                     min(fed.max_cohort, C), backlog=state.backlog,
                     backlog_boost=float(fed.backlog_boost))
-            stacked = _train_stack(model, params, client_batch, idx.tolist(),
-                                   lr, E)
+            # this rank's cohort rows, in cohort order
+            mine = None if pod is None else (idx >= lo) & (idx < lo + n)
+            row_ids = idx if mine is None else idx[mine]
+            stacked = _train_stack(model, params, client_batch,
+                                   (row_ids - lo).tolist(), lr, E)
             with torch.no_grad():
                 if ctf is not None:
-                    stacked = ctf(stacked, params, idx)
+                    stacked = ctf(stacked, params, row_ids)
                 if lost is not None:
                     keep = 1.0 - lost.float()
                     agg_g = agg_g * keep[idx]
                     gates = gates * keep
-            agg_w = w[idx]
+            agg_w, agg_ids = w[idx], idx
             if ef_on:
-                ef_rows = tree_map(lambda a: a[idx], state.ef_accum)
+                ef_rows = tree_map(lambda a: a[row_ids], state.ef_accum)
         else:
             # train first: every client, then the gates
-            stacked = _train_stack(model, params, client_batch, range(C), lr,
+            mine = None if pod is None else slice(lo, lo + n)
+            stacked = _train_stack(model, params, client_batch, range(n), lr,
                                    E)
             with torch.no_grad():
                 if ctf is not None:
                     # before the delta statistic, as the reference's
                     stacked = ctf(stacked, params,
-                                  torch.arange(C, device=dev))
+                                  torch.arange(lo, lo + n, device=dev))
                 delta_cos = None
                 if strategy.needs_deltas:
                     deltas = tree_map(lambda ck, g: ck - g[None], stacked,
@@ -339,20 +359,32 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
                     fed.selection)
                 if lost is not None:
                     gates = gates * (1.0 - lost.float())
-            agg_w, agg_g = w, gates
+            agg_w, agg_g, agg_ids = w, gates, None
+            if ef_on and pod is not None:
+                ef_rows = tree_map(lambda a: a[lo:lo + n], state.ef_accum)
 
         with torch.no_grad():
+            rows_w, rows_g, reduce = agg_w, agg_g, None
+            if pod is not None:
+                rows_w, rows_g = agg_w[mine], agg_g[mine]
+                reduce = pod.reducer(fed, agg_w, agg_g, agg_ids, C)
             ef_accum = None
             if ef_on:
                 agg_delta, ef_rows = engine.server_delta(
-                    fed, params, stacked, agg_w, agg_g, key=akey,
-                    ef_accum=ef_rows)
-                ef_accum = (tree_map(
-                    lambda full, sub: full.index_copy(0, idx, sub),
-                    state.ef_accum, ef_rows) if use_cohort else ef_rows)
+                    fed, params, stacked, rows_w, rows_g, key=akey,
+                    ef_accum=ef_rows, reduce=reduce)
+                if use_cohort or pod is not None:
+                    at = (row_ids if use_cohort
+                          else torch.arange(lo, lo + n, device=dev))
+                    ef_accum = tree_map(
+                        lambda full, sub: full.index_copy(0, at, sub),
+                        state.ef_accum, ef_rows)
+                else:
+                    ef_accum = ef_rows
             else:
-                agg_delta = engine.server_delta(fed, params, stacked, agg_w,
-                                                agg_g, key=akey)
+                agg_delta = engine.server_delta(fed, params, stacked, rows_w,
+                                                rows_g, key=akey,
+                                                reduce=reduce)
             del stacked
             finite = engine.aggregate_finite(fed, agg_delta, server_loss)
             new_params, opt_state, inflight, last_delta, info = (
@@ -368,7 +400,7 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
         return new_state, _round_stats(fed, server_loss, local_losses, gates,
                                        new_state, pm, w, info, lost)
 
-    return _pool_wrap(fed, round_step)
+    return round_step
 
 
 def make_temporal_round(model, fed, cohort: int, device="cuda"):
@@ -512,3 +544,222 @@ def make_round_step(model, fed, num_clients: int, *, fsdp: bool,
                     device="cuda"):
     return (make_temporal_round(model, fed, num_clients, device) if fsdp
             else make_spatial_round(model, fed, num_clients, device))
+
+
+# ------------------------------------------------------------ the pod round
+# Every collective a pod round issued in this process, in order: {"kind":
+# "all_gather" | "all_reduce", "group": the dp axes, "bytes": the gathered
+# or reduced tensor's}. A counter as the kernels' ``launches``; clear it to
+# count a run.
+COLLECTIVES: list = []
+
+_ORDER_STATS = ("trimmed_mean", "median")
+
+
+class _Pod:
+    """One rank of the dp group: its block of the C clients and the
+    round's two collectives, each recorded in ``COLLECTIVES``."""
+
+    def __init__(self, group, name):
+        import torch.distributed as dist
+        self.group, self.name = group, name
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+
+    def block(self, C):
+        """(offset, count) of the rank's clients: a contiguous block."""
+        n = C // self.size
+        return self.rank * n, n
+
+    def _record(self, kind, t):
+        COLLECTIVES.append({"kind": kind, "group": self.name,
+                            "bytes": t.numel() * t.element_size()})
+
+    def all_gather(self, x):
+        """The ranks' equal [n, ...] blocks -> [size * n, ...], rank order."""
+        import torch.distributed as dist
+        out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=self.group)
+        self._record("all_gather", out)
+        return out
+
+    def all_reduce(self, x):
+        import torch.distributed as dist
+        dist.all_reduce(x, group=self.group)
+        self._record("all_reduce", x)
+        return x
+
+    def reducer(self, fed, agg_w, agg_g, agg_ids, C):
+        """The ``reduce=`` of this rank's aggregation (see
+        ``make_pod_round``). ``agg_w`` / ``agg_g`` are the replicated
+        weights and gates of the round's aggregation rows, client ids
+        ``agg_ids`` (a cohort's) or 0..C-1 (None)."""
+        _, n = self.block(C)
+        ids = (torch.arange(agg_w.shape[0], device=agg_w.device)
+               if agg_ids is None else agg_ids)
+        owner = ids // n                    # the rank that trained each row
+        if resolve_aggregator(fed.aggregator) in _ORDER_STATS:
+            return self._order_stats(agg_w, agg_g, owner, _row_cap(fed, n))
+        mass = inclusion_mass(fed, agg_w, agg_g)
+        by_rank = torch.zeros(self.size, dtype=torch.float32,
+                              device=agg_w.device).index_add_(
+            0, owner, agg_w.float() * agg_g.float())
+        has = torch.nonzero(by_rank > 0).flatten().tolist()
+        noise_here = bool(has) and has[0] == self.rank
+
+        def reduce(updates, weights, gates, *, noise=None, **kw):
+            # the rank's rows reduce to its share of the mean: the kernel's
+            # mean over them times their share of the round's mass; the
+            # ranks' shares sum to the mean in the one all-reduce
+            if kw.get("aggregator") == "dp" and not noise_here:
+                kw["noise_scale"] = 0.0     # the one noise draw lands once
+            if updates.shape[0] == 0:
+                m = updates.shape[1] if kw.get("out_m") is None else kw["out_m"]
+                dt = (updates.dtype if kw.get("codec", "identity") == "identity"
+                      else torch.float32)
+                out = torch.zeros(int(m), dtype=dt, device=updates.device)
+            else:
+                out = kops.fedagg(updates, weights, gates, noise=noise, **kw)
+                local = inclusion_mass(fed, weights, gates)
+                share = torch.where(mass > 0, local / mass,
+                                    torch.zeros_like(mass))
+                out.mul_(share)
+            return self.all_reduce(out)
+        return reduce
+
+    def _order_stats(self, agg_w, agg_g, owner, cap):
+        """trimmed_mean / median: every rank gathers the round's rows (each
+        rank's padded to ``cap``), puts them in the aggregation's order and
+        runs the one launch over all of them."""
+        # each row's place in the gathered buffer: its owner's block, then
+        # its place among the owner's rows (they are in agg order)
+        perm, seen = [], [0] * self.size
+        for r in owner.tolist():
+            perm.append(r * cap + seen[r])
+            seen[r] += 1
+        identity = perm == list(range(self.size * cap))
+        perm = torch.tensor(perm, device=owner.device)
+
+        def reduce(updates, weights, gates, *, noise=None, **kw):
+            mine = updates.shape[0]
+            padded = updates.new_zeros((cap,) + tuple(updates.shape[1:]))
+            padded[:mine] = updates
+            every = self.all_gather(padded)
+            if not identity:
+                every = every[perm]
+            return kops.fedagg(every, agg_w, agg_g, noise=noise, **kw)
+        return reduce
+
+
+def _row_cap(fed, n):
+    """The most aggregation rows a rank of n clients holds: n, or a
+    cohort's K when that is fewer."""
+    cohort = (fed.max_cohort > 0
+              and not engine.get_strategy(fed.selection).needs_deltas)
+    return min(int(fed.max_cohort), n) if cohort else n
+
+
+def pod_round_plan(fed, M_total: int, C: int, dp: int, *, axes=("data",)):
+    """The collectives one pod round promises over ``dp`` ranks of C / dp
+    clients each, in the order it issues them: the all-gather of the [C]
+    f32 local losses (the control plane), then one all-reduce of the
+    [M_total] aggregate (mean, dp and every wire codec: ``fed.agg_dtype``
+    on the identity wire, f32 decoded), or, under trimmed_mean / median,
+    the all-gather of every rank's client rows (``_row_cap`` of them, in
+    ``fed.agg_dtype``), the reference's documented allowance. Raises as
+    ``make_pod_round`` does for a knob the pod round refuses."""
+    check_pod_config(fed)
+    n = C // dp
+    group = "+".join(axes)
+    plan = [{"kind": "all_gather", "group": group, "bytes": C * 4}]
+    ad = torch.empty((), dtype=getattr(torch, fed.agg_dtype)).element_size()
+    if resolve_aggregator(fed.aggregator) in _ORDER_STATS:
+        plan.append({"kind": "all_gather", "group": group,
+                     "bytes": dp * _row_cap(fed, n) * M_total * ad})
+    else:
+        wire = 4 if resolve_wire_codec(fed.wire_codec) != "identity" else ad
+        plan.append({"kind": "all_reduce", "group": group,
+                     "bytes": M_total * wire})
+    return plan
+
+
+def _refuse(what):
+    raise NotImplementedError(f"the pod round: {what} is not ported yet "
+                              "(ROADMAP A17b)")
+
+
+def check_pod_config(fed):
+    """Refuse the FedConfig knobs the pod round has not reached (ROADMAP
+    A17b) with ``NotImplementedError``."""
+    if engine.get_strategy(fed.selection).needs_deltas:
+        _refuse(f"selection={fed.selection!r} (the cosine to the priority "
+                "mean delta crosses ranks)")
+    if resolve_aggregator(fed.aggregator) == "cosine_filter":
+        _refuse("aggregator='cosine_filter'")
+    if int(fed.candidate_pool) > 0:
+        _refuse("candidate_pool")
+    if not fed.fused_agg:
+        _refuse("fused_agg=False (one all-reduce a leaf)")
+    if (resolve_aggregator(fed.aggregator) in _ORDER_STATS
+            and resolve_wire_codec(fed.wire_codec) != "identity"):
+        _refuse(f"wire_codec={fed.wire_codec!r} under {fed.aggregator}")
+
+
+def make_pod_round(model, fed, num_clients: int, mesh, device="cuda"):
+    """Returns round_step(state, batch, round_idx=0) -> (new_state, stats):
+    the spatial round as one SPMD program a rank over ``mesh``'s dp axes
+    (``pod``, ``data``), every rank holding the whole params.
+
+    Rank r of the dp group owns the contiguous block of C / dp clients from
+    r * C / dp (C must divide, as the reference's ``P(dp, None)`` client
+    spec requires): its ``batch["clients"]`` holds only that block, the
+    rest of the batch (server batch, priority mask, weights) and the state
+    are replicated. A round:
+
+    1. each rank evaluates its own clients at the received model and the
+       [C] losses are all-gathered (a control-plane collective); the
+       server loss is computed on every rank;
+    2. every rank computes the same gates, cohort and fault plan from the
+       replicated state, with global client ids for the fault layer and
+       the codecs;
+    3. each rank trains its included (or cohort) clients and reduces its
+       own rows in the one fused fedagg launch: under mean, dp and every
+       wire codec into its share of the aggregate, then one all-reduce of
+       the [M_total] aggregate (dp clips per row; its noise, drawn once
+       from the replicated key, is added on one rank only); under
+       trimmed_mean / median the rows are all-gathered and K3 runs over
+       all of them on every rank;
+    4. the server optimizer, the in-flight buffer, the guard and the EMAs
+       step identically on every rank.
+
+    A rank with no included client contributes zeros. The wire codecs'
+    error-feedback rows stay on the rank that owns the client: each rank
+    advances its own rows of ``state.ef_accum`` and reads no other.
+
+    Refused with ``NotImplementedError`` (ROADMAP A17b): a ``"model"`` axis
+    larger than 1, an FSDP arch (``needs_fsdp``), ``grad_sim``,
+    ``cosine_filter``, candidate pools, ``fused_agg=False`` and a wire
+    codec under trimmed_mean / median. ``pod_round_plan`` gives the
+    collectives a round issues; ``COLLECTIVES`` records them."""
+    import torch.distributed as dist
+    from repro_torch.sharding.specs import dp_axes, mesh_axes
+    dev = resolve_device(device)
+    sizes = mesh_axes(mesh)
+    if sizes.get("model", 1) > 1:
+        _refuse(f"the model axis (model={sizes['model']}: tensor-parallel "
+                "params)")
+    if needs_fsdp(model.cfg):
+        _refuse(f"{model.cfg.name}'s FSDP temporal round")
+    check_pod_config(fed)
+    axes = dp_axes(mesh)
+    ranks = mesh.mesh.flatten().tolist()
+    group = (None if len(ranks) == dist.get_world_size()
+             else dist.new_group(sorted(ranks)))
+    pod = _Pod(group, "+".join(axes))
+    if int(num_clients) % pod.size:
+        raise ValueError(f"{num_clients} clients do not split over the "
+                         f"{pod.size} dp ranks ({'x'.join(axes)})")
+    step = _spatial_step(model, fed, dev, pod=pod)
+    step.pod = pod                          # .rank, .size, .block(C)
+    return step
+

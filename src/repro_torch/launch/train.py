@@ -14,10 +14,26 @@ the full-size config.
 
 Each round is timed on the host clock after a device sync (the
 reference's ``sec`` measures the dispatch of an asynchronous call).
+
+**The pod round.** ``run(..., mesh=...)`` (a ``DeviceMesh`` of
+``launch/mesh.py: make_host_mesh`` over an initialised process group)
+runs ``fl/sharded.py: make_pod_round``: every rank draws the same
+batches, keeps its own block of clients and trains them, and the ranks
+meet in the round's collectives. From the command line, ``--mesh
+pod,data,model`` (or ``data,model``) does the same, one process a rank:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --mesh 2,2,1 --clients 8 --rounds 2
+
+under gloo on the CPU; on the card the backend is NCCL, each rank on
+``cuda:<local rank>``. A single process with ``--mesh 1,1`` rendezvouses
+in a ``HashStore``; under torchrun the store is torchrun's, on the
+loopback. No other address is used.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
@@ -35,14 +51,17 @@ from repro_torch.utils import param_count, resolve_device, tree_map
 
 
 def build_batches(cfg, fed_data, *, clients, per_client, seq, rng,
-                  device="cuda"):
+                  device="cuda", block=None):
     """Assemble one round's client-stacked token batch + server batch, on
-    ``device`` (the reference's draws from ``rng``, in its order)."""
+    ``device`` (the reference's draws from ``rng``, in its order). With
+    ``block=(offset, n)`` the batch holds only clients offset..offset+n-1
+    (a pod rank's block); the draws are the same."""
     dev = resolve_device(device)
     toks = fed_data["tokens"]                       # [C, n_seq, seq+1]
     C, n_seq, _ = toks.shape
     idx = rng.integers(0, n_seq, size=(clients, per_client))
-    sel = np.stack([toks[c, idx[c]] for c in range(clients)])   # [C,b,seq+1]
+    lo, n = (0, clients) if block is None else block
+    sel = np.stack([toks[c, idx[c]] for c in range(lo, lo + n)])  # [n,b,seq+1]
     test = fed_data["test_tokens"]
     sidx = rng.integers(0, test.shape[0], size=(per_client,))
     server = test[sidx]
@@ -70,7 +89,7 @@ def _sync(dev):
 def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
         per_client=4, seq=128, lr=0.05, epsilon=0.5, local_epochs=2,
         misalign_max=1.0, log_every=1, seed=0, verbose=True, device="cuda",
-        **fed_kw):
+        mesh=None, **fed_kw):
     """``fed_kw`` passes any further FedConfig knob straight through (the
     aggregators, wire codecs, server optimizers, strategies, the training
     cohort, overlapped cohorts (``async_depth``, ``async_mode``, ...), the
@@ -85,7 +104,11 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
     halts once ``max_nonfinite_skips`` consecutive rounds were skipped
     (when that is > 0). Like the reference's, it never drains an
     in-flight buffer, and it refuses an enc-dec config (whisper-medium)
-    with the reference's assertion: whisper has no federated round."""
+    with the reference's assertion: whisper has no federated round.
+
+    With ``mesh`` (a DeviceMesh over the process group's ranks) the round
+    is the pod round: this rank holds its block of the clients; the
+    params, history and every decision are the same on every rank."""
     dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     assert not cfg.encdec, "use examples/whisper for enc-dec training"
@@ -99,8 +122,14 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
                                      tokens_per_client=max(8192, per_client * (seq + 1) * 4))
     check_client_weights(fed_data["weights"], where="federation weights")
 
-    round_step = sharded.make_round_step(model, fed, clients, fsdp=False,
-                                         device=dev)
+    block = None                    # a pod rank's (offset, n) of the clients
+    if mesh is None:
+        round_step = sharded.make_round_step(model, fed, clients, fsdp=False,
+                                             device=dev)
+    else:
+        round_step = sharded.make_pod_round(model, fed, clients, mesh,
+                                            device=dev)
+        block = round_step.pod.block(clients)
     # the state holds the only reference to the params: a round replaces
     # them, and no copy of the initial ones outlives round 0
     state = engine.init_state(model.init(prng.PRNGKey(seed), device=dev),
@@ -114,7 +143,7 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
     for r in range(rounds):
         batch = build_batches(cfg, fed_data, clients=clients,
                               per_client=per_client, seq=seq, rng=rng,
-                              device=dev)
+                              device=dev, block=block)
         _sync(dev)
         t0 = time.perf_counter()
         state, stats = round_step(state, batch, r)
@@ -161,14 +190,61 @@ def build_parser():
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="POD,DATA,MODEL",
+                    help="run the pod round, one process a rank, over a "
+                         "(pod, data, model) or (data, model) host mesh "
+                         "of the process group (under torchrun, or one "
+                         "rank alone)")
     add_fed_args(ap)
     return ap
 
 
+def _pod_group(mesh_arg, device):
+    """Initialise the process group for ``--mesh`` and build its mesh:
+    NCCL on the card (this rank on ``cuda:<local rank>``), gloo on the
+    CPU; torchrun's loopback store, or a HashStore for one rank alone.
+    Returns (mesh, device)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    sizes = [int(x) for x in mesh_arg.split(",")]
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"--mesh {mesh_arg!r}: give pod,data,model or "
+                         "data,model")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "RANK" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    want = math.prod(sizes)
+    if want != dist.get_world_size():
+        raise ValueError(f"--mesh {mesh_arg} has {want} ranks, the process "
+                         f"group {dist.get_world_size()}")
+    mesh = make_host_mesh(sizes[-1], pods=sizes[0] if len(sizes) == 3
+                          else None, device_type=dev.type)
+    return mesh, dev
+
+
 def main(argv=None):
     a = build_parser().parse_args(argv)
-    return run(arch=a.arch, smoke=a.smoke, rounds=a.rounds, clients=a.clients,
-               seq=a.seq, lr=a.lr, device=a.device, **fed_from_args(a))
+    if a.mesh is None:
+        return run(arch=a.arch, smoke=a.smoke, rounds=a.rounds,
+                   clients=a.clients, seq=a.seq, lr=a.lr, device=a.device,
+                   **fed_from_args(a))
+    import torch.distributed as dist
+    mesh, dev = _pod_group(a.mesh, a.device)
+    try:
+        return run(arch=a.arch, smoke=a.smoke, rounds=a.rounds,
+                   clients=a.clients, seq=a.seq, lr=a.lr, device=dev,
+                   mesh=mesh, verbose=dist.get_rank() == 0,
+                   **fed_from_args(a))
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

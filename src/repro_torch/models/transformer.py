@@ -202,8 +202,12 @@ def _pre_kind(cfg):
 def _stacked(keys, init_one):
     """``init_one(key)`` for each of ``keys`` [n, 2], its leaves written into
     stacked [n, ...] leaves as each is drawn, so the peak is the stack plus
-    one tree (a single tree is stacked as a view, with no copy)."""
+    one tree (a single tree is stacked as a view, with no copy). Meta keys
+    draw nothing, so the first tree's shapes stand for all n."""
     n = keys.shape[0]
+    if keys.device.type == "meta":
+        return tree_map(lambda x: x.new_empty((n,) + x.shape),
+                        init_one(keys[0]))
     stacked = None
     for i in range(n):
         one = init_one(keys[i])

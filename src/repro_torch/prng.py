@@ -30,6 +30,11 @@ only agree if every client saw the same minibatches. The dp aggregator's
 noise comes from ``normal``, the sketch codec's and the cosine filter's
 hash and sign planes from ``randint`` and ``rademacher``.
 
+A key on the ``meta`` device has no value, so ``split``, ``fold_in`` and
+``truncated_normal`` give their results' shapes alone there, with no
+hashing: ``init(key, device="meta")`` then yields a model's param shapes in
+milliseconds (``models/registry.py: param_shapes``).
+
 Representation: uint32 words are held in ``torch.int64`` tensors masked to
 32 bits (torch has no full uint32 arithmetic). A key is a ``[..., 2]``
 tensor; every function accepts a batch of keys in the leading dims, so the
@@ -90,6 +95,8 @@ def _hash_iota(key: torch.Tensor, shape: tuple):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` -> ``[..., num, 2]``."""
+    if key.device.type == "meta":
+        return key.new_empty(key.shape[:-1] + (int(num), 2))
     y0, y1 = _hash_iota(key, (num,))
     return torch.stack([y0, y1], dim=-1)
 
@@ -97,6 +104,9 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: ``data`` (an int, or an integer tensor that
     broadcasts against the key batch) is taken modulo 2^32."""
+    if key.device.type == "meta":
+        lead = torch.broadcast_shapes(key.shape[:-1], torch.as_tensor(data).shape)
+        return key.new_empty(lead + (2,))
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
@@ -245,6 +255,8 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     if key.shape != (2,):
         raise ValueError(f"truncated_normal takes one key [2], got "
                          f"{tuple(key.shape)}")
+    if key.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     f32 = torch.float32
     lo32 = torch.tensor(lower, dtype=f32)
     hi32 = torch.tensor(upper, dtype=f32)

@@ -414,3 +414,33 @@ def test_paper_layer_entry_points_refuse_to_run_on_cpu_by_default():
         theory.make_quadratic_pfl(seed=0)
     q = theory.make_quadratic_pfl(seed=0, device="cpu")
     assert q.A.device.type == "cpu" and q.A.dtype == torch.float64
+
+
+# ------------------------------------------------- the pod layer's data axes
+def test_import_walk_covers_the_pod_layer():
+    """The specs, the meshes, the dry-run and the pod round are among the
+    files the import check above walks (so none imports jax or the
+    reference)."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in _port_files() if "repro_torch" in p.parts}
+    assert {"sharding/specs.py", "launch/mesh.py", "launch/dryrun.py",
+            "fl/sharded.py", "models/registry.py"} <= names
+
+
+def test_pod_layer_entry_points_refuse_to_run_on_cpu_by_default():
+    """make_pod_round defaults to the card and raises where there is none,
+    before it touches a process group; make_host_mesh needs one; importing
+    the mesh module touches none."""
+    import torch.distributed as dist
+    from repro_torch.fl import sharded
+    from repro_torch.launch import mesh
+    assert not dist.is_initialized()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    model = get_model(get_smoke("qwen1_5_0_5b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.make_pod_round(model, FedConfig(num_clients=8), 8,
+                               mesh.mesh_shape(data=2, model=1))
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_host_mesh(1)
+    assert not dist.is_initialized()

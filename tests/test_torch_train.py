@@ -256,12 +256,14 @@ def _flags(parser):
 
 
 def test_cli_flag_set_matches_reference():
-    """The reference launcher's flags (and its defaults), plus --device."""
+    """The reference launcher's flags (and its defaults), plus --device and
+    --mesh (the pod round, one process a rank)."""
     from repro.launch.train import build_parser as jax_parser
     want, got = jax_parser(), train.build_parser()
-    assert _flags(got) == sorted(_flags(want) + ["--device"])
+    assert _flags(got) == sorted(_flags(want) + ["--device", "--mesh"])
     jd, td = vars(want.parse_args([])), vars(got.parse_args([]))
     assert td.pop("device") == "cuda"
+    assert td.pop("mesh") is None
     assert jd.keys() == td.keys()
     for k in jd:
         assert jd[k] == td[k] or (jd[k] != jd[k] and td[k] != td[k]), k
