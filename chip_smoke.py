@@ -204,12 +204,22 @@ if a check fails:
    against ``fedagg_plain`` on the [4, M_total] operands the pod reduce
    gave it. (n2) the dry-run CLI over every baseline target on both
    production meshes (one CPU subprocess beside (n1)), its GB a device
-   beside the H100's 80 GB. More than one rank runs only under gloo
-   on the CPU (the tests): NCCL puts one rank on a card.
+   beside the H100's 80 GB. NCCL puts one rank on a card;
+21. slice (o), the pod round's model axis: (o2) K5 and K6 against their
+   plain versions at a query offset (0, Skv / 2, the default) at
+   qwen1.5-0.5b's 8 local heads and its seq-sharded rows, f32 and bf16,
+   timed beside SDPA with the same boolean mask; (o1) qwen1.5-0.5b at
+   published widths, 12 of its 24 layers, f32, on a (data 1, model 2)
+   mesh of two spawned processes
+   on cuda:0 over gloo, under mean, median and mean with
+   ``seq_shard_attn``, each held against the one-process round on the
+   card (decisions exactly, params within O1_PARAMS_TOL, replicated
+   leaves the same bits on both ranks, collectives as planned).
 
 The fedagg launches of slices (a)-(c), the LM launches of slices (d), (e),
 (g1) and (g2), the training launches of slices (f) and (g3) (K5, K6,
-K8, K9, fedagg) and those of slices (h), (i), (j), (k), (l), (m) and (n) are each counted from
+K8, K9, fedagg) and those of slices (h), (i), (j), (k), (l), (m), (n) and
+(o, in its ranks) are each counted from
 zero just before their slices and must equal what the slices' rounds, forwards,
 gradients and decode steps imply (a remat gradient runs each period's
 forward twice).
@@ -6095,7 +6105,8 @@ def beside_spatial(rec):
                 collectives=coll, plain=holds))
             del ref, ref_stats
             return new, stats
-        step.pod = pod_step.pod
+        for attr in ("pod", "specs", "shard", "gather"):
+            setattr(step, attr, getattr(pod_step, attr))
         return step
 
     sharded.make_pod_round = recording_make
@@ -6266,6 +6277,411 @@ def pod_phases(check: Check):
     check(variants == want, f"pod path: fedagg variants {variants}, "
           f"expected {want}")
     return dict(n1=n1, n2=n2), launches, variants
+
+
+# ---------------------------------------- slice (o): the pod round's model axis
+# (o1): qwen1.5-0.5b at full width (d 1024, 16 / 16 heads, vocab 151,936;
+# O1_LAYERS of its 24 layers) in f32 params and f32 compute, 4 clients x 2
+# x 512, E 2,
+# 2 rounds, on a (data 1, model 2) mesh of two spawned processes on cuda:0
+# joined by gloo (NCCL cannot put two ranks on one card), each config held
+# against the one-process make_spatial_round on the card on the same
+# batches; mean, median, and mean under seq_shard_attn
+O1_RUN = dict(arch="qwen1.5-0.5b", clients=4, n_priority=2, per_client=2,
+              seq=512, local_epochs=2, lr=0.05)
+# 12 of the 24 layers: uncut, the slice took 138.2 s on an H100 (10-20 s a
+# pod round), past its ~90 s; every width is the published one
+O1_LAYERS = 12
+O1_ROUNDS = 2
+O1_EPS = 0.5
+O1_CASES = (("mean", {}, False), ("median", {"aggregator": "median"}, False),
+            ("mean_seq", {}, True))
+# x max(1, |param|): tests/test_torch_model_axis.py's params bound, 10x
+# the reference's own mesh-vs-one-device gap on a CPU host mesh (1.1912e-7
+# there: one ulp of a norm scale above 1); the test holds this constant
+# under the bound it measures
+O1_PARAMS_TOL = 1.19e-6
+O1_TIMEOUT_S = 600
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def o1_rank(rank, tmp, device="cuda"):
+    """One of (o1)'s two gloo ranks on cuda:0 (a FileStore in ``tmp``):
+    every O1_CASES config through ``make_pod_round`` on the (data 1, model
+    2) mesh, the params drawn whole from PRNGKey(0) and sharded; per round
+    its stats, seconds, peak GB, collectives and trained clients, then its
+    launch counts, its replicated leaves' digest and the params gathered
+    whole. Rank 0 then runs the one-process ``make_spatial_round`` on the
+    same batches (rank 1 waits) and keeps its stats and the params' gap.
+    Pickles what it saw to ``tmp/rank<r>.pkl``; a failure is pickled as
+    its traceback. ``device="cpu"`` rehearses it without a card (no
+    seconds or peaks worth reading)."""
+    import os
+    import pickle
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data.tokens import make_token_federation
+    from repro_torch.fl import engine, sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_batches
+    from repro_torch.models import get_model
+    from repro_torch.sharding import model_axis
+    from repro_torch.utils import tree_leaves
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+    out = {"cases": {}}
+    run, C = O1_RUN, O1_RUN["clients"]
+    train_stack = sharded._train_stack
+    trained = []
+
+    def counting(model, params, client_batch, rows, *a, **kw):
+        trained[-1] += len(rows)
+        return train_stack(model, params, client_batch, rows, *a, **kw)
+
+    def stats_np(st):
+        return {k: v.detach().cpu().numpy().copy() for k, v in st.items()}
+    try:
+        mesh = make_host_mesh(2, device_type=dev.type)
+        base = get_config(run["arch"]).replace(compute_dtype="float32",
+                                               num_layers=O1_LAYERS)
+        data = make_token_federation(
+            seed=0, vocab=base.vocab_size, n_clients=C,
+            n_priority=run["n_priority"], seq_len=run["seq"],
+            misalign_max=1.0, tokens_per_client=max(
+                8192, run["per_client"] * (run["seq"] + 1) * 4))
+        sharded._train_stack = counting
+        for name, knobs, seq in O1_CASES:
+            cfg = base.replace(seq_shard_attn=seq)
+            model = get_model(cfg)
+            fed = FedConfig(num_clients=C, num_priority=run["n_priority"],
+                            local_epochs=run["local_epochs"], lr=run["lr"],
+                            epsilon=O1_EPS, **knobs)
+            step = sharded.make_pod_round(model, fed, C, mesh, device=dev)
+            state = engine.init_state(step.shard(model.init(
+                prng.PRNGKey(0), device=dev)), fed, C)
+            rec = dict(stats=[], seconds=[], peak_gb=[], collectives=[])
+            trained.clear()
+            reset_train_counts()
+            rng = np.random.default_rng(0)
+            for r in range(O1_ROUNDS):
+                batch = build_batches(cfg, data, clients=C,
+                                      per_client=run["per_client"],
+                                      seq=run["seq"], rng=rng, device=dev,
+                                      block=step.pod.block(C))
+                sharded.COLLECTIVES.clear()
+                trained.append(0)
+                sync()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, st = step(state, batch, r)
+                sync()
+                rec["seconds"].append(time.perf_counter() - t0)
+                rec["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9
+                                      if cuda else 0.0)
+                rec["stats"].append(stats_np(st))
+                rec["collectives"].append(list(sharded.COLLECTIVES))
+            rec["launches"] = train_counts()
+            rec["variants"] = dict(sharded.kops.fedagg.variant_launches)
+            rec["trained"] = list(trained)
+            rec["M_local"] = sum(t.numel() for t in tree_leaves(state.params))
+            rec["replicated"] = _digest(model_axis.replicated_leaves(
+                state.params, step.specs))
+            full = step.gather(state.params)
+            del state
+            dist.barrier()
+            if rank == 0:
+                spatial = sharded.make_spatial_round(model, fed, C, device=dev)
+                ref = engine.init_state(model.init(prng.PRNGKey(0), device=dev),
+                                        fed, C)
+                one = dict(stats=[], seconds=[])
+                rng = np.random.default_rng(0)
+                for r in range(O1_ROUNDS):
+                    batch = build_batches(cfg, data, clients=C,
+                                          per_client=run["per_client"],
+                                          seq=run["seq"], rng=rng, device=dev)
+                    trained.append(0)
+                    sync()
+                    t0 = time.perf_counter()
+                    ref, st = spatial(ref, batch, r)
+                    sync()
+                    one["seconds"].append(time.perf_counter() - t0)
+                    one["stats"].append(stats_np(st))
+                rec["one"] = one
+                rec["params_err"] = max(
+                    float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(tree_leaves(full), tree_leaves(ref.params)))
+                del ref
+            del full
+            if cuda:
+                torch.cuda.empty_cache()
+            dist.barrier()
+            out["cases"][name] = rec
+    except Exception:                   # noqa: BLE001 - sent to the parent
+        out["error"] = traceback.format_exc()
+    finally:
+        sharded._train_stack = train_stack
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def slice_o1(check: Check, device="cuda"):
+    """(o1): two ranks on cuda:0 over gloo (``o1_rank``), each config of
+    O1_CASES held against the one-process round on the card: every gate
+    and backlog the same, each non-priority gap farther than GATE_MARGIN
+    from eps; the gathered params within O1_PARAMS_TOL x max(1, |param|);
+    both ranks' replicated leaves (the norm scales) the same bits; each
+    rank's collectives ``pod_round_plan``'s with the model axis's
+    ``LossPlan``; each rank's launches a one-process run's. Returns
+    (row, the launches of both ranks summed, their fedagg variants)."""
+    import os
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.fl import sharded
+    from repro_torch.sharding.model_axis import LossPlan
+    run, C = O1_RUN, O1_RUN["clients"]
+    P, E = run["n_priority"], run["local_epochs"]
+    shape = (run["per_client"], run["seq"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(o1_rank, args=(tmp, device), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + O1_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("slice (o1): the ranks timed out")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        recs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                recs.append(pickle.load(f))
+    for r, rec in enumerate(recs):
+        check("error" not in rec, f"slice (o1) rank {r}: {rec.get('error')}")
+    out, launches, variants = {}, {}, {}
+    base = get_config(run["arch"]).replace(compute_dtype="float32",
+                                           num_layers=O1_LAYERS)
+    for name, knobs, seq in O1_CASES:
+        label = f"slice (o1) {name}"
+        got = [rec["cases"].get(name) for rec in recs]
+        if not all(got):
+            check(False, f"{label}: a rank has no record")
+            continue
+        cfg = base.replace(seq_shard_attn=seq)
+        fed = FedConfig(num_clients=C, num_priority=P, local_epochs=E,
+                        lr=run["lr"], epsilon=O1_EPS, **knobs)
+        plan = LossPlan(cfg, 2, shape, shape)
+        one = got[0]["one"]
+        for r, st in enumerate(one["stats"]):
+            gaps = np.abs(st["local_losses"] - st["server_loss"])[P:]
+            check(bool(np.all(np.abs(gaps - O1_EPS) > GATE_MARGIN)),
+                  f"{label} round {r}: a gap {gaps} within {GATE_MARGIN} of "
+                  f"eps {O1_EPS}")
+        want = TrainExpected()
+        want.add_rounds(cfg, C, E, O1_ROUNDS)
+        for k, rec in enumerate(got):
+            for r, (g, w) in enumerate(zip(rec["stats"], one["stats"])):
+                check(all(np.array_equal(g[key], w[key])
+                          for key in ("gates", "backlog")),
+                      f"{label} rank {k} round {r}: gates {g['gates']} / "
+                      f"backlog {g['backlog']}, one process {w['gates']} / "
+                      f"{w['backlog']}")
+            for r, coll in enumerate(rec["collectives"]):
+                planned = sharded.pod_round_plan(
+                    fed, rec["M_local"], C, 1, model=plan,
+                    trained=rec["trained"][r])
+                check(coll == planned, f"{label} rank {k} round {r}: "
+                      f"{len(coll)} collectives, planned {len(planned)}")
+            check(rec["launches"] == dict(want), f"{label} rank {k}: launches "
+                  f"{rec['launches']}, expected {dict(want)}")
+            for key, n in rec["launches"].items():
+                launches[key] = launches.get(key, 0) + n
+            for key, n in rec["variants"].items():
+                variants[key] = variants.get(key, 0) + n
+        check(got[0]["replicated"] == got[1]["replicated"],
+              f"{label}: the ranks' replicated leaves differ")
+        err = got[0]["params_err"]
+        check(err <= O1_PARAMS_TOL, f"{label}: params {err} x max(1, |param|) "
+              f"from the one-process round's, bound {O1_PARAMS_TOL}")
+        colls = got[0]["collectives"][0]
+        row = dict(
+            pod_s=got[0]["seconds"], pod_s_rank1=got[1]["seconds"],
+            spatial_s=one["seconds"],
+            peak_gb=[max(rec["peak_gb"]) for rec in got],
+            params_err=err, M_local=got[0]["M_local"],
+            gates=[st["gates"].tolist() for st in one["stats"]],
+            gaps=[np.abs(st["local_losses"] - st["server_loss"])[P:].tolist()
+                  for st in one["stats"]],
+            server_loss=[float(st["server_loss"]) for st in one["stats"]],
+            collectives_a_round={
+                grp: dict(count=sum(c["group"] == grp for c in colls),
+                          bytes=sum(c["bytes"] for c in colls
+                                    if c["group"] == grp))
+                for grp in ("model", "data")})
+        out[name] = row
+        print(f"{label}:", json.dumps(row), flush=True)
+    return out, launches, variants
+
+
+# (o2): K5 / K6 at the model axis' shapes with a query offset: (label, B,
+# Sq, Skv, H, KV, hd, causal, window, offsets); qwen1.5-0.5b's 8 local
+# heads of (o1), its seq-sharded rows (Sq 256 of 512: rank 0 at 0, rank 1
+# at Skv / 2, the default), a middle block of four ranks, and a window
+OFFSET_CASES = (
+    ("qwen1.5_local_heads", 2, 512, 512, 8, 8, 64, True, 0, (0, None)),
+    ("qwen1.5_seq_shard", 2, 256, 512, 16, 16, 64, True, 0, (0, 256, None)),
+    ("seq_shard4_mid", 2, 128, 512, 16, 16, 64, True, 0, (128, 384)),
+    ("window48_offset_g4", 1, 100, 300, 8, 2, 64, True, 48, (0, 100, 200)),
+)
+# timed in bf16: (label of OFFSET_CASES, offset)
+OFFSET_TIMING = (("qwen1.5_local_heads", 0), ("qwen1.5_seq_shard", 0),
+                 ("qwen1.5_seq_shard", 256))
+
+
+def offset_kernel_phase(check: Check, device="cuda"):
+    """(o2): K5 and K6 against their plain versions at each offset of
+    OFFSET_CASES, in f32 and bf16, under the LM kernel phase's bounds;
+    then each at OFFSET_TIMING in bf16 by graph replay beside the plain
+    version, the bound (the visible pairs' operations, or the bytes) and
+    scaled_dot_product_attention with the same boolean mask (forward, and
+    its backward through autograd). Returns (worst errors, timing rows
+    keyed "<label>@<offset>")."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    worst = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for i, case in enumerate(OFFSET_CASES):
+            label, B, Sq, Skv, H, KV, hd, causal, window, offsets = case
+            q = lm_inputs((B, Sq, H, hd), dtype, device, 700 + 4 * i)
+            k = lm_inputs((B, Skv, KV, hd), dtype, device, 701 + 4 * i)
+            v = lm_inputs((B, Skv, KV, hd), dtype, device, 702 + 4 * i)
+            do = lm_inputs((B, Sq, H, hd), dtype, device, 703 + 4 * i)
+            for off in offsets:
+                at = f"{label}@{off}/{dn}"
+                kw = dict(causal=causal, window=window, q_offset=off)
+                out, lse = fk.flash_attention_fwd(q, k, v, **kw)
+                want, want_lse = fk.flash_attention_plain(q, k, v, block_kv=64,
+                                                          **kw)
+                ok, err = attn_close(out, want, v, dtype)
+                lse_err = float(torch.max(torch.abs(lse - want_lse)))
+                lse_tol = LM_TOL * max(1.0, float(torch.max(torch.abs(want_lse))))
+                check(ok and lse_err <= lse_tol, f"flash_attention {at}: "
+                      f"max_abs_err {err}, lse err {lse_err} (bound {lse_tol})")
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+                got = fk.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                wantb = fk.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+                for name, g, w in zip(("dq", "dk", "dv"), got, wantb):
+                    ok, err = bwd_close(g, w, dtype)
+                    check(ok, f"flash_attention_bwd {at} {name}: max_abs_err {err}")
+                    worst["flash_attention_bwd"] = max(
+                        worst["flash_attention_bwd"], err)
+            del q, k, v, do
+    bf16 = torch.bfloat16
+    cases = {c[0]: c for c in OFFSET_CASES}
+    rows = {}
+    for label, off in OFFSET_TIMING:
+        _, B, Sq, Skv, H, KV, hd, causal, window, _ = cases[label]
+        q = lm_inputs((B, Sq, H, hd), bf16, device, 1)
+        k = lm_inputs((B, Skv, KV, hd), bf16, device, 2)
+        v = lm_inputs((B, Skv, KV, hd), bf16, device, 3)
+        do = lm_inputs((B, Sq, H, hd), bf16, device, 4)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        mask = fk._visible(Sq, Skv, causal, window, q.device, off)
+        pairs = B * H * int(mask.sum())
+        # k / v rows some query sees: the kernels' tile skips never read the
+        # others (a causal block at offset 0 of a longer sequence)
+        seen = int(mask.any(0).sum())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fwd = lm_row(
+            lambda: fk.flash_attention_fwd(q, k, v, **kw),
+            lambda: fk.flash_attention_plain(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=KV != H),
+            2 * (2 * B * Sq * H * hd + 2 * B * seen * KV * hd) + 4 * B * H * Sq,
+            4.0 * hd * pairs, H100_BF16_FLOPS)
+        out, lse = fk.flash_attention_fwd(q, k, v, **kw)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        capture = torch.cuda.Stream()
+        capture.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(capture):
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                   enable_gqa=KV != H)
+        torch.cuda.current_stream().wait_stream(capture)
+        dot = do.transpose(1, 2)
+        # q, out, do read and dq written; k, v read where seen, and dk, dv
+        # written whole (zero where no query sees the row)
+        bytes_ = (2 * (4 * B * Sq * H * hd + 2 * B * (seen + Skv) * KV * hd)
+                  + 8 * B * H * Sq)
+        flops = 10.0 * hd * pairs
+        t_b, t_o = bytes_ / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+        kernel = lambda: fk.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+        ms = graph_ms(kernel)
+        bwd = dict(ms=ms, eager_ms=time_ms(kernel),
+                   plain_ms=graph_ms(lambda: fk.flash_attention_bwd_plain(
+                       q, k, v, out, lse, do, **kw), calls=3, reps=3),
+                   library_ms=graph_ms(lambda: torch.autograd.grad(
+                       o_lib, (qg, kg, vg), dot, retain_graph=True),
+                       stream=capture),
+                   bound_ms=1e3 * max(t_b, t_o),
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   tflops=flops / (ms * 1e9))
+        rows[f"{label}@{off}"] = dict(fwd=fwd, bwd=bwd)
+        print(f"slice (o2) {label}@{off}:", json.dumps(rows[f"{label}@{off}"]),
+              flush=True)
+        del q, k, v, do, out, lse, qg, kg, vg, o_lib
+    torch.cuda.empty_cache()
+    print("slice (o2) worst:", json.dumps(worst), flush=True)
+    return worst, rows
+
+
+def model_axis_phases(check: Check):
+    """Slice (o), counted on its own: (o2) in this process, then (o1)'s two
+    ranks, whose launches (K5, K6, K9 and fedagg: K1 under mean, K3 under
+    median) are counted in each rank from zero before its pod rounds and
+    summed here. Returns ({"o1": ..., "o2": ...}, the launches, the
+    fedagg variants, the (o2) worst errors and rows)."""
+    worst, rows = phase(offset_kernel_phase, check)
+    o1, launches, variants = phase(slice_o1, check)
+    print("model axis path launches:", json.dumps(launches), flush=True)
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm", "fedagg"):
+        check(launches.get(name, 0) > 0,
+              f"model axis path: kernel {name} was never launched")
+    want = {("mean", "identity"): 2 * 2 * O1_ROUNDS,
+            ("median", "identity"): 2 * O1_ROUNDS}
+    check(variants == want, f"model axis path: fedagg variants {variants}, "
+          f"expected {want}")
+    return dict(o1=o1, o2=rows), launches, variants, worst, rows
 
 
 def phase(fn, *args, **kw):
@@ -6601,6 +7017,23 @@ def main() -> int:
                  "rmsnorm"):
         check(n_launches[name] > 0,
               f"pod path: kernel {name} was never launched")
+    # the pod round's model axis: slice (o), counted on its own (in its
+    # two ranks)
+    o, o_launches, o_variants, o_worst, o_rows = model_axis_phases(check)
+    for entry in kernels:
+        if entry["source"].endswith("fedagg.cu"):
+            pick = next(k[2] for k in KERNELS if k[0] == entry["name"])
+            entry["model_axis_path_launches"] = sum(
+                v for k, v in o_variants.items() if pick(*k))
+        else:
+            entry["model_axis_path_launches"] = o_launches.get(entry["name"], 0)
+        if entry["name"] in o_worst:
+            # K5 / K6 at a query offset: their errors and times there too
+            side = "fwd" if entry["name"] == "flash_attention" else "bwd"
+            entry["max_abs_err"] = max(entry["max_abs_err"], o_worst[entry["name"]])
+            entry["shapes"] += [dict({k: row[side].get(k) for k in SHAPE_KEYS},
+                                     shape=label)
+                                for label, row in o_rows.items()]
     line = {"kernels": kernels}
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed",
@@ -6617,7 +7050,7 @@ def main() -> int:
         "f4": f4, "f5": f5, "g3": g3, "g3_ii": ssm_grad, "h1": h1, "h2": h2,
         "h3": h3, "h4": h4, "i1": i1, "i2": i2, "i3": i3, "i4": i4,
         "i5": i5, "j1": j1, "j2": j2, "k1": k1, "k2": k2, "k3": k3,
-        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4, **m, **n}))
+        "k4": k4, "l1": l1, "l2": l2, "l3": l3, "l4": l4, **m, **n, **o}))
     print(smi_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -93,7 +93,7 @@ class ModelConfig:
     remat: bool = True                # no effect on serving
     remat_policy: str = "full"
     use_pallas: bool = False          # never read: the route follows the device
-    seq_shard_attn: bool = False      # not ported
+    seq_shard_attn: bool = False      # sequence-sharded attention on a model axis
     attn_bf16: bool = False           # bf16 attention products (f32 softmax state)
     expert_parallel: bool = False
     dp_axes: tuple = ("data",)

@@ -1,10 +1,11 @@
 """FedALIGN rounds over the LM zoo: the spatial round and the temporal
 (streamed-client) round on one card, and the spatial round as a pod round
-over the (pod, data) ranks of a process group.
+over the (pod, data, model) ranks of a process group.
 
 Counterpart of ``repro/fl/sharded.py``: ``make_spatial_round``,
 ``make_temporal_round``, ``make_round_step``, ``needs_fsdp`` and, for its
-data axes, ``make_pod_round`` (see its docstring; ``pod_round_plan`` the
+data axes and its model axis (tensor-parallel params for the dense GQA
+family), ``make_pod_round`` (see its docstring; ``pod_round_plan`` the
 collectives a round promises, ``COLLECTIVES`` those it issued). A round
 has the engine's persistent-state signature
 
@@ -99,6 +100,7 @@ from repro_torch.core.alignment import epsilon_at
 from repro_torch.fl import engine
 from repro_torch.kernels import ops as kops
 from repro_torch import prng
+from repro_torch.sharding import model_axis
 from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
 
@@ -269,10 +271,12 @@ def make_spatial_round(model, fed, num_clients: int, device="cuda"):
     return _pool_wrap(fed, _spatial_step(model, fed, device))
 
 
-def _spatial_step(model, fed, device, pod=None):
+def _spatial_step(model, fed, device, pod=None, axis=None):
     """The spatial round's step, in one process (``pod`` None: every
     client is local) or as one rank of a pod round (``pod``: a ``_Pod``,
-    whose block of clients the batch holds; see ``make_pod_round``)."""
+    whose block of clients the batch holds; ``axis``: its model group, a
+    ``model_axis.ModelAxis``, when the params are its shards; see
+    ``make_pod_round``)."""
     E = fed.local_epochs
     lr = fed.lr
     validate_config(fed)
@@ -387,6 +391,8 @@ def _spatial_step(model, fed, device, pod=None):
                                                 reduce=reduce)
             del stacked
             finite = engine.aggregate_finite(fed, agg_delta, server_loss)
+            if finite is not None and axis is not None:
+                finite = axis.all_true(finite)      # every shard finite
             new_params, opt_state, inflight, last_delta, info = (
                 engine.apply_aggregate(fed, state, params, agg_delta,
                                        inclusion_mass(fed, agg_w, agg_g),
@@ -547,11 +553,9 @@ def make_round_step(model, fed, num_clients: int, *, fsdp: bool,
 
 
 # ------------------------------------------------------------ the pod round
-# Every collective a pod round issued in this process, in order: {"kind":
-# "all_gather" | "all_reduce", "group": the dp axes, "bytes": the gathered
-# or reduced tensor's}. A counter as the kernels' ``launches``; clear it to
-# count a run.
-COLLECTIVES: list = []
+# Every collective a pod round issued in this process, dp and model alike:
+# the collective layer's list, re-exported here
+COLLECTIVES = model_axis.COLLECTIVES
 
 _ORDER_STATS = ("trimmed_mean", "median")
 
@@ -659,7 +663,8 @@ def _row_cap(fed, n):
     return min(int(fed.max_cohort), n) if cohort else n
 
 
-def pod_round_plan(fed, M_total: int, C: int, dp: int, *, axes=("data",)):
+def pod_round_plan(fed, M_total: int, C: int, dp: int, *, axes=("data",),
+                   model=None, trained=None):
     """The collectives one pod round promises over ``dp`` ranks of C / dp
     clients each, in the order it issues them: the all-gather of the [C]
     f32 local losses (the control plane), then one all-reduce of the
@@ -667,11 +672,25 @@ def pod_round_plan(fed, M_total: int, C: int, dp: int, *, axes=("data",)):
     on the identity wire, f32 decoded), or, under trimmed_mean / median,
     the all-gather of every rank's client rows (``_row_cap`` of them, in
     ``fed.agg_dtype``), the reference's documented allowance. Raises as
-    ``make_pod_round`` does for a knob the pod round refuses."""
-    check_pod_config(fed)
+    ``make_pod_round`` does for a knob the pod round refuses.
+
+    On a model axis, ``M_total`` is the rank's M_local and ``model`` a
+    ``model_axis.LossPlan``: the model group's collectives of the server
+    loss and the rank's n client losses come first, those of its
+    ``trained`` (default n) clients' E local steps each between the loss
+    gather and the reduce, and, under the divergence guard, the group's
+    finite flag last."""
+    check_pod_config(fed, model=1 if model is None else model.size)
     n = C // dp
     group = "+".join(axes)
-    plan = [{"kind": "all_gather", "group": group, "bytes": C * 4}]
+    plan = []
+    if model is not None:
+        plan += model.loss(model.server, train=False)
+        plan += model.loss(model.client, train=False) * n
+    plan.append({"kind": "all_gather", "group": group, "bytes": C * 4})
+    if model is not None:
+        steps = fed.local_epochs * (n if trained is None else int(trained))
+        plan += model.loss(model.client, train=True) * steps
     ad = torch.empty((), dtype=getattr(torch, fed.agg_dtype)).element_size()
     if resolve_aggregator(fed.aggregator) in _ORDER_STATS:
         plan.append({"kind": "all_gather", "group": group,
@@ -680,6 +699,9 @@ def pod_round_plan(fed, M_total: int, C: int, dp: int, *, axes=("data",)):
         wire = 4 if resolve_wire_codec(fed.wire_codec) != "identity" else ad
         plan.append({"kind": "all_reduce", "group": group,
                      "bytes": M_total * wire})
+    if model is not None and fed.divergence_guard:
+        plan.append({"kind": "all_reduce", "group": model_axis.MODEL,
+                     "bytes": 4})
     return plan
 
 
@@ -688,9 +710,24 @@ def _refuse(what):
                               "(ROADMAP A17b)")
 
 
-def check_pod_config(fed):
+def check_pod_config(fed, model: int = 1):
     """Refuse the FedConfig knobs the pod round has not reached (ROADMAP
-    A17b) with ``NotImplementedError``."""
+    A17b) with ``NotImplementedError``: ``grad_sim``, ``cosine_filter``,
+    candidate pools, ``fused_agg=False`` and a wire codec under
+    trimmed_mean / median on any mesh; on a model axis ``model`` > 1 also
+    the ``dp`` aggregator, every wire codec and ``adaptive_staleness``
+    (a per-row clip norm, int8 scale, top-k, sketch or drift sketch spans
+    the whole row, across the shards)."""
+    if model > 1:
+        if resolve_aggregator(fed.aggregator) == "dp":
+            _refuse("aggregator='dp' on a model axis (its per-row clip "
+                    "norm spans the shards)")
+        if resolve_wire_codec(fed.wire_codec) != "identity":
+            _refuse(f"wire_codec={fed.wire_codec!r} on a model axis (its "
+                    "row scale, top-k or sketch spans the shards)")
+        if fed.async_depth > 0 and fed.adaptive_staleness:
+            _refuse("adaptive_staleness on a model axis (its drift sketch "
+                    "spans the shards)")
     if engine.get_strategy(fed.selection).needs_deltas:
         _refuse(f"selection={fed.selection!r} (the cosine to the priority "
                 "mean delta crosses ranks)")
@@ -708,13 +745,13 @@ def check_pod_config(fed):
 def make_pod_round(model, fed, num_clients: int, mesh, device="cuda"):
     """Returns round_step(state, batch, round_idx=0) -> (new_state, stats):
     the spatial round as one SPMD program a rank over ``mesh``'s dp axes
-    (``pod``, ``data``), every rank holding the whole params.
+    (``pod``, ``data``) and its ``model`` axis.
 
-    Rank r of the dp group owns the contiguous block of C / dp clients from
+    Rank r of a dp group owns the contiguous block of C / dp clients from
     r * C / dp (C must divide, as the reference's ``P(dp, None)`` client
     spec requires): its ``batch["clients"]`` holds only that block, the
     rest of the batch (server batch, priority mask, weights) and the state
-    are replicated. A round:
+    are replicated over dp. A round:
 
     1. each rank evaluates its own clients at the received model and the
        [C] losses are all-gathered (a control-plane collective); the
@@ -725,10 +762,10 @@ def make_pod_round(model, fed, num_clients: int, mesh, device="cuda"):
     3. each rank trains its included (or cohort) clients and reduces its
        own rows in the one fused fedagg launch: under mean, dp and every
        wire codec into its share of the aggregate, then one all-reduce of
-       the [M_total] aggregate (dp clips per row; its noise, drawn once
-       from the replicated key, is added on one rank only); under
-       trimmed_mean / median the rows are all-gathered and K3 runs over
-       all of them on every rank;
+       the [M] aggregate (dp clips per row; its noise, drawn once from the
+       replicated key, is added on one rank only); under trimmed_mean /
+       median the rows are all-gathered and K3 runs over all of them on
+       every rank;
     4. the server optimizer, the in-flight buffer, the guard and the EMAs
        step identically on every rank.
 
@@ -736,30 +773,76 @@ def make_pod_round(model, fed, num_clients: int, mesh, device="cuda"):
     error-feedback rows stay on the rank that owns the client: each rank
     advances its own rows of ``state.ef_accum`` and reads no other.
 
-    Refused with ``NotImplementedError`` (ROADMAP A17b): a ``"model"`` axis
-    larger than 1, an FSDP arch (``needs_fsdp``), ``grad_sim``,
+    **The model axis** (``model`` > 1; the dense GQA family: qwen1.5-0.5b,
+    qwen2.5-3b, phi3-mini-3.8b). ``make_host_mesh`` is rank-major with
+    model the minor axis: the model group is the ranks that share a dp
+    index, the dp group the ranks that share a model index. Each rank
+    holds only its shard of every leaf as ``specs.auto_param_specs``
+    places it (``step.shard`` / ``step.gather`` move whole params to and
+    from them; the state's leaves follow ``federation_state_specs``, as
+    ``engine.init_state`` of the shards makes them). Every loss runs
+    tensor-parallel over the model group (``sharding/model_axis.py``,
+    ``cfg.seq_shard_attn`` its attention's sequence layout), so every rank
+    of a group computes the same losses, gates and decisions; each rank
+    flattens its local leaves into [n, M_local] rows, one fedagg launch
+    and one dp all-reduce (or row gather) of [M_local] aggregate them, the
+    replicated leaves (norm scales) identically on every model rank, and
+    the server optimizer steps the local shards. Under the divergence
+    guard the finite flag is agreed over the model group.
+
+    Refused with ``NotImplementedError`` (ROADMAP A17b): an FSDP arch
+    (``needs_fsdp``, the FSDP temporal pod round), ``grad_sim``,
     ``cosine_filter``, candidate pools, ``fused_agg=False`` and a wire
-    codec under trimmed_mean / median. ``pod_round_plan`` gives the
+    codec under trimmed_mean / median; on a model axis > 1 also every arch
+    outside the dense GQA family (MoE, MLA, jamba, xlstm, enc-dec, llava),
+    query heads that do not divide the axis without ``seq_shard_attn``,
+    a spec placed off its layer's dim, the ``dp`` aggregator, the four
+    wire codecs and ``adaptive_staleness``. ``pod_round_plan`` gives the
     collectives a round issues; ``COLLECTIVES`` records them."""
+    import dataclasses
     import torch.distributed as dist
     from repro_torch.sharding.specs import dp_axes, mesh_axes
     dev = resolve_device(device)
     sizes = mesh_axes(mesh)
-    if sizes.get("model", 1) > 1:
-        _refuse(f"the model axis (model={sizes['model']}: tensor-parallel "
-                "params)")
-    if needs_fsdp(model.cfg):
-        _refuse(f"{model.cfg.name}'s FSDP temporal round")
-    check_pod_config(fed)
+    m = sizes.get("model", 1)
+    cfg = model.cfg
+    if needs_fsdp(cfg):
+        _refuse(f"{cfg.name}'s FSDP temporal round")
+    check_pod_config(fed, model=m)
     axes = dp_axes(mesh)
-    ranks = mesh.mesh.flatten().tolist()
-    group = (None if len(ranks) == dist.get_world_size()
-             else dist.new_group(sorted(ranks)))
+    if list(sizes) not in (list(axes), list(axes) + ["model"]):
+        raise ValueError(f"make_pod_round: mesh axes {list(sizes)}; give "
+                         "(pod,) data(, model) with model last")
+    axis, specs = None, None
+    if m > 1:
+        model_axis.check_model(cfg, m)
+        specs = model_axis.param_specs(cfg, mesh)
+    ranks = mesh.mesh.reshape(-1, m)            # [dp, m], rank-major
+    if m == 1:
+        flat = ranks.flatten().tolist()
+        group = (None if len(flat) == dist.get_world_size()
+                 else dist.new_group(sorted(flat)))
+    else:
+        me = dist.get_rank()
+        # every rank makes every group, in one order
+        dp_groups = [dist.new_group(ranks[:, j].tolist()) for j in range(m)]
+        mp_groups = [dist.new_group(row.tolist()) for row in ranks]
+        i, j = [int(x) for x in (ranks == me).nonzero()[0]]
+        group = dp_groups[j]
+        axis = model_axis.ModelAxis(mp_groups[i])
+        from repro_torch.models import transformer
+        model = dataclasses.replace(model, loss_fn=lambda params, batch:
+                                    transformer.loss_fn(params, batch, cfg,
+                                                        tp=axis))
     pod = _Pod(group, "+".join(axes))
     if int(num_clients) % pod.size:
         raise ValueError(f"{num_clients} clients do not split over the "
                          f"{pod.size} dp ranks ({'x'.join(axes)})")
-    step = _spatial_step(model, fed, dev, pod=pod)
+    step = _spatial_step(model, fed, dev, pod=pod, axis=axis)
     step.pod = pod                          # .rank, .size, .block(C)
+    step.specs = specs                      # None on a model axis of 1
+    step.shard = (lambda params: params) if specs is None else (
+        lambda params: model_axis.shard_params(params, specs, mesh))
+    step.gather = (lambda params: params) if specs is None else (
+        lambda params: model_axis.gather_params(params, specs, mesh))
     return step
-

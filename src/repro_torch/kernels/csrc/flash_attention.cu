@@ -3,7 +3,9 @@
 //
 //   q [B, Sq, H, hd], k, v [B, Skv, KV, hd] (f32 or bf16, all one dtype);
 //   query head h reads kv head h / G (G = H / KV); query i sits at absolute
-//   position q_pos = (Skv - Sq) + i; key j is visible where j < Skv, and
+//   position q_pos = q_offset + i (0 <= q_offset <= Skv - Sq; the last Sq
+//   positions at q_offset = Skv - Sq, a sequence shard's rows at its own
+//   offset); key j is visible where j < Skv, and
 //   j <= q_pos if causal, and j > q_pos - window if window > 0;
 //   out [B, Sq, H, hd] (q's dtype) = softmax(q k^T * scale) v per row;
 //   lse [B * KV, G, Sq] f32 = m + log(max(l, 1e-30)).
@@ -95,7 +97,7 @@ struct Args {
   void* out;
   float* lse;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;   // batch / seq strides
-  int B, Sq, Skv, H, KV, causal, window;
+  int B, Sq, Skv, H, KV, causal, window, q_offset;
   float scale;
 };
 
@@ -136,7 +138,7 @@ flash_fwd_kernel(Args a) {
   const int row = row0 + (static_cast<int>(threadIdx.x) >> 2);
   const bool active = row < a.Sq;
   const int qrow = active ? row : a.Sq - 1;
-  const int q_offset = a.Skv - a.Sq;
+  const int q_offset = a.q_offset;
   const int q_pos = q_offset + qrow;
 
   // this thread's quarter of q (scaled, rounded in f32) and of acc
@@ -261,7 +263,7 @@ struct Fwd {
 struct Args {
   void* out;
   float* lse;
-  int B, Sq, Skv, H, KV, causal, window;
+  int B, Sq, Skv, H, KV, causal, window, q_offset;
   float scale;
 };
 
@@ -285,7 +287,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
   const int row0 = (static_cast<int>(gridDim.y - 1 - blockIdx.y)) * kBlockRows;  // heaviest first
-  const int q_offset = a.Skv - a.Sq;
+  const int q_offset = a.q_offset;
 
   // the block's rows cover positions [first, last]; skip tiles none sees
   const int first = q_offset + row0;
@@ -502,24 +504,25 @@ extern "C" {
 // out is a contiguous [B, Sq, H, hd] buffer of q's dtype, lse a contiguous
 // [B, H, Sq] f32 buffer. dtype: 0 float32 (the CUDA-core kernel), 1
 // bfloat16 (the tensor-core kernel). hd in {32, 64, 96, 128}; H a multiple
-// of KV.
+// of KV; q_offset, the absolute position of query row 0, in [0, Skv - Sq].
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            float* lse, long long q_sb, long long q_ss, long long k_sb,
                            long long k_ss, long long v_sb, long long v_ss, int B, int Sq,
                            int Skv, int H, int KV, int hd, int causal, int window,
-                           float scale, int dtype, void* stream) {
+                           int q_offset, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV) {
     return cudaErrorInvalidValue;
   }
   if (B * H > 65535 || Sq > Skv) return cudaErrorInvalidValue;
+  if (q_offset < 0 || q_offset > Skv - Sq) return cudaErrorInvalidValue;
   if (dtype == 0) {
     Args a{q, k, v, out, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-           B, Sq, Skv, H, KV, causal, window, scale};
+           B, Sq, Skv, H, KV, causal, window, q_offset, scale};
     return launch_hd<float>(a, hd, s);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
-  const tc::Args a{out, lse, B, Sq, Skv, H, KV, causal, window, scale};
+  const tc::Args a{out, lse, B, Sq, Skv, H, KV, causal, window, q_offset, scale};
   switch (hd) {
     case 32: return tc::launch<32>(q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, a, s);
     case 64: return tc::launch<64>(q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, a, s);

@@ -4,7 +4,8 @@
 //
 //   q, out, dO [B, Sq, H, hd], k, v [B, Skv, KV, hd] (f32 or bf16, all one
 //   dtype); query head h reads kv head h / G (G = H / KV); query i sits at
-//   absolute position q_pos = (Skv - Sq) + i; key j is visible where
+//   absolute position q_pos = q_offset + i (0 <= q_offset <= Skv - Sq; a
+//   key no query sees gets dk = dv = 0); key j is visible where
 //   j < Skv, and j <= q_pos if causal, and j > q_pos - window if window > 0;
 //   lse [B * KV, G, Sq] f32 (the forward kernel's, i.e. [B, H, Sq]);
 //   delta [B, H, Sq] f32 scratch = rowsum(dO * O), written by the dq pass;
@@ -103,7 +104,7 @@ struct Args {
   void* dk;
   void* dv;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, d_sb, d_ss;  // batch / seq strides
-  int B, Sq, Skv, H, KV, causal, window;
+  int B, Sq, Skv, H, KV, causal, window, q_offset;
   float scale;
 };
 
@@ -157,7 +158,7 @@ flash_bwd_dq_kernel(Args a) {
   const int row = row0 + (static_cast<int>(threadIdx.x) >> 2);
   const bool active = row < a.Sq;
   const int qrow = active ? row : a.Sq - 1;
-  const int q_offset = a.Skv - a.Sq;
+  const int q_offset = a.q_offset;
   const int q_pos = q_offset + qrow;
 
   // this thread's quarter of q (scaled, rounded in f32), dO and dq; delta
@@ -258,7 +259,7 @@ flash_bwd_dkv_kernel(Args a) {
   const int key = key0 + (static_cast<int>(threadIdx.x) >> 2);
   const bool active = key < a.Skv;
   const int krow = active ? key : a.Skv - 1;
-  const int q_offset = a.Skv - a.Sq;
+  const int q_offset = a.q_offset;
 
   const long long kvoff = static_cast<long long>(kvh) * HD;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + krow * a.k_ss + kvoff;
@@ -401,7 +402,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
   const int row0 = (static_cast<int>(gridDim.y - 1 - blockIdx.y)) * kRows;  // heaviest first
-  const int q_offset = a.Skv - a.Sq;
+  const int q_offset = a.q_offset;
   const int first = q_offset + row0;
   const int last = q_offset + min(a.Sq - 1, row0 + kRows - 1);
   int lo = 0, hi = a.Skv;
@@ -589,7 +590,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int kvh = bk % a.KV;
   const int G = a.H / a.KV;
   const int key0 = static_cast<int>(blockIdx.y) * kRows;  // early keys (heaviest) first
-  const int q_offset = a.Skv - a.Sq;
+  const int q_offset = a.q_offset;
 
   // query rows i whose position q_offset + i sees a key in [key0, klast]
   const int klast = min(a.Skv - 1, key0 + kRows - 1);
@@ -805,22 +806,25 @@ extern "C" {
 // [B, Sq, H, hd] buffer and dk, dv contiguous [B, Skv, KV, hd] buffers of
 // q's dtype. dtype: 0 float32 (the CUDA-core kernels), 1 bfloat16 (the
 // tensor-core kernels). hd in {32, 64, 96, 128}; H a multiple of KV;
-// Sq <= Skv.
+// Sq <= Skv; q_offset, the absolute position of query row 0, in
+// [0, Skv - Sq].
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* out,
                                const void* dout, const float* lse, float* delta, void* dq,
                                void* dk, void* dv, long long q_sb, long long q_ss,
                                long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                                long long o_sb, long long o_ss, long long d_sb, long long d_ss,
                                int B, int Sq, int Skv, int H, int KV, int hd, int causal,
-                               int window, float scale, int dtype, void* stream) {
+                               int window, int q_offset, float scale, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV) {
     return cudaErrorInvalidValue;
   }
   if (B * H > 65535 || Sq > Skv) return cudaErrorInvalidValue;
+  if (q_offset < 0 || q_offset > Skv - Sq) return cudaErrorInvalidValue;
   Args a{q, k, v, out, dout, lse, delta, dq, dk, dv,
          q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, d_sb, d_ss,
-         B, Sq, Skv, H, KV, causal, window, scale};
+         B, Sq, Skv, H, KV, causal, window, q_offset, scale};
   if (dtype == 0) return launch_hd<float>(a, hd, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   switch (hd) {

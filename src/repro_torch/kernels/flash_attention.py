@@ -1,6 +1,6 @@
 """Flash attention on Hopper: the forward with the per-row LSE and its
-backward, causal or sliding-window grouped-query attention, queries at the
-last Sq positions.
+backward, causal or sliding-window grouped-query attention, queries at
+positions ``q_offset`` .. ``q_offset + Sq - 1`` (by default the last Sq).
 
 * ``flash_attention_fwd`` — the forward wrapper, ``(out, lse)``. On CUDA
   tensors it launches the hand-written kernel ``csrc/flash_attention.cu``
@@ -35,6 +35,13 @@ of KV (query head h reads kv head h // G, G = H / KV); out and dO like q;
 lse f32 [B * KV, G, Sq] = m + log(max(l, 1e-30)), the layout of the
 reference's ``flash_attention_fwd_pallas``.
 
+``q_offset`` is the absolute position of query row 0, in [0, Skv - Sq];
+``None`` is Skv - Sq, the reference's implicit placement (its kernels
+take no offset). A sequence-sharded query block (``seq_shard_attn``: rank
+r holds rows [r S / m, (r + 1) S / m) against the whole k and v) passes
+its own start; the rows it computes are those rows of the full-sequence
+attention.
+
 The kernels replace the TPU kernels ``repro/kernels/flash_attention.py:
 flash_attention_fwd_pallas`` (``_kernel_fwd_lse`` over ``_kernel``) and
 ``flash_attention_bwd_pallas`` (``_kernel_dq``, ``_kernel_dkv``). Each
@@ -55,6 +62,16 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _offset(q_offset, Sq, Skv):
+    """The query block's absolute start: ``q_offset``, or Skv - Sq for
+    None; it must leave the block inside [0, Skv)."""
+    off = Skv - Sq if q_offset is None else int(q_offset)
+    if not 0 <= off <= Skv - Sq:
+        raise ValueError(f"flash_attention: q_offset {q_offset} puts {Sq} "
+                         f"queries outside {Skv} keys")
+    return off
 
 
 def _check_shapes(q, k, v):
@@ -85,7 +102,7 @@ def _rounding(mm_dtype):
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
-                          block_kv=1024, mm_dtype=None):
+                          block_kv=1024, mm_dtype=None, q_offset=None):
     """(out, lse) by the reference's blockwise online softmax. ``mm_dtype``
     (the ``attn_bf16`` knob's bf16) as the reference's jnp lowering takes
     it: q scaled in f32, then q, k and v rounded to it, and p rounded to it
@@ -96,7 +113,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
     if scale is None:
         scale = hd ** -0.5
     block = min(block_kv, Skv)
-    q_offset = Skv - Sq
+    q_offset = _offset(q_offset, Sq, Skv)
     if Skv % block:                       # pad kv to a block multiple, mask the tail
         pad = block - Skv % block
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -136,7 +153,7 @@ def _bind():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         ll, i = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ll] * 6 + [i] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ll] * 6 + [i] * 9
                        + [ctypes.c_float, i, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -188,16 +205,18 @@ def _check_mm(name, q, mm_dtype):
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
-                        block_kv=1024, mm_dtype=None):
+                        block_kv=1024, mm_dtype=None, q_offset=None):
     """(out [B, Sq, H, hd] like q, lse [B * KV, G, Sq] f32). ``block_kv``
     and ``mm_dtype`` are the plain version's; the kernel's tile is its
-    own, and its route follows the inputs' dtype."""
+    own, and its route follows the inputs' dtype. ``q_offset``: see the
+    module note (None: Skv - Sq, passed to the kernel explicitly)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_kv=block_kv,
-                                     mm_dtype=mm_dtype)
+                                     mm_dtype=mm_dtype, q_offset=q_offset)
     _check_mm("flash_attention", q, mm_dtype)
     dev, (B, Sq, H, hd, Skv, KV) = _kernel_dims("flash_attention", q, k, v)
+    q_offset = _offset(q_offset, Sq, Skv)
     if scale is None:
         scale = hd ** -0.5
     q_sb, q_ss = check_rows("flash_attention: q", q, q.dtype, dev)
@@ -213,8 +232,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, B, Sq, Skv,
-            H, KV, hd, int(bool(causal)), int(window or 0), float(scale),
-            _DTYPE_CODE[q.dtype], stream)
+            H, KV, hd, int(bool(causal)), int(window or 0), q_offset,
+            float(scale), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
@@ -225,9 +244,11 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None,
 flash_attention_fwd.launches = 0
 
 
-def _visible(Sq, Skv, causal, window, device):
-    """[Sq, Skv] bool: key j visible to query i (at position Skv - Sq + i)."""
-    q_pos = (Skv - Sq) + torch.arange(Sq, device=device)[:, None]
+def _visible(Sq, Skv, causal, window, device, q_offset=None):
+    """[Sq, Skv] bool: key j visible to query i (at position q_offset + i,
+    Skv - Sq + i for None)."""
+    q_pos = (_offset(q_offset, Sq, Skv)
+             + torch.arange(Sq, device=device)[:, None])
     k_pos = torch.arange(Skv, device=device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
@@ -238,7 +259,8 @@ def _visible(Sq, Skv, causal, window, device):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal=True,
-                              window=0, scale=None, mm_dtype=None):
+                              window=0, scale=None, mm_dtype=None,
+                              q_offset=None):
     """(dq, dk, dv) like (q, k, v), by the reference's backward formulas in
     f32 over whole [Sq, Skv] score matrices. ``mm_dtype``: the forward's
     rounded inputs (q scale, k, v) and p before dV, and dq, dk, dv rounded
@@ -254,7 +276,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, causal=True,
     delta = torch.sum(dof * out.float().reshape(B, Sq, KV, G, hd), dim=-1)
     delta = delta.permute(0, 2, 3, 1)                        # [B, KV, G, Sq]
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf)
-    mask = _visible(Sq, Skv, causal, window, q.device)
+    mask = _visible(Sq, Skv, causal, window, q.device, q_offset)
     lse = lse.reshape(B, KV, G, Sq, 1)
     p = torch.where(mask, torch.exp(s - lse), 0.0)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
@@ -271,7 +293,7 @@ def _bind_bwd():
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([vp] * 10 + [ll] * 10 + [i] * 8
+        fn.argtypes = ([vp] * 10 + [ll] * 10 + [i] * 9
                        + [ctypes.c_float, i, vp])
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -280,16 +302,18 @@ def _bind_bwd():
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
-                        scale=None, mm_dtype=None):
+                        scale=None, mm_dtype=None, q_offset=None):
     """(dq [B, Sq, H, hd] like q, dk and dv [B, Skv, KV, hd] like k) from
     the forward's inputs, its out and lse, and dO (made contiguous here).
-    ``mm_dtype`` as ``flash_attention_fwd``'s."""
+    ``mm_dtype`` and ``q_offset`` as ``flash_attention_fwd``'s; a key no
+    query row sees gets dk = dv = 0."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                          window=window, scale=scale,
-                                         mm_dtype=mm_dtype)
+                                         mm_dtype=mm_dtype, q_offset=q_offset)
     _check_mm("flash_attention_bwd", q, mm_dtype)
     dev, (B, Sq, H, hd, Skv, KV) = _kernel_dims("flash_attention_bwd", q, k, v)
+    q_offset = _offset(q_offset, Sq, Skv)
     if tuple(out.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dO "
                          f"{tuple(do.shape)} must be shaped like q "
@@ -321,7 +345,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
             o_sb, o_ss, d_sb, d_ss, B, Sq, Skv, H, KV, hd, int(bool(causal)),
-            int(window or 0), float(scale), _DTYPE_CODE[q.dtype], stream)
+            int(window or 0), q_offset, float(scale), _DTYPE_CODE[q.dtype],
+            stream)
     if err != 0:
         raise RuntimeError("flash_attention_bwd kernel launch failed: "
                            + lib.flash_attention_bwd_error_string(err).decode())
@@ -339,26 +364,28 @@ class FlashAttention(torch.autograd.Function):
     plain versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, block_kv, mm_dtype=None):
+    def forward(ctx, q, k, v, causal, window, scale, block_kv, mm_dtype=None,
+                q_offset=None):
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                        scale=scale, block_kv=block_kv,
-                                       mm_dtype=mm_dtype)
+                                       mm_dtype=mm_dtype, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, scale=scale,
-                        mm_dtype=mm_dtype)
+                        mm_dtype=mm_dtype, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                    block_kv=1024, mm_dtype=None):
+                    block_kv=1024, mm_dtype=None, q_offset=None):
     """Attention output only, [B, Sq, H, hd] like q; differentiable in q, k
-    and v through ``FlashAttention``.
+    and v through ``FlashAttention``. ``q_offset``: the absolute position
+    of query row 0 (None: Skv - Sq).
 
     ``mm_dtype`` (bf16 under ``cfg.attn_bf16``): on the CPU the plain
     versions round as the reference's jnp lowering does. On the card q, k
@@ -373,7 +400,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     if mm_dtype is not None and q.device.type != "cpu" and q.dtype != mm_dtype:
         out = FlashAttention.apply(q.to(mm_dtype), k.to(mm_dtype),
                                    v.to(mm_dtype), causal, window, scale,
-                                   block_kv)
+                                   block_kv, None, q_offset)
         return out.to(q.dtype)
     return FlashAttention.apply(q, k, v, causal, window, scale, block_kv,
-                                mm_dtype)
+                                mm_dtype, q_offset)

@@ -33,8 +33,9 @@ reference tags them) holds the reference's ``arch``, ``shape``,
   dump) need the model axis traced (ROADMAP A17b).
 
 An ``opt`` target whose ``optimize_config`` turns on ``seq_shard_attn``
-(llava, jamba) is recorded as ``skipped`` (A17b), as the reference records
-``SKIPS``. Any other failure is recorded as ``status: "error"`` and the
+(llava, jamba) is planned like the rest: the knob changes no spec, so its
+bytes a device come from the same specs; its traced fields stay under
+``not_ported``. A failure is recorded as ``status: "error"`` and the
 process exits 1 once every target ran.
 """
 from __future__ import annotations
@@ -83,8 +84,6 @@ NOT_PORTED = {
     "lower_s": "A17b: nothing is lowered or compiled",
     "compile_s": "A17b: nothing is lowered or compiled",
 }
-SEQ_SHARD_SKIP = ("seq_shard_attn (sequence-sharded attention over the "
-                  "model axis) is not ported (ROADMAP A17b)")
 
 
 def adapt_config(cfg, shape_name: str):
@@ -253,8 +252,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool, fed=DRYRUN_FED,
         fed = fed.replace(agg_dtype="bfloat16")   # bf16 deltas on the wire
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    if cfg.seq_shard_attn:
-        return dict(head, status="skipped", reason=SEQ_SHARD_SKIP)
     mesh = production_mesh_shape(multi_pod=multi_pod)
     build = BUILDERS[shape.kind]
     parts, meta, params = (build(cfg, shape, mesh, fed)

@@ -25,10 +25,18 @@ pod,data,model`` (or ``data,model``) does the same, one process a rank:
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
         --mesh 2,2,1 --clients 8 --rounds 2
 
-under gloo on the CPU; on the card the backend is NCCL, each rank on
-``cuda:<local rank>``. A single process with ``--mesh 1,1`` rendezvouses
-in a ``HashStore``; under torchrun the store is torchrun's, on the
-loopback. No other address is used.
+under gloo on the CPU; on the card the backend is NCCL by default, each
+rank on ``cuda:<local rank>`` (modulo the cards there are), or gloo with
+``--dist-backend gloo``, which lets two ranks share one card:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --full \
+        --mesh 1,2 --dist-backend gloo --clients 4 --seq 512
+
+A model axis > 1 (the last size) runs the dense GQA family with
+tensor-parallel params: every rank draws the same whole params (the
+ported threefry init) and keeps its shard. A single process with
+``--mesh 1,1`` rendezvouses in a ``HashStore``; under torchrun the store
+is torchrun's, on the loopback. No other address is used.
 """
 from __future__ import annotations
 
@@ -107,8 +115,9 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
     with the reference's assertion: whisper has no federated round.
 
     With ``mesh`` (a DeviceMesh over the process group's ranks) the round
-    is the pod round: this rank holds its block of the clients; the
-    params, history and every decision are the same on every rank."""
+    is the pod round: this rank holds its block of the clients (and, on a
+    model axis, its shard of every leaf); the params returned (gathered
+    whole), the history and every decision are the same on every rank."""
     dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     assert not cfg.encdec, "use examples/whisper for enc-dec training"
@@ -132,10 +141,14 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
         block = round_step.pod.block(clients)
     # the state holds the only reference to the params: a round replaces
     # them, and no copy of the initial ones outlives round 0
-    state = engine.init_state(model.init(prng.PRNGKey(seed), device=dev),
-                              fed, clients)
+    params = model.init(prng.PRNGKey(seed), device=dev)
+    n_params = param_count(params)
+    if mesh is not None:
+        params = round_step.shard(params)
+    state = engine.init_state(params, fed, clients)
+    del params
     if verbose:
-        print(f"[train] {cfg.name} params={param_count(state.params):,} "
+        print(f"[train] {cfg.name} params={n_params:,} "
               f"clients={clients} device={dev}")
     rng = np.random.default_rng(seed)
     history = []
@@ -177,7 +190,8 @@ def run(arch="qwen1.5-0.5b", smoke=True, rounds=10, clients=8, n_priority=4,
         print(f"[train] DP budget spent: epsilon={eps:.3g} at "
               f"delta={delta:g} (z={fed.dp_noise}, "
               f"{len(history)} rounds, RDP accountant)")
-    return tree_map(torch.Tensor.detach, state.params), history
+    params = state.params if mesh is None else round_step.gather(state.params)
+    return tree_map(torch.Tensor.detach, params), history
 
 
 def build_parser():
@@ -195,15 +209,20 @@ def build_parser():
                          "(pod, data, model) or (data, model) host mesh "
                          "of the process group (under torchrun, or one "
                          "rank alone)")
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="the process group's backend under --mesh: NCCL "
+                         "on the card, gloo on the CPU by default; gloo "
+                         "lets ranks share one card")
     add_fed_args(ap)
     return ap
 
 
-def _pod_group(mesh_arg, device):
+def _pod_group(mesh_arg, device, backend=None):
     """Initialise the process group for ``--mesh`` and build its mesh:
-    NCCL on the card (this rank on ``cuda:<local rank>``), gloo on the
-    CPU; torchrun's loopback store, or a HashStore for one rank alone.
-    Returns (mesh, device)."""
+    ``backend`` (default NCCL on the card, gloo on the CPU; this rank on
+    ``cuda:<local rank>``, modulo the cards there are, so gloo ranks can
+    share one), torchrun's loopback store, or a HashStore for one rank
+    alone. Returns (mesh, device)."""
     import os
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -213,9 +232,11 @@ def _pod_group(mesh_arg, device):
                          "data,model")
     dev = resolve_device(device)
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                           % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     if "RANK" in os.environ:
         dist.init_process_group(backend, init_method="env://")
     else:
@@ -237,7 +258,7 @@ def main(argv=None):
                    clients=a.clients, seq=a.seq, lr=a.lr, device=a.device,
                    **fed_from_args(a))
     import torch.distributed as dist
-    mesh, dev = _pod_group(a.mesh, a.device)
+    mesh, dev = _pod_group(a.mesh, a.device, a.dist_backend)
     try:
         return run(arch=a.arch, smoke=a.smoke, rounds=a.rounds,
                    clients=a.clients, seq=a.seq, lr=a.lr, device=dev,

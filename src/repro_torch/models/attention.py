@@ -19,6 +19,25 @@ Unlike the reference (functional, a new cache per step), decode writes the
 new k / v row (MLA: the new latent row) into the cache it is given, in
 place, and returns that same cache: a copy of every layer's cache per
 token would move more bytes than the attention itself.
+
+On a model axis (``tp``, a ``sharding/model_axis.py: ModelAxis``; training
+only) ``gqa_attention_block`` runs on the rank's shards of ``wq`` / ``wk``
+/ ``wv`` (columns) and ``wo`` (rows), the reference's
+``attention.py:60-90`` under GSPMD:
+
+* heads layout: K5 / K6 on the rank's H / m query heads and their kv
+  heads. Where the spec splits ``wk`` / ``wv`` inside a kv head (KV % m,
+  e.g. the smoke qwen2.5 at model 4), k and v are all-gathered whole
+  first and the rank takes the kv heads its query heads read;
+* ``cfg.seq_shard_attn``: q goes to the sequence layout (rank r holds rows
+  [r S / m, (r + 1) S / m) of every head, an all-to-all), k and v are
+  gathered whole, and K5 / K6 run with ``q_offset = r S / m``; the output
+  comes back to ``wo``'s row layout by the inverse all-to-all. The
+  backward's partial dk / dv are summed over the group (the copy after
+  the gather). On one rank the knob is the identity, as the reference's
+  sharding constraint is.
+
+Either way ``wo``'s partial product is all-reduced (``tp.reduce``).
 """
 from __future__ import annotations
 
@@ -27,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, init_rmsnorm, rmsnorm
+from repro_torch.sharding.model_axis import kv_whole
 from repro_torch.utils import fold_in_name
 
 
@@ -72,8 +92,58 @@ def _decode_slot(pos, W, window):
     return slot
 
 
+def _gqa_model_axis(p, x, cfg, positions, tp):
+    """The train-mode GQA block on this rank's shards (see the module
+    note) -> the replicated [B, S, d] output."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    m, r = tp.size, tp.rank
+    cd = cfg.cdtype
+    xf = tp.copy(x)
+
+    def project(w, b):
+        t = xf @ p[w].to(cd)
+        return t + p[b].to(cd) if b in p else t
+    q, k, v = project("wq", "bq"), project("wk", "bk"), project("wv", "bv")
+    if cfg.seq_shard_attn:
+        q = tp.seq_from_heads(q)                        # [B, S/m, H hd]
+        Hq, h0, Sq = H, 0, S // m
+        q_pos, q_offset = positions[r * Sq:(r + 1) * Sq], r * Sq
+    else:
+        Hq, h0, Sq = H // m, r * (H // m), S
+        q_pos, q_offset = positions, None
+    q = q.reshape(B, Sq, Hq, hd)
+    if kv_whole(cfg, m):
+        # k and v whole on every rank (their columns split inside a kv head,
+        # or every query row's keys); the copy sums the ranks' dk / dv
+        kv = tp.copy(tp.gather_cols(torch.stack([k, v])))
+        k, v = kv[0].reshape(B, S, KV, hd), kv[1].reshape(B, S, KV, hd)
+        # the kv heads the local query heads read, each by as many of them
+        G = H // KV
+        want = [(h0 + j) // G for j in range(Hq)]
+        lo, n = want[0], want[-1] - want[0] + 1
+        if Hq % n or want != [lo + j // (Hq // n) for j in range(Hq)]:
+            raise NotImplementedError("the model axis: local query heads that "
+                                      "split a kv group unevenly (ROADMAP A17b)")
+        k, v = k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    else:
+        k = k.reshape(B, S, KV // m, hd)
+        v = v.reshape(B, S, KV // m, hd)
+    q = apply_rope(q, q_pos, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = kops.flash_attention(q, k, v, causal=cfg.causal,
+                               window=cfg.sliding_window,
+                               block_kv=cfg.attn_block_kv,
+                               mm_dtype=torch.bfloat16 if cfg.attn_bf16 else None,
+                               q_offset=q_offset)
+    out = out.reshape(B, Sq, Hq * hd)
+    if cfg.seq_shard_attn:
+        out = tp.heads_from_seq(out)                    # [B, S, H hd / m]
+    return tp.reduce(out @ p["wo"].to(cd))
+
+
 def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
-                        pos: int | None = None):
+                        pos: int | None = None, tp=None):
     """Full GQA block. mode: 'train' | 'prefill' | 'decode'.
 
     positions: [S] absolute positions (a tensor on x's device). In decode,
@@ -81,8 +151,15 @@ def gqa_attention_block(p, x, cfg, *, positions, mode, cache=None,
     slot and kv_len without reading the device. cache (prefill out, decode
     in-out): dict(k, v: [B, W, KV, hd], len). ``cfg.attn_bf16``: train
     and prefill attend with bf16 products (``kops.flash_attention``'s
-    ``mm_dtype``); decode is unchanged, as in the reference. Returns (out
+    ``mm_dtype``); decode is unchanged, as in the reference. ``tp``: the
+    model axis (train mode only; see the module note). Returns (out
     [B, S, d], new_cache)."""
+    if tp is not None:
+        if mode != "train":
+            raise NotImplementedError(f"the model axis: {mode} (serving on "
+                                      "local heads) is not ported yet "
+                                      "(ROADMAP A17b)")
+        return _gqa_model_axis(p, x, cfg, positions, tp), None
     B, S, _ = x.shape
     cd = cfg.cdtype
     q, k, v = gqa_project(p, x, cfg)

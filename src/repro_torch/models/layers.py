@@ -9,6 +9,13 @@ hand-written RMSNorm kernel; the matrix products are ``torch.matmul`` (the
 reference leaves them to XLA), the chunked loss's vocabulary product too.
 ``layernorm`` and ``gelu_mlp_apply`` (the encoder-decoder's) are plain
 torch: the reference has no kernel for either.
+
+On a model axis (``tp``, a ``sharding/model_axis.py: ModelAxis``) the FFN
+and the loss run on the rank's shards: ``swiglu_apply`` on the local
+``w_gate`` / ``w_up`` columns and ``w_down`` rows, its partial product
+all-reduced; ``chunked_softmax_xent`` on the local vocab rows of the
+embedding (or columns of ``lm_head``), vocab-parallel. ``rmsnorm`` runs on
+the replicated rows on every rank, unchanged.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding.model_axis import vocab_xent
 from repro_torch.utils import fold_in_name
 
 
@@ -87,10 +95,15 @@ def init_swiglu(key, d_model, d_ff, dtype):
     }
 
 
-def swiglu_apply(p, x, cdtype):
+def swiglu_apply(p, x, cdtype, tp=None):
+    """``(silu(x w_gate) * x w_up) w_down``; on a model axis the local
+    columns and rows, then the group's all-reduce."""
+    if tp is not None:
+        x = tp.copy(x)
     g = x @ p["w_gate"].to(cdtype)
     u = x @ p["w_up"].to(cdtype)
-    return (F.silu(g) * u) @ p["w_down"].to(cdtype)
+    y = (F.silu(g) * u) @ p["w_down"].to(cdtype)
+    return y if tp is None else tp.reduce(y)
 
 
 def init_gelu_mlp(key, d_model, d_ff, dtype):
@@ -113,7 +126,7 @@ def gelu_mlp_apply(p, x, cdtype):
 
 
 # ------------------------------------------------------------------ chunked loss
-def chunked_softmax_xent(hidden, w_embed, labels, mask, chunk: int):
+def chunked_softmax_xent(hidden, w_embed, labels, mask, chunk: int, tp=None):
     """Cross-entropy without materializing [B, S, V] logits at once.
 
     hidden: [B, S, d] (compute dtype); w_embed: [V, d]; labels / mask:
@@ -121,6 +134,10 @@ def chunked_softmax_xent(hidden, w_embed, labels, mask, chunk: int):
     chunk the logits [B, chunk, V] are ``hc @ w.T`` in the compute dtype,
     then f32: logsumexp minus the gold logit, times the mask. Returns
     (sum_loss, sum_mask) as f32 scalars; a loop where the reference scans.
+
+    On a model axis ``w_embed`` holds the rank's V / m vocab rows (from
+    rank * V / m) and each chunk's loss is ``model_axis.vocab_xent`` of
+    its local logits.
     """
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
@@ -133,6 +150,9 @@ def chunked_softmax_xent(hidden, w_embed, labels, mask, chunk: int):
         mask = F.pad(mask, (0, pad))
         S += pad
     wt = w_embed.T.to(hidden.dtype)
+    if tp is not None:
+        hidden = tp.copy(hidden)
+        v0 = tp.rank * w_embed.shape[0]
     s_loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     s_cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for start in range(0, S, chunk):
@@ -140,8 +160,12 @@ def chunked_softmax_xent(hidden, w_embed, labels, mask, chunk: int):
         yc = labels[:, start:start + chunk]
         mc = mask[:, start:start + chunk]
         logits = (hc @ wt).float()                                 # [B, c, V]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
-        s_loss = s_loss + torch.sum((logz - gold) * mc)
+        if tp is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+            nll = logz - gold
+        else:
+            nll = vocab_xent(tp, logits, yc, v0)
+        s_loss = s_loss + torch.sum(nll * mc)
         s_cnt = s_cnt + torch.sum(mc)
     return s_loss, s_cnt

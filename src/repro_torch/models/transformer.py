@@ -68,9 +68,16 @@ The Mamba mixer differentiates through
 backward); under "full" remat a period's scan runs twice a gradient,
 once in the forward and once in the backward, under "save_mixer" once.
 
-Out of the port so far, and refused with ``NotImplementedError`` by
-``check_model_config``: ``seq_shard_attn`` (ROADMAP A17b, the sharded
-rounds). The encoder-decoder is ``models/encdec.py``.
+On a model axis (``tp``, a ``sharding/model_axis.py: ModelAxis``, which
+``fl/sharded.py: make_pod_round`` binds into the loss for the dense GQA
+family) ``forward(mode="train")`` and ``loss_fn`` run on the rank's
+shards: the vocab-parallel embedding lookup, each layer's attention and
+FFN as column / row-parallel regions (``models/attention.py``,
+``models/layers.py``), RMSNorm on the replicated rows, and the
+vocab-parallel loss; the remat and ``attn_bf16`` handling are the same.
+``cfg.seq_shard_attn`` picks the attention's sequence layout there; on
+one rank it is the identity, as the reference's sharding constraint is.
+The encoder-decoder is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -88,13 +95,13 @@ from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_mamba, mamba_block
 from repro_torch.models.xlstm import (NEG_INF, init_mlstm, init_slstm,
                                       mlstm_block, slstm_block)
+from repro_torch.sharding.model_axis import vocab_embed
 from repro_torch.utils import (fold_in_name, resolve_device, tree_leaves,
                                tree_map, tree_unflatten_like)
 
-_UNPORTED = (
-    ("seq_shard_attn", lambda c: c.seq_shard_attn, "sequence-sharded attention",
-     "A17b"),
-)
+# (knob, on, what, ROADMAP item) of every model knob outside the port:
+# none since seq_shard_attn was ported
+_UNPORTED = ()
 
 
 def check_model_config(cfg):
@@ -130,10 +137,13 @@ def _init_block(key, cfg, kind):
     return p
 
 
-def _mixer(p, x, cfg, kind, *, positions, mode, cache, pos):
+def _mixer(p, x, cfg, kind, *, positions, mode, cache, pos, tp=None):
     """``norm1`` and the layer's mixer -> (h, new_cache)."""
     h = L.rmsnorm(p["norm1"], x)
     mixer = kind["mixer"]
+    if tp is not None:          # the dense GQA family (model_axis.check_model)
+        return gqa_attention_block(p["attn"], h, cfg, positions=positions,
+                                   mode=mode, cache=cache, pos=pos, tp=tp)
     if mixer == "attn":
         attend = mla_attention_block if cfg.mla else gqa_attention_block
         return attend(p["attn"], h, cfg, positions=positions, mode=mode,
@@ -143,14 +153,15 @@ def _mixer(p, x, cfg, kind, *, positions, mode, cache, pos):
     return block(p[mixer], h, cfg, mode=mode, cache=cache)
 
 
-def _ffn(p, x, h, cfg, kind):
+def _ffn(p, x, h, cfg, kind, tp=None):
     """The residual add of the mixer output h, then ``norm2`` and the FFN
     -> (x, aux): aux is the router's ``router_aux_coef * lb_loss`` for a
     MoE FFN, else 0.0."""
     x = x + h
     aux = 0.0
     if kind["ffn"] == "dense":
-        x = x + L.swiglu_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.cdtype)
+        x = x + L.swiglu_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.cdtype,
+                               tp=tp)
     elif kind["ffn"] == "moe":
         y, moe_aux = moe_apply(p["moe"], L.rmsnorm(p["norm2"], x), cfg)
         x = x + y
@@ -159,22 +170,22 @@ def _ffn(p, x, h, cfg, kind):
 
 
 def _apply_block(p, x, cfg, kind, *, positions, mode, cache, pos,
-                 save_mixer=False):
+                 save_mixer=False, tp=None):
     """One layer. Returns (x, new_cache, aux). ``save_mixer`` (training
     under ``remat_policy="save_mixer"``): the FFN as a checkpoint, the
     mixer outside it, so the backward reruns only the FFN."""
     h, new_cache = _mixer(p, x, cfg, kind, positions=positions, mode=mode,
-                          cache=cache, pos=pos)
+                          cache=cache, pos=pos, tp=tp)
     if save_mixer:
-        x, aux = checkpoint(lambda xc, hc: _ffn(p, xc, hc, cfg, kind), x, h,
-                            use_reentrant=False)
+        x, aux = checkpoint(lambda xc, hc: _ffn(p, xc, hc, cfg, kind, tp), x,
+                            h, use_reentrant=False)
     else:
-        x, aux = _ffn(p, x, h, cfg, kind)
+        x, aux = _ffn(p, x, h, cfg, kind, tp)
     return x, new_cache, aux
 
 
 def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos,
-                  save_mixer=False):
+                  save_mixer=False, tp=None):
     """The layers l0..l{n-1} of one period in order. Returns (x, the
     per-layer caches, the period's aux).
 
@@ -188,7 +199,7 @@ def _apply_period(p, x, cfg, kinds, *, positions, mode, caches, pos,
         c_in = caches[name] if caches is not None else None
         x, c, aux = _apply_block(p[name], x, cfg, kind, positions=positions,
                                  mode=mode, cache=c_in, pos=pos,
-                                 save_mixer=save_mixer)
+                                 save_mixer=save_mixer, tp=tp)
         new_caches[name] = c
     return x, new_caches, aux
 
@@ -266,11 +277,14 @@ def _periods(tree, n):
     return [tree_unflatten_like(tree, [u[i] for u in unbound]) for i in range(n)]
 
 
-def _embed_inputs(params, tokens, cfg, image_embeds=None):
-    """The token embeddings in the compute dtype; under ``cfg.vlm`` with
+def _embed_inputs(params, tokens, cfg, image_embeds=None, tp=None):
+    """The token embeddings in the compute dtype (on a model axis the
+    vocab-parallel lookup of the rank's rows); under ``cfg.vlm`` with
     ``image_embeds`` [B, n_img, d], those rows normed by ``img_norm`` (K9)
     and put first. Decode steps carry no images."""
-    x = params["embed"][tokens].to(cfg.cdtype)
+    rows = (params["embed"][tokens] if tp is None
+            else vocab_embed(tp, params["embed"], tokens))
+    x = rows.to(cfg.cdtype)
     if cfg.vlm and image_embeds is not None:
         img = torch.as_tensor(image_embeds, device=x.device).to(cfg.cdtype)
         x = torch.cat([L.rmsnorm(params["img_norm"], img), x], dim=1)
@@ -278,17 +292,18 @@ def _embed_inputs(params, tokens, cfg, image_embeds=None):
 
 
 def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
-            pos=None, image_embeds=None):
+            pos=None, image_embeds=None, tp=None):
     """Returns (hidden [B,S',d], new_caches, aux); S' counts the image
     rows under ``cfg.vlm``. ``pos`` (decode): the position as a host int.
     aux: the sum over periods of each period's last layer's
     ``router_aux_coef * lb_loss`` (an f32 scalar; 0.0 where that layer is
     dense), plus each pre block's (0.0: they are dense), as the
-    reference's ``forward``."""
+    reference's ``forward``. ``tp``: the model axis (see the module note;
+    ``mode="train"`` only)."""
     check_model_config(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
-    x = _embed_inputs(params, tokens, cfg, image_embeds)
+    x = _embed_inputs(params, tokens, cfg, image_embeds, tp)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=dev)
@@ -310,12 +325,12 @@ def forward(params, tokens, cfg, *, mode, positions=None, caches=None,
         if remat and not save_mixer:
             x, aux = checkpoint(lambda xc, p=p_i: _apply_period(
                 p, xc, cfg, kinds, positions=positions, mode=mode, caches=None,
-                pos=None)[::2], x, use_reentrant=False)
+                pos=None, tp=tp)[::2], x, use_reentrant=False)
         else:
             c_in = _period(caches["periods"], i) if caches is not None else None
             x, c, aux = _apply_period(p_i, x, cfg, kinds, positions=positions,
                                       mode=mode, caches=c_in, pos=pos,
-                                      save_mixer=save_mixer)
+                                      save_mixer=save_mixer, tp=tp)
             period_caches.append(c)
         aux_total = aux_total + aux
 
@@ -343,21 +358,22 @@ def _unembed_last(params, hidden, cfg):
 
 
 # ----------------------------------------------------------------------- train
-def loss_fn(params, batch, cfg):
+def loss_fn(params, batch, cfg, tp=None):
     """batch: tokens / labels / mask [B, S] (text), plus image_embeds [B,
     n_img, d] under ``cfg.vlm``. Returns (scalar loss, metrics): the
     masked mean next-token cross-entropy over the text positions (image
     positions carry no loss) plus the auxiliary loss (the MoE router's; 0
     without MoE), differentiable in params. A VLM batch without
-    image_embeds raises the reference's ``AttributeError``."""
+    image_embeds raises the reference's ``AttributeError``. ``tp``: the
+    model axis; ``params`` are then the rank's shards."""
     image_embeds = batch.get("image_embeds")
     hidden, _, aux = forward(params, batch["tokens"], cfg, mode="train",
-                             image_embeds=image_embeds)
+                             image_embeds=image_embeds, tp=tp)
     if cfg.vlm:
         hidden = hidden[:, image_embeds.shape[1]:]
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
     s_loss, s_cnt = L.chunked_softmax_xent(hidden, w, batch["labels"],
-                                           batch["mask"], cfg.loss_chunk)
+                                           batch["mask"], cfg.loss_chunk, tp=tp)
     task_loss = s_loss / torch.clamp(s_cnt, min=1.0)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=task_loss.device)
     loss = task_loss + aux

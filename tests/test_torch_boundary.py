@@ -259,7 +259,7 @@ def test_serve_main_runs_on_the_cpu_when_asked(capsys):
     assert "generated 2x3 tokens" in capsys.readouterr().out
 
 
-# what remains refused: seq_shard_attn (ROADMAP A17b), on each model
+# seq_shard_attn (ported with the model axis, ROADMAP A17b), on each model
 # family's entry points (the decoder-only, the hybrid and the enc-dec)
 OUT_OF_SLICE_LM = [("qwen1.5-0.5b", "seq_shard_attn", True),
                    ("jamba-1.5-large-398b", "seq_shard_attn", True),
@@ -269,14 +269,20 @@ OUT_OF_SLICE_LM = [("qwen1.5-0.5b", "seq_shard_attn", True),
 @pytest.mark.parametrize("arch,knob,value", OUT_OF_SLICE_LM,
                          ids=[f"{a}-{k}={v}" for a, k, v in OUT_OF_SLICE_LM])
 def test_out_of_slice_lm_knob_raises(arch, knob, value):
+    """The knob no longer raises: on one rank it is the identity (the
+    reference's sharding constraint without a mesh), so every entry point
+    builds the same trees as without it; only the pod round's model axis
+    reads it."""
     cfg = get_smoke(arch).replace(**{knob: value})
+    base = get_smoke(arch)
     mod = encdec if cfg.encdec else transformer
-    with pytest.raises(NotImplementedError, match=knob):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match=knob):
-        mod.init(prng.PRNGKey(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
-        mod.make_cache(cfg, 1, 8, device="cpu")
+    assert get_model(cfg).cfg is cfg
+    shapes = lambda c: [tuple(t.shape) for t in _leaves(  # noqa: E731
+        mod.init(prng.PRNGKey(0, device="meta"), c, device="meta"))]
+    assert shapes(cfg) == shapes(base)
+    cache = lambda c: [tuple(getattr(t, "shape", ())) for t in _leaves(  # noqa: E731
+        mod.make_cache(c, 1, 8, device="meta"))]
+    assert cache(cfg) == cache(base)
 
 
 def test_train_run_refuses_encdec_with_the_reference_assertion():
@@ -345,12 +351,22 @@ def test_vlm_and_xlstm_archs_are_ported(arch):
 @pytest.mark.parametrize("arch,knob,value", OUT_OF_SLICE_LM,
                          ids=[f"{a}-{k}={v}" for a, k, v in OUT_OF_SLICE_LM])
 def test_out_of_slice_refusals_name_a17b(arch, knob, value):
-    """All that remains refused of the model layer is ``seq_shard_attn``, a
-    sharding constraint of the pod rounds (ROADMAP A17b)."""
+    """Nothing of the model layer is refused any more; what the model axis
+    has not reached (every arch outside the dense GQA family, serving on
+    local heads) raises naming ROADMAP A17b."""
+    from repro_torch.sharding import model_axis
     cfg = get_smoke(arch).replace(**{knob: value})
-    with pytest.raises(NotImplementedError, match="A17b"):
-        get_model(cfg)
-    assert [k for k, *_ in transformer._UNPORTED] == ["seq_shard_attn"]
+    assert transformer._UNPORTED == ()
+    if arch == "qwen1.5-0.5b":
+        model_axis.check_model(cfg, 2)
+        from repro_torch.models.attention import gqa_attention_block
+        with pytest.raises(NotImplementedError, match="A17b"):
+            gqa_attention_block({}, torch.zeros(1, 4, cfg.d_model), cfg,
+                                positions=torch.arange(4), mode="decode",
+                                tp=object())
+    else:
+        with pytest.raises(NotImplementedError, match="A17b"):
+            model_axis.check_model(cfg, 2)
 
 
 # ------------------------------------------------- the encoder-decoder slice

@@ -122,18 +122,20 @@ def test_bytes_per_device_match_reference_specs(arch, shape_name, multi_pod):
 def test_opt_variant_plans_or_skips_as_the_reference_builds(arch):
     """``--variant opt``: bf16 deltas, attn_bf16, expert_parallel where the
     experts divide the model axis (deepseek), seq_shard_attn where heads
-    do not on a wide model (llava: skipped, naming A17b)."""
+    do not on a wide model (llava: planned like the rest, its traced
+    fields still under not_ported)."""
     name = get_config(arch).name
     for shape_name in ("train_4k", "decode_32k"):
         rec = dryrun.run_one(name, shape_name, multi_pod=True, variant="opt")
         cfg = ref.optimize_config(jax_get_config(arch), multi_pod=True)
+        assert rec["status"] == "ok"
         if cfg.seq_shard_attn:
-            assert rec["status"] == "skipped" and "A17b" in rec["reason"]
-            continue
+            assert all(v.startswith("A17b") for v in rec["not_ported"].values())
         want, meta = _reference_bytes(arch, shape_name, True, "opt")
         assert rec["bytes_per_device"] == want and rec["meta"] == meta
-        if shape_name == "train_4k":
-            # the bf16 wire halves the all-reduce
+        if shape_name == "train_4k" and not meta["fsdp"]:
+            # the bf16 wire halves the all-reduce (llava's FSDP round has
+            # no plan yet: not_ported)
             assert rec["collectives_per_round"][1]["bytes"] == 2 * rec["n_params"]
 
 

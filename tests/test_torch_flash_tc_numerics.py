@@ -39,16 +39,21 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
-# (label, B, Sq, Skv, H, KV, hd, causal, window): hd 32-128, G 1 / 4 / 8,
-# windows, Sq < Skv, ragged lengths, more than one key tile
+# (label, B, Sq, Skv, H, KV, hd, causal, window, q_offset): hd 32-128, G 1
+# / 4 / 8, windows, Sq < Skv, ragged lengths, more than one key tile; the
+# query block at the last Sq positions (None) or at its own offset (a
+# seq_shard_attn rank's rows: the first, a middle and a windowed block)
 CASES = [
-    ("mha_hd32", 1, 130, 130, 2, 2, 32, True, 0),
-    ("gqa4_hd64_ragged", 1, 150, 150, 4, 1, 64, True, 0),
-    ("gqa8_hd128", 1, 96, 96, 8, 1, 128, True, 0),
-    ("g4_hd96_noncausal", 1, 70, 70, 4, 1, 96, False, 0),
-    ("sq_lt_skv_hd64", 1, 37, 150, 4, 1, 64, True, 0),
-    ("window40_hd128", 1, 140, 140, 2, 2, 128, True, 40),
-    ("window8_sq_lt_skv_hd32", 1, 13, 45, 8, 1, 32, True, 8),
+    ("mha_hd32", 1, 130, 130, 2, 2, 32, True, 0, None),
+    ("gqa4_hd64_ragged", 1, 150, 150, 4, 1, 64, True, 0, None),
+    ("gqa8_hd128", 1, 96, 96, 8, 1, 128, True, 0, None),
+    ("g4_hd96_noncausal", 1, 70, 70, 4, 1, 96, False, 0, None),
+    ("sq_lt_skv_hd64", 1, 37, 150, 4, 1, 64, True, 0, None),
+    ("window40_hd128", 1, 140, 140, 2, 2, 128, True, 40, None),
+    ("window8_sq_lt_skv_hd32", 1, 13, 45, 8, 1, 32, True, 8, None),
+    ("offset0_hd64", 1, 64, 160, 4, 1, 64, True, 0, 0),
+    ("offset_mid_gqa8_hd32", 1, 40, 130, 8, 1, 32, True, 0, 45),
+    ("offset_window24_hd128", 1, 48, 140, 2, 2, 128, True, 24, 70),
 ]
 
 
@@ -61,7 +66,7 @@ def one_torch_thread():
 
 
 def _inputs(case, seed):
-    _, B, Sq, Skv, H, KV, hd, _, _ = case
+    _, B, Sq, Skv, H, KV, hd, *_ = case
     rng = np.random.default_rng(seed)
     mk = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).bfloat16()  # noqa: E731
     return mk(B, Sq, H, hd), mk(B, Skv, KV, hd), mk(B, Skv, KV, hd), mk(B, Sq, H, hd)
@@ -82,13 +87,13 @@ def _mm(parts, b):
     return acc
 
 
-def tc_forward(q, k, v, *, causal, window, split=True):
+def tc_forward(q, k, v, *, causal, window, split=True, q_offset=None):
     """(out, lse) by the bf16 route's arithmetic; lse in [B * KV, G, Sq]."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, hd ** -0.5
     tile = 128 if hd <= 32 else 64
-    vis = fk._visible(Sq, Skv, causal, window, q.device)
+    vis = fk._visible(Sq, Skv, causal, window, q.device, q_offset)
     out = torch.empty(B, Sq, H, hd)
     lse = torch.empty(B, H, Sq)
     for b in range(B):
@@ -112,12 +117,13 @@ def tc_forward(q, k, v, *, causal, window, split=True):
     return out.bfloat16(), lse.reshape(B * KV, G, Sq)
 
 
-def tc_backward(q, k, v, out, lse, do, *, causal, window, split=True):
+def tc_backward(q, k, v, out, lse, do, *, causal, window, split=True,
+                q_offset=None):
     """(dq, dk, dv) by the bf16 route's arithmetic."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, hd ** -0.5
-    vis = fk._visible(Sq, Skv, causal, window, q.device)
+    vis = fk._visible(Sq, Skv, causal, window, q.device, q_offset)
     lse = lse.reshape(B, H, Sq)
     dq = torch.empty(B, Sq, H, hd)
     dk = torch.zeros(B, Skv, KV, hd)
@@ -137,11 +143,12 @@ def tc_backward(q, k, v, out, lse, do, *, causal, window, split=True):
 
 
 def _forward_ok(case, split):
-    _, B, Sq, Skv, H, KV, hd, causal, window = case
+    *_, causal, window, off = case
     q, k, v, _ = _inputs(case, 7)
-    out, lse = tc_forward(q, k, v, causal=causal, window=window, split=split)
+    out, lse = tc_forward(q, k, v, causal=causal, window=window, split=split,
+                          q_offset=off)
     want, want_lse = fk.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                              block_kv=64)
+                                              block_kv=64, q_offset=off)
     ok, err = chip_smoke.attn_close(out, want, v, torch.bfloat16)
     lse_tol = chip_smoke.LM_TOL * max(1.0, float(want_lse.abs().max()))
     lse_err = float((lse - want_lse).abs().max())
@@ -149,12 +156,14 @@ def _forward_ok(case, split):
 
 
 def _backward_ok(case, split):
-    _, B, Sq, Skv, H, KV, hd, causal, window = case
+    *_, causal, window, off = case
     q, k, v, do = _inputs(case, 11)
-    out, lse = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
-    got = tc_backward(q, k, v, out, lse, do, causal=causal, window=window, split=split)
+    out, lse = fk.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        q_offset=off)
+    got = tc_backward(q, k, v, out, lse, do, causal=causal, window=window,
+                      split=split, q_offset=off)
     want = fk.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
-                                        window=window)
+                                        window=window, q_offset=off)
     return [chip_smoke.bwd_close(g, w, torch.bfloat16) for g, w in zip(got, want)]
 
 

@@ -1,6 +1,6 @@
 """The pod round (``fl/sharded.py: make_pod_round``) as a multi-process
 job on the CPU: gloo ranks over a (data=2) and a (pod=2, data=2) host
-mesh, one spawn a layout (``torch_pod_ranks.rank_main``), each rank
+mesh, one start a layout (``torch_pod_ranks.rank_main``), each rank
 driving the smoke qwen1.5 with 8 clients for 2 rounds under every config
 of ``torch_pod_ranks.CONFIGS``. The parent holds what the ranks saw
 against:
@@ -107,7 +107,6 @@ def _jax_drive(fed_kw):
 def results(tmp_path_factory):
     """{"one": one-process runs, "jax": reference runs, layout: [each
     rank's pickle]}; the ranks run while the parent makes its own."""
-    import torch.multiprocessing as mp
     root = tmp_path_factory.mktemp("pod")
     ctxs = {}
     with pytest.MonkeyPatch.context() as env:
@@ -116,9 +115,8 @@ def results(tmp_path_factory):
             env.setenv(var, "1")
         for lay, (world, pods) in ranks.LAYOUTS.items():
             (root / lay).mkdir()
-            ctxs[lay] = mp.start_processes(
-                ranks.rank_main, args=(world, pods, str(root / lay)),
-                nprocs=world, join=False, start_method="spawn")
+            ctxs[lay] = ranks.start_ranks(
+                ranks.rank_main, world, (world, pods, str(root / lay)))
         # the launcher's --mesh path, one rank alone (a HashStore)
         cli = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.train", "--device",

@@ -251,13 +251,14 @@ def test_local_shape_and_placements():
 
 
 def test_pod_round_refusals():
-    """A model axis over 1, an FSDP arch and every knob the pod round has
-    not reached raise NotImplementedError naming A17b, before any
-    collective (a mesh shape stands in for the DeviceMesh)."""
+    """A knob the model axis has not reached (dp on model 2), an FSDP arch
+    and every knob the pod round has not reached raise
+    NotImplementedError naming A17b, before any collective (a mesh shape
+    stands in for the DeviceMesh)."""
     from repro_torch.models import get_model
     model = get_model(get_smoke("qwen1_5_0_5b"))
     fed = FedConfig(num_clients=8)
-    cases = [(model, fed, mesh_shape(data=2, model=2)),
+    cases = [(model, fed.replace(aggregator="dp"), mesh_shape(data=2, model=2)),
              (get_model(get_smoke("jamba_1_5_large_398b")), fed,
               mesh_shape(data=2, model=1))]
     for knobs in ({"selection": "grad_sim"},

@@ -256,14 +256,17 @@ def _flags(parser):
 
 
 def test_cli_flag_set_matches_reference():
-    """The reference launcher's flags (and its defaults), plus --device and
-    --mesh (the pod round, one process a rank)."""
+    """The reference launcher's flags (and its defaults), plus --device,
+    --mesh (the pod round, one process a rank) and --dist-backend (its
+    process group's backend)."""
     from repro.launch.train import build_parser as jax_parser
     want, got = jax_parser(), train.build_parser()
-    assert _flags(got) == sorted(_flags(want) + ["--device", "--mesh"])
+    assert _flags(got) == sorted(_flags(want) + ["--device", "--mesh",
+                                                 "--dist-backend"])
     jd, td = vars(want.parse_args([])), vars(got.parse_args([]))
     assert td.pop("device") == "cuda"
     assert td.pop("mesh") is None
+    assert td.pop("dist_backend") is None
     assert jd.keys() == td.keys()
     for k in jd:
         assert jd[k] == td[k] or (jd[k] != jd[k] and td[k] != td[k]), k
